@@ -1,0 +1,357 @@
+"""The batched multi-object NeRF: one parameter table, one train step
+(counterpart of romap_tpu/models/nerf.py, train path and ray render).
+
+Every object NeRF is one row of a parameter tree whose leaves carry a
+leading object axis O. One `train_objects` step trains every slot at once:
+
+  generate_batch   R rays x S samples per object from per-frame bboxes,
+                   occlusion and AABB gates, stable compaction + rollover
+  field_apply      MX-grid encode (kernels K1/K2 on the card) + MLP
+  composite_loss   volume render + RGB, depth, mask and background-sigma terms
+  optimizer        zero_nans -> L2 1e-6 -> Adam(.9, .99, 1e-15) -> exp-decay
+                   rate -> EMA .95, masked per slot
+
+Where JAX vmaps over objects this module writes the object axis out, and
+where JAX draws from per-object keys it takes uniforms from a
+`torch.Generator` (or from a replay source in the parity tests).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, NamedTuple
+
+import torch
+from torch.utils import _pytree as pytree
+
+from romap_tpu.config import NerfConfig
+from romap_tpu_torch.data.frame_store import FrameArrays
+from romap_tpu_torch.ops import mxgrid, mxgrid_cuda
+from romap_tpu_torch.ops.geometry import (
+    camera_rays,
+    ray_aabb_intersect,
+    stratified_distances,
+    warp_point,
+)
+from romap_tpu_torch.ops.losses import RayBatch, composite_loss
+from romap_tpu_torch.ops.mlp import apply_mlp, init_mlp
+from romap_tpu_torch.ops.render import render_composite, volume_render
+
+# --------------------------------------------------------------------------
+# Parameters and state
+# --------------------------------------------------------------------------
+
+
+def make_field_spec(cfg: NerfConfig) -> mxgrid.MXGridSpec:
+    """Static MX-grid spec from the config (the hash grid is not ported)."""
+    e = cfg.encoding
+    if e.kind != "mxgrid":
+        raise NotImplementedError(f"encoding kind {e.kind!r} is not ported (mxgrid only)")
+    return mxgrid.make_mxspec(
+        n_levels=e.mx_levels, base_resolution=e.base_resolution,
+        max_resolution=e.mx_max_resolution, features=e.mx_features,
+        plane_specs=e.plane_specs, plane_axes=e.mx_plane_axes,
+        snap_levels=e.mx_snap_levels,
+    )
+
+
+def compute_dtype(cfg: NerfConfig, device: torch.device) -> torch.dtype:
+    """The config's compute dtype; "auto" is bfloat16 on CUDA, float32 on
+    the CPU (params are stored fp32 and cast at use)."""
+    cd = cfg.train.compute_dtype
+    if cd == "auto":
+        cd = "float32" if device.type == "cpu" else "bfloat16"
+    return torch.bfloat16 if cd == "bfloat16" else torch.float32
+
+
+def field_apply(params, points: torch.Tensor, cfg: NerfConfig, spec, dtype=None):
+    """points [O, ..., 3] in [0,1]^3 -> raw (rgb logits, log-sigma) [O, ..., 4].
+
+    The device alone picks the encode: a CUDA tensor goes through the
+    kernels (`mxgrid_cuda.encode_folded`), a CPU tensor through the plain
+    `mxgrid.encode`. `dtype` overrides the compute dtype; the render path
+    passes float32.
+    """
+    if dtype is None:
+        dtype = compute_dtype(cfg, points.device)
+    table = pytree.tree_map(lambda a: a.to(dtype), params["table"])
+    mlp = pytree.tree_map(lambda a: a.to(dtype), params["mlp"])
+    if points.device.type == "cuda":
+        feats = mxgrid_cuda.encode_folded(table, points, spec)
+    else:
+        feats = mxgrid.encode(table, points, spec)
+    o = points.shape[0]
+    raw = apply_mlp(mlp, feats.reshape(o, -1, spec.n_output_dims), cfg.network)
+    return raw.reshape(*points.shape[:-1], raw.shape[-1])
+
+
+class ObjectsState(NamedTuple):
+    """Fixed-capacity object table (leading axis O = object slots)."""
+
+    aabb_min: torch.Tensor  # [O, 3] object-frame bbox (already inflated)
+    aabb_max: torch.Tensor  # [O, 3]
+    tow: torch.Tensor  # [O, 4, 4] world -> object transforms
+    instance_id: torch.Tensor  # [O] int32 instance id in the masks
+    bboxes: torch.Tensor  # [O, B, 5] int32 (frame_id, x, y, h, w)
+    n_bbox: torch.Tensor  # [O] int32 valid rows in bboxes
+    active: torch.Tensor  # [O] bool slot in use and allowed to train
+
+    @property
+    def capacity(self) -> int:
+        return self.aabb_min.shape[0]
+
+
+class AdamState(NamedTuple):
+    """The optimizer chain's state, per object (optax's zero_nans and
+    scale_by_adam states; the weight-decay stage has none)."""
+
+    found_nan: Any  # tree of [O] bool: a NaN was zeroed in that leaf
+    count: torch.Tensor  # [O] int32 Adam step count
+    mu: Any  # tree like params
+    nu: Any  # tree like params
+
+
+class TrainState(NamedTuple):
+    """Per-object training state; every leaf carries a leading O axis."""
+
+    params: Any
+    ema: Any  # EMA of params, used for render
+    opt: AdamState
+    step: torch.Tensor  # [O] int32
+    loss: torch.Tensor  # [O] float32 last logged loss
+
+
+def init_train_state(generator: torch.Generator, capacity: int, cfg: NerfConfig,
+                     spec, device="cpu") -> TrainState:
+    """Fresh state for `capacity` slots: params {"table": MX-grid factors,
+    "mlp": {"w0", "w1"}} drawn from `generator`, EMA = params, zero Adam
+    moments, step 0."""
+    params = {
+        "table": mxgrid.init_mxgrid(generator, spec, capacity, device=device),
+        "mlp": init_mlp(generator, spec.n_output_dims, cfg.network, capacity,
+                        device=device),
+    }
+    zeros = lambda a: torch.zeros_like(a)
+    return TrainState(
+        params=params,
+        ema=pytree.tree_map(torch.clone, params),
+        opt=AdamState(
+            found_nan=pytree.tree_map(
+                lambda a: torch.zeros(capacity, dtype=torch.bool, device=device), params),
+            count=torch.zeros(capacity, dtype=torch.int32, device=device),
+            mu=pytree.tree_map(zeros, params),
+            nu=pytree.tree_map(zeros, params),
+        ),
+        step=torch.zeros(capacity, dtype=torch.int32, device=device),
+        loss=torch.zeros(capacity, dtype=torch.float32, device=device),
+    )
+
+
+def learning_rate(cfg: NerfConfig, step: torch.Tensor) -> torch.Tensor:
+    """ExponentialDecay around Adam: lr * base^n, n = max(0, (step - start)
+    // interval + 1), per object."""
+    o = cfg.optimizer
+    n = torch.clamp(torch.div(step - o.decay_start, o.decay_interval,
+                              rounding_mode="floor") + 1, min=0)
+    return o.learning_rate * torch.pow(o.decay_base, n.float())
+
+
+def _per_object(v: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """[O] -> [O, 1, ..., 1] broadcastable against `like`."""
+    return v.reshape((-1,) + (1,) * (like.ndim - 1))
+
+
+def _optimizer_update(grads, opt: AdamState, params, cfg: NerfConfig):
+    """optax chain(zero_nans, add_decayed_weights, scale_by_adam), leafwise:
+    returns (updates, new AdamState)."""
+    o = cfg.optimizer
+    b1, b2 = o.beta1, o.beta2
+    count = opt.count + 1
+    c1 = 1 - torch.pow(b1, count.float())
+    c2 = 1 - torch.pow(b2, count.float())
+    flat_g, treedef = pytree.tree_flatten(grads)
+    flat_p = pytree.tree_leaves(params)
+    flat_mu = pytree.tree_leaves(opt.mu)
+    flat_nu = pytree.tree_leaves(opt.nu)
+    found, ups, mus, nus = [], [], [], []
+    for g, p, mu, nu in zip(flat_g, flat_p, flat_mu, flat_nu):
+        nan = torch.isnan(g)
+        found.append(nan.reshape(nan.shape[0], -1).any(dim=1))
+        g = torch.where(nan, torch.zeros_like(g), g)
+        g = g + o.l2_reg * p
+        mu = (1 - b1) * g + b1 * mu
+        nu = (1 - b2) * g**2 + b2 * nu
+        mu_hat = mu / _per_object(c1, mu)
+        nu_hat = nu / _per_object(c2, nu)
+        ups.append(mu_hat / (torch.sqrt(nu_hat) + o.epsilon))
+        mus.append(mu)
+        nus.append(nu)
+    unflat = lambda xs: pytree.tree_unflatten(xs, treedef)
+    return unflat(ups), AdamState(unflat(found), count, unflat(mus), unflat(nus))
+
+
+# --------------------------------------------------------------------------
+# Batch generation (ref GenerateRays nerf_model.cu:369-446)
+# --------------------------------------------------------------------------
+
+
+def draw_uniforms(generator: torch.Generator, n_objects: int, cfg: NerfConfig):
+    """One step's uniforms (pixel offsets [O,R,2], background colours
+    [O,R,3], sample jitter [O,R,S]) from `generator`, on its device."""
+    r, s = cfg.train.rays_per_batch, cfg.train.samples_per_ray
+    rand = lambda *shape: torch.rand((n_objects, *shape), generator=generator,
+                                     device=generator.device)
+    return rand(r, 2), rand(r, 3), rand(r, s)
+
+
+def generate_batch(frames: FrameArrays, aabb_min, aabb_max, tow, instance_id, bboxes,
+                   n_bbox, cfg: NerfConfig, uniforms, *, use_depth: bool) -> RayBatch:
+    """One batch of R rays x S samples for every object slot.
+
+    Rays are drawn uniformly inside the per-frame 2D bboxes, round-robin
+    over the bboxes. Pixels of other objects occlude and their rays are
+    dropped, as are rays missing the object's AABB. Survivors are compacted
+    in a stable order and rolled over modulo their count to fill the batch.
+
+    Args:
+      frames: the frame store's device view.
+      aabb_min, aabb_max [O, 3]; tow [O, 4, 4]; instance_id [O];
+      bboxes [O, B, 5]; n_bbox [O]: the object table's columns.
+      uniforms: (u_xy [O,R,2], u_color [O,R,3], u_jitter [O,R,S]) in [0,1).
+    Returns:
+      RayBatch with leading [O, R]; `valid` [O].
+    """
+    u_xy, colors, jitter = uniforms
+    o_n = aabb_min.shape[0]
+    r, s = cfg.train.rays_per_batch, cfg.train.samples_per_ray
+    dev = aabb_min.device
+    i = torch.arange(r, device=dev)
+    idx_box = i[None, :] % torch.clamp(n_bbox.long(), min=1)[:, None]  # [O, R]
+    box = torch.gather(bboxes.long(), 1, idx_box[..., None].expand(o_n, r, 5))
+    fid, bx, by = box[..., 0], box[..., 1], box[..., 2]
+    bh, bw = box[..., 3].float(), box[..., 4].float()
+    x = bx + (u_xy[..., 0] * bw).long()
+    y = by + (u_xy[..., 1] * bh).long()
+
+    _, h, w = frames.instance.shape
+    lin = (fid * h + y) * w + x
+    inst = frames.instance.reshape(-1)[lin].long()
+    occluded = (inst != 0) & (inst != instance_id.long()[:, None])
+
+    pose = frames.poses[fid]  # [O, R, 4, 4]
+    o, d, d_norm = camera_rays(x, y, frames.intrinsics, pose, tow[:, None])
+    tmin, tmax, hit = ray_aabb_intersect(o, d, aabb_min[:, None], aabb_max[:, None])
+    tmin = torch.clamp(tmin, min=0.0)
+
+    valid = hit & ~occluded
+    is_obj = valid & (inst != 0)
+    rgb_pix = frames.pixels.reshape(-1, 3)[lin].float() / 255.0
+    rgb_target = torch.where(is_obj[..., None], rgb_pix, colors)
+    if use_depth:
+        depth_target = torch.where(is_obj, frames.depth.reshape(-1)[lin] * d_norm,
+                                   torch.zeros_like(d_norm))
+    else:
+        depth_target = torch.zeros_like(d_norm)
+
+    # Stable compaction (valid rays first, in ray order) from cumsum ranks,
+    # then modular rollover over the valid count.
+    cs_valid = torch.cumsum(valid.long(), dim=1)
+    n_valid = cs_valid[:, -1]
+    rank = torch.where(valid, cs_valid - 1,
+                       n_valid[:, None] + torch.cumsum((~valid).long(), dim=1) - 1)
+    order = torch.zeros_like(rank).scatter_(1, rank, i[None, :].expand(o_n, r))
+    take = torch.gather(order, 1, i[None, :] % torch.clamp(n_valid, min=1)[:, None])
+
+    payload = torch.cat(
+        [o, d, d_norm[..., None], tmin[..., None], tmax[..., None], rgb_target,
+         depth_target[..., None], is_obj[..., None].float(), colors], dim=-1)
+    payload = torch.gather(payload, 1, take[..., None].expand_as(payload))
+    o, d = payload[..., 0:3], payload[..., 3:6]
+    tmin, tmax = payload[..., 7], payload[..., 8]
+
+    t = stratified_distances(tmin, tmax, jitter, s)  # [O, R, S]
+    pts = o[..., None, :] + t[..., None] * d[..., None, :]
+    pts = warp_point(pts, aabb_min[:, None, None], aabb_max[:, None, None])
+    return RayBatch(
+        points=pts, t=t, rgb_target=payload[..., 9:12],
+        depth_target=payload[..., 12], is_object=payload[..., 13] > 0.5,
+        bg_color=payload[..., 14:17], valid=n_valid > 0,
+    )
+
+
+# --------------------------------------------------------------------------
+# Train step over the object axis
+# --------------------------------------------------------------------------
+
+
+def _object_train_step(state: TrainState, frames: FrameArrays, objects: ObjectsState,
+                       cfg: NerfConfig, spec, uniforms, use_depth: bool) -> TrainState:
+    """One step for every object slot. Inactive slots and empty batches keep
+    their params, EMA and optimizer state bit for bit."""
+    batch = generate_batch(frames, *objects[:6], cfg, uniforms, use_depth=use_depth)
+    params = pytree.tree_map(lambda a: a.detach().requires_grad_(True), state.params)
+    leaves, treedef = pytree.tree_flatten(params)
+    with torch.enable_grad():
+        raw = field_apply(params, batch.points, cfg, spec)
+        loss, aux = composite_loss(raw, batch, cfg.train)
+        # per-object losses touch disjoint parameter rows: the gradient of
+        # their sum is every object's own gradient
+        grads = pytree.tree_unflatten(list(torch.autograd.grad(loss.sum(), leaves)), treedef)
+
+    with torch.no_grad():
+        updates, new_opt = _optimizer_update(grads, state.opt, state.params, cfg)
+        lr = learning_rate(cfg, state.step)
+        new_params = pytree.tree_map(lambda p, u: p - _per_object(lr, u) * u,
+                                     state.params, updates)
+        decay = cfg.optimizer.ema_decay
+        new_ema = pytree.tree_map(lambda e, p: decay * e + (1.0 - decay) * p,
+                                  state.ema, new_params)
+        ok = objects.active & batch.valid
+        keep = lambda old, new: pytree.tree_map(
+            lambda a, b: torch.where(_per_object(ok, b), b, a), old, new)
+        return TrainState(
+            params=keep(state.params, new_params),
+            ema=keep(state.ema, new_ema),
+            opt=keep(state.opt, new_opt),
+            step=torch.where(ok, state.step + 1, state.step),
+            loss=torch.where(ok, aux["logged_loss"].detach(),
+                             torch.zeros_like(state.loss)),
+        )
+
+
+def train_objects(state: TrainState, objects: ObjectsState, frames: FrameArrays,
+                  cfg: NerfConfig, spec, n_iters: int, use_depth: bool = False, *,
+                  generator: torch.Generator | None = None,
+                  uniforms: Callable[[], tuple] | None = None) -> TrainState:
+    """Run n_iters synchronized steps over all object slots (one wave).
+
+    Each step's uniforms come from `generator` or, when given, from the
+    replay source `uniforms()` (the parity tests feed JAX's draws).
+    """
+    if (generator is None) == (uniforms is None):
+        raise ValueError("pass exactly one of generator= or uniforms=")
+    for _ in range(n_iters):
+        u = uniforms() if uniforms is not None else draw_uniforms(
+            generator, objects.capacity, cfg)
+        state = _object_train_step(state, frames, objects, cfg, spec, u, use_depth)
+    return state
+
+
+# --------------------------------------------------------------------------
+# Inference: ray rendering (EMA params)
+# --------------------------------------------------------------------------
+
+
+@torch.no_grad()
+def render_rays(params, o, d, d_norm, tmin, tmax, in_bbox, jitter, aabb_min,
+                aabb_max, cfg: NerfConfig, spec, n_samples: int = 64,
+                background: float = 1.0):
+    """Render a bundle of rays for ONE object (params without the object
+    axis), fp32, n_samples per ray: gray background, mask threshold 0.5,
+    depth divided by d_norm. Returns (rgb [N, 3], depth [N], mask [N])."""
+    t = stratified_distances(tmin, tmax, jitter, n_samples)
+    pts = warp_point(o[:, None, :] + t[..., None] * d[:, None, :], aabb_min, aabb_max)
+    one = pytree.tree_map(lambda a: a[None], params)
+    raw = field_apply(one, pts[None], cfg, spec, dtype=torch.float32)[0]
+    bg = torch.full((3,), background, dtype=torch.float32, device=raw.device)
+    out = volume_render(raw, t, bg)
+    return render_composite(out, d_norm, in_bbox, background)

@@ -1,0 +1,83 @@
+"""Ray/AABB geometry, camera rays and stratified sampling (counterpart of
+romap_tpu/ops/geometry.py; reference kernels cited there).
+
+Everything broadcasts over leading batch axes; misses are reported with a
+boolean mask instead of a sentinel distance.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def ray_aabb_intersect(o, d, box_min, box_max):
+    """Slab-method ray/AABB intersection.
+
+    Args:
+      o, d: [..., 3] ray origins and directions (object frame).
+      box_min, box_max: [3] or broadcastable AABB corners.
+    Returns:
+      (tmin, tmax, hit) [...] each; tmin is not clamped to 0 here.
+
+    |d| components below 1e-12 are replaced by +-1e-12, so slopes stay
+    finite and gradients through the ray never become 0 * inf.
+    """
+    tiny = torch.where(d >= 0, 1e-12, -1e-12).to(d.dtype)
+    d_safe = torch.where(torch.abs(d) < 1e-12, tiny, d)
+    t0 = (box_min - o) / d_safe
+    t1 = (box_max - o) / d_safe
+    tmin = torch.amax(torch.minimum(t0, t1), dim=-1)
+    tmax = torch.amin(torch.maximum(t0, t1), dim=-1)
+    return tmin, tmax, tmin <= tmax
+
+
+def warp_point(p, box_min, box_max):
+    """Map object-frame point(s) into the unit cube of the AABB."""
+    return (p - box_min) / (box_max - box_min)
+
+
+def pixel_dirs(x, y, intrinsics):
+    """Camera-frame directions (z = 1) for pixel coords and their norms.
+
+    Args:
+      x, y: [...] pixel coordinates; intrinsics: [4] (fx, fy, cx, cy).
+    Returns:
+      (d_cam [..., 3], d_norm [...]).
+    """
+    fx, fy, cx, cy = intrinsics[0], intrinsics[1], intrinsics[2], intrinsics[3]
+    x = x.to(torch.float32)
+    y = y.to(torch.float32)
+    d = torch.stack([(x - cx) / fx, (y - cy) / fy, torch.ones_like(x)], dim=-1)
+    return d, torch.linalg.vector_norm(d, dim=-1)
+
+
+def camera_rays(x, y, intrinsics, pose_wc, obj_tow):
+    """Pixel -> world -> object-frame rays.
+
+    Args:
+      x, y: [...] pixel coordinates; intrinsics: [4].
+      pose_wc: [..., 4, 4] camera-to-world; obj_tow: [..., 4, 4]
+        world-to-object (broadcast against the pixel batch).
+    Returns:
+      (o [..., 3], unit d [..., 3], d_norm [...]).
+    """
+    d_cam, d_norm = pixel_dirs(x, y, intrinsics)
+    d_cam = d_cam / d_norm[..., None]
+    d_w = torch.einsum("...ij,...j->...i", pose_wc[..., :3, :3], d_cam)
+    r_ow = obj_tow[..., :3, :3]
+    d_o = torch.einsum("...ij,...j->...i", r_ow, d_w)
+    o_o = torch.einsum("...ij,...j->...i", r_ow, pose_wc[..., :3, 3]) + obj_tow[..., :3, 3]
+    return o_o.expand(d_o.shape), d_o, d_norm
+
+
+def stratified_distances(tmin, tmax, jitter, n_samples: int):
+    """t_n = tmin + dt (n + u_n), dt = (tmax - tmin) / S, u_n in [0, 1).
+
+    Args:
+      tmin, tmax: [...]; jitter: [..., S].
+    Returns:
+      [..., S] increasing distances.
+    """
+    dt = (tmax - tmin) / float(n_samples)
+    n = torch.arange(n_samples, dtype=torch.float32, device=jitter.device)
+    return tmin[..., None] + dt[..., None] * (n + jitter)

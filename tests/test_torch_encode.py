@@ -1,0 +1,183 @@
+"""Port MX-grid encode vs the JAX reference on the CPU.
+
+The port's plain `encode` and its kernel path (`encode_folded`, which on
+CPU tensors runs the plain twins of K1 and K2) are held against
+`romap_tpu.ops.mxgrid.encode` (XLA) and `mxgrid_pallas.encode` in
+interpret mode, on the same numpy-made tables and points. Tolerances are
+those of tests/test_mxgrid_pallas.py: forward rtol 1e-4 / atol 2e-4,
+parameter gradients rtol 1e-3 / atol 1e-3.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from romap_tpu.ops import mxgrid as jmx
+from romap_tpu.ops import mxgrid_pallas
+from romap_tpu_torch.ops import mxgrid as tmx
+from romap_tpu_torch.ops import mxgrid_cuda
+
+torch.set_num_threads(2)
+
+N_OBJ = 2
+N_PTS = 700  # not a multiple of any tile or chunk
+
+
+def specs(snap: bool):
+    kw = dict(n_levels=3, base_resolution=4, max_resolution=32, features=16,
+              plane_specs=((24, 16, 8),), plane_axes="balanced", snap_levels=snap)
+    return jmx.make_mxspec(**kw), tmx.make_mxspec(**kw)
+
+
+def make_inputs(spec, seed):
+    rng = np.random.default_rng(seed)
+    (ru, rv, kp), = spec.plane_specs
+    factors = {
+        "lines": rng.normal(0, 0.3, (N_OBJ, 3, spec.total_res, spec.features)),
+        "planes": (rng.normal(0, 0.3, (N_OBJ, 3, ru, rv, kp)),),
+        "plane_lines": (rng.normal(0, 0.3, (N_OBJ, 3, max(ru, rv), kp)),),
+    }
+    factors = jax.tree.map(lambda a: a.astype(np.float32), factors)
+    # a few points just outside the cube, as rounding in warp_point makes
+    pts = rng.uniform(-2e-3, 1 + 2e-3, (N_OBJ, N_PTS, 3)).astype(np.float32)
+    tgt = rng.normal(size=(N_OBJ, N_PTS, spec.n_output_dims)).astype(np.float32)
+    return factors, pts, tgt
+
+
+def jax_encode(impl, spec):
+    if impl == "xla":
+        one = lambda f, p: jmx.encode(f, p, spec)
+    else:
+        one = lambda f, p: mxgrid_pallas.encode(f, p, spec, interpret=True)
+    return jax.vmap(one)
+
+
+def jax_value_and_grad(impl, spec, factors, pts, tgt):
+    enc = jax_encode(impl, spec)
+    f = jax.tree.map(jnp.asarray, factors)
+    out = np.asarray(enc(f, jnp.asarray(pts)))
+    grads = jax.grad(lambda f: jnp.sum((enc(f, jnp.asarray(pts)) - tgt) ** 2))(f)
+    return out, jax.tree.map(np.asarray, grads)
+
+
+def torch_value_and_grad(encode_fn, spec, factors, pts, tgt):
+    f = jax.tree.map(lambda a: torch.tensor(a, requires_grad=True), factors)
+    out = encode_fn(f, torch.from_numpy(pts), spec)
+    loss = torch.sum((out - torch.from_numpy(tgt)) ** 2)
+    leaves = jax.tree.leaves(f)
+    grads = torch.autograd.grad(loss, leaves)
+    treedef = jax.tree.structure(factors)
+    return out.detach().numpy(), jax.tree.unflatten(treedef, [g.numpy() for g in grads])
+
+
+def assert_tree_close(got, want, rtol, atol):
+    for path, g in jax.tree_util.tree_leaves_with_path(got):
+        w = jax.tree_util.tree_leaves_with_path(want)
+        w = dict((jax.tree_util.keystr(p), v) for p, v in w)[jax.tree_util.keystr(path)]
+        np.testing.assert_allclose(g, w, rtol=rtol, atol=atol,
+                                   err_msg=jax.tree_util.keystr(path))
+
+
+@pytest.mark.parametrize("snap", [True, False])
+def test_spec_and_fold_match_jax(snap):
+    js, ts = specs(snap)
+    assert dataclasses.asdict(js) == dataclasses.asdict(ts)
+    assert ts.n_output_dims == js.n_output_dims
+    assert ts.fold_res == js.fold_res
+    np.testing.assert_array_equal(tmx.fold_matrix(ts), jmx.fold_matrix(js))
+    flagship = dict(n_levels=6, base_resolution=16, max_resolution=192, features=48,
+                    plane_specs=((128, 64, 4),), plane_axes="balanced", snap_levels=True)
+    assert (dataclasses.asdict(jmx.make_mxspec(**flagship))
+            == dataclasses.asdict(tmx.make_mxspec(**flagship)))
+
+
+@pytest.mark.parametrize("impl", ["xla", "pallas"])
+@pytest.mark.parametrize("snap", [True, False])
+def test_plain_encode_matches_jax(impl, snap):
+    js, ts = specs(snap)
+    factors, pts, tgt = make_inputs(js, seed=1 + snap)
+    want_out, want_g = jax_value_and_grad(impl, js, factors, pts, tgt)
+    got_out, got_g = torch_value_and_grad(tmx.encode, ts, factors, pts, tgt)
+    np.testing.assert_allclose(got_out, want_out, rtol=1e-4, atol=2e-4)
+    assert_tree_close(got_g, want_g, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("snap", [True, False])
+def test_plain_encode_cp_only_matches_jax(snap):
+    """CP lines without a plane level (the `fast` preset's shape)."""
+    kw = dict(n_levels=3, base_resolution=4, max_resolution=32, features=16,
+              snap_levels=snap)
+    js, ts = jmx.make_mxspec(**kw), tmx.make_mxspec(**kw)
+    rng = np.random.default_rng(3)
+    lines = rng.normal(0, 0.3, (N_OBJ, 3, js.total_res, 16)).astype(np.float32)
+    pts = rng.uniform(-2e-3, 1 + 2e-3, (N_OBJ, N_PTS, 3)).astype(np.float32)
+    tgt = rng.normal(size=(N_OBJ, N_PTS, 16)).astype(np.float32)
+    want_out, want_g = jax_value_and_grad("xla", js, lines, pts, tgt)
+    got_out, got_g = torch_value_and_grad(tmx.encode, ts, lines, pts, tgt)
+    np.testing.assert_allclose(got_out, want_out, rtol=1e-4, atol=2e-4)
+    np.testing.assert_allclose(got_g, want_g, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("impl", ["xla", "pallas"])
+def test_encode_folded_matches_jax(impl):
+    """The kernel path's CPU twins (K1 forward, K2 backward, unfold)."""
+    js, ts = specs(True)
+    factors, pts, tgt = make_inputs(js, seed=5)
+    want_out, want_g = jax_value_and_grad(impl, js, factors, pts, tgt)
+    got_out, got_g = torch_value_and_grad(mxgrid_cuda.encode_folded, ts, factors, pts, tgt)
+    np.testing.assert_allclose(got_out, want_out, rtol=1e-4, atol=2e-4)
+    assert_tree_close(got_g, want_g, rtol=1e-3, atol=1e-3)
+
+
+def test_k1_twin_residuals_match_pallas():
+    """K1's plain twin returns the Pallas forward's residuals: afac
+    [3, K, P], fpl and fli [3kp, P] per object."""
+    js, ts = specs(True)
+    factors, pts, _ = make_inputs(js, seed=7)
+    for o in range(N_OBJ):
+        f = jax.tree.map(lambda a: jnp.asarray(a[o]), factors)
+        out_t, (afac, fpl, fli) = mxgrid_pallas._fwd_impl_t(
+            f, jnp.asarray(pts[o]), js, True)
+        w_eff = tmx.fold_lines(torch.from_numpy(factors["lines"][o:o + 1]), ts)
+        got = mxgrid_cuda.folded_fused_forward_plain(
+            torch.from_numpy(pts[o:o + 1]), w_eff,
+            torch.from_numpy(factors["planes"][0][o:o + 1]),
+            torch.from_numpy(factors["plane_lines"][0][o:o + 1]), ts)
+        want = (np.asarray(out_t).T, np.asarray(afac), np.asarray(fpl), np.asarray(fli))
+        for name, g, w in zip(("out", "afac", "fpl", "fli"), got, want):
+            np.testing.assert_allclose(g[0].numpy(), w[..., :N_PTS], rtol=1e-4,
+                                       atol=2e-4, err_msg=name)
+
+
+def test_k2_twin_matches_autograd_of_k1_twin():
+    """K2's plain twin equals autograd through K1's plain twin (dW_eff,
+    dplanes, dplines), in fp32."""
+    _, ts = specs(True)
+    factors, pts, tgt = make_inputs(ts, seed=9)
+    w_eff = tmx.fold_lines(torch.from_numpy(factors["lines"]), ts).requires_grad_(True)
+    planes = torch.tensor(factors["planes"][0], requires_grad=True)
+    plines = torch.tensor(factors["plane_lines"][0], requires_grad=True)
+    p = torch.from_numpy(pts)
+    out, afac, fpl, fli = mxgrid_cuda.folded_fused_forward_plain(p, w_eff, planes, plines, ts)
+    g = torch.from_numpy(tgt)
+    want = torch.autograd.grad(torch.sum(out * g), (w_eff, planes, plines))
+    got = mxgrid_cuda.folded_fused_backward_plain(
+        p, afac.detach(), fpl.detach(), fli.detach(), g, ts)
+    for name, a, b in zip(("dW_eff", "dplanes", "dplines"), got, want):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4, atol=1e-4,
+                                   err_msg=name)
+
+
+def test_encode_folded_refuses_point_gradients_and_other_specs():
+    _, ts = specs(True)
+    factors, pts, _ = make_inputs(ts, seed=11)
+    f = jax.tree.map(torch.from_numpy, factors)
+    with pytest.raises(NotImplementedError):
+        mxgrid_cuda.encode_folded(f, torch.from_numpy(pts).requires_grad_(True), ts)
+    _, unsnapped = specs(False)
+    with pytest.raises(NotImplementedError):
+        mxgrid_cuda.encode_folded(f, torch.from_numpy(pts), unsnapped)

@@ -1,38 +1,52 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: builds the kernels, holds
-each against its plain PyTorch version at the flagship shapes, then drives
-the main path (a 10-object train wave and a held-out render per object)
-through the port's public entry points.
+each against its plain PyTorch version at the shapes of its path, then
+drives the main paths through the port's public entry points: a 10-object
+train wave with held-out renders, the offline runner with the CP-only
+`fast` preset, and the offline CLI with the unsnapped ladder.
 
 Usage: python3 chip_smoke.py     (needs one CUDA device; exits non-zero on
 any failure and prints no result line then)
 
-Phases, one line each:
-  1 device   card name and power limit (nvidia-smi), TF32 switched off
-  2 build    nvcc build of romap_tpu_torch/csrc into build/romap_tpu_torch
-  3 kernels  K1 and K2 vs their plain versions, O=2 x P=131072, bf16 and
-             fp32: max abs / relative error beside the tolerance, and the
-             median kernel and plain times
-  4 parity   one tiny train step, fp32, kernels on the card vs the plain
-             path on the CPU, from the same state and uniforms
-  5 train    build_synthetic_world(10, 16, 128) + NerfConfig(): init, 1
-             step, then a timed 50-step wave (obj-iters/s); launch counts
-             of K1 and K2 on that path
-  6 render   one held-out bbox view per object through render_rays (fp32):
-             PSNR on object pixels and mask IoU
+Phases, one or more lines each, each closed by its seconds:
+  1 device     card name and power limit (nvidia-smi), TF32 switched off
+  2 build      nvcc build of romap_tpu_torch/csrc into build/romap_tpu_torch
+  3 kernels    K1/K2 (flagship), K3/K4 (flagship unsnapped) and K5/K6
+               (`fast`) vs their plain versions, and each backward vs
+               autograd through its forward's plain version, O=2 x
+               P=131072, bf16 and fp32: max abs / relative error beside the
+               tolerance, and the median kernel and plain times
+  4 parity     one tiny train step, fp32, kernels on the card vs the plain
+               path on the CPU, from the same state and uniforms
+  5 train      build_synthetic_world(10, 16, 128) + NerfConfig(): init, 1
+               step, then a timed 50-step wave (obj-iters/s)
+  6 render     one held-out bbox view per object through render_rays (fp32):
+               PSNR on object pixels and mask IoU; launch counts of K1/K2
+               over phases 5-6
+  7 offline    the same scene written as a dataset; OfflineRunner with the
+               `fast` preset, 2 waves x 25 steps (cut from 10 x 500), a mesh
+               at wave 2 (mc 64), then every artifact with the orbit video:
+               losses, obj-iters/s, mesh sizes, test_img PSNR, K5/K6 counts
+  8 unsnapped  `romap_tpu_torch.runtime.offline.main` with MX_SNAP=0 on that
+               dataset, flagship, 1 wave x 20 steps, no video: K3 (bf16 in
+               training, fp32 in render and mesh) and K4 counts
 then a JSON line with each kernel's record, and as the last line
 {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
+import cv2
 import numpy as np
 import torch
 from torch.utils import _pytree as pytree
@@ -41,18 +55,24 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from romap_tpu.config import EncodingConfig, NerfConfig, TrainConfig  # noqa: E402
 from romap_tpu.data import synthetic  # noqa: E402
+from romap_tpu.data.formats import write_dataset  # noqa: E402
 from romap_tpu_torch.data.world import build_synthetic_world  # noqa: E402
 from romap_tpu_torch.models import nerf  # noqa: E402
 from romap_tpu_torch.ops import mxgrid, mxgrid_cuda  # noqa: E402
 from romap_tpu_torch.ops.geometry import camera_rays, ray_aabb_intersect  # noqa: E402
+from romap_tpu_torch.runtime import offline  # noqa: E402
+from romap_tpu_torch.runtime.offline import OfflineRunner  # noqa: E402
 
 N_OBJECTS, WAVE = 10, 50
 KERNEL_O, KERNEL_P = 2, 4096 * 32
 # Kernel vs plain: fp32 differs only in summation order (and K2's atomic
 # order), bf16 additionally by one rounding step of a stored value.
 REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
-SOURCE = "romap_tpu_torch/csrc/mxgrid_folded.cu"
+FOLDED, UNSNAPPED = "romap_tpu_torch/csrc/mxgrid_folded.cu", "romap_tpu_torch/csrc/mxgrid_unsnapped.cu"
+SOURCES = {"K1": FOLDED, "K2": FOLDED, "K3": UNSNAPPED, "K4": UNSNAPPED, "K5": FOLDED, "K6": FOLDED}
 PALLAS = "romap_tpu/ops/mxgrid_pallas.py"
+# line of each Pallas kernel's factory (or kernel function)
+PALLAS_LINES = {"K1": 448, "K2": 468, "K3": 281, "K4": 352, "K5": 583, "K6": 591}
 
 
 def say(phase: str, **kv) -> None:
@@ -113,66 +133,83 @@ def phase_build() -> None:
     say("2 build", seconds=f"{dt:.3f}", lib=os.path.relpath(lib))
 
 
-def flagship_inputs(spec, dtype, dev, seed):
+# the (forward, backward) kernel pair of each spec path (mxgrid_cuda.kernel_path)
+PAIRS = {
+    "folded": ("K1", "K2"),
+    "unsnapped": ("K3", "K4"),
+    "folded_cp": ("K5", "K6"),
+}
+
+
+def kernel_inputs(spec, dtype, dev, seed):
+    """Points (edges included), the forward kernel's table arguments in
+    `dtype` (folded W_eff or raw ladder lines, then planes and plane lines
+    where the spec has them) and a cotangent, at O=2 x P=131072."""
     g = torch.Generator(device="cpu").manual_seed(seed)
-    (ru, rv, kp), = spec.plane_specs
     o, p = KERNEL_O, KERNEL_P
     pts = torch.rand((o, p, 3), generator=g) * (1 + 4e-3) - 2e-3  # edges included
     tables = mxgrid.init_mxgrid(g, spec, o)
-    w_eff = mxgrid.fold_lines(tables["lines"], spec)
+    lines = tables["lines"] if spec.plane_specs else tables
+    if spec.snap_levels:
+        lines = mxgrid.fold_lines(lines, spec)
+    args = [lines]
+    if spec.plane_specs:
+        args += [tables["planes"][0], tables["plane_lines"][0]]
     gout = torch.randn((o, p, spec.n_output_dims), generator=g)
     to = lambda t: t.to(device=dev, dtype=dtype).contiguous()
-    return (pts.to(dev), to(w_eff), to(tables["planes"][0]), to(tables["plane_lines"][0]),
-            to(gout))
+    return pts.to(dev), [to(a) for a in args], to(gout)
 
 
-def phase_kernels(spec, dev) -> dict:
-    """K1 and K2 vs their plain versions; returns the bf16 (train dtype)
+def phase_kernels(specs: dict, dev) -> dict:
+    """Each forward kernel vs its plain twin, and each backward kernel vs
+    its plain twin and vs autograd through the forward twin, on the
+    kernels' own residuals; bf16 and fp32. Returns the bf16 (train dtype)
     records for the JSON line."""
     records = {}
-    for dtype in (torch.bfloat16, torch.float32):
-        tol = REL_TOL[dtype]
-        pts, w_eff, planes, plines, gout = flagship_inputs(spec, dtype, dev, seed=3)
-        fwd = lambda: mxgrid_cuda.folded_fused_forward(pts, w_eff, planes, plines, spec)
-        fwd_plain = lambda: mxgrid_cuda.folded_fused_forward_plain(pts, w_eff, planes, plines, spec)
-        got = fwd()
-        want = fwd_plain()
-        torch.cuda.synchronize()
-        k1_abs, k1_rel = errors(got, want)
-        k1_ms, k1_plain_ms = median_ms(fwd), median_ms(fwd_plain)
-        say("3 kernels", kernel="K1", dtype=str(dtype).split(".")[1], max_abs_err=f"{k1_abs:.3e}",
-            max_rel_err=f"{k1_rel:.3e}", rel_tol=tol, ms=f"{k1_ms:.4f}",
-            plain_ms=f"{k1_plain_ms:.4f}")
-        if not k1_rel <= tol or not all(torch.isfinite(t.float()).all() for t in got):
-            raise AssertionError(f"K1 {dtype}: relative error {k1_rel} above {tol}")
+    for path, (kf, kb) in PAIRS.items():
+        spec = specs[path]
+        fwd, bwd = mxgrid_cuda.KERNELS[kf], mxgrid_cuda.KERNELS[kb]
+        fwd_plain = getattr(mxgrid_cuda, fwd.__name__ + "_plain")
+        bwd_plain = getattr(mxgrid_cuda, bwd.__name__ + "_plain")
+        for dtype in (torch.bfloat16, torch.float32):
+            tol, dname = REL_TOL[dtype], str(dtype).split(".")[1]
+            pts, args, gout = kernel_inputs(spec, dtype, dev, seed=3)
+            got = fwd(pts, *args, spec)
+            want = fwd_plain(pts, *args, spec)
+            torch.cuda.synchronize()
+            f_abs, f_rel = errors(got, want)
+            f_ms = median_ms(lambda: fwd(pts, *args, spec))
+            f_plain_ms = median_ms(lambda: fwd_plain(pts, *args, spec))
+            say("3 kernels", kernel=kf, spec=path, dtype=dname, max_abs_err=f"{f_abs:.3e}",
+                max_rel_err=f"{f_rel:.3e}", rel_tol=tol, ms=f"{f_ms:.4f}",
+                plain_ms=f"{f_plain_ms:.4f}")
+            if not f_rel <= tol or not all(torch.isfinite(t.float()).all() for t in got):
+                raise AssertionError(f"{kf} {dtype}: relative error {f_rel} above {tol}")
 
-        # K2 against autograd through K1's plain version, and against its
-        # own plain version; both take the kernel forward's residuals
-        _, afac, fpl, fli = got
-        leaves = [w_eff.clone().requires_grad_(True), planes.clone().requires_grad_(True),
-                  plines.clone().requires_grad_(True)]
-        out_plain = mxgrid_cuda.folded_fused_forward_plain(pts, *leaves, spec)[0]
-        want_ad = torch.autograd.grad(out_plain, leaves, grad_outputs=gout)
-        del out_plain
-        bwd = lambda: mxgrid_cuda.folded_fused_backward(pts, afac, fpl, fli, gout, spec)
-        bwd_plain = lambda: mxgrid_cuda.folded_fused_backward_plain(pts, afac, fpl, fli, gout, spec)
-        got_b = bwd()
-        torch.cuda.synchronize()
-        k2_abs, k2_rel = errors(got_b, want_ad)
-        k2_abs_p, k2_rel_p = errors(got_b, bwd_plain())
-        k2_ms, k2_plain_ms = median_ms(bwd), median_ms(bwd_plain)
-        say("3 kernels", kernel="K2", dtype=str(dtype).split(".")[1],
-            max_abs_err_vs_autograd=f"{k2_abs:.3e}", max_rel_err_vs_autograd=f"{k2_rel:.3e}",
-            max_rel_err_vs_plain=f"{k2_rel_p:.3e}", rel_tol=tol, ms=f"{k2_ms:.4f}",
-            plain_ms=f"{k2_plain_ms:.4f}")
-        if not (k2_rel <= tol and k2_rel_p <= tol):
-            raise AssertionError(f"K2 {dtype}: relative error {k2_rel}/{k2_rel_p} above {tol}")
-        if dtype == torch.bfloat16:
-            records["K1"] = dict(max_abs_err=k1_abs, ms=k1_ms, plain_ms=k1_plain_ms)
-            records["K2"] = dict(max_abs_err=max(k2_abs, k2_abs_p), ms=k2_ms,
-                                 plain_ms=k2_plain_ms)
-        del got, want, got_b, want_ad, afac, fpl, fli
-        torch.cuda.empty_cache()
+            res = got[1:]
+            leaves = [a.clone().requires_grad_(True) for a in args]
+            out_plain = fwd_plain(pts, *leaves, spec)[0]
+            want_ad = torch.autograd.grad(out_plain, leaves, grad_outputs=gout)
+            del out_plain, want
+            as_tuple = lambda r: r if isinstance(r, tuple) else (r,)
+            got_b = as_tuple(bwd(pts, *res, gout, spec))
+            torch.cuda.synchronize()
+            b_abs, b_rel = errors(got_b, want_ad)
+            b_abs_p, b_rel_p = errors(got_b, as_tuple(bwd_plain(pts, *res, gout, spec)))
+            b_ms = median_ms(lambda: bwd(pts, *res, gout, spec))
+            b_plain_ms = median_ms(lambda: bwd_plain(pts, *res, gout, spec))
+            say("3 kernels", kernel=kb, spec=path, dtype=dname,
+                max_abs_err_vs_autograd=f"{b_abs:.3e}", max_rel_err_vs_autograd=f"{b_rel:.3e}",
+                max_rel_err_vs_plain=f"{b_rel_p:.3e}", rel_tol=tol, ms=f"{b_ms:.4f}",
+                plain_ms=f"{b_plain_ms:.4f}")
+            if not (b_rel <= tol and b_rel_p <= tol):
+                raise AssertionError(f"{kb} {dtype}: relative error {b_rel}/{b_rel_p} above {tol}")
+            if dtype == torch.bfloat16:
+                records[kf] = dict(max_abs_err=f_abs, ms=f_ms, plain_ms=f_plain_ms)
+                records[kb] = dict(max_abs_err=max(b_abs, b_abs_p), ms=b_ms,
+                                   plain_ms=b_plain_ms)
+            del got, got_b, want_ad, res, leaves, args, gout, pts
+            torch.cuda.empty_cache()
     return records
 
 
@@ -238,8 +275,7 @@ def phase_train_and_render(dev) -> tuple[dict, float]:
     say("5 train", setup_s=f"{time.perf_counter() - t0:.3f}", spec_out=spec.n_output_dims,
         dtype=str(nerf.compute_dtype(cfg, torch.device(dev))).split(".")[1])
 
-    mxgrid_cuda.folded_fused_forward.launches = 0
-    mxgrid_cuda.folded_fused_backward.launches = 0
+    mxgrid_cuda.reset_launch_counts()
     state = nerf.train_objects(state, objs, frames, cfg, spec, 1, generator=gen)
     loss1 = state.loss.cpu()
     torch.cuda.synchronize()
@@ -302,19 +338,190 @@ def phase_train_and_render(dev) -> tuple[dict, float]:
     return launches, rate
 
 
+def write_world_dataset(root: str):
+    """The scene of build_synthetic_world(10, 16, 128) (bench.py:112) written
+    in the reference's on-disk format, GT depth on. Returns the frames."""
+    res = 128
+    cam = synthetic.Camera(fx=res * 0.9, fy=res * 0.9, cx=res / 2, cy=res / 2, h=res, w=res)
+    objects = synthetic.make_scene(N_OBJECTS, seed=0)
+    frames = synthetic.make_sequence(cam, objects, 16, radius=5.5, seed=0)
+    write_dataset(root, cam, frames, objects=objects, use_depth=True)
+    return frames
+
+
+def check_artifacts(out: str, n_objects: int, video: bool) -> int:
+    """Every object's artifact tree is complete; returns the file count."""
+    n_files = 0
+    for oi in range(n_objects):
+        base = os.path.join(out, str(oi))
+        need = [os.path.join(out, f"{oi}.ply")] + [
+            os.path.join(base, f) for f in ("test.txt", "train.txt", "obj.ply")]
+        missing = [f for f in need if not os.path.isfile(f)]
+        imgs = sorted(os.listdir(os.path.join(base, "test_img")))
+        for sub in ("test_depth", "test_mask"):
+            if sorted(os.listdir(os.path.join(base, sub))) != imgs:
+                missing.append(os.path.join(base, sub))
+        if not imgs:
+            missing.append(os.path.join(base, "test_img"))
+        if video:
+            for sub in ("video_img", "video_depth"):
+                if len(os.listdir(os.path.join(base, sub))) != 60:
+                    missing.append(os.path.join(base, sub))
+        if missing:
+            raise AssertionError(f"object {oi}: artifacts missing: {missing}")
+        n_files += sum(len(f) for _, _, f in os.walk(base)) + 1
+    return n_files
+
+
+def psnr_of_test_imgs(out: str, runner, frames) -> list[float]:
+    """PSNR (dB) of each object's test_img renders against the GT frames,
+    on the object's pixels of the bbox."""
+    by_stamp = {f["stamp"]: f for f in frames}
+    psnrs = []
+    for oi, o in enumerate(runner.objects):
+        d = o["data"]
+        boxes = dict(zip(d.stamps, (tuple(int(v) for v in b) for b in d.bboxes)))
+        err, n = 0.0, 0
+        for name in sorted(os.listdir(os.path.join(out, str(oi), "test_img"))):
+            stamp = name[: -len(".png")]
+            x, y, h, w = boxes[stamp]
+            img = cv2.imread(os.path.join(out, str(oi), "test_img", name))[..., ::-1]
+            fr = by_stamp[stamp]
+            inst = fr["instance"][y : y + h, x : x + w] == d.cls
+            gt = fr["rgb"][y : y + h, x : x + w].astype(np.float64) / 255.0
+            err += float(np.sum((img.astype(np.float64) / 255.0 - gt)[inst] ** 2))
+            n += 3 * int(inst.sum())
+        psnrs.append(-10 * math.log10(err / n) if err > 0 else float("inf"))
+    return psnrs
+
+
+def phase_offline(dev, root: str, frames) -> dict:
+    """The offline entry point at full width with the CP-only `fast` preset
+    (K5/K6): 10 objects, 4096 rays x 32 samples, 2 waves x 25 steps (the
+    reference runs 10 x 500), a mesh at wave 2, then every artifact with
+    the orbit video."""
+    cfg = NerfConfig(encoding=EncodingConfig.preset("fast"))
+    t0 = time.perf_counter()
+    runner = OfflineRunner(root, cfg, use_depth=True, device=dev)
+    n = runner.create_nerfs_from_dir()
+    # the loss of one step from the initial weights, on a throwaway copy
+    runner._build_object_table()
+    loss0 = nerf.train_objects(runner.state, runner.objs_state, runner.store.arrays(), cfg,
+                               runner.spec, 1, True,
+                               generator=torch.Generator(device=dev).manual_seed(1)).loss.cpu()
+    torch.cuda.synchronize()
+    say("7 offline", preset="fast", objects=n, depth_cut="10x500 -> 2x25 steps",
+        setup_s=f"{time.perf_counter() - t0:.3f}")
+
+    out = os.path.join(root, "out_fast")
+    mxgrid_cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    runner.train(waves=2, steps_per_wave=25, mesh_every=2, out_dir=out)
+    t_train = time.perf_counter() - t0
+    runner.render_test_artifacts(out, video=True)
+    torch.cuda.synchronize()
+    t_art = time.perf_counter() - t0 - t_train
+    launches = {k: mxgrid_cuda.KERNELS[k].launches for k in ("K5", "K6")}
+    others = {k: fn.launches for k, fn in mxgrid_cuda.KERNELS.items() if k not in launches}
+
+    loss = runner.state.loss.cpu()
+    rate = n * 25 / runner.wave_seconds[1]
+    verts = [len(m.verts) for m in runner.meshes.values()]
+    faces = [len(m.faces) for m in runner.meshes.values()]
+    psnrs = psnr_of_test_imgs(out, runner, frames)
+    n_files = check_artifacts(out, n, video=True)
+    say("7 offline", loss_step1=[round(x, 5) for x in loss0.tolist()],
+        loss_step50=[round(x, 5) for x in loss.tolist()],
+        wave_s=[f"{t:.4f}" for t in runner.wave_seconds], obj_iters_per_s=f"{rate:.2f}",
+        train_and_mesh_s=f"{t_train:.3f}", artifacts_s=f"{t_art:.3f}")
+    say("7 offline", mesh_verts=verts, mesh_faces=faces,
+        test_img_psnr_db=[f"{p:.3f}" for p in psnrs], mean_psnr_db=f"{np.mean(psnrs):.3f}",
+        files=n_files, launches=launches, other_kernels=others)
+    if not (torch.isfinite(loss).all() and (loss < loss0).all()):
+        raise AssertionError("offline run: a loss is not finite or did not fall")
+    if min(verts) < 1 or min(faces) < 1:
+        raise AssertionError(f"offline run: an empty mesh ({verts}, {faces})")
+    if not all(np.isfinite(psnrs)) or min(launches.values()) < 1 or any(others.values()):
+        raise AssertionError(f"offline run: PSNR {psnrs} or launches {launches}/{others}")
+    return launches
+
+
+def phase_unsnapped_cli(dev, root: str) -> dict:
+    """`python -m romap_tpu_torch.runtime.offline` with MX_SNAP=0: the
+    flagship spec unsnapped (K3/K4), 1 wave x 20 steps, no video."""
+    out = os.path.join(root, "out_unsnapped")
+    old = os.environ.get("MX_SNAP")
+    os.environ["MX_SNAP"] = "0"
+    try:
+        mxgrid_cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        runner = offline.main(["-", root, "1", "--device", dev, "--waves", "1",
+                               "--steps-per-wave", "20", "--no-video", "--out", out])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    finally:
+        if old is None:
+            os.environ.pop("MX_SNAP")
+        else:
+            os.environ["MX_SNAP"] = old
+    k3 = dict(mxgrid_cuda.KERNELS["K3"].launches_by_dtype)
+    launches = {k: mxgrid_cuda.KERNELS[k].launches for k in ("K3", "K4")}
+    others = {k: fn.launches for k, fn in mxgrid_cuda.KERNELS.items() if k not in launches}
+    loss = runner.state.loss.cpu()
+    n = len(runner.objects)
+    n_files = check_artifacts(out, n, video=False)
+    say("8 unsnapped", snap=runner.spec.snap_levels, loss_step20=[round(x, 5) for x in loss.tolist()],
+        wave_s=f"{runner.wave_seconds[0]:.4f}", seconds=f"{dt:.3f}", files=n_files,
+        k3_by_dtype=k3, launches=launches, other_kernels=others)
+    if runner.spec.snap_levels or not torch.isfinite(loss).all():
+        raise AssertionError("unsnapped CLI run: spec still snapped or a loss not finite")
+    if (k3.get("bfloat16", 0) < 1 or k3.get("float32", 0) < 1 or launches["K4"] < 1
+            or any(others.values())):
+        raise AssertionError(f"unsnapped CLI run: launches {k3} {launches} {others}")
+    return launches
+
+
+def kernel_specs() -> dict:
+    """The spec of each kernel pair's path: the flagship with snap on
+    (K1/K2) and off (K3/K4), and the CP-only `fast` preset (K5/K6)."""
+    flagship = EncodingConfig()
+    encodings = {
+        "folded": flagship,
+        "unsnapped": dataclasses.replace(flagship, mx_snap_levels=False),
+        "folded_cp": EncodingConfig.preset("fast"),
+    }
+    specs = {k: nerf.make_field_spec(NerfConfig(encoding=e)) for k, e in encodings.items()}
+    for path, spec in specs.items():
+        assert mxgrid_cuda.kernel_path(spec) == path, (path, spec)
+    return specs
+
+
+def timed(label: str, fn, *args):
+    t0 = time.perf_counter()
+    out = fn(*args)
+    say(label, phase_seconds=f"{time.perf_counter() - t0:.3f}")
+    return out
+
+
 def main() -> None:
     name, _ = phase_device()
     dev = "cuda"
-    phase_build()
-    spec = nerf.make_field_spec(NerfConfig())
-    records = phase_kernels(spec, dev)
-    phase_parity(dev)
-    launches, _ = phase_train_and_render(dev)
+    timed("2 build", phase_build)
+    records = timed("3 kernels", phase_kernels, kernel_specs(), dev)
+    timed("4 parity", phase_parity, dev)
+    launches, _ = timed("5-6 train+render", phase_train_and_render, dev)
+    root = tempfile.mkdtemp(prefix="romap_chip_smoke_")
+    try:
+        frames = write_world_dataset(root)
+        launches.update(timed("7 offline", phase_offline, dev, root, frames))
+        torch.cuda.empty_cache()
+        launches.update(timed("8 unsnapped", phase_unsnapped_cli, dev, root))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     kernels = [
-        dict(name="K1 folded_fused_forward", route="cuda", source=SOURCE,
-             replaces=f"{PALLAS}:448", launches=launches["K1"], **records["K1"]),
-        dict(name="K2 folded_fused_backward", route="cuda", source=SOURCE,
-             replaces=f"{PALLAS}:468", launches=launches["K2"], **records["K2"]),
+        dict(name=f"{k} {fn.__name__}", route="cuda", source=SOURCES[k],
+             replaces=f"{PALLAS}:{PALLAS_LINES[k]}", launches=launches[k], **records[k])
+        for k, fn in mxgrid_cuda.KERNELS.items()
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

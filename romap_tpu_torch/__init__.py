@@ -10,11 +10,13 @@ modules of the reference (`romap_tpu.config`, `romap_tpu.data.synthetic`,
 jax.
 
 Layout:
-  ops/      — MX-grid encode (plain + CUDA kernels), geometry, MLP, render, loss
+  ops/      — MX-grid encode (plain + CUDA kernels), geometry, MLP, render,
+              loss, marching cubes
   csrc/     — the hand-written CUDA kernels (built at first CUDA use)
-  models/   — the batched multi-object train step and ray render
+  models/   — the batched multi-object train step, ray render, density grid
   data/     — device-resident frame store and the synthetic world
-  utils/    — the JAX <-> port train-state bridge (numpy only)
+  runtime/  — view renderer, evaluation artifacts, the offline runner + CLI
+  utils/    — mesh writers, the JAX <-> port train-state bridge (numpy only)
 """
 
 __version__ = "0.1.0"

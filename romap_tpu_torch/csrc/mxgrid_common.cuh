@@ -1,0 +1,154 @@
+// Helpers shared by the MX-grid encode kernels (mxgrid_folded.cu: K1, K2,
+// K5, K6; mxgrid_unsnapped.cu: K3, K4). Everything here is internal to the
+// translation unit that includes it.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <stddef.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+template <typename T> __device__ __forceinline__ T from_f(float v);
+template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);
+}
+
+// The two non-zeros of hat_r(x)[i] = max(0, 1 - |x (r-1) - i|). Weights are
+// computed with the same fp32 operations as the dense tent, so they agree
+// with it bit for bit. A knot outside [0, r-1] is dropped (weight 0, index
+// clamped only to keep the load in bounds); this is what the dense basis
+// does for points that rounding put slightly outside the unit cube.
+struct Taps {
+  int j0, j1;
+  float w0, w1;
+};
+
+__device__ __forceinline__ Taps tent_taps(float x, int r) {
+  Taps tp{0, 0, 0.f, 0.f};
+  const float t = __fmul_rn(x, (float)(r - 1));  // rounded, never fused
+  if (!(t > -1.f && t < (float)r)) return tp;  // no knot in reach (or NaN)
+  const float f = floorf(t);
+  const int i = (int)f;
+  if (i >= 0) {
+    tp.j0 = i;
+    tp.w0 = 1.f - (t - f);
+  }
+  if (i + 1 <= r - 1) {
+    tp.j1 = i + 1;
+    tp.w1 = 1.f - ((f + 1.f) - t);
+  }
+  return tp;
+}
+
+// Row stride (in elements of `bytes` each) of a table staged in shared
+// memory: n rounded up so that a row spans an odd number of 4-byte words.
+// Threads of a warp read rows at unrelated knots; with an even word stride
+// (K = 48: 24 or 48 words) they fall into 2-4 of the 32 banks.
+__host__ __device__ __forceinline__ int odd_word_stride(int n, int bytes) {
+  int words = (n * bytes + 3) / 4;
+  if (words % 2 == 0) ++words;
+  return words * 4 / bytes;
+}
+
+__device__ __forceinline__ int pair_axis(int axes, int pair, int slot) {
+  return (axes >> (6 * pair + 2 * slot)) & 3;
+}
+
+__device__ __forceinline__ void add_if(float* dst, float w, float v) {
+  if (w != 0.f) atomicAdd(dst, w * v);
+}
+
+// Plane pair i of one point, forward: bilinear plane sample f_pl x linear
+// line sample f_li per channel; stores both residuals and their product
+// (out_p points at the pair's first output column).
+template <typename T>
+__device__ __forceinline__ void plane_pair_fwd(
+    const float* x, int i, int axes, const T* pl_o, const T* li_o, T* fpl_o,
+    T* fli_o, T* out_p, int P, int p, int ru, int rv, int kp, int rw) {
+  const Taps tu = tent_taps(x[pair_axis(axes, i, 0)], ru);
+  const Taps tv = tent_taps(x[pair_axis(axes, i, 1)], rv);
+  const Taps tw = tent_taps(x[pair_axis(axes, i, 2)], rw);
+  const T* p_i = pl_o + (size_t)i * ru * rv * kp;
+  const T* l_i = li_o + (size_t)i * rw * kp;
+  const T* c00 = p_i + ((size_t)tu.j0 * rv + tv.j0) * kp;
+  const T* c01 = p_i + ((size_t)tu.j0 * rv + tv.j1) * kp;
+  const T* c10 = p_i + ((size_t)tu.j1 * rv + tv.j0) * kp;
+  const T* c11 = p_i + ((size_t)tu.j1 * rv + tv.j1) * kp;
+  for (int c = 0; c < kp; ++c) {
+    const float f_pl =
+        tu.w0 * (tv.w0 * to_f(c00[c]) + tv.w1 * to_f(c01[c])) +
+        tu.w1 * (tv.w0 * to_f(c10[c]) + tv.w1 * to_f(c11[c]));
+    const float f_li = tw.w0 * to_f(l_i[tw.j0 * kp + c]) +
+                       tw.w1 * to_f(l_i[tw.j1 * kp + c]);
+    const int row = i * kp + c;
+    fpl_o[(size_t)row * P + p] = from_f<T>(f_pl);
+    fli_o[(size_t)row * P + p] = from_f<T>(f_li);
+    out_p[c] = from_f<T>(f_pl * f_li);
+  }
+}
+
+// Plane pair i of one point, backward:
+//   dL_i[j, c] += hat_w[j] g_i[c] f_pl[c]      (l_i: shared, row stride ls)
+//   dP_i[a, b, c] += hat_u[a] hat_v[b] g_i[c] f_li[c]   (p_i: global)
+// g_p points at the pair's first cotangent column.
+template <typename T>
+__device__ __forceinline__ void plane_pair_bwd(
+    const float* x, int i, int axes, const T* g_p, const T* fpl_o,
+    const T* fli_o, float* l_i, int ls, float* p_i, int P, int p, int ru,
+    int rv, int kp, int rw) {
+  const Taps tu = tent_taps(x[pair_axis(axes, i, 0)], ru);
+  const Taps tv = tent_taps(x[pair_axis(axes, i, 1)], rv);
+  const Taps tw = tent_taps(x[pair_axis(axes, i, 2)], rw);
+  float* c00 = p_i + ((size_t)tu.j0 * rv + tv.j0) * kp;
+  float* c01 = p_i + ((size_t)tu.j0 * rv + tv.j1) * kp;
+  float* c10 = p_i + ((size_t)tu.j1 * rv + tv.j0) * kp;
+  float* c11 = p_i + ((size_t)tu.j1 * rv + tv.j1) * kp;
+  for (int c = 0; c < kp; ++c) {
+    const int row = i * kp + c;
+    const float gi = to_f(g_p[c]);
+    const float gp = gi * to_f(fpl_o[(size_t)row * P + p]);
+    const float gl = gi * to_f(fli_o[(size_t)row * P + p]);
+    add_if(&l_i[tw.j0 * ls + c], tw.w0, gp);
+    add_if(&l_i[tw.j1 * ls + c], tw.w1, gp);
+    add_if(&c00[c], tu.w0 * tv.w0, gl);
+    add_if(&c01[c], tu.w0 * tv.w1, gl);
+    add_if(&c10[c], tu.w1 * tv.w0, gl);
+    add_if(&c11[c], tu.w1 * tv.w1, gl);
+  }
+}
+
+// One grid of (blocks per object, O, nz): enough blocks per object and z
+// slice that every SM holds as many blocks as its shared memory allows,
+// and no more blocks than the points need; each block strides over its
+// object's points. Returns the error of a launch the card would refuse
+// (e.g. cudaErrorInvalidValue when `smem` exceeds a block's limit).
+template <typename Kern>
+cudaError_t plan(Kern kernel, size_t smem, int O, int P, int nz, dim3* grid) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+    return err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kernel, kThreads, smem)) != cudaSuccess)
+    return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const int need = (P + kThreads - 1) / kThreads;
+  const int fill = (per_sm * sms + O * nz - 1) / (O * nz);
+  int bpo = need < fill ? need : fill;
+  *grid = dim3(bpo < 1 ? 1 : bpo, O, nz);
+  return cudaSuccess;
+}
+
+}  // namespace

@@ -1,10 +1,16 @@
-// Folded MX-grid encode, forward (K1) and backward (K2), for sm_90a.
+// Folded MX-grid encode for sm_90a: forward (K1) and backward (K2) with one
+// plane level, and their CP-only variants (K5, K6).
 //
 // K1 replaces the Pallas kernel `_make_folded_fused_fwd_kernel`
 // (romap_tpu/ops/mxgrid_pallas.py:448-465, driven by `_folded_fused_forward`
 // 496-535); K2 replaces `_make_folded_fused_bwd_kernel` (468-487, driven by
-// `_folded_fused_backward` 547-580). The Python side (ops/mxgrid_cuda.py)
-// folds the CP ladder into W_eff before K1 and unfolds dW_eff after K2.
+// `_folded_fused_backward` 547-580). K5 replaces `_folded_cp_kernel`
+// (583-588, driven by `_folded_cp_forward` 603-619) and K6
+// `_folded_bwd_cp_kernel` (591-600, driven by `_bwd_impl_t` 790-807): the
+// same kernels instantiated without the plane level (kPlanes = false), as
+// the CP-only `fast` preset needs. The Python side (ops/mxgrid_cuda.py)
+// folds the CP ladder into W_eff before K1/K5 and unfolds dW_eff after
+// K2/K6.
 //
 // The Pallas kernels build dense tent bases and feed the TPU's matrix unit.
 // A tent row has exactly two non-zeros (knots floor(t) and floor(t)+1 with
@@ -24,6 +30,9 @@
 // flagship spec) and are flushed with one global atomicAdd per entry; the
 // plane gradient (3 x 128 x 64 x 4 fp32 = 393 KB) does not fit and takes
 // global atomics into L2. Atomics make K2's sums order-dependent.
+// At the `fast` spec (K = 64, rf = 256) K5 stages 101,376 B in bf16 and
+// 199,680 B in fp32, and K6's fp32 dW_eff takes 199,680 B: one 256-thread
+// block per SM in fp32, two in bf16.
 //
 // Layouts (per object o, leading axis O on every array):
 //   pts    [O, P, 3] f32          weff   [O, 3, rfp, K]   T
@@ -31,70 +40,18 @@
 //   out    [O, P, K + 3kp] T      afac   [O, 3, K, P]     T
 //   fpl, fli [O, 3kp, P] T        g      [O, P, K + 3kp]  T
 //   dweff  [O, 3, rfp, K] f32     dplanes/dplines as planes/plines, f32
-// T is float (dtype code 0) or __nv_bfloat16 (dtype code 1). Arithmetic is
-// fp32 in registers; values are rounded to T only where they are stored.
+// (kp = 0 and no plane arrays for K5/K6.) T is float (dtype code 0) or
+// __nv_bfloat16 (dtype code 1). Arithmetic is fp32 in registers; values are
+// rounded to T only where they are stored, except K5's CP product, which
+// rounds after each factor as the reference forms it outside its kernel
+// (`afac[0] * afac[1] * afac[2]` in the table dtype, mxgrid_pallas.py:736).
 // `axes` packs the (u, v, w) axis of the three plane pairs, 2 bits each.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <stddef.h>
+#include "mxgrid_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
-// The two non-zeros of hat_r(x)[i] = max(0, 1 - |x (r-1) - i|). Weights are
-// computed with the same fp32 operations as the dense tent, so they agree
-// with it bit for bit. A knot outside [0, r-1] is dropped (weight 0, index
-// clamped only to keep the load in bounds); this is what the dense basis
-// does for points that rounding put slightly outside the unit cube.
-struct Taps {
-  int j0, j1;
-  float w0, w1;
-};
-
-__device__ __forceinline__ Taps tent_taps(float x, int r) {
-  Taps tp{0, 0, 0.f, 0.f};
-  const float t = __fmul_rn(x, (float)(r - 1));  // rounded, never fused
-  if (!(t > -1.f && t < (float)r)) return tp;  // no knot in reach (or NaN)
-  const float f = floorf(t);
-  const int i = (int)f;
-  if (i >= 0) {
-    tp.j0 = i;
-    tp.w0 = 1.f - (t - f);
-  }
-  if (i + 1 <= r - 1) {
-    tp.j1 = i + 1;
-    tp.w1 = 1.f - ((f + 1.f) - t);
-  }
-  return tp;
-}
-
-// Row stride (in elements of `bytes` each) of a table staged in shared
-// memory: n rounded up so that a row spans an odd number of 4-byte words.
-// Threads of a warp read rows at unrelated knots; with an even word stride
-// (K = 48: 24 or 48 words) they fall into 2-4 of the 32 banks.
-__host__ __device__ __forceinline__ int odd_word_stride(int n, int bytes) {
-  int words = (n * bytes + 3) / 4;
-  if (words % 2 == 0) ++words;
-  return words * 4 / bytes;
-}
-
-__device__ __forceinline__ int pair_axis(int axes, int pair, int slot) {
-  return (axes >> (6 * pair + 2 * slot)) & 3;
-}
-
-template <typename T>
+template <typename T, bool kPlanes>
 __global__ void __launch_bounds__(kThreads) folded_fused_fwd(
     const float* __restrict__ pts, const T* __restrict__ weff,
     const T* __restrict__ planes, const T* __restrict__ plines,
@@ -113,11 +70,7 @@ __global__ void __launch_bounds__(kThreads) folded_fused_fwd(
 
   const int kpl = 3 * kp;
   const int kout = K + kpl;
-  const T* pl_o = planes + (size_t)o * 3 * ru * rv * kp;
-  const T* li_o = plines + (size_t)o * 3 * rw * kp;
   T* afac_o = afac + (size_t)o * 3 * K * P;
-  T* fpl_o = fpl + (size_t)o * kpl * P;
-  T* fli_o = fli + (size_t)o * kpl * P;
 
   for (int p = blockIdx.x * blockDim.x + threadIdx.x; p < P;
        p += gridDim.x * blockDim.x) {
@@ -139,42 +92,24 @@ __global__ void __launch_bounds__(kThreads) folded_fused_fwd(
                         t[d].w1 * to_f(wd[t[d].j1 * ks + k]);
         const T a_t = from_f<T>(a);
         afac_o[((size_t)d * K + k) * P + p] = a_t;
-        prod *= to_f(a_t);
+        prod = kPlanes ? prod * to_f(a_t) : to_f(from_f<T>(prod * to_f(a_t)));
       }
       out_p[k] = from_f<T>(prod);
     }
 
-    // Plane pairs: bilinear plane sample x linear line sample.
-    for (int i = 0; i < 3; ++i) {
-      const Taps tu = tent_taps(x[pair_axis(axes, i, 0)], ru);
-      const Taps tv = tent_taps(x[pair_axis(axes, i, 1)], rv);
-      const Taps tw = tent_taps(x[pair_axis(axes, i, 2)], rw);
-      const T* p_i = pl_o + (size_t)i * ru * rv * kp;
-      const T* l_i = li_o + (size_t)i * rw * kp;
-      const T* c00 = p_i + ((size_t)tu.j0 * rv + tv.j0) * kp;
-      const T* c01 = p_i + ((size_t)tu.j0 * rv + tv.j1) * kp;
-      const T* c10 = p_i + ((size_t)tu.j1 * rv + tv.j0) * kp;
-      const T* c11 = p_i + ((size_t)tu.j1 * rv + tv.j1) * kp;
-      for (int c = 0; c < kp; ++c) {
-        const float f_pl =
-            tu.w0 * (tv.w0 * to_f(c00[c]) + tv.w1 * to_f(c01[c])) +
-            tu.w1 * (tv.w0 * to_f(c10[c]) + tv.w1 * to_f(c11[c]));
-        const float f_li = tw.w0 * to_f(l_i[tw.j0 * kp + c]) +
-                           tw.w1 * to_f(l_i[tw.j1 * kp + c]);
-        const int row = i * kp + c;
-        fpl_o[(size_t)row * P + p] = from_f<T>(f_pl);
-        fli_o[(size_t)row * P + p] = from_f<T>(f_li);
-        out_p[K + row] = from_f<T>(f_pl * f_li);
-      }
+    if constexpr (kPlanes) {
+      const T* pl_o = planes + (size_t)o * 3 * ru * rv * kp;
+      const T* li_o = plines + (size_t)o * 3 * rw * kp;
+      T* fpl_o = fpl + (size_t)o * kpl * P;
+      T* fli_o = fli + (size_t)o * kpl * P;
+      for (int i = 0; i < 3; ++i)
+        plane_pair_fwd<T>(x, i, axes, pl_o, li_o, fpl_o, fli_o,
+                          out_p + K + i * kp, P, p, ru, rv, kp, rw);
     }
   }
 }
 
-__device__ __forceinline__ void add_if(float* dst, float w, float v) {
-  if (w != 0.f) atomicAdd(dst, w * v);
-}
-
-template <typename T>
+template <typename T, bool kPlanes>
 __global__ void __launch_bounds__(kThreads) folded_fused_bwd(
     const float* __restrict__ pts, const T* __restrict__ afac,
     const T* __restrict__ fpl, const T* __restrict__ fli,
@@ -195,9 +130,6 @@ __global__ void __launch_bounds__(kThreads) folded_fused_bwd(
   const int kpl = 3 * kp;
   const int kout = K + kpl;
   const T* afac_o = afac + (size_t)o * 3 * K * P;
-  const T* fpl_o = fpl + (size_t)o * kpl * P;
-  const T* fli_o = fli + (size_t)o * kpl * P;
-  float* dp_o = dplanes + (size_t)o * 3 * ru * rv * kp;
 
   for (int p = blockIdx.x * blockDim.x + threadIdx.x; p < P;
        p += gridDim.x * blockDim.x) {
@@ -223,86 +155,49 @@ __global__ void __launch_bounds__(kThreads) folded_fused_bwd(
       }
     }
 
-    // dL_i[j, c] += hat_w[j] g_i[c] f_pl[c];
-    // dP_i[a, b, c] += hat_u[a] hat_v[b] g_i[c] f_li[c]
-    for (int i = 0; i < 3; ++i) {
-      const Taps tu = tent_taps(x[pair_axis(axes, i, 0)], ru);
-      const Taps tv = tent_taps(x[pair_axis(axes, i, 1)], rv);
-      const Taps tw = tent_taps(x[pair_axis(axes, i, 2)], rw);
-      float* l_i = dl_s + i * rw * ls;
-      float* p_i = dp_o + (size_t)i * ru * rv * kp;
-      float* c00 = p_i + ((size_t)tu.j0 * rv + tv.j0) * kp;
-      float* c01 = p_i + ((size_t)tu.j0 * rv + tv.j1) * kp;
-      float* c10 = p_i + ((size_t)tu.j1 * rv + tv.j0) * kp;
-      float* c11 = p_i + ((size_t)tu.j1 * rv + tv.j1) * kp;
-      for (int c = 0; c < kp; ++c) {
-        const int row = i * kp + c;
-        const float gi = to_f(g_p[K + row]);
-        const float gp = gi * to_f(fpl_o[(size_t)row * P + p]);
-        const float gl = gi * to_f(fli_o[(size_t)row * P + p]);
-        add_if(&l_i[tw.j0 * ls + c], tw.w0, gp);
-        add_if(&l_i[tw.j1 * ls + c], tw.w1, gp);
-        add_if(&c00[c], tu.w0 * tv.w0, gl);
-        add_if(&c01[c], tu.w0 * tv.w1, gl);
-        add_if(&c10[c], tu.w1 * tv.w0, gl);
-        add_if(&c11[c], tu.w1 * tv.w1, gl);
-      }
+    if constexpr (kPlanes) {
+      const T* fpl_o = fpl + (size_t)o * kpl * P;
+      const T* fli_o = fli + (size_t)o * kpl * P;
+      float* dp_o = dplanes + (size_t)o * 3 * ru * rv * kp;
+      for (int i = 0; i < 3; ++i)
+        plane_pair_bwd<T>(x, i, axes, g_p + K + i * kp, fpl_o, fli_o,
+                          dl_s + i * rw * ls, ls,
+                          dp_o + (size_t)i * ru * rv * kp, P, p, ru, rv, kp,
+                          rw);
     }
   }
 
   __syncthreads();
   float* dw_g = dweff + (size_t)o * n_w;
-  float* dl_g = dplines + (size_t)o * n_l;
   for (int j = threadIdx.x; j < n_w; j += blockDim.x) {
     const float v = dw_s[(j / K) * ks + j % K];
     if (v != 0.f) atomicAdd(&dw_g[j], v);
   }
-  for (int j = threadIdx.x; j < n_l; j += blockDim.x) {
-    const float v = dl_s[(j / kp) * ls + j % kp];
-    if (v != 0.f) atomicAdd(&dl_g[j], v);
+  if constexpr (kPlanes) {
+    float* dl_g = dplines + (size_t)o * n_l;
+    for (int j = threadIdx.x; j < n_l; j += blockDim.x) {
+      const float v = dl_s[(j / kp) * ls + j % kp];
+      if (v != 0.f) atomicAdd(&dl_g[j], v);
+    }
   }
 }
 
-// One grid of (blocks per object, O): enough blocks per object that every
-// SM holds as many blocks as its shared memory allows, and no more blocks
-// than the points need; each block strides over its object's points.
-template <typename Kern>
-cudaError_t plan(Kern kernel, size_t smem, int O, int P, dim3* grid) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    dev)) != cudaSuccess)
-    return err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, kernel, kThreads, smem)) != cudaSuccess)
-    return err;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  const int need = (P + kThreads - 1) / kThreads;
-  const int fill = (per_sm * sms + O - 1) / O;
-  int bpo = need < fill ? need : fill;
-  *grid = dim3(bpo < 1 ? 1 : bpo, O);
-  return cudaSuccess;
-}
-
-template <typename T>
+template <typename T, bool kPlanes>
 int launch_fwd(const void* pts, const void* weff, const void* planes,
                const void* plines, void* out, void* afac, void* fpl, void* fli,
                int O, int P, int K, int rf, int rfp, int ru, int rv, int kp,
                int rw, int axes, cudaStream_t stream) {
   const size_t smem = (size_t)3 * rfp * odd_word_stride(K, sizeof(T)) * sizeof(T);
   dim3 grid;
-  cudaError_t err = plan(folded_fused_fwd<T>, smem, O, P, &grid);
+  cudaError_t err = plan(folded_fused_fwd<T, kPlanes>, smem, O, P, 1, &grid);
   if (err != cudaSuccess) return (int)err;
-  folded_fused_fwd<T><<<grid, kThreads, smem, stream>>>(
+  folded_fused_fwd<T, kPlanes><<<grid, kThreads, smem, stream>>>(
       (const float*)pts, (const T*)weff, (const T*)planes, (const T*)plines,
       (T*)out, (T*)afac, (T*)fpl, (T*)fli, P, K, rf, rfp, ru, rv, kp, rw, axes);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool kPlanes>
 int launch_bwd(const void* pts, const void* afac, const void* fpl,
                const void* fli, const void* g, void* dweff, void* dplanes,
                void* dplines, int O, int P, int K, int rf, int rfp, int ru,
@@ -310,9 +205,9 @@ int launch_bwd(const void* pts, const void* afac, const void* fpl,
   const size_t smem = ((size_t)3 * rfp * odd_word_stride(K, 4) +
                        (size_t)3 * rw * odd_word_stride(kp, 4)) * sizeof(float);
   dim3 grid;
-  cudaError_t err = plan(folded_fused_bwd<T>, smem, O, P, &grid);
+  cudaError_t err = plan(folded_fused_bwd<T, kPlanes>, smem, O, P, 1, &grid);
   if (err != cudaSuccess) return (int)err;
-  folded_fused_bwd<T><<<grid, kThreads, smem, stream>>>(
+  folded_fused_bwd<T, kPlanes><<<grid, kThreads, smem, stream>>>(
       (const float*)pts, (const T*)afac, (const T*)fpl, (const T*)fli,
       (const T*)g, (float*)dweff, (float*)dplanes, (float*)dplines, P, K, rf,
       rfp, ru, rv, kp, rw, axes);
@@ -323,8 +218,10 @@ int launch_bwd(const void* pts, const void* afac, const void* fpl,
 
 extern "C" {
 
-// Returns a cudaError_t code (0 = launched). The launch is asynchronous on
-// `stream`; faults during the run surface at the caller's next sync.
+// Each returns a cudaError_t code (0 = launched). The launch is asynchronous
+// on `stream`; faults during the run surface at the caller's next sync.
+
+// K1.
 int romap_mx_folded_fwd(int dtype, const void* pts, const void* weff,
                         const void* planes, const void* plines, void* out,
                         void* afac, void* fpl, void* fli, int O, int P, int K,
@@ -332,16 +229,16 @@ int romap_mx_folded_fwd(int dtype, const void* pts, const void* weff,
                         int axes, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
-    return launch_fwd<float>(pts, weff, planes, plines, out, afac, fpl, fli, O,
-                             P, K, rf, rfp, ru, rv, kp, rw, axes, s);
+    return launch_fwd<float, true>(pts, weff, planes, plines, out, afac, fpl,
+                                   fli, O, P, K, rf, rfp, ru, rv, kp, rw, axes, s);
   if (dtype == 1)
-    return launch_fwd<__nv_bfloat16>(pts, weff, planes, plines, out, afac, fpl,
-                                     fli, O, P, K, rf, rfp, ru, rv, kp, rw,
-                                     axes, s);
+    return launch_fwd<__nv_bfloat16, true>(pts, weff, planes, plines, out,
+                                           afac, fpl, fli, O, P, K, rf, rfp,
+                                           ru, rv, kp, rw, axes, s);
   return (int)cudaErrorInvalidValue;
 }
 
-// dweff, dplanes and dplines must be zero-filled by the caller.
+// K2. dweff, dplanes and dplines must be zero-filled by the caller.
 int romap_mx_folded_bwd(int dtype, const void* pts, const void* afac,
                         const void* fpl, const void* fli, const void* g,
                         void* dweff, void* dplanes, void* dplines, int O,
@@ -349,12 +246,46 @@ int romap_mx_folded_bwd(int dtype, const void* pts, const void* afac,
                         int rw, int axes, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
-    return launch_bwd<float>(pts, afac, fpl, fli, g, dweff, dplanes, dplines,
-                             O, P, K, rf, rfp, ru, rv, kp, rw, axes, s);
+    return launch_bwd<float, true>(pts, afac, fpl, fli, g, dweff, dplanes,
+                                   dplines, O, P, K, rf, rfp, ru, rv, kp, rw,
+                                   axes, s);
   if (dtype == 1)
-    return launch_bwd<__nv_bfloat16>(pts, afac, fpl, fli, g, dweff, dplanes,
-                                     dplines, O, P, K, rf, rfp, ru, rv, kp, rw,
-                                     axes, s);
+    return launch_bwd<__nv_bfloat16, true>(pts, afac, fpl, fli, g, dweff,
+                                           dplanes, dplines, O, P, K, rf, rfp,
+                                           ru, rv, kp, rw, axes, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K5: out [O, P, K] and afac [O, 3, K, P] from W_eff alone.
+int romap_mx_folded_cp_fwd(int dtype, const void* pts, const void* weff,
+                           void* out, void* afac, int O, int P, int K, int rf,
+                           int rfp, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0)
+    return launch_fwd<float, false>(pts, weff, nullptr, nullptr, out, afac,
+                                    nullptr, nullptr, O, P, K, rf, rfp, 0, 0,
+                                    0, 0, 0, s);
+  if (dtype == 1)
+    return launch_fwd<__nv_bfloat16, false>(pts, weff, nullptr, nullptr, out,
+                                            afac, nullptr, nullptr, O, P, K,
+                                            rf, rfp, 0, 0, 0, 0, 0, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K6: dweff [O, 3, rfp, K] f32 (zero-filled by the caller) from afac and
+// the cotangent g [O, P, K].
+int romap_mx_folded_cp_bwd(int dtype, const void* pts, const void* afac,
+                           const void* g, void* dweff, int O, int P, int K,
+                           int rf, int rfp, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0)
+    return launch_bwd<float, false>(pts, afac, nullptr, nullptr, g, dweff,
+                                    nullptr, nullptr, O, P, K, rf, rfp, 0, 0,
+                                    0, 0, 0, s);
+  if (dtype == 1)
+    return launch_bwd<__nv_bfloat16, false>(pts, afac, nullptr, nullptr, g,
+                                            dweff, nullptr, nullptr, O, P, K,
+                                            rf, rfp, 0, 0, 0, 0, 0, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -6,7 +6,7 @@ leading object axis O. One `train_objects` step trains every slot at once:
 
   generate_batch   R rays x S samples per object from per-frame bboxes,
                    occlusion and AABB gates, stable compaction + rollover
-  field_apply      MX-grid encode (kernels K1/K2 on the card) + MLP
+  field_apply      MX-grid encode (kernels K1-K6 on the card) + MLP
   composite_loss   volume render + RGB, depth, mask and background-sigma terms
   optimizer        zero_nans -> L2 1e-6 -> Adam(.9, .99, 1e-15) -> exp-decay
                    rate -> EMA .95, masked per slot
@@ -18,6 +18,7 @@ where JAX draws from per-object keys it takes uniforms from a
 
 from __future__ import annotations
 
+import os
 from typing import Any, Callable, NamedTuple
 
 import torch
@@ -34,7 +35,7 @@ from romap_tpu_torch.ops.geometry import (
 )
 from romap_tpu_torch.ops.losses import RayBatch, composite_loss
 from romap_tpu_torch.ops.mlp import apply_mlp, init_mlp
-from romap_tpu_torch.ops.render import render_composite, volume_render
+from romap_tpu_torch.ops.render import density_activation, render_composite, volume_render
 
 # --------------------------------------------------------------------------
 # Parameters and state
@@ -42,15 +43,18 @@ from romap_tpu_torch.ops.render import render_composite, volume_render
 
 
 def make_field_spec(cfg: NerfConfig) -> mxgrid.MXGridSpec:
-    """Static MX-grid spec from the config (the hash grid is not ported)."""
+    """Static MX-grid spec from the config (the hash grid is not ported).
+    MX_SNAP=1/0 in the environment overrides `mx_snap_levels`, as in the
+    reference (romap_tpu/models/nerf.py:58-67)."""
     e = cfg.encoding
     if e.kind != "mxgrid":
         raise NotImplementedError(f"encoding kind {e.kind!r} is not ported (mxgrid only)")
+    snap_env = os.environ.get("MX_SNAP")
     return mxgrid.make_mxspec(
         n_levels=e.mx_levels, base_resolution=e.base_resolution,
         max_resolution=e.mx_max_resolution, features=e.mx_features,
         plane_specs=e.plane_specs, plane_axes=e.mx_plane_axes,
-        snap_levels=e.mx_snap_levels,
+        snap_levels=e.mx_snap_levels if snap_env is None else snap_env != "0",
     )
 
 
@@ -67,16 +71,17 @@ def field_apply(params, points: torch.Tensor, cfg: NerfConfig, spec, dtype=None)
     """points [O, ..., 3] in [0,1]^3 -> raw (rgb logits, log-sigma) [O, ..., 4].
 
     The device alone picks the encode: a CUDA tensor goes through the
-    kernels (`mxgrid_cuda.encode_folded`), a CPU tensor through the plain
-    `mxgrid.encode`. `dtype` overrides the compute dtype; the render path
-    passes float32.
+    kernels the spec selects (`mxgrid_cuda.encode`: K1/K2, K3/K4 or K5/K6;
+    a spec none of them covers raises), a CPU tensor through the plain
+    `mxgrid.encode`. `dtype` overrides the compute dtype; the render and
+    mesh paths pass float32.
     """
     if dtype is None:
         dtype = compute_dtype(cfg, points.device)
     table = pytree.tree_map(lambda a: a.to(dtype), params["table"])
     mlp = pytree.tree_map(lambda a: a.to(dtype), params["mlp"])
     if points.device.type == "cuda":
-        feats = mxgrid_cuda.encode_folded(table, points, spec)
+        feats = mxgrid_cuda.encode(table, points, spec)
     else:
         feats = mxgrid.encode(table, points, spec)
     o = points.shape[0]
@@ -355,3 +360,27 @@ def render_rays(params, o, d, d_norm, tmin, tmax, in_bbox, jitter, aabb_min,
     bg = torch.full((3,), background, dtype=torch.float32, device=raw.device)
     out = volume_render(raw, t, bg)
     return render_composite(out, d_norm, in_bbox, background)
+
+
+@torch.no_grad()
+def density_on_grid(params, cfg: NerfConfig, spec, res: int) -> torch.Tensor:
+    """Densities [res^3] (fp32) of ONE object (params without the object
+    axis) on a uniform res^3 grid over the unit cube, flat index
+    x + y res + z res^2, through the clipped activation of the render path
+    (romap_tpu/models/nerf.py:589-603)."""
+    dev = params["mlp"]["w0"].device
+    lin = torch.arange(res, dtype=torch.float32, device=dev) / (res - 1)
+    z, y, x = torch.meshgrid(lin, lin, lin, indexing="ij")
+    pts = torch.stack([x, y, z], dim=-1).reshape(1, -1, 3)
+    one = pytree.tree_map(lambda a: a[None], params)
+    raw = field_apply(one, pts, cfg, spec, dtype=torch.float32)[0]
+    return density_activation(raw[..., 3].float())
+
+
+@torch.no_grad()
+def colors_at_points(params, pts: torch.Tensor, cfg: NerfConfig, spec) -> torch.Tensor:
+    """Logistic RGB [N, 3] (fp32) of ONE object at warped points [N, 3]:
+    the mesh vertex colours (romap_tpu/models/nerf.py:606-611)."""
+    one = pytree.tree_map(lambda a: a[None], params)
+    raw = field_apply(one, pts.float()[None], cfg, spec, dtype=torch.float32)[0]
+    return torch.sigmoid(raw[..., :3])

@@ -81,3 +81,29 @@ def stratified_distances(tmin, tmax, jitter, n_samples: int):
     dt = (tmax - tmin) / float(n_samples)
     n = torch.arange(n_samples, dtype=torch.float32, device=jitter.device)
     return tmin[..., None] + dt[..., None] * (n + jitter)
+
+
+def unwarp_point(p, box_min, box_max):
+    """Inverse of warp_point."""
+    return box_min + p * (box_max - box_min)
+
+
+def orbit_pose(theta_deg: float, phi_deg: float, radius: float) -> torch.Tensor:
+    """Object-centric orbit camera pose Toc [4, 4] float32 (CPU): camera on
+    the sphere at (theta, phi, radius), z axis looking at the origin, x axis
+    horizontal at theta + 90 degrees (romap_tpu/ops/geometry.py:172)."""
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32)
+    theta = torch.deg2rad(f32(theta_deg))
+    phi = torch.deg2rad(f32(phi_deg))
+    t = torch.stack([radius * torch.cos(phi) * torch.cos(theta),
+                     radius * torch.cos(phi) * torch.sin(theta),
+                     radius * torch.sin(phi)])
+    z_axis = -t / torch.linalg.vector_norm(t)
+    r_v = theta + torch.deg2rad(f32(90.0))
+    x_axis = torch.stack([torch.cos(r_v), torch.sin(r_v), torch.zeros_like(r_v)])
+    x_axis = x_axis / torch.linalg.vector_norm(x_axis)
+    y_axis = torch.linalg.cross(z_axis, x_axis)
+    y_axis = y_axis / torch.linalg.vector_norm(y_axis)
+    toc = torch.eye(4, dtype=torch.float32)
+    toc[:3, 0], toc[:3, 1], toc[:3, 2], toc[:3, 3] = x_axis, y_axis, z_axis, t
+    return toc

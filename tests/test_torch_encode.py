@@ -1,7 +1,7 @@
 """Port MX-grid encode vs the JAX reference on the CPU.
 
-The port's plain `encode` and its kernel path (`encode_folded`, which on
-CPU tensors runs the plain twins of K1 and K2) are held against
+The port's plain `encode` and its kernel path (`mxgrid_cuda.encode`, which
+on CPU tensors runs the plain twins of the kernels) are held against
 `romap_tpu.ops.mxgrid.encode` (XLA) and `mxgrid_pallas.encode` in
 interpret mode, on the same numpy-made tables and points. Tolerances are
 those of tests/test_mxgrid_pallas.py: forward rtol 1e-4 / atol 2e-4,
@@ -128,7 +128,7 @@ def test_encode_folded_matches_jax(impl):
     js, ts = specs(True)
     factors, pts, tgt = make_inputs(js, seed=5)
     want_out, want_g = jax_value_and_grad(impl, js, factors, pts, tgt)
-    got_out, got_g = torch_value_and_grad(mxgrid_cuda.encode_folded, ts, factors, pts, tgt)
+    got_out, got_g = torch_value_and_grad(mxgrid_cuda.encode, ts, factors, pts, tgt)
     np.testing.assert_allclose(got_out, want_out, rtol=1e-4, atol=2e-4)
     assert_tree_close(got_g, want_g, rtol=1e-3, atol=1e-3)
 
@@ -173,11 +173,149 @@ def test_k2_twin_matches_autograd_of_k1_twin():
 
 
 def test_encode_folded_refuses_point_gradients_and_other_specs():
+    """The kernel encode gives the points no gradient, and a spec no ported
+    kernel covers (unsnapped CP-only, K7/K8; several plane levels) raises."""
     _, ts = specs(True)
     factors, pts, _ = make_inputs(ts, seed=11)
     f = jax.tree.map(torch.from_numpy, factors)
     with pytest.raises(NotImplementedError):
-        mxgrid_cuda.encode_folded(f, torch.from_numpy(pts).requires_grad_(True), ts)
-    _, unsnapped = specs(False)
-    with pytest.raises(NotImplementedError):
-        mxgrid_cuda.encode_folded(f, torch.from_numpy(pts), unsnapped)
+        mxgrid_cuda.encode(f, torch.from_numpy(pts).requires_grad_(True), ts)
+    unsnapped_cp = tmx.make_mxspec(n_levels=3, base_resolution=4, max_resolution=32,
+                                   features=16)
+    with pytest.raises(NotImplementedError, match="K7/K8"):
+        mxgrid_cuda.encode(f["lines"], torch.from_numpy(pts), unsnapped_cp)
+    two = tmx.make_mxspec(n_levels=3, base_resolution=4, max_resolution=32, features=16,
+                          plane_specs=((16, 16, 4), (8, 8, 4)), snap_levels=True)
+    with pytest.raises(NotImplementedError, match="plane level"):
+        mxgrid_cuda.kernel_path(two)
+
+
+# --------------------------------------------------------------------------
+# K3-K6: twins against the Pallas drivers in interpret mode
+# --------------------------------------------------------------------------
+
+TWIN_RTOL = {"float32": 1e-5, "bfloat16": 1e-2}  # relative to the largest entry
+
+
+def tiny_specs(path):
+    """The tiny spec of each kernel path: K3/K4 (unsnapped, one plane
+    level) and K5/K6 (folded, CP only)."""
+    planes = ((16, 8, 4),) if path != "folded_cp" else ()
+    kw = dict(n_levels=3, base_resolution=4, max_resolution=32, features=8,
+              plane_specs=planes, plane_axes="balanced", snap_levels=path != "unsnapped")
+    return jmx.make_mxspec(**kw), tmx.make_mxspec(**kw)
+
+
+def twin_inputs(spec, dtype, seed):
+    """Per-object numpy tables (fp32 values exactly representable in
+    `dtype`), points with edges and a cotangent."""
+    rng = np.random.default_rng(seed)
+    rnd = lambda *s: np.asarray(
+        jnp.asarray(rng.normal(0, 0.3, s), dtype).astype(jnp.float32))
+    lines = rnd(N_OBJ, 3, spec.total_res, spec.features)
+    if spec.plane_specs:
+        (ru, rv, kp), = spec.plane_specs
+        factors = {"lines": lines, "planes": (rnd(N_OBJ, 3, ru, rv, kp),),
+                   "plane_lines": (rnd(N_OBJ, 3, max(ru, rv), kp),)}
+    else:
+        factors = lines
+    pts = rng.uniform(-2e-3, 1 + 2e-3, (N_OBJ, N_PTS, 3)).astype(np.float32)
+    g = rnd(N_OBJ, N_PTS, spec.n_output_dims)
+    return factors, pts, g
+
+
+def to_torch(a, dtype):
+    return torch.from_numpy(np.array(a, np.float32)).to(getattr(torch, dtype))
+
+
+def assert_rel_close(got, want, rtol, name):
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    assert got.shape == want.shape, (name, got.shape, want.shape)
+    err = np.abs(got - want).max() / max(np.abs(want).max(), 1e-30)
+    assert err <= rtol, (name, err)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k3_k4_twins_match_pallas(dtype):
+    """K3's twin vs `_fused_forward` (out and residuals) and K4's twin vs
+    `_bwd_impl_t` on the same residuals and cotangent."""
+    js, ts = tiny_specs("unsnapped")
+    factors, pts, g = twin_inputs(js, dtype, seed=13)
+    rtol = TWIN_RTOL[dtype]
+    for o in range(N_OBJ):
+        f = jax.tree.map(lambda a: jnp.asarray(a[o], dtype), factors)
+        xt, n, npad = mxgrid_pallas._pad_and_tile(jnp.asarray(pts[o]), mxgrid_pallas.TILE)
+        want = mxgrid_pallas._fused_forward(f, xt, npad, js, True)
+        tf = [to_torch(a[o : o + 1], dtype) for a in
+              (factors["lines"], factors["planes"][0], factors["plane_lines"][0])]
+        p = torch.from_numpy(pts[o : o + 1])
+        got = mxgrid_cuda.unsnapped_fused_forward_plain(p, *tf, ts)
+        assert all(t.dtype == getattr(torch, dtype) for t in got)
+        assert_rel_close(got[0][0].float().numpy().T, want[0][:, :n], rtol, "out")
+        for name, a, b in zip(("afac", "fpl", "fli"), got[1:], want[1:]):
+            assert_rel_close(a[0].float().numpy(), b[..., :n], rtol, name)
+
+        res = tuple(to_torch(r[..., :n], dtype)[None] for r in want[1:])
+        gt = to_torch(g[o : o + 1], dtype)
+        dl, dpl, dli = mxgrid_cuda.unsnapped_fused_backward_plain(p, *res, gt, ts)
+        jres = tuple(jnp.asarray(r) for r in want[1:])
+        jg = mxgrid_pallas._bwd_impl_t(f, jnp.asarray(pts[o]), jres,
+                                       jnp.asarray(g[o], dtype).T, js, True)
+        assert_rel_close(dl[0].numpy(), jg["lines"], rtol, "dlines")
+        assert_rel_close(dpl[0].numpy(), jg["planes"][0], rtol, "dplanes")
+        assert_rel_close(dli[0].numpy(), jg["plane_lines"][0], rtol, "dplines")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k5_k6_twins_match_pallas(dtype):
+    """K5's twin vs `_folded_cp_forward` and the product JAX forms after it
+    in the table dtype; K6's twin (then the unfold) vs `_bwd_impl_t`."""
+    js, ts = tiny_specs("folded_cp")
+    lines, pts, g = twin_inputs(js, dtype, seed=17)
+    rtol = TWIN_RTOL[dtype]
+    for o in range(N_OBJ):
+        f = jnp.asarray(lines[o], dtype)
+        xt, n, npad = mxgrid_pallas._pad_and_tile(jnp.asarray(pts[o]), mxgrid_pallas.TILE)
+        afac = mxgrid_pallas._folded_cp_forward(f, xt, npad, js, True)
+        out = afac[0] * afac[1] * afac[2]
+        p = torch.from_numpy(pts[o : o + 1])
+        w_eff = tmx.fold_lines(to_torch(lines[o : o + 1], dtype), ts)
+        got_out, got_afac = mxgrid_cuda.folded_cp_forward_plain(p, w_eff, ts)
+        assert got_out.dtype == got_afac.dtype == getattr(torch, dtype)
+        assert_rel_close(got_afac[0].float().numpy(), afac[..., :n], rtol, "afac")
+        # the product follows JAX's order and roundings exactly: JAX's
+        # expression on the twin's own factors gives the twin's output
+        ta = jnp.asarray(got_afac[0].float().numpy(), dtype)
+        np.testing.assert_array_equal(got_out[0].float().numpy().T,
+                                      np.asarray(ta[0] * ta[1] * ta[2], np.float32))
+        if dtype == "float32":
+            # in bf16 three factors that may each round one step apart from
+            # the Pallas kernel's (its tent weights are rounded to bf16, the
+            # twin's are not) can put the product 3 steps (1.2 %) apart
+            assert_rel_close(got_out[0].numpy().T, out[:, :n], rtol, "out")
+
+        gt = to_torch(g[o : o + 1], dtype)
+        dw = mxgrid_cuda.folded_cp_backward_plain(p, to_torch(afac[..., :n], dtype)[None], gt, ts)
+        jd = mxgrid_pallas._bwd_impl_t(f, jnp.asarray(pts[o]), (afac, None, None),
+                                       jnp.asarray(g[o], dtype).T, js, True)
+        assert_rel_close(tmx.unfold_dlines(dw, ts, torch.float32)[0].numpy(), jd, rtol,
+                         "dlines")
+
+
+@pytest.mark.parametrize("path", ["folded", "unsnapped", "folded_cp"])
+def test_kernel_encode_matches_pallas_vjp(path):
+    """`mxgrid_cuda.encode` (twins of K1/K2, K3/K4 or K5/K6 on the CPU) vs
+    jax.vjp of the Pallas encode in interpret mode, fp32."""
+    js, ts = tiny_specs(path) if path != "folded" else specs(True)
+    factors, pts, g = twin_inputs(js, "float32", seed=19)
+    assert mxgrid_cuda.kernel_path(ts) == path
+    enc = jax_encode("pallas", js)
+    out, vjp = jax.vjp(lambda f: enc(f, jnp.asarray(pts)), jax.tree.map(jnp.asarray, factors))
+    (want_g,) = vjp(jnp.asarray(g))
+    tf = jax.tree.map(lambda a: torch.tensor(a, requires_grad=True), factors)
+    got = mxgrid_cuda.encode(tf, torch.from_numpy(pts), ts)
+    leaves = jax.tree.leaves(tf)
+    got_g = torch.autograd.grad(got, leaves, grad_outputs=torch.from_numpy(g))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(out), rtol=1e-4, atol=2e-4)
+    for a, b in zip(got_g, jax.tree.leaves(want_g)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-3, atol=1e-3)

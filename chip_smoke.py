@@ -2,7 +2,8 @@
 each against its plain PyTorch version at the shapes of its path, then
 drives the main paths through the port's public entry points: a 10-object
 train wave with held-out renders, the offline runner with the CP-only
-`fast` preset, and the offline CLI with the unsnapped ladder.
+`fast` preset, the offline CLI with the unsnapped ladder, and the online
+socket server on the split kernels.
 
 Usage: python3 chip_smoke.py     (needs one CUDA device; exits non-zero on
 any failure and prints no result line then)
@@ -10,11 +11,15 @@ any failure and prints no result line then)
 Phases, one or more lines each, each closed by its seconds:
   1 device     card name and power limit (nvidia-smi), TF32 switched off
   2 build      nvcc build of romap_tpu_torch/csrc into build/romap_tpu_torch
-  3 kernels    K1/K2 (flagship), K3/K4 (flagship unsnapped) and K5/K6
-               (`fast`) vs their plain versions, and each backward vs
-               autograd through its forward's plain version, O=2 x
+  3 kernels    K1/K2 (flagship), K3/K4 (flagship unsnapped), K5/K6 (`fast`),
+               K7/K8 (`fast` unsnapped, then flagship unsnapped as phase 9
+               runs them) and K9/K10 (the flagship plane level on the split
+               path) vs their plain versions, and each backward
+               vs autograd through its forward's plain version, O=2 x
                P=131072, bf16 and fp32: max abs / relative error beside the
-               tolerance, and the median kernel and plain times
+               tolerance, the median kernel and plain times, and the bound
+               (the least time the card could take: bytes over its memory
+               rate or fp32 operations over its peak, the larger)
   4 parity     one tiny train step, fp32, kernels on the card vs the plain
                path on the CPU, from the same state and uniforms
   5 train      build_synthetic_world(10, 16, 128) + NerfConfig(): init, 1
@@ -29,21 +34,32 @@ Phases, one or more lines each, each closed by its seconds:
   8 unsnapped  `romap_tpu_torch.runtime.offline.main` with MX_SNAP=0 on that
                dataset, flagship, 1 wave x 20 steps, no video: K3 (bf16 in
                training, fp32 in render and mesh) and K4 counts
-then a JSON line with each kernel's record, and as the last line
-{"ok": true, "device": {...}}.
+  9 online     `romap_tpu_torch.runtime.server.main` on a thread with
+               MX_FUSED=0 MX_SNAP=0 (flagship width: K7 + K9 forward, K8 +
+               K10 backward) and a client speaking its wire protocol: the
+               same 16 frames, a NeRF per object past 10 bboxes, 25-step
+               waves (cut from 500), a volume update, the background pump,
+               WAIT_END (final retrain), losses, meshes, one test render:
+               waves, wave seconds, online obj-iters/s, K7-K10 counts
+then the total seconds, a JSON line with each kernel's record, and as the
+last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
 import os
 import shutil
+import socket
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import cv2
@@ -53,14 +69,14 @@ from torch.utils import _pytree as pytree
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from romap_tpu.config import EncodingConfig, NerfConfig, TrainConfig  # noqa: E402
-from romap_tpu.data import synthetic  # noqa: E402
-from romap_tpu.data.formats import write_dataset  # noqa: E402
+from romap_tpu_torch.config import EncodingConfig, NerfConfig, TrainConfig  # noqa: E402
+from romap_tpu_torch.data import synthetic  # noqa: E402
+from romap_tpu_torch.data.formats import write_dataset  # noqa: E402
 from romap_tpu_torch.data.world import build_synthetic_world  # noqa: E402
 from romap_tpu_torch.models import nerf  # noqa: E402
 from romap_tpu_torch.ops import mxgrid, mxgrid_cuda  # noqa: E402
 from romap_tpu_torch.ops.geometry import camera_rays, ray_aabb_intersect  # noqa: E402
-from romap_tpu_torch.runtime import offline  # noqa: E402
+from romap_tpu_torch.runtime import offline, server  # noqa: E402
 from romap_tpu_torch.runtime.offline import OfflineRunner  # noqa: E402
 
 N_OBJECTS, WAVE = 10, 50
@@ -68,11 +84,20 @@ KERNEL_O, KERNEL_P = 2, 4096 * 32
 # Kernel vs plain: fp32 differs only in summation order (and K2's atomic
 # order), bf16 additionally by one rounding step of a stored value.
 REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
-FOLDED, UNSNAPPED = "romap_tpu_torch/csrc/mxgrid_folded.cu", "romap_tpu_torch/csrc/mxgrid_unsnapped.cu"
-SOURCES = {"K1": FOLDED, "K2": FOLDED, "K3": UNSNAPPED, "K4": UNSNAPPED, "K5": FOLDED, "K6": FOLDED}
+CSRC = "romap_tpu_torch/csrc/"
+FOLDED, UNSNAPPED, PLANES = (CSRC + f for f in (
+    "mxgrid_folded.cu", "mxgrid_unsnapped.cu", "mxgrid_planes.cu"))
+SOURCES = {"K1": FOLDED, "K2": FOLDED, "K3": UNSNAPPED, "K4": UNSNAPPED, "K5": FOLDED,
+           "K6": FOLDED, "K7": UNSNAPPED, "K8": UNSNAPPED, "K9": PLANES, "K10": PLANES}
 PALLAS = "romap_tpu/ops/mxgrid_pallas.py"
 # line of each Pallas kernel's factory (or kernel function)
-PALLAS_LINES = {"K1": 448, "K2": 468, "K3": 281, "K4": 352, "K5": 583, "K6": 591}
+PALLAS_LINES = {"K1": 448, "K2": 468, "K3": 281, "K4": 352, "K5": 583, "K6": 591,
+                "K7": 205, "K8": 255, "K9": 268, "K10": 622}
+# The card's published peaks (NVIDIA H100 SXM data sheet, at a 700 W limit):
+# HBM bytes per second, and fp32 operations per second outside the tensor
+# cores, which the encode kernels do not use.
+PEAK_BYTES_PER_S, PEAK_FP32_PER_S = 3.35e12, 67e12
+ONLINE_ITERS = 25  # steps per online wave (the reference's 500, cut)
 
 
 def say(phase: str, **kv) -> None:
@@ -92,6 +117,21 @@ def median_ms(fn, reps: int = 7) -> float:
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+@contextlib.contextmanager
+def environ(**values):
+    """Set environment variables for the block, then restore them."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def errors(got, want):
@@ -133,31 +173,88 @@ def phase_build() -> None:
     say("2 build", seconds=f"{dt:.3f}", lib=os.path.relpath(lib))
 
 
-# the (forward, backward) kernel pair of each spec path (mxgrid_cuda.kernel_path)
-PAIRS = {
-    "folded": ("K1", "K2"),
-    "unsnapped": ("K3", "K4"),
-    "folded_cp": ("K5", "K6"),
-}
+# (spec of kernel_specs(), forward kernel, backward kernel), each pair at the
+# spec its path in chip_smoke runs. K7/K8 run twice: at the `fast` ladder
+# unsnapped (580 rows x K = 64, their largest shared-memory tables) and at
+# the flagship unsnapped ladder that phase 9 runs (465 rows x K = 48). A
+# kernel's record in the JSON line is its last check here: its main path's.
+CHECKS = (
+    ("folded", "K1", "K2"),
+    ("unsnapped", "K3", "K4"),
+    ("folded_cp", "K5", "K6"),
+    ("unsnapped_cp", "K7", "K8"),
+    ("unsnapped_split", "K7", "K8"),
+    ("unsnapped_split", "K9", "K10"),
+)
+FUSED = ("K1", "K3")  # forward kernels that also form the products
 
 
-def kernel_inputs(spec, dtype, dev, seed):
-    """Points (edges included), the forward kernel's table arguments in
-    `dtype` (folded W_eff or raw ladder lines, then planes and plane lines
-    where the spec has them) and a cotangent, at O=2 x P=131072."""
+def kernel_inputs(spec, dtype, dev, seed, kf):
+    """Points (edges included), the forward kernel `kf`'s table arguments in
+    `dtype` (folded W_eff or raw ladder lines, then for K1/K3 the planes and
+    plane lines; for K9 the tuples of planes and of plane lines) and a
+    cotangent of its encode block, at O=2 x P=131072."""
     g = torch.Generator(device="cpu").manual_seed(seed)
     o, p = KERNEL_O, KERNEL_P
     pts = torch.rand((o, p, 3), generator=g) * (1 + 4e-3) - 2e-3  # edges included
     tables = mxgrid.init_mxgrid(g, spec, o)
-    lines = tables["lines"] if spec.plane_specs else tables
-    if spec.snap_levels:
-        lines = mxgrid.fold_lines(lines, spec)
-    args = [lines]
-    if spec.plane_specs:
-        args += [tables["planes"][0], tables["plane_lines"][0]]
-    gout = torch.randn((o, p, spec.n_output_dims), generator=g)
+    if kf == "K9":
+        args, cols = [tuple(tables["planes"]), tuple(tables["plane_lines"])], spec.plane_out_dims
+    else:
+        lines = tables["lines"] if spec.plane_specs else tables
+        args = [mxgrid.fold_lines(lines, spec) if spec.snap_levels else lines]
+        cols = spec.features
+        if kf in FUSED:
+            args += [tables["planes"][0], tables["plane_lines"][0]]
+            cols = spec.n_output_dims
+    gout = torch.randn((o, p, cols), generator=g)
     to = lambda t: t.to(device=dev, dtype=dtype).contiguous()
-    return pts.to(dev), [to(a) for a in args], to(gout)
+    return pts.to(dev), pytree.tree_map(to, args), to(gout)
+
+
+def encode_block(kf, result):
+    """(the encode's output block, the backward kernel's residuals) from the
+    forward kernel `kf`'s result: K7 and K9 leave the products to the
+    caller (mxgrid_cuda.cp_product, plane_product)."""
+    if kf == "K7":
+        return mxgrid_cuda.cp_product(result), (result,)
+    if kf == "K9":
+        return mxgrid_cuda.plane_product(*result), result
+    return result[0], result[1:]
+
+
+def work(kernel, spec, dtype, o, p):
+    """(bytes, fp32 operations) of one call of `kernel`'s function on O x P
+    points: each input read once and each output written once; a multiply
+    and an add count as two operations (two per tap of a lerp, twelve per
+    plane pair and channel forward, eighteen backward)."""
+    t = torch.tensor([], dtype=dtype).element_size()
+    k, kpl, n = spec.features, spec.plane_out_dims, o * p
+    folded = kernel in ("K1", "K2", "K5", "K6")
+    taps = 2 if folded else 2 * len(spec.resolutions)
+    cp = kernel not in ("K9", "K10")
+    pl = kernel in ("K1", "K2", "K3", "K4", "K9", "K10")
+    cp_tab = 3 * (spec.fold_res[1] if folded else spec.total_res) * k if cp else 0
+    pl_tab = sum(3 * (ru * rv + max(ru, rv)) * kp for ru, rv, kp in spec.plane_specs) if pl else 0
+    pts = 12 * n
+    if kernel in ("K1", "K3", "K5", "K7", "K9"):
+        out_cols = (k if kernel in ("K1", "K3", "K5") else 0) + (kpl if kernel in FUSED else 0)
+        res_cols = (3 * k if cp else 0) + (2 * kpl if pl else 0)
+        nbytes = pts + o * t * (cp_tab + pl_tab) + n * t * (out_cols + res_cols)
+        ops = ((6 * k * taps if cp else 0) + (2 * k if kernel in ("K1", "K3", "K5") else 0)
+               + (kpl * (12 + (kernel in FUSED)) if pl else 0))
+    else:
+        in_cols = (4 * k if cp else 0) + (3 * kpl if pl else 0)  # residuals + cotangent
+        nbytes = pts + n * t * in_cols + o * 4 * (cp_tab + pl_tab)
+        ops = (k * (6 + 6 * taps) if cp else 0) + (18 * kpl if pl else 0)
+    return nbytes, ops * n
+
+
+def bound(kernel, spec, dtype):
+    """(least ms the card could take for the call, "bytes" or "operations")."""
+    nbytes, ops = work(kernel, spec, dtype, KERNEL_O, KERNEL_P)
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_FP32_PER_S
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
 def phase_kernels(specs: dict, dev) -> dict:
@@ -166,48 +263,56 @@ def phase_kernels(specs: dict, dev) -> dict:
     kernels' own residuals; bf16 and fp32. Returns the bf16 (train dtype)
     records for the JSON line."""
     records = {}
-    for path, (kf, kb) in PAIRS.items():
+    for path, kf, kb in CHECKS:
         spec = specs[path]
         fwd, bwd = mxgrid_cuda.KERNELS[kf], mxgrid_cuda.KERNELS[kb]
         fwd_plain = getattr(mxgrid_cuda, fwd.__name__ + "_plain")
         bwd_plain = getattr(mxgrid_cuda, bwd.__name__ + "_plain")
         for dtype in (torch.bfloat16, torch.float32):
             tol, dname = REL_TOL[dtype], str(dtype).split(".")[1]
-            pts, args, gout = kernel_inputs(spec, dtype, dev, seed=3)
+            pts, args, gout = kernel_inputs(spec, dtype, dev, seed=3, kf=kf)
             got = fwd(pts, *args, spec)
             want = fwd_plain(pts, *args, spec)
             torch.cuda.synchronize()
-            f_abs, f_rel = errors(got, want)
+            f_abs, f_rel = errors(pytree.tree_leaves(got), pytree.tree_leaves(want))
             f_ms = median_ms(lambda: fwd(pts, *args, spec))
             f_plain_ms = median_ms(lambda: fwd_plain(pts, *args, spec))
+            f_bound, f_by = bound(kf, spec, dtype)
             say("3 kernels", kernel=kf, spec=path, dtype=dname, max_abs_err=f"{f_abs:.3e}",
                 max_rel_err=f"{f_rel:.3e}", rel_tol=tol, ms=f"{f_ms:.4f}",
-                plain_ms=f"{f_plain_ms:.4f}")
-            if not f_rel <= tol or not all(torch.isfinite(t.float()).all() for t in got):
+                plain_ms=f"{f_plain_ms:.4f}", bound_ms=f"{f_bound:.4f}", bound_by=f_by)
+            if not f_rel <= tol or not all(torch.isfinite(t.float()).all()
+                                           for t in pytree.tree_leaves(got)):
                 raise AssertionError(f"{kf} {dtype}: relative error {f_rel} above {tol}")
 
-            res = got[1:]
-            leaves = [a.clone().requires_grad_(True) for a in args]
-            out_plain = fwd_plain(pts, *leaves, spec)[0]
-            want_ad = torch.autograd.grad(out_plain, leaves, grad_outputs=gout)
-            del out_plain, want
-            as_tuple = lambda r: r if isinstance(r, tuple) else (r,)
-            got_b = as_tuple(bwd(pts, *res, gout, spec))
+            res = encode_block(kf, got)[1]
+            leaves, tree = pytree.tree_flatten(args)
+            leaves = [a.clone().requires_grad_(True) for a in leaves]
+            block = encode_block(kf, fwd_plain(pts, *pytree.tree_unflatten(leaves, tree), spec))[0]
+            want_ad = torch.autograd.grad(block, leaves, grad_outputs=gout)
+            del block, want
+            got_b = pytree.tree_leaves(bwd(pts, *res, gout, spec))
             torch.cuda.synchronize()
             b_abs, b_rel = errors(got_b, want_ad)
-            b_abs_p, b_rel_p = errors(got_b, as_tuple(bwd_plain(pts, *res, gout, spec)))
+            b_abs_p, b_rel_p = errors(got_b, pytree.tree_leaves(bwd_plain(pts, *res, gout, spec)))
             b_ms = median_ms(lambda: bwd(pts, *res, gout, spec))
             b_plain_ms = median_ms(lambda: bwd_plain(pts, *res, gout, spec))
+            b_bound, b_by = bound(kb, spec, dtype)
             say("3 kernels", kernel=kb, spec=path, dtype=dname,
                 max_abs_err_vs_autograd=f"{b_abs:.3e}", max_rel_err_vs_autograd=f"{b_rel:.3e}",
                 max_rel_err_vs_plain=f"{b_rel_p:.3e}", rel_tol=tol, ms=f"{b_ms:.4f}",
-                plain_ms=f"{b_plain_ms:.4f}")
+                plain_ms=f"{b_plain_ms:.4f}", bound_ms=f"{b_bound:.4f}", bound_by=b_by)
             if not (b_rel <= tol and b_rel_p <= tol):
                 raise AssertionError(f"{kb} {dtype}: relative error {b_rel}/{b_rel_p} above {tol}")
             if dtype == torch.bfloat16:
-                records[kf] = dict(max_abs_err=f_abs, ms=f_ms, plain_ms=f_plain_ms)
+                # no single PyTorch call computes these functions (a K-channel
+                # two-tap lerp per axis times a product; a 3-pair bilinear and
+                # line sample; their scatter transposes): library_ms is null
+                records[kf] = dict(max_abs_err=f_abs, ms=f_ms, plain_ms=f_plain_ms,
+                                   bound_ms=f_bound, bound_by=f_by, library_ms=None)
                 records[kb] = dict(max_abs_err=max(b_abs, b_abs_p), ms=b_ms,
-                                   plain_ms=b_plain_ms)
+                                   plain_ms=b_plain_ms, bound_ms=b_bound, bound_by=b_by,
+                                   library_ms=None)
             del got, got_b, want_ad, res, leaves, args, gout, pts
             torch.cuda.empty_cache()
     return records
@@ -450,20 +555,13 @@ def phase_unsnapped_cli(dev, root: str) -> dict:
     """`python -m romap_tpu_torch.runtime.offline` with MX_SNAP=0: the
     flagship spec unsnapped (K3/K4), 1 wave x 20 steps, no video."""
     out = os.path.join(root, "out_unsnapped")
-    old = os.environ.get("MX_SNAP")
-    os.environ["MX_SNAP"] = "0"
-    try:
+    with environ(MX_SNAP="0"):
         mxgrid_cuda.reset_launch_counts()
         t0 = time.perf_counter()
         runner = offline.main(["-", root, "1", "--device", dev, "--waves", "1",
                                "--steps-per-wave", "20", "--no-video", "--out", out])
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-    finally:
-        if old is None:
-            os.environ.pop("MX_SNAP")
-        else:
-            os.environ["MX_SNAP"] = old
     k3 = dict(mxgrid_cuda.KERNELS["K3"].launches_by_dtype)
     launches = {k: mxgrid_cuda.KERNELS[k].launches for k in ("K3", "K4")}
     others = {k: fn.launches for k, fn in mxgrid_cuda.KERNELS.items() if k not in launches}
@@ -483,17 +581,181 @@ def phase_unsnapped_cli(dev, root: str) -> dict:
 
 def kernel_specs() -> dict:
     """The spec of each kernel pair's path: the flagship with snap on
-    (K1/K2) and off (K3/K4), and the CP-only `fast` preset (K5/K6)."""
-    flagship = EncodingConfig()
-    encodings = {
-        "folded": flagship,
-        "unsnapped": dataclasses.replace(flagship, mx_snap_levels=False),
-        "folded_cp": EncodingConfig.preset("fast"),
-    }
+    (K1/K2) and off (K3/K4), the CP-only `fast` preset with snap on (K5/K6)
+    and off (K7/K8), and the flagship unsnapped on the split path
+    (MX_FUSED=0), whose ladder K7/K8 and plane level (128, 64, 4) K9/K10
+    run."""
+    flagship, fast = EncodingConfig(), EncodingConfig.preset("fast")
+    unsnap = lambda e: dataclasses.replace(e, mx_snap_levels=False)
+    encodings = {"folded": flagship, "unsnapped": unsnap(flagship), "folded_cp": fast,
+                 "unsnapped_cp": unsnap(fast), "unsnapped_split": unsnap(flagship)}
     specs = {k: nerf.make_field_spec(NerfConfig(encoding=e)) for k, e in encodings.items()}
     for path, spec in specs.items():
-        assert mxgrid_cuda.kernel_path(spec) == path, (path, spec)
+        with environ(MX_FUSED="0" if path.endswith("split") else "1"):
+            assert mxgrid_cuda.kernel_path(spec) == path, (path, spec)
+    assert specs["unsnapped_split"].plane_specs == ((128, 64, 4),)
     return specs
+
+
+# --------------------------------------------------------------------------
+# Phase 9: the online server and a client of its wire protocol
+# --------------------------------------------------------------------------
+
+
+def pack_str(s: str) -> bytes:
+    return struct.pack("<H", len(s)) + s.encode()
+
+
+def f32(a) -> bytes:
+    return np.asarray(a, np.float32).tobytes()
+
+
+class Client:
+    """One connection to romap_tpu_torch.runtime.server (its module
+    docstring has the protocol); a reply with status != 0 raises."""
+
+    def __init__(self, path: str, timeout: float = 600.0):
+        self.sock = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+        self.sock.settimeout(timeout)
+        self.sock.connect(path)
+
+    def call(self, op: str, payload: bytes = b"") -> bytes:
+        self.sock.sendall(struct.pack("<II", server.OPS[op], len(payload)) + payload)
+        status, n = struct.unpack("<II", self._recv(8))
+        data = self._recv(n)
+        if status != 0:
+            raise AssertionError(f"server: {op} failed: {data.decode(errors='replace')}")
+        return data
+
+    def losses(self) -> np.ndarray:
+        data = self.call("GET_LOSSES")
+        return np.frombuffer(data, np.float32, struct.unpack("<i", data[:4])[0], 4)
+
+    def _recv(self, n: int) -> bytes:
+        buf = bytearray()
+        while len(buf) < n:
+            chunk = self.sock.recv(n - len(buf))
+            if not chunk:
+                raise ConnectionError("server closed the connection")
+            buf.extend(chunk)
+        return bytes(buf)
+
+
+def drive_frames(c: Client, cam, objects, frames) -> dict:
+    """Keyframes and bboxes as the SLAM frontend sends them (LocalMapping):
+    a NeRF per object once it has more than 10 bboxes, then its rows in
+    batches of two, one wave credited per batch. Returns {instance: idx}."""
+    ids, pending = {}, {o.instance_id: [] for o in objects}
+
+    def flush(obj):
+        rows = np.asarray(pending[obj.instance_id], np.int32)
+        c.call("UPDATE_BBOX", struct.pack("<iii", ids[obj.instance_id], 1, len(rows))
+               + rows.tobytes())
+        pending[obj.instance_id] = []
+
+    for fi, f in enumerate(frames):
+        c.call("NEW_FRAME", struct.pack("<i", fi) + pack_str(f["stamp"]) + b"\0"
+               + f["rgb"].tobytes() + f["instance"].tobytes() + f32(f["twc"]))
+        for obj in objects:
+            bb = f["bboxes"][obj.instance_id]
+            if bb is None:
+                continue
+            pending[obj.instance_id].append((fi, *bb))
+            if obj.instance_id not in ids and len(pending[obj.instance_id]) > 10:
+                tow = np.eye(4)
+                tow[:3, 3] = -obj.center
+                half = obj.aabb_half_extents()
+                reply = c.call("CREATE_NERF", struct.pack("<i", obj.instance_id) + f32(tow)
+                               + f32(-half) + f32(half))
+                ids[obj.instance_id] = struct.unpack("<i", reply[:4])[0]
+                flush(obj)
+            elif obj.instance_id in ids and len(pending[obj.instance_id]) >= 2:
+                flush(obj)
+    for obj in objects:
+        if obj.instance_id in ids and pending[obj.instance_id]:
+            flush(obj)
+    return ids
+
+
+def phase_online(root: str) -> dict:
+    """The online entry point at full flagship width on the split kernels:
+    `server.main` on a thread, MX_FUSED=0 MX_SNAP=0, driven over its socket."""
+    res = 128
+    cam = synthetic.Camera(fx=res * 0.9, fy=res * 0.9, cx=res / 2, cy=res / 2, h=res, w=res)
+    objects = synthetic.make_scene(N_OBJECTS, seed=0)
+    frames = synthetic.make_sequence(cam, objects, 16, radius=5.5, seed=0)
+    sock, out = os.path.join(root, "online.sock"), os.path.join(root, "out_online")
+    box = {}
+    with environ(MX_FUSED="0", MX_SNAP="0"):
+        mxgrid_cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        th = threading.Thread(target=lambda: box.update(srv=server.main(["--socket", sock])),
+                              daemon=True)
+        th.start()
+        while not os.path.exists(sock):
+            if not th.is_alive() or time.perf_counter() - t0 > 120:
+                raise AssertionError("online server did not start")
+            time.sleep(0.05)
+        c = Client(sock)
+        c.call("INIT", struct.pack("<BiiB", 0, ONLINE_ITERS, N_OBJECTS, 1))
+        c.call("DATASET_INIT", struct.pack("<ffffiii", cam.fx, cam.fy, cam.cx, cam.cy, res, res,
+                                           len(frames)))
+        ids = drive_frames(c, cam, objects, frames)
+        waves = struct.unpack("<i", c.call("PUMP", struct.pack("<i", 1)))[0]
+        first = c.losses().copy()
+        waves += struct.unpack("<i", c.call("PUMP", struct.pack("<i", -1)))[0]
+        obj = objects[0]
+        tow = np.eye(4)
+        tow[:3, 3] = -obj.center
+        half = obj.aabb_half_extents() * 1.2
+        new_half = np.frombuffer(c.call("UPDATE_VOLUME", struct.pack("<i", ids[obj.instance_id])
+                                        + f32(tow) + f32(-half) + f32(half)), np.float32)
+        c.call("START")
+        c.call("WAIT_END")
+        final = c.losses().copy()
+        meshes = []
+        for idx in ids.values():
+            nv, nf = struct.unpack("<ii", c.call("GET_MESH", struct.pack("<i", idx))[:8])
+            meshes.append((nv, nf))
+        view = frames[-1]
+        x, y, h, w = view["bboxes"][obj.instance_id]
+        c.call("RENDER_TEST", struct.pack("<ifB", ids[obj.instance_id], 1.5, 0) + pack_str(out)
+               + struct.pack("<i", 1) + pack_str(view["stamp"])
+               + np.asarray([x, y, h, w], np.int32).tobytes() + f32(view["twc"]) + b"\0")
+        c.call("SHUTDOWN")
+        th.join(timeout=120)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    if th.is_alive():
+        raise AssertionError("online server did not stop")
+    mgr = box["srv"].mgr
+    secs, slots = mgr.wave_seconds, mgr.wave_slots
+    rate = sum(n * ONLINE_ITERS for n in slots[1:]) / sum(secs[1:])
+    launches = {k: mxgrid_cuda.KERNELS[k].launches for k in ("K7", "K8", "K9", "K10")}
+    by_dtype = {k: dict(mxgrid_cuda.KERNELS[k].launches_by_dtype) for k in launches}
+    others = {k: fn.launches for k, fn in mxgrid_cuda.KERNELS.items() if k not in launches}
+    rendered = os.path.isfile(os.path.join(out, str(ids[obj.instance_id]), "test_img",
+                                           f"{view['stamp']}.png"))
+    say("9 online", objects=len(ids), iters_per_wave=f"{ONLINE_ITERS} (cut from 500)",
+        waves_pumped=waves, waves_run=len(secs), wave_slots=slots,
+        wave_s=[f"{t:.4f}" for t in secs], obj_iters_per_s_after_first=f"{rate:.2f}")
+    say("9 online", loss_first_wave=[round(float(v), 5) for v in first],
+        loss_final=[round(float(v), 5) for v in final],
+        volume_half=[round(float(v), 5) for v in new_half],
+        mesh_verts=[m[0] for m in meshes], mesh_faces=[m[1] for m in meshes],
+        test_render=rendered, launches=launches, by_dtype=by_dtype, other_kernels=others,
+        seconds=f"{dt:.3f}")
+    if len(ids) != N_OBJECTS or not np.allclose(new_half, half * 1.1, rtol=1e-5):
+        raise AssertionError(f"online run: {len(ids)} objects, volume half {new_half}")
+    if not (np.isfinite(final).all() and (final < first).all()):
+        raise AssertionError(f"online run: losses not finite or not below the first wave's")
+    if min(m[0] for m in meshes) < 1 or min(m[1] for m in meshes) < 1 or not rendered:
+        raise AssertionError(f"online run: an empty mesh {meshes} or no test render")
+    k7 = by_dtype["K7"]
+    if (min(launches.values()) < 1 or k7.get("bfloat16", 0) < 1 or k7.get("float32", 0) < 1
+            or any(others.values())):
+        raise AssertionError(f"online run: launches {by_dtype}, other kernels {others}")
+    return launches
 
 
 def timed(label: str, fn, *args):
@@ -504,6 +766,7 @@ def timed(label: str, fn, *args):
 
 
 def main() -> None:
+    t_start = time.perf_counter()
     name, _ = phase_device()
     dev = "cuda"
     timed("2 build", phase_build)
@@ -516,8 +779,11 @@ def main() -> None:
         launches.update(timed("7 offline", phase_offline, dev, root, frames))
         torch.cuda.empty_cache()
         launches.update(timed("8 unsnapped", phase_unsnapped_cli, dev, root))
+        torch.cuda.empty_cache()
+        launches.update(timed("9 online", phase_online, root))
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    say("total", seconds=f"{time.perf_counter() - t_start:.3f}")
     kernels = [
         dict(name=f"{k} {fn.__name__}", route="cuda", source=SOURCES[k],
              replaces=f"{PALLAS}:{PALLAS_LINES[k]}", launches=launches[k], **records[k])

@@ -1,6 +1,6 @@
 // Helpers shared by the MX-grid encode kernels (mxgrid_folded.cu: K1, K2,
-// K5, K6; mxgrid_unsnapped.cu: K3, K4). Everything here is internal to the
-// translation unit that includes it.
+// K5, K6; mxgrid_unsnapped.cu: K3, K4, K7, K8; mxgrid_planes.cu: K9, K10).
+// Everything here is internal to the translation unit that includes it.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -67,9 +67,9 @@ __device__ __forceinline__ void add_if(float* dst, float w, float v) {
 }
 
 // Plane pair i of one point, forward: bilinear plane sample f_pl x linear
-// line sample f_li per channel; stores both residuals and their product
-// (out_p points at the pair's first output column).
-template <typename T>
+// line sample f_li per channel; stores both residuals and, with kOut, their
+// product (out_p points at the pair's first output column; unused without).
+template <typename T, bool kOut = true>
 __device__ __forceinline__ void plane_pair_fwd(
     const float* x, int i, int axes, const T* pl_o, const T* li_o, T* fpl_o,
     T* fli_o, T* out_p, int P, int p, int ru, int rv, int kp, int rw) {
@@ -91,7 +91,7 @@ __device__ __forceinline__ void plane_pair_fwd(
     const int row = i * kp + c;
     fpl_o[(size_t)row * P + p] = from_f<T>(f_pl);
     fli_o[(size_t)row * P + p] = from_f<T>(f_li);
-    out_p[c] = from_f<T>(f_pl * f_li);
+    if constexpr (kOut) out_p[c] = from_f<T>(f_pl * f_li);
   }
 }
 

@@ -1,11 +1,18 @@
-// Unsnapped MX-grid encode with one plane level for sm_90a: forward (K3)
-// and backward (K4).
+// Unsnapped MX-grid encode for sm_90a: forward (K3) and backward (K4) with
+// one plane level, and their CP-only variants (K7, K8).
 //
 // K3 replaces the Pallas kernel `_make_fused_fwd_kernel`
 // (romap_tpu/ops/mxgrid_pallas.py:281-304, driven by `_fused_forward`
 // 307-349); K4 replaces `_make_fused_bwd_kernel` (352-374, driven by
-// `_fused_backward` 377-413). They serve `mx_snap_levels=False` (or
-// MX_SNAP=0): the CP ladder is not folded, so every level of it is read.
+// `_fused_backward` 377-413). K7 replaces `_fwd_cp_kernel` (205-207, driven
+// by `_cp_forward` 673-695) and K8 `_bwd_cp_kernel` (255-260, driven by
+// `_bwd_impl_t` 809-827): the same kernels instantiated without the plane
+// pair (kPlanes = false), as K5/K6 are K1/K2 without it. They serve
+// `mx_snap_levels=False` (or MX_SNAP=0): the CP ladder is not folded, so
+// every level of it is read. K7 writes the factors only: on its paths (a
+// CP-only spec, or the split path MX_FUSED=0) the caller forms the product
+// A_0 A_1 A_2 in the table dtype, as the reference does outside its kernel
+// (mxgrid_pallas.py:736).
 //
 // The Pallas kernels multiply by the concatenated multi-level tent basis,
 // row (level l, index i) carrying a = r_l - 1, b = i (`_column_consts`,
@@ -26,7 +33,9 @@
 // once, as the Pallas kernel does (295-298). K4's block d accumulates dW_d
 // (and the plane-line gradient of pair d) in shared memory and flushes
 // them with one atomicAdd per entry; the plane gradient takes global
-// atomics, as in K2.
+// atomics, as in K2. At the `fast` ladder (6 levels to 256, 580 rows,
+// K = 64, odd-word stride 65) K7 stages 150,800 B per axis in fp32 and
+// 76,560 B in bf16, and K8's fp32 accumulator takes 150,800 B.
 //
 // Layouts (per object o, leading axis O on every array):
 //   pts    [O, P, 3] f32          lines  [O, 3, total_res, K]  T
@@ -34,6 +43,7 @@
 //   out    [O, P, K + 3kp] T      afac   [O, 3, K, P]     T
 //   fpl, fli [O, 3kp, P] T        g      [O, P, K + 3kp]  T
 //   dlines [O, 3, total_res, K] f32  dplanes/dplines as planes/plines, f32
+// (kp = 0 and no plane arrays for K7/K8; K8's g is [O, P, K].)
 // T is float (dtype code 0) or __nv_bfloat16 (dtype code 1); arithmetic is
 // fp32 in registers, values are rounded to T where they are stored.
 
@@ -50,7 +60,7 @@ struct Ladder {
   int off[kMaxLevels];
 };
 
-template <typename T>
+template <typename T, bool kPlanes>
 __global__ void __launch_bounds__(kThreads) unsnapped_fwd(
     const float* __restrict__ pts, const T* __restrict__ lines,
     const T* __restrict__ planes, const T* __restrict__ plines,
@@ -104,8 +114,9 @@ __global__ void __launch_bounds__(kThreads) unsnapped_fwd(
       afac_d[(size_t)k * P + p] = from_f<T>(a);
     }
 
-    plane_pair_fwd<T>(x, d, axes, pl_o, li_o, fpl_o, fli_o,
-                      out + op * kout + K + d * kp, P, p, ru, rv, kp, rw);
+    if constexpr (kPlanes)
+      plane_pair_fwd<T>(x, d, axes, pl_o, li_o, fpl_o, fli_o,
+                        out + op * kout + K + d * kp, P, p, ru, rv, kp, rw);
   }
 }
 
@@ -127,7 +138,7 @@ __global__ void __launch_bounds__(kThreads) cp_product(
   }
 }
 
-template <typename T>
+template <typename T, bool kPlanes>
 __global__ void __launch_bounds__(kThreads) unsnapped_bwd(
     const float* __restrict__ pts, const T* __restrict__ afac,
     const T* __restrict__ fpl, const T* __restrict__ fli,
@@ -185,8 +196,9 @@ __global__ void __launch_bounds__(kThreads) unsnapped_bwd(
         }
     }
 
-    plane_pair_bwd<T>(x, d, axes, g_p + K + d * kp, fpl_o, fli_o, dl_s, ls,
-                      dp_d, P, p, ru, rv, kp, rw);
+    if constexpr (kPlanes)
+      plane_pair_bwd<T>(x, d, axes, g_p + K + d * kp, fpl_o, fli_o, dl_s, ls,
+                        dp_d, P, p, ru, rv, kp, rw);
   }
 
   __syncthreads();
@@ -195,10 +207,12 @@ __global__ void __launch_bounds__(kThreads) unsnapped_bwd(
     const float v = dw_s[(j / K) * ks + j % K];
     if (v != 0.f) atomicAdd(&dw_g[j], v);
   }
-  float* dl_g = dplines + ((size_t)o * 3 + d) * rw * kp;
-  for (int j = threadIdx.x; j < rw * kp; j += blockDim.x) {
-    const float v = dl_s[(j / kp) * ls + j % kp];
-    if (v != 0.f) atomicAdd(&dl_g[j], v);
+  if constexpr (kPlanes) {
+    float* dl_g = dplines + ((size_t)o * 3 + d) * rw * kp;
+    for (int j = threadIdx.x; j < rw * kp; j += blockDim.x) {
+      const float v = dl_s[(j / kp) * ls + j % kp];
+      if (v != 0.f) atomicAdd(&dl_g[j], v);
+    }
   }
 }
 
@@ -212,20 +226,21 @@ int make_ladder(const int* res, const int* off, int n, Ladder* lad) {
   return 0;
 }
 
-template <typename T>
+template <typename T, bool kPlanes>
 int launch_fwd(const void* pts, const void* lines, const void* planes,
                const void* plines, void* out, void* afac, void* fpl, void* fli,
                const Ladder& lad, int O, int P, int K, int total_res, int ru,
                int rv, int kp, int rw, int axes, cudaStream_t stream) {
   const size_t smem = (size_t)total_res * odd_word_stride(K, sizeof(T)) * sizeof(T);
   dim3 grid;
-  cudaError_t err = plan(unsnapped_fwd<T>, smem, O, P, 3, &grid);
+  cudaError_t err = plan(unsnapped_fwd<T, kPlanes>, smem, O, P, 3, &grid);
   if (err != cudaSuccess) return (int)err;
-  unsnapped_fwd<T><<<grid, kThreads, smem, stream>>>(
+  unsnapped_fwd<T, kPlanes><<<grid, kThreads, smem, stream>>>(
       (const float*)pts, (const T*)lines, (const T*)planes, (const T*)plines,
       (T*)out, (T*)afac, (T*)fpl, (T*)fli, lad, P, K, total_res, ru, rv, kp,
       rw, axes);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  if constexpr (!kPlanes) return 0;  // K7: the caller forms the product
   if ((err = plan(cp_product<T>, 0, O, P, 1, &grid)) != cudaSuccess)
     return (int)err;
   cp_product<T><<<grid, kThreads, 0, stream>>>((const T*)afac, (T*)out, P, K,
@@ -233,7 +248,7 @@ int launch_fwd(const void* pts, const void* lines, const void* planes,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool kPlanes>
 int launch_bwd(const void* pts, const void* afac, const void* fpl,
                const void* fli, const void* g, void* dlines, void* dplanes,
                void* dplines, const Ladder& lad, int O, int P, int K,
@@ -242,9 +257,9 @@ int launch_bwd(const void* pts, const void* afac, const void* fpl,
   const size_t smem = ((size_t)total_res * odd_word_stride(K, 4) +
                        (size_t)rw * odd_word_stride(kp, 4)) * sizeof(float);
   dim3 grid;
-  cudaError_t err = plan(unsnapped_bwd<T>, smem, O, P, 3, &grid);
+  cudaError_t err = plan(unsnapped_bwd<T, kPlanes>, smem, O, P, 3, &grid);
   if (err != cudaSuccess) return (int)err;
-  unsnapped_bwd<T><<<grid, kThreads, smem, stream>>>(
+  unsnapped_bwd<T, kPlanes><<<grid, kThreads, smem, stream>>>(
       (const float*)pts, (const T*)afac, (const T*)fpl, (const T*)fli,
       (const T*)g, (float*)dlines, (float*)dplanes, (float*)dplines, lad, P, K,
       total_res, ru, rv, kp, rw, axes);
@@ -271,12 +286,13 @@ int romap_mx_unsnapped_fwd(int dtype, const void* pts, const void* lines,
   if (bad) return bad;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
-    return launch_fwd<float>(pts, lines, planes, plines, out, afac, fpl, fli,
-                             lad, O, P, K, total_res, ru, rv, kp, rw, axes, s);
+    return launch_fwd<float, true>(pts, lines, planes, plines, out, afac,
+                                   fpl, fli, lad, O, P, K, total_res, ru, rv,
+                                   kp, rw, axes, s);
   if (dtype == 1)
-    return launch_fwd<__nv_bfloat16>(pts, lines, planes, plines, out, afac,
-                                     fpl, fli, lad, O, P, K, total_res, ru, rv,
-                                     kp, rw, axes, s);
+    return launch_fwd<__nv_bfloat16, true>(pts, lines, planes, plines, out,
+                                           afac, fpl, fli, lad, O, P, K,
+                                           total_res, ru, rv, kp, rw, axes, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -292,12 +308,55 @@ int romap_mx_unsnapped_bwd(int dtype, const void* pts, const void* afac,
   if (bad) return bad;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
-    return launch_bwd<float>(pts, afac, fpl, fli, g, dlines, dplanes, dplines,
-                             lad, O, P, K, total_res, ru, rv, kp, rw, axes, s);
+    return launch_bwd<float, true>(pts, afac, fpl, fli, g, dlines, dplanes,
+                                   dplines, lad, O, P, K, total_res, ru, rv,
+                                   kp, rw, axes, s);
   if (dtype == 1)
-    return launch_bwd<__nv_bfloat16>(pts, afac, fpl, fli, g, dlines, dplanes,
-                                     dplines, lad, O, P, K, total_res, ru, rv,
-                                     kp, rw, axes, s);
+    return launch_bwd<__nv_bfloat16, true>(pts, afac, fpl, fli, g, dlines,
+                                           dplanes, dplines, lad, O, P, K,
+                                           total_res, ru, rv, kp, rw, axes, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K7: afac [O, 3, K, P] from the raw ladder lines alone.
+int romap_mx_unsnapped_cp_fwd(int dtype, const void* pts, const void* lines,
+                              void* afac, const int* res, const int* off,
+                              int n_levels, int O, int P, int K, int total_res,
+                              void* stream) {
+  Ladder lad;
+  const int bad = make_ladder(res, off, n_levels, &lad);
+  if (bad) return bad;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0)
+    return launch_fwd<float, false>(pts, lines, nullptr, nullptr, nullptr,
+                                    afac, nullptr, nullptr, lad, O, P, K,
+                                    total_res, 0, 0, 0, 0, 0, s);
+  if (dtype == 1)
+    return launch_fwd<__nv_bfloat16, false>(pts, lines, nullptr, nullptr,
+                                            nullptr, afac, nullptr, nullptr,
+                                            lad, O, P, K, total_res, 0, 0, 0,
+                                            0, 0, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K8: dlines [O, 3, total_res, K] f32 (zero-filled by the caller) from afac
+// and the CP cotangent g [O, P, K].
+int romap_mx_unsnapped_cp_bwd(int dtype, const void* pts, const void* afac,
+                              const void* g, void* dlines, const int* res,
+                              const int* off, int n_levels, int O, int P,
+                              int K, int total_res, void* stream) {
+  Ladder lad;
+  const int bad = make_ladder(res, off, n_levels, &lad);
+  if (bad) return bad;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0)
+    return launch_bwd<float, false>(pts, afac, nullptr, nullptr, g, dlines,
+                                    nullptr, nullptr, lad, O, P, K, total_res,
+                                    0, 0, 0, 0, 0, s);
+  if (dtype == 1)
+    return launch_bwd<__nv_bfloat16, false>(pts, afac, nullptr, nullptr, g,
+                                            dlines, nullptr, nullptr, lad, O,
+                                            P, K, total_res, 0, 0, 0, 0, 0, s);
   return (int)cudaErrorInvalidValue;
 }
 

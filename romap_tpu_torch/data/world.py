@@ -1,13 +1,14 @@
 """Build a (FrameStore, ObjectsState) pair from a synthetic scene
 (counterpart of romap_tpu/data/world.py::build_synthetic_world), on the
-numpy scene generator `romap_tpu.data.synthetic`."""
+numpy scene generator `romap_tpu_torch.data.synthetic` (a copy of
+romap_tpu's)."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from romap_tpu.data.synthetic import Camera, make_scene, make_sequence
+from romap_tpu_torch.data.synthetic import Camera, make_scene, make_sequence
 from romap_tpu_torch.data.frame_store import FrameStore
 from romap_tpu_torch.models.nerf import ObjectsState
 

@@ -24,7 +24,7 @@ from typing import Any, Callable, NamedTuple
 import torch
 from torch.utils import _pytree as pytree
 
-from romap_tpu.config import NerfConfig
+from romap_tpu_torch.config import NerfConfig
 from romap_tpu_torch.data.frame_store import FrameArrays
 from romap_tpu_torch.ops import mxgrid, mxgrid_cuda
 from romap_tpu_torch.ops.geometry import (
@@ -105,6 +105,23 @@ class ObjectsState(NamedTuple):
         return self.aabb_min.shape[0]
 
 
+def empty_objects(capacity: int, max_bboxes: int, device="cpu") -> ObjectsState:
+    """An object table of `capacity` unused slots (romap_tpu/models/nerf.py:136-145).
+
+    Kept for parity with the JAX API, whose manager warms its jit with it;
+    the port's manager builds its table from numpy (`_objects_state`)."""
+    f32 = dict(dtype=torch.float32, device=device)
+    return ObjectsState(
+        aabb_min=torch.zeros((capacity, 3), **f32),
+        aabb_max=torch.ones((capacity, 3), **f32),
+        tow=torch.eye(4, **f32).repeat(capacity, 1, 1),
+        instance_id=torch.zeros(capacity, dtype=torch.int32, device=device),
+        bboxes=torch.zeros((capacity, max_bboxes, 5), dtype=torch.int32, device=device),
+        n_bbox=torch.zeros(capacity, dtype=torch.int32, device=device),
+        active=torch.zeros(capacity, dtype=torch.bool, device=device),
+    )
+
+
 class AdamState(NamedTuple):
     """The optimizer chain's state, per object (optax's zero_nans and
     scale_by_adam states; the weight-decay stage has none)."""
@@ -149,6 +166,24 @@ def init_train_state(generator: torch.Generator, capacity: int, cfg: NerfConfig,
         step=torch.zeros(capacity, dtype=torch.int32, device=device),
         loss=torch.zeros(capacity, dtype=torch.float32, device=device),
     )
+
+
+def reinit_slot(state: TrainState, generator: torch.Generator, idx: int, cfg: NerfConfig,
+                spec) -> TrainState:
+    """A state whose row `idx` of every leaf is fresh (params drawn from
+    `generator`, EMA = params, zero Adam moments, step 0, loss 0) and whose
+    other rows are the old ones (romap_tpu/models/nerf.py:202-215). Used when
+    an object's training volume changes. The old state's tensors are left
+    as they are: every leaf is copied, then its row written."""
+    device = state.step.device
+    fresh = init_train_state(generator, 1, cfg, spec, device=device)
+
+    def put(a, b):
+        a = a.clone()
+        a[idx] = b[0]
+        return a
+
+    return pytree.tree_map(put, state, fresh)
 
 
 def learning_rate(cfg: NerfConfig, step: torch.Tensor) -> torch.Tensor:

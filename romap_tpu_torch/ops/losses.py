@@ -16,7 +16,7 @@ from typing import NamedTuple
 
 import torch
 
-from romap_tpu.config import TrainConfig
+from romap_tpu_torch.config import TrainConfig
 from romap_tpu_torch.ops.render import volume_render
 
 

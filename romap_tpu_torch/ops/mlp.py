@@ -6,7 +6,7 @@ from __future__ import annotations
 
 import torch
 
-from romap_tpu.config import NetworkConfig
+from romap_tpu_torch.config import NetworkConfig
 
 
 def init_mlp(generator: torch.Generator, in_dim: int, cfg: NetworkConfig,

@@ -1,16 +1,25 @@
-"""MX-grid encode on the card: kernels K1-K6.
+"""MX-grid encode on the card: kernels K1-K10.
 
-Counterpart of the fused and folded paths of romap_tpu/ops/mxgrid_pallas.py.
-The spec picks the kernels as `_fwd_impl_t` / `_bwd_impl_t` do (727-742,
-754-829):
+Counterpart of romap_tpu/ops/mxgrid_pallas.py. The spec and MX_FUSED pick
+the kernels as `_fwd_impl_t` / `_bwd_impl_t` do (724-875):
 
-  folded (snap_levels), one plane level   K1 forward, K2 backward
-  unsnapped, one plane level              K3 forward, K4 backward
-  folded, CP only (the `fast` preset)     K5 forward, K6 backward
+  spec                              MX_FUSED   forward      backward
+  folded (snap_levels), one plane   default    K1           K2
+  unsnapped, one plane level        default    K3           K4
+  folded, CP only (`fast`)          any        K5           K6
+  unsnapped, CP only                any        K7           K8
+  folded, with planes               0          K5 then K9   K6 then K10
+  unsnapped, with planes            0          K7 then K9   K8 then K10
 
-Any other spec (unsnapped CP-only, which needs K7/K8, or several plane
-levels) raises NotImplementedError on a CUDA tensor; it never falls back to
-the plain encode.
+MX_FUSED is read from the environment each time `kernel_path` routes (the
+reference reads its module global FUSED_FWD at call time), so a process
+that sets it before its first encode gets the reference's pairs. On the
+split path (MX_FUSED=0) the products are formed outside the kernels in the
+table dtype, as the reference forms them in XLA (mxgrid_pallas.py:736,
+741): `cp_product` and `plane_product`. K9/K10 take several plane levels;
+the fused K1-K4 take one, and a spec with more raises NotImplementedError
+there, as does any spec no kernel covers: a CUDA tensor never falls back
+to the plain encode.
 
 The CUDA sources are `romap_tpu_torch/csrc/*.cu`; they are built with nvcc
 into one shared library with a plain C interface at the first CUDA call
@@ -21,8 +30,8 @@ and flags.
 Every kernel has a plain PyTorch twin of the same signature in this module.
 A wrapper picks by device alone: a CPU tensor goes to the twin (the CPU
 tests), a CUDA tensor launches the kernel or raises. No config value (the
-reference's `mx_impl`, `MX_FUSED`) routes a CUDA tensor to a plain version,
-and no failure of the build or of a launch is caught.
+reference's `mx_impl`) routes a CUDA tensor to a plain version, and no
+failure of the build or of a launch is caught.
 
 Each wrapper counts its kernel launches in a plain int attribute
 (`folded_fused_forward.launches`, ...) and, per table dtype, in
@@ -60,6 +69,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_LEVELS = 8  # kMaxLevels of mxgrid_unsnapped.cu
+MAX_PLANE_LEVELS = 4  # kMaxPlaneLevels of mxgrid_planes.cu
 
 
 def _find_nvcc() -> str:
@@ -119,6 +129,7 @@ def build_library() -> Path:
 def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build_library()))
     ptr, i32, ints = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
+    ptrs = ctypes.POINTER(ctypes.c_void_p)
     argtypes = {
         "romap_mx_folded_fwd": [i32] + [ptr] * 8 + [i32] * 10 + [ptr],
         "romap_mx_folded_bwd": [i32] + [ptr] * 8 + [i32] * 10 + [ptr],
@@ -126,6 +137,12 @@ def _library() -> ctypes.CDLL:
         "romap_mx_folded_cp_bwd": [i32] + [ptr] * 4 + [i32] * 5 + [ptr],
         "romap_mx_unsnapped_fwd": [i32] + [ptr] * 8 + [ints] * 2 + [i32] * 10 + [ptr],
         "romap_mx_unsnapped_bwd": [i32] + [ptr] * 8 + [ints] * 2 + [i32] * 10 + [ptr],
+        "romap_mx_unsnapped_cp_fwd": [i32] + [ptr] * 3 + [ints] * 2 + [i32] * 5 + [ptr],
+        "romap_mx_unsnapped_cp_bwd": [i32] + [ptr] * 4 + [ints] * 2 + [i32] * 5 + [ptr],
+        "romap_mx_planes_fwd": ([i32, ptr, i32, ptrs, ptrs] + [ints] * 3 + [ptr] * 2
+                                + [i32] * 3 + [ptr]),
+        "romap_mx_planes_bwd": ([i32] + [ptr] * 4 + [i32, ptrs, ptrs] + [ints] * 3
+                                + [i32] * 3 + [ptr]),
     }
     for name, types in argtypes.items():
         fn = getattr(lib, name)
@@ -135,30 +152,39 @@ def _library() -> ctypes.CDLL:
 
 
 def kernel_path(spec: MXGridSpec) -> str:
-    """"folded" (K1/K2), "unsnapped" (K3/K4) or "folded_cp" (K5/K6); raises
-    NotImplementedError for a spec no ported kernel covers."""
+    """The path of the spec under the current MX_FUSED (read at each call):
+    "folded" (K1/K2), "unsnapped" (K3/K4), "folded_cp" (K5/K6),
+    "unsnapped_cp" (K7/K8), "folded_split" (K5, K9 / K6, K10) or
+    "unsnapped_split" (K7, K9 / K8, K10). Raises NotImplementedError for a
+    spec no ported kernel covers."""
     n_planes = len(spec.plane_specs)
+    snap = spec.snap_levels
+    if n_planes == 0:
+        return "folded_cp" if snap else "unsnapped_cp"
+    if os.environ.get("MX_FUSED", "1") == "0":
+        if n_planes > MAX_PLANE_LEVELS:
+            raise NotImplementedError(
+                f"K9/K10 take at most {MAX_PLANE_LEVELS} plane levels; this spec has "
+                f"{n_planes}")
+        return "folded_split" if snap else "unsnapped_split"
     if n_planes > 1:
         raise NotImplementedError(
-            f"the CUDA encode takes one plane level; this spec has {n_planes} "
-            "(several plane levels are not ported yet, ROADMAP.md)")
-    if n_planes == 1:
-        return "folded" if spec.snap_levels else "unsnapped"
-    if spec.snap_levels:
-        return "folded_cp"
-    raise NotImplementedError(
-        "the unsnapped CP-only encode needs kernels K7/K8 "
-        "(mxgrid_pallas._fwd_cp_kernel/_bwd_cp_kernel), which are not ported "
-        "yet (ROADMAP.md)")
+            f"the fused CUDA encode (K1-K4) takes one plane level; this spec has "
+            f"{n_planes} (MX_FUSED=0 selects the split kernels K9/K10, which take "
+            "several; fused multi-level support is in ROADMAP.md)")
+    return "folded" if snap else "unsnapped"
+
+
+def _axes_code(spec: MXGridSpec) -> int:
+    """The (u, v, w) axis of the three plane pairs, 2 bits each."""
+    return sum(a << (2 * (3 * i + j))
+               for i, pair in enumerate(spec.plane_axes) for j, a in enumerate(pair))
 
 
 def _plane_dims(spec: MXGridSpec) -> tuple[int, int, int, int, int]:
-    """(ru, rv, kp, rw, axes) of a one-plane-level spec; `axes` packs the
-    (u, v, w) axis of the three plane pairs, 2 bits each."""
+    """(ru, rv, kp, rw, axes) of a one-plane-level spec."""
     (ru, rv, kp), = spec.plane_specs
-    axes = sum(a << (2 * (3 * i + j))
-               for i, pair in enumerate(spec.plane_axes) for j, a in enumerate(pair))
-    return ru, rv, kp, max(ru, rv), axes
+    return ru, rv, kp, max(ru, rv), _axes_code(spec)
 
 
 def _check(name: str, t: torch.Tensor, shape: tuple, dtype, device) -> None:
@@ -204,10 +230,11 @@ def _counted(fn):
 
 
 def _ladder(spec: MXGridSpec):
+    """(resolutions, offsets, count) of the CP ladder as ctypes arguments."""
     n = len(spec.resolutions)
     if n > MAX_LEVELS:
         raise NotImplementedError(
-            f"K3/K4 take at most {MAX_LEVELS} ladder levels; this spec has {n}")
+            f"K3/K4/K7/K8 take at most {MAX_LEVELS} ladder levels; this spec has {n}")
     arr = ctypes.c_int * n
     return arr(*spec.resolutions), arr(*spec.offsets), n
 
@@ -226,19 +253,20 @@ def _cp_factors_plain(points, w, basis) -> torch.Tensor:
 
 
 def _planes_plain(points, planes, plines, spec, dt):
-    """Plane level: (out blocks [O, P, kp] x 3, fpl, fli [O, 3kp, P])."""
-    ru, rv, kp, rw, _ = _plane_dims(spec)
+    """Every plane level (sequences `planes`, `plines`, one entry a level):
+    (out blocks [O, P, kp] per level and pair, fpl, fli [O, 3 sum(kp), P])."""
     o, p = points.shape[:2]
     blocks, fpl, fli = [], [], []
-    for i, (u, v, w) in enumerate(spec.plane_axes):
-        hu = hat1(points[..., u], ru)
-        hv = hat1(points[..., v], rv)
-        t = torch.matmul(hu, planes[:, i].float().reshape(o, ru, rv * kp))
-        f_pl = torch.sum(t.reshape(o, p, rv, kp) * hv[..., None], dim=2)
-        f_li = torch.matmul(hat1(points[..., w], rw), plines[:, i].float())
-        blocks.append((f_pl * f_li).to(dt))
-        fpl.append(f_pl.to(dt))
-        fli.append(f_li.to(dt))
+    for (ru, rv, kp), pl, li in zip(spec.plane_specs, planes, plines):
+        for i, (u, v, w) in enumerate(spec.plane_axes):
+            hu = hat1(points[..., u], ru)
+            hv = hat1(points[..., v], rv)
+            t = torch.matmul(hu, pl[:, i].float().reshape(o, ru, rv * kp))
+            f_pl = torch.sum(t.reshape(o, p, rv, kp) * hv[..., None], dim=2)
+            f_li = torch.matmul(hat1(points[..., w], max(ru, rv)), li[:, i].float())
+            blocks.append((f_pl * f_li).to(dt))
+            fpl.append(f_pl.to(dt))
+            fli.append(f_li.to(dt))
     return (blocks, torch.cat(fpl, -1).transpose(1, 2).contiguous(),
             torch.cat(fli, -1).transpose(1, 2).contiguous())
 
@@ -249,7 +277,7 @@ def _fused_forward_plain(points, w, planes, plines, spec, basis):
     dt = w.dtype
     a = _cp_factors_plain(points, w, basis).to(dt)  # [O, 3, P, K]
     af = a.float()
-    blocks, fpl, fli = _planes_plain(points, planes, plines, spec, dt)
+    blocks, fpl, fli = _planes_plain(points, (planes,), (plines,), spec, dt)
     out = torch.cat([(af[:, 0] * af[:, 1] * af[:, 2]).to(dt)] + blocks, dim=-1)
     return out, a.transpose(2, 3).contiguous(), fpl, fli
 
@@ -264,24 +292,29 @@ def _cp_grad_plain(points, afac, g, basis) -> torch.Tensor:
         for d, (e, f) in enumerate(others)], dim=1)
 
 
-def _plane_grad_plain(points, fpl, fli, g, spec):
-    """dplanes [O, 3, ru, rv, kp] and dplines [O, 3, rw, kp], fp32."""
-    ru, rv, kp, rw, _ = _plane_dims(spec)
+def _plane_grad_plain(points, fpl, fli, g, spec, g_off):
+    """Per plane level, dplanes [O, 3, ru, rv, kp] and dplines [O, 3, rw, kp]
+    (two lists), fp32; the plane block of `g` starts at column `g_off`."""
     o, p = points.shape[:2]
-    k = spec.features
     g = g.float()
     dplanes, dplines = [], []
-    for i, (u, v, w) in enumerate(spec.plane_axes):
-        gi = g[..., k + i * kp : k + (i + 1) * kp]
-        f_pl = fpl[:, i * kp : (i + 1) * kp].float().transpose(1, 2)
-        f_li = fli[:, i * kp : (i + 1) * kp].float().transpose(1, 2)
-        hw = hat1(points[..., w], rw)
-        dplines.append(torch.matmul(hw.transpose(1, 2), gi * f_pl))
-        hu = hat1(points[..., u], ru)
-        hv = hat1(points[..., v], rv)
-        q = (hv[..., None] * (gi * f_li)[:, :, None, :]).reshape(o, p, rv * kp)
-        dplanes.append(torch.matmul(hu.transpose(1, 2), q).reshape(o, ru, rv, kp))
-    return torch.stack(dplanes, dim=1), torch.stack(dplines, dim=1)
+    row = 0
+    for ru, rv, kp in spec.plane_specs:
+        dpl, dli = [], []
+        for u, v, w in spec.plane_axes:
+            gi = g[..., g_off + row : g_off + row + kp]
+            f_pl = fpl[:, row : row + kp].float().transpose(1, 2)
+            f_li = fli[:, row : row + kp].float().transpose(1, 2)
+            hw = hat1(points[..., w], max(ru, rv))
+            dli.append(torch.matmul(hw.transpose(1, 2), gi * f_pl))
+            hu = hat1(points[..., u], ru)
+            hv = hat1(points[..., v], rv)
+            q = (hv[..., None] * (gi * f_li)[:, :, None, :]).reshape(o, p, rv * kp)
+            dpl.append(torch.matmul(hu.transpose(1, 2), q).reshape(o, ru, rv, kp))
+            row += kp
+        dplanes.append(torch.stack(dpl, dim=1))
+        dplines.append(torch.stack(dli, dim=1))
+    return dplanes, dplines
 
 
 def _folded_basis(spec):
@@ -344,7 +377,8 @@ def folded_fused_backward_plain(points, afac, fpl, fli, g, spec: MXGridSpec):
     [O, 3, rw, kp], all f32 (pad rows of dW_eff stay zero).
     """
     dw = _cp_grad_plain(points, afac, g, _folded_basis(spec))
-    return (dw, *_plane_grad_plain(points, fpl, fli, g, spec))
+    dplanes, dplines = _plane_grad_plain(points, fpl, fli, g, spec, spec.features)
+    return dw, dplanes[0], dplines[0]
 
 
 @_counted
@@ -416,7 +450,8 @@ def unsnapped_fused_backward_plain(points, afac, fpl, fli, g, spec: MXGridSpec):
     """Plain twin of K4 (`_fused_backward`): dlines [O, 3, total_res, K],
     dplanes and dplines, all f32."""
     dlines = _cp_grad_plain(points, afac, g, _ladder_basis(spec))
-    return (dlines, *_plane_grad_plain(points, fpl, fli, g, spec))
+    dplanes, dplines = _plane_grad_plain(points, fpl, fli, g, spec, spec.features)
+    return dlines, dplanes[0], dplines[0]
 
 
 @_counted
@@ -512,10 +547,178 @@ def folded_cp_backward(points, afac, g, spec: MXGridSpec):
     return dw
 
 
+# --------------------------------------------------------------------------
+# K7 / K8: unsnapped ladder, CP only
+# --------------------------------------------------------------------------
+
+
+def unsnapped_cp_forward_plain(points, lines, spec: MXGridSpec):
+    """Plain twin of K7 (`_cp_forward`): the axis factors afac [O, 3, K, P]
+    in the table dtype from the raw ladder lines [O, 3, total_res, K]."""
+    a = _cp_factors_plain(points, lines, _ladder_basis(spec)).to(lines.dtype)
+    return a.transpose(2, 3).contiguous()
+
+
+@_counted
+def unsnapped_cp_forward(points, lines, spec: MXGridSpec):
+    """K7 on a CUDA tensor, its plain twin on a CPU tensor (same contract as
+    `unsnapped_cp_forward_plain`)."""
+    dt = lines.dtype
+    if not _on_card(points, dt):
+        return unsnapped_cp_forward_plain(points, lines, spec)
+    k, total = spec.features, spec.total_res
+    res, off, n_lvl = _ladder(spec)
+    dev = points.device
+    o, p = points.shape[:2]
+    _check("points", points, (o, p, 3), torch.float32, dev)
+    _check("lines", lines, (o, 3, total, k), dt, dev)
+    afac = torch.empty((o, 3, k, p), dtype=dt, device=dev)
+    _launch(unsnapped_cp_forward, "K7 unsnapped_cp_forward", "romap_mx_unsnapped_cp_fwd",
+            dt, dev, points.data_ptr(), lines.data_ptr(), afac.data_ptr(), res, off,
+            n_lvl, o, p, k, total)
+    return afac
+
+
+def unsnapped_cp_backward_plain(points, afac, g, spec: MXGridSpec):
+    """Plain twin of K8 (`_bwd_cp_kernel`): dlines [O, 3, total_res, K] f32
+    from the factors and the CP cotangent g [O, P, K]."""
+    return _cp_grad_plain(points, afac, g, _ladder_basis(spec))
+
+
+@_counted
+def unsnapped_cp_backward(points, afac, g, spec: MXGridSpec):
+    """K8 on a CUDA tensor, its plain twin on a CPU tensor (same contract as
+    `unsnapped_cp_backward_plain`)."""
+    dt = afac.dtype
+    if not _on_card(points, dt):
+        return unsnapped_cp_backward_plain(points, afac, g, spec)
+    k, total = spec.features, spec.total_res
+    res, off, n_lvl = _ladder(spec)
+    dev = points.device
+    o, p = points.shape[:2]
+    _check("points", points, (o, p, 3), torch.float32, dev)
+    _check("afac", afac, (o, 3, k, p), dt, dev)
+    _check("g", g, (o, p, k), dt, dev)
+    dlines = torch.zeros((o, 3, total, k), dtype=torch.float32, device=dev)
+    _launch(unsnapped_cp_backward, "K8 unsnapped_cp_backward", "romap_mx_unsnapped_cp_bwd",
+            dt, dev, points.data_ptr(), afac.data_ptr(), g.data_ptr(), dlines.data_ptr(),
+            res, off, n_lvl, o, p, k, total)
+    return dlines
+
+
+# --------------------------------------------------------------------------
+# K9 / K10: the split path's plane levels (MX_FUSED=0)
+# --------------------------------------------------------------------------
+
+
+def _level_args(spec: MXGridSpec, planes, plines):
+    """(count, plane pointers, line pointers, ru, rv, kp) as ctypes
+    arguments of the plane levels."""
+    n = len(spec.plane_specs)
+    if not 1 <= n <= MAX_PLANE_LEVELS:
+        raise NotImplementedError(
+            f"K9/K10 take 1 to {MAX_PLANE_LEVELS} plane levels; this spec has {n}")
+    vp, ints = ctypes.c_void_p * n, ctypes.c_int * n
+    return (n, vp(*(t.data_ptr() for t in planes)), vp(*(t.data_ptr() for t in plines)),
+            *(ints(*col) for col in zip(*spec.plane_specs)))
+
+
+def _check_levels(planes, plines, spec, o, dt, dev) -> None:
+    if len(planes) != len(spec.plane_specs) or len(plines) != len(spec.plane_specs):
+        raise ValueError(f"{len(planes)} planes / {len(plines)} plane lines for "
+                         f"{len(spec.plane_specs)} plane levels")
+    for lvl, ((ru, rv, kp), pl, li) in enumerate(zip(spec.plane_specs, planes, plines)):
+        _check(f"planes[{lvl}]", pl, (o, 3, ru, rv, kp), dt, dev)
+        _check(f"plines[{lvl}]", li, (o, 3, max(ru, rv), kp), dt, dev)
+
+
+def planes_forward_plain(points, planes, plines, spec: MXGridSpec):
+    """Plain twin of K9 (`_planes_forward`).
+
+    Args:
+      points [O, P, 3] f32; planes, plines: one tensor a plane level,
+      [O, 3, ru, rv, kp] and [O, 3, max(ru, rv), kp], one dtype.
+    Returns:
+      fpl and fli [O, 3 sum(kp), P] in the table dtype, rows level-major,
+      then pair, then channel (mxgrid_pallas.py:181-202).
+    """
+    _, fpl, fli = _planes_plain(points, planes, plines, spec, planes[0].dtype)
+    return fpl, fli
+
+
+@_counted
+def planes_forward(points, planes, plines, spec: MXGridSpec):
+    """K9 on a CUDA tensor, its plain twin on a CPU tensor (same contract as
+    `planes_forward_plain`)."""
+    dt = planes[0].dtype
+    if not _on_card(points, dt):
+        return planes_forward_plain(points, planes, plines, spec)
+    dev = points.device
+    o, p = points.shape[:2]
+    _check("points", points, (o, p, 3), torch.float32, dev)
+    _check_levels(planes, plines, spec, o, dt, dev)
+    args = _level_args(spec, planes, plines)
+    fpl = torch.empty((o, spec.plane_out_dims, p), dtype=dt, device=dev)
+    fli = torch.empty_like(fpl)
+    _launch(planes_forward, "K9 planes_forward", "romap_mx_planes_fwd", dt, dev,
+            points.data_ptr(), *args, fpl.data_ptr(), fli.data_ptr(), o, p,
+            _axes_code(spec))
+    return fpl, fli
+
+
+def planes_backward_plain(points, fpl, fli, g, spec: MXGridSpec):
+    """Plain twin of K10 (`_make_bwd_planes_kernel`): from K9's residuals and
+    the plane block of the cotangent g [O, P, 3 sum(kp)], per level dplanes
+    [O, 3, ru, rv, kp] and dplines [O, 3, max(ru, rv), kp] (two tuples),
+    f32."""
+    dplanes, dplines = _plane_grad_plain(points, fpl, fli, g, spec, 0)
+    return tuple(dplanes), tuple(dplines)
+
+
+@_counted
+def planes_backward(points, fpl, fli, g, spec: MXGridSpec):
+    """K10 on a CUDA tensor, its plain twin on a CPU tensor (same contract as
+    `planes_backward_plain`)."""
+    dt = fpl.dtype
+    if not _on_card(points, dt):
+        return planes_backward_plain(points, fpl, fli, g, spec)
+    dev = points.device
+    o, p = points.shape[:2]
+    kpl = spec.plane_out_dims
+    _check("points", points, (o, p, 3), torch.float32, dev)
+    _check("fpl", fpl, (o, kpl, p), dt, dev)
+    _check("fli", fli, (o, kpl, p), dt, dev)
+    _check("g", g, (o, p, kpl), dt, dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    dplanes = tuple(torch.zeros((o, 3, ru, rv, kp), **f32) for ru, rv, kp in spec.plane_specs)
+    dplines = tuple(torch.zeros((o, 3, max(ru, rv), kp), **f32)
+                    for ru, rv, kp in spec.plane_specs)
+    args = _level_args(spec, dplanes, dplines)
+    _launch(planes_backward, "K10 planes_backward", "romap_mx_planes_bwd", dt, dev,
+            points.data_ptr(), fpl.data_ptr(), fli.data_ptr(), g.data_ptr(), *args,
+            o, p, _axes_code(spec))
+    return dplanes, dplines
+
+
+def cp_product(afac: torch.Tensor) -> torch.Tensor:
+    """CP features [O, P, K] from the factors [O, 3, K, P]: (A_0 A_1) A_2 in
+    the table dtype, rounded after each factor, as the reference forms them
+    after its split CP kernel (mxgrid_pallas.py:736)."""
+    return (afac[:, 0] * afac[:, 1] * afac[:, 2]).transpose(1, 2).contiguous()
+
+
+def plane_product(fpl: torch.Tensor, fli: torch.Tensor) -> torch.Tensor:
+    """Plane features [O, P, 3 sum(kp)]: f_pl f_li in the table dtype, as the
+    reference forms them after K9's counterpart (mxgrid_pallas.py:741)."""
+    return (fpl * fli).transpose(1, 2).contiguous()
+
+
 KERNELS = {
     "K1": folded_fused_forward, "K2": folded_fused_backward,
     "K3": unsnapped_fused_forward, "K4": unsnapped_fused_backward,
     "K5": folded_cp_forward, "K6": folded_cp_backward,
+    "K7": unsnapped_cp_forward, "K8": unsnapped_cp_backward,
+    "K9": planes_forward, "K10": planes_backward,
 }
 
 
@@ -532,22 +735,34 @@ def reset_launch_counts() -> None:
 
 class _Encode(torch.autograd.Function):
     """Forward: fold the lines (one einsum) where the spec snaps, then the
-    forward kernel. Backward: the backward kernel, then the transposed fold,
-    as JAX does around its kernels (mxgrid_pallas.py:490-493, 538-544,
-    769-774, 790-807). `planes` and `plines` are None for a CP-only spec."""
+    forward kernels of `path`; on a split path, the products in the table
+    dtype. Backward: the backward kernels, then the transposed fold, as JAX
+    does around its kernels (mxgrid_pallas.py:490-493, 538-544, 724-875).
+    `tables` are the planes, then the plane lines, one tensor a level."""
 
     @staticmethod
-    def forward(ctx, points, lines, planes, plines, spec, path):
+    def forward(ctx, points, spec, path, lines, *tables):
+        n_lvl = len(spec.plane_specs)
+        planes = [t.contiguous() for t in tables[:n_lvl]]
+        plines = [t.contiguous() for t in tables[n_lvl:]]
         if path == "unsnapped":
-            out, *res = unsnapped_fused_forward(
-                points, lines.contiguous(), planes.contiguous(), plines.contiguous(), spec)
-        else:
-            w_eff = fold_lines(lines, spec).contiguous()
-            if path == "folded":
-                out, *res = folded_fused_forward(
-                    points, w_eff, planes.contiguous(), plines.contiguous(), spec)
+            out, *res = unsnapped_fused_forward(points, lines.contiguous(), planes[0],
+                                                plines[0], spec)
+        elif path == "folded":
+            out, *res = folded_fused_forward(points, fold_lines(lines, spec).contiguous(),
+                                             planes[0], plines[0], spec)
+        else:  # CP kernel, then (split path) the plane levels
+            if spec.snap_levels:
+                out, afac = folded_cp_forward(points, fold_lines(lines, spec).contiguous(),
+                                              spec)
             else:
-                out, *res = folded_cp_forward(points, w_eff, spec)
+                afac = unsnapped_cp_forward(points, lines.contiguous(), spec)
+                out = cp_product(afac)
+            res = [afac]
+            if n_lvl:
+                fpl, fli = planes_forward(points, planes, plines, spec)
+                out = torch.cat([out, plane_product(fpl, fli)], dim=-1)
+                res += [fpl, fli]
         ctx.save_for_backward(points, *res)
         ctx.spec, ctx.path = spec, path
         return out
@@ -557,26 +772,34 @@ class _Encode(torch.autograd.Function):
         points, *res = ctx.saved_tensors
         spec, dt = ctx.spec, res[0].dtype
         g = g.to(dt).contiguous()
-        if ctx.path == "folded_cp":
-            dw = folded_cp_backward(points, res[0], g, spec)
-            return None, unfold_dlines(dw, spec, dt), None, None, None, None
         if ctx.path == "folded":
             dw, dplanes, dplines = folded_fused_backward(points, *res, g, spec)
-            dlines = unfold_dlines(dw, spec, dt)
-        else:
+            dlines, dplanes, dplines = unfold_dlines(dw, spec, dt), [dplanes], [dplines]
+        elif ctx.path == "unsnapped":
             dlines, dplanes, dplines = unsnapped_fused_backward(points, *res, g, spec)
-            dlines = dlines.to(dt)
-        return None, dlines, dplanes.to(dt), dplines.to(dt), None, None
+            dplanes, dplines = [dplanes], [dplines]
+        else:
+            k = spec.features
+            g_cp = g[..., :k].contiguous() if spec.plane_specs else g
+            if spec.snap_levels:
+                dlines = unfold_dlines(folded_cp_backward(points, res[0], g_cp, spec), spec, dt)
+            else:
+                dlines = unsnapped_cp_backward(points, res[0], g_cp, spec)
+            dplanes, dplines = (planes_backward(points, res[1], res[2],
+                                                g[..., k:].contiguous(), spec)
+                                if spec.plane_specs else ((), ()))
+        return (None, None, None, dlines.to(dt), *(t.to(dt) for t in dplanes),
+                *(t.to(dt) for t in dplines))
 
 
 def encode(factors, p: torch.Tensor, spec: MXGridSpec) -> torch.Tensor:
-    """Differentiable encode through the kernel pair the spec selects (their
+    """Differentiable encode through the kernels `kernel_path` selects (their
     twins on the CPU); see the module docstring.
 
     Args:
       factors: lines [O, 3, total_res, K] (CP only) or {"lines", "planes":
-        ([O, 3, ru, rv, kp],), "plane_lines": ([O, 3, rw, kp],)}, one dtype
-        (float32 or bfloat16).
+        tuple of [O, 3, ru, rv, kp], "plane_lines": tuple of
+        [O, 3, max(ru, rv), kp]}, one dtype (float32 or bfloat16).
       p: [O, ..., 3] points in the unit cube.
     Returns:
       [O, ..., n_output_dims] features in the parameter dtype. Gradients
@@ -590,9 +813,8 @@ def encode(factors, p: torch.Tensor, spec: MXGridSpec) -> torch.Tensor:
     o, batch_shape = p.shape[0], p.shape[1:-1]
     pts = p.reshape(o, -1, 3).float().contiguous()
     if isinstance(factors, dict):
-        args = (factors["lines"], factors["planes"][0], factors["plane_lines"][0])
+        lines, tables = factors["lines"], (*factors["planes"], *factors["plane_lines"])
     else:
-        args = (factors, None, None)
-    out = _Encode.apply(pts, *args, spec, path)
+        lines, tables = factors, ()
+    out = _Encode.apply(pts, spec, path, lines, *tables)
     return out.reshape(o, *batch_shape, spec.n_output_dims)
-

@@ -20,7 +20,7 @@ import os
 import numpy as np
 import torch
 
-from romap_tpu.utils.camera import rot_to_quat
+from romap_tpu_torch.utils.camera import rot_to_quat
 from romap_tpu_torch.models import nerf
 from romap_tpu_torch.ops import marching_cubes as mc
 from romap_tpu_torch.runtime.renderer import orbit_poses, render_view

@@ -27,8 +27,8 @@ import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
-from romap_tpu.config import NerfConfig, load_network_config
-from romap_tpu.data.formats import (
+from romap_tpu_torch.config import NerfConfig, load_network_config
+from romap_tpu_torch.data.formats import (
     DatasetMeta,
     load_dataset_meta,
     load_frame_images,
@@ -37,19 +37,18 @@ from romap_tpu.data.formats import (
 from romap_tpu_torch.data.frame_store import FrameStore
 from romap_tpu_torch.models import nerf
 from romap_tpu_torch.runtime import artifacts
+from romap_tpu_torch.utils.device import resolve_device
 from romap_tpu_torch.utils.mesh_io import save_ply
 
 
 class OfflineRunner:
     def __init__(self, dataset_path: str, network_config: str | NerfConfig | None = None,
                  use_depth: bool = False, mesh: bool = True, holdout: int | None = None,
-                 device="cpu"):
-        if isinstance(network_config, NerfConfig):
-            self.cfg = network_config
-        elif isinstance(network_config, str):
+                 device=None):
+        if isinstance(network_config, str):
             self.cfg = load_network_config(network_config)
         else:
-            self.cfg = NerfConfig()
+            self.cfg = network_config or NerfConfig()
         self.spec = nerf.make_field_spec(self.cfg)
         self.use_depth = use_depth
         self.mesh_enabled = mesh
@@ -57,7 +56,7 @@ class OfflineRunner:
         # becomes the eval view set (None: train on every view, as the
         # reference does)
         self.holdout = holdout
-        self.device = torch.device(device)
+        self.device = resolve_device(device)  # the card unless asked otherwise
 
         self.meta: DatasetMeta = load_dataset_meta(dataset_path, use_depth)
         n = len(self.meta.stamps)
@@ -204,8 +203,9 @@ def main(argv: list[str] | None = None) -> OfflineRunner:
     ap.add_argument("network_config", help="reference-format network JSON, or '-'")
     ap.add_argument("dataset")
     ap.add_argument("use_gt_depth", type=int, choices=[0, 1])
-    ap.add_argument("--device", default="cuda" if torch.cuda.is_available() else "cpu",
-                    help="torch device (default: cuda when available, else cpu)")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device (default: cuda; the run fails without a card "
+                    "unless cpu is asked for)")
     ap.add_argument("--waves", type=int, default=10)
     ap.add_argument("--steps-per-wave", type=int, default=500)
     ap.add_argument("--out", default="./output")

@@ -1,0 +1,107 @@
+"""Where the time of one train step of romap_tpu_torch goes, on one GPU.
+
+For each encode path of the port (the flagship fused K1/K2, unsnapped
+K3/K4, the CP-only `fast` preset K5/K6, and the split path MX_FUSED=0
+MX_SNAP=0 that the online phase of chip_smoke.py runs, K7-K10), at the
+reference batch geometry on the scene of build_synthetic_world(10, 16, 128):
+  - step ms and obj-iters/s: host clock around 20 steps ending in a
+    synchronize, after 3 warm-up steps;
+  - device busy ms per step: CUDA kernel time under torch.profiler over 5
+    steps;
+  - two idle shares: `idle_share_profiled`, 1 - busy / wall time of the
+    profiled steps (the profiler's own host overhead stretches that
+    window), and `idle_share_unprofiled_step`, 1 - busy / the unprofiled
+    step ms;
+  - the kernels by device time, largest first.
+
+Usage: python3 -m romap_tpu_torch.tools.profile_step [--steps 20] [--top 8]
+(from the repo root; needs a CUDA device; prints the card's name and power
+limit first and a JSON line of every configuration last).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import time
+
+import torch
+
+from romap_tpu_torch.config import EncodingConfig, NerfConfig
+from romap_tpu_torch.data.world import build_synthetic_world
+from romap_tpu_torch.models import nerf
+
+N_OBJECTS = 10
+CONFIGS = {  # name -> (encoding, environment)
+    "flagship K1/K2": (EncodingConfig(), {}),
+    "unsnapped K3/K4": (EncodingConfig(), {"MX_SNAP": "0"}),
+    "fast K5/K6": (EncodingConfig.preset("fast"), {}),
+    "split unsnapped K7-K10": (EncodingConfig(), {"MX_SNAP": "0", "MX_FUSED": "0"}),
+}
+
+
+def profile(name, encoding, env, steps, top, world):
+    os.environ.pop("MX_SNAP", None)
+    os.environ.pop("MX_FUSED", None)
+    os.environ.update(env)
+    cfg = NerfConfig(encoding=encoding)
+    spec = nerf.make_field_spec(cfg)
+    _, _, _, store, objs = world
+    frames = store.arrays()
+    gen = torch.Generator(device="cuda").manual_seed(cfg.seed)
+    state = nerf.init_train_state(gen, N_OBJECTS, cfg, spec, device="cuda")
+    run = lambda s, n: nerf.train_objects(s, objs, frames, cfg, spec, n, generator=gen)
+    state = run(state, 3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = run(state, steps)
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0) / steps
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        state = run(state, 5)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_us = lambda e: getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
+    busy_ms = sum(dev_us(e) for e in kernels) / 1e3
+    kernels.sort(key=dev_us, reverse=True)
+    out = dict(config=name, step_ms=step_ms, obj_iters_per_s=N_OBJECTS * 1e3 / step_ms,
+               busy_ms_per_step=busy_ms / 5, idle_share_profiled=1 - busy_ms / wall_ms,
+               idle_share_unprofiled_step=1 - busy_ms / 5 / step_ms,
+               launches_per_step=sum(e.count for e in kernels) / 5,
+               top=[dict(kernel=e.key[:90], ms_per_step=dev_us(e) / 5e3, calls_per_step=e.count / 5)
+                    for e in kernels[:top]])
+    print(f"[{name}] step_ms={step_ms:.4f} obj_iters_per_s={out['obj_iters_per_s']:.2f} "
+          f"busy_ms_per_step={out['busy_ms_per_step']:.4f} "
+          f"idle_share_profiled={out['idle_share_profiled']:.4f} "
+          f"idle_share_unprofiled_step={out['idle_share_unprofiled_step']:.4f} "
+          f"launches_per_step={out['launches_per_step']:.1f}", flush=True)
+    for t in out["top"]:
+        print(f"  {t['ms_per_step']:9.4f} ms  x{t['calls_per_step']:.1f}  {t['kernel']}", flush=True)
+    return out
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--top", type=int, default=8)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_step: no CUDA device")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    world = build_synthetic_world(N_OBJECTS, 16, 128, device="cuda")
+    results = [profile(name, enc, env, args.steps, args.top, world)
+               for name, (enc, env) in CONFIGS.items()]
+    print(json.dumps({"device": torch.cuda.get_device_name(0), "configs": results}))
+
+
+if __name__ == "__main__":
+    main()

@@ -172,9 +172,10 @@ def test_k2_twin_matches_autograd_of_k1_twin():
                                    err_msg=name)
 
 
-def test_encode_folded_refuses_point_gradients_and_other_specs():
-    """The kernel encode gives the points no gradient, and a spec no ported
-    kernel covers (unsnapped CP-only, K7/K8; several plane levels) raises."""
+def test_encode_folded_refuses_point_gradients_and_other_specs(monkeypatch):
+    """The kernel encode gives the points no gradient; the unsnapped CP-only
+    spec routes to K7/K8; several plane levels run only on the split path
+    (MX_FUSED=0, K9/K10), and the fused path still raises for them."""
     _, ts = specs(True)
     factors, pts, _ = make_inputs(ts, seed=11)
     f = jax.tree.map(torch.from_numpy, factors)
@@ -182,12 +183,17 @@ def test_encode_folded_refuses_point_gradients_and_other_specs():
         mxgrid_cuda.encode(f, torch.from_numpy(pts).requires_grad_(True), ts)
     unsnapped_cp = tmx.make_mxspec(n_levels=3, base_resolution=4, max_resolution=32,
                                    features=16)
-    with pytest.raises(NotImplementedError, match="K7/K8"):
-        mxgrid_cuda.encode(f["lines"], torch.from_numpy(pts), unsnapped_cp)
+    assert mxgrid_cuda.kernel_path(unsnapped_cp) == "unsnapped_cp"
+    out = mxgrid_cuda.encode(f["lines"], torch.from_numpy(pts), unsnapped_cp)
+    assert out.shape == (N_OBJ, N_PTS, 16) and torch.isfinite(out).all()
     two = tmx.make_mxspec(n_levels=3, base_resolution=4, max_resolution=32, features=16,
                           plane_specs=((16, 16, 4), (8, 8, 4)), snap_levels=True)
     with pytest.raises(NotImplementedError, match="plane level"):
         mxgrid_cuda.kernel_path(two)
+    monkeypatch.setenv("MX_FUSED", "0")
+    assert mxgrid_cuda.kernel_path(two) == "folded_split"
+    assert mxgrid_cuda.kernel_path(ts) == "folded_split"
+    assert mxgrid_cuda.kernel_path(unsnapped_cp) == "unsnapped_cp"
 
 
 # --------------------------------------------------------------------------
@@ -302,12 +308,118 @@ def test_k5_k6_twins_match_pallas(dtype):
                          "dlines")
 
 
-@pytest.mark.parametrize("path", ["folded", "unsnapped", "folded_cp"])
-def test_kernel_encode_matches_pallas_vjp(path):
-    """`mxgrid_cuda.encode` (twins of K1/K2, K3/K4 or K5/K6 on the CPU) vs
-    jax.vjp of the Pallas encode in interpret mode, fp32."""
-    js, ts = tiny_specs(path) if path != "folded" else specs(True)
-    factors, pts, g = twin_inputs(js, "float32", seed=19)
+def level_specs(n_levels, snap=False):
+    """Tiny spec with `n_levels` plane levels (the split path's K9/K10)."""
+    kw = dict(n_levels=3, base_resolution=4, max_resolution=32, features=8,
+              plane_specs=((16, 8, 4), (8, 8, 2))[:n_levels], plane_axes="balanced",
+              snap_levels=snap)
+    return jmx.make_mxspec(**kw), tmx.make_mxspec(**kw)
+
+
+def level_inputs(spec, dtype, seed):
+    """twin_inputs for any number of plane levels."""
+    rng = np.random.default_rng(seed)
+    rnd = lambda *s: np.asarray(
+        jnp.asarray(rng.normal(0, 0.3, s), dtype).astype(jnp.float32))
+    factors = {"lines": rnd(N_OBJ, 3, spec.total_res, spec.features),
+               "planes": tuple(rnd(N_OBJ, 3, ru, rv, kp) for ru, rv, kp in spec.plane_specs),
+               "plane_lines": tuple(rnd(N_OBJ, 3, max(ru, rv), kp)
+                                    for ru, rv, kp in spec.plane_specs)}
+    pts = rng.uniform(-2e-3, 1 + 2e-3, (N_OBJ, N_PTS, 3)).astype(np.float32)
+    return factors, pts, rnd(N_OBJ, N_PTS, spec.n_output_dims)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k7_k8_twins_match_pallas(dtype):
+    """K7's twin vs `_cp_forward` (and cp_product vs the product JAX forms
+    after it in the table dtype); K8's twin vs `_bwd_impl_t`."""
+    kw = dict(n_levels=3, base_resolution=4, max_resolution=32, features=8)
+    js, ts = jmx.make_mxspec(**kw), tmx.make_mxspec(**kw)
+    lines, pts, g = twin_inputs(js, dtype, seed=23)
+    rtol = TWIN_RTOL[dtype]
+    for o in range(N_OBJ):
+        f = jnp.asarray(lines[o], dtype)
+        xt, n, npad = mxgrid_pallas._pad_and_tile(jnp.asarray(pts[o]), mxgrid_pallas.TILE)
+        afac = mxgrid_pallas._cp_forward(f, xt, npad, js, True)
+        p = torch.from_numpy(pts[o : o + 1])
+        got = mxgrid_cuda.unsnapped_cp_forward_plain(p, to_torch(lines[o : o + 1], dtype), ts)
+        assert got.dtype == getattr(torch, dtype) and got.shape == (1, 3, 8, N_PTS)
+        assert_rel_close(got[0].float().numpy(), afac[..., :n], rtol, "afac")
+        # the product follows JAX's order and roundings exactly
+        ta = jnp.asarray(got[0].float().numpy(), dtype)
+        np.testing.assert_array_equal(mxgrid_cuda.cp_product(got)[0].float().numpy().T,
+                                      np.asarray(ta[0] * ta[1] * ta[2], np.float32))
+        gt = to_torch(g[o : o + 1], dtype)
+        dl = mxgrid_cuda.unsnapped_cp_backward_plain(p, to_torch(afac[..., :n], dtype)[None],
+                                                     gt, ts)
+        jd = mxgrid_pallas._bwd_impl_t(f, jnp.asarray(pts[o]), (afac, None, None),
+                                       jnp.asarray(g[o], dtype).T, js, True)
+        assert dl.dtype == torch.float32
+        assert_rel_close(dl[0].numpy(), jd, rtol, "dlines")
+
+
+@pytest.mark.parametrize("n_levels", [1, 2])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k9_k10_twins_match_pallas(monkeypatch, dtype, n_levels):
+    """K9's twin vs `_planes_forward` (fpl, fli; rows level-major) and K10's
+    twin vs the plane gradients of `_bwd_impl_t` on the split path
+    (FUSED_FWD off), with one and with two plane levels."""
+    monkeypatch.setattr(mxgrid_pallas, "FUSED_FWD", False)
+    js, ts = level_specs(n_levels)
+    factors, pts, g = level_inputs(js, dtype, seed=29 + n_levels)
+    rtol = TWIN_RTOL[dtype]
+    k = js.features
+    for o in range(N_OBJ):
+        f = jax.tree.map(lambda a: jnp.asarray(a[o], dtype), factors)
+        x = jnp.asarray(pts[o])
+        xt_pl, n, npad_pl = mxgrid_pallas._pad_and_tile(x, mxgrid_pallas.PLANE_TILE)
+        fpl, fli = mxgrid_pallas._planes_forward(f, xt_pl, npad_pl, js, True)
+        p = torch.from_numpy(pts[o : o + 1])
+        tp = tuple(to_torch(a[o : o + 1], dtype) for a in factors["planes"])
+        tl = tuple(to_torch(a[o : o + 1], dtype) for a in factors["plane_lines"])
+        got = mxgrid_cuda.planes_forward_plain(p, tp, tl, ts)
+        for name, a, b in zip(("fpl", "fli"), got, (fpl, fli)):
+            assert a.dtype == getattr(torch, dtype) and a.shape == (1, js.plane_out_dims, N_PTS)
+            assert_rel_close(a[0].float().numpy(), b[..., :n], rtol, name)
+        np.testing.assert_array_equal(  # the product as JAX forms it
+            mxgrid_cuda.plane_product(*got)[0].float().numpy().T,
+            np.asarray(jnp.asarray(got[0][0].float().numpy(), dtype)
+                       * jnp.asarray(got[1][0].float().numpy(), dtype), np.float32))
+
+        xt, _, npad = mxgrid_pallas._pad_and_tile(x, mxgrid_pallas.TILE)
+        afac = mxgrid_pallas._cp_forward(f, xt, npad, js, True)
+        jg = mxgrid_pallas._bwd_impl_t(f, x, (afac, fpl, fli), jnp.asarray(g[o], dtype).T,
+                                       js, True)
+        res = tuple(to_torch(r[..., :n], dtype)[None] for r in (fpl, fli))
+        dpl, dli = mxgrid_cuda.planes_backward_plain(
+            p, *res, to_torch(g[o : o + 1, :, k:], dtype), ts)
+        assert len(dpl) == len(dli) == n_levels
+        for lvl in range(n_levels):
+            assert dpl[lvl].dtype == dli[lvl].dtype == torch.float32
+            assert_rel_close(dpl[lvl][0].numpy(), jg["planes"][lvl], rtol, f"dplanes[{lvl}]")
+            assert_rel_close(dli[lvl][0].numpy(), jg["plane_lines"][lvl], rtol,
+                             f"dplines[{lvl}]")
+
+
+@pytest.mark.parametrize("path", ["folded", "unsnapped", "folded_cp", "unsnapped_cp",
+                                  "folded_split", "unsnapped_split"])
+def test_kernel_encode_matches_pallas_vjp(monkeypatch, path):
+    """`mxgrid_cuda.encode` (on the CPU, the twins of the route's kernels)
+    vs jax.vjp of the Pallas encode in interpret mode, fp32. The split
+    routes run with MX_FUSED=0 on both sides, the unsnapped one with two
+    plane levels."""
+    if path.endswith("split"):
+        monkeypatch.setenv("MX_FUSED", "0")
+        monkeypatch.setattr(mxgrid_pallas, "FUSED_FWD", False)
+        js, ts = level_specs(2 if path == "unsnapped_split" else 1, path == "folded_split")
+        factors, pts, g = level_inputs(js, "float32", seed=19)
+    else:
+        if path == "unsnapped_cp":
+            kw = dict(n_levels=3, base_resolution=4, max_resolution=32, features=8)
+            js, ts = jmx.make_mxspec(**kw), tmx.make_mxspec(**kw)
+        else:
+            js, ts = tiny_specs(path) if path != "folded" else specs(True)
+        factors, pts, g = twin_inputs(js, "float32", seed=19)
     assert mxgrid_cuda.kernel_path(ts) == path
     enc = jax_encode("pallas", js)
     out, vjp = jax.vjp(lambda f: enc(f, jnp.asarray(pts)), jax.tree.map(jnp.asarray, factors))

@@ -1,4 +1,4 @@
-"""K1-K6 (romap_tpu_torch/csrc) against their plain PyTorch twins on
+"""K1-K10 (romap_tpu_torch/csrc) against their plain PyTorch twins on
 the card. Every test needs a CUDA device and skips without one (decided
 inside the fixture, at run time). Run them on a GPU machine with
 `python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q`
@@ -207,13 +207,16 @@ def test_kernel_encode_matches_plain_encode(cuda, snap, planes):
         assert rel_err(a, b) < 1e-4
 
 
-def test_uncovered_specs_raise_on_cuda(cuda):
-    """Unsnapped CP-only needs K7/K8 and several plane levels are not
-    ported: both raise instead of taking the plain encode."""
+def test_uncovered_specs_raise_on_cuda(cuda, monkeypatch):
+    """Unsnapped CP-only now runs K7/K8; several plane levels run only on
+    the split path (MX_FUSED=0, K9/K10): the fused path raises for them,
+    and so does the split path past K9/K10's level limit, instead of taking
+    the plain encode."""
     spec = small_spec(snap=False, planes=False)
     pts, lines, *_ = ladder_inputs(spec, 1, 64, torch.float32, cuda)
-    with pytest.raises(NotImplementedError, match="K7/K8"):
-        mxgrid_cuda.encode(lines, pts, spec)
+    n7 = mxgrid_cuda.unsnapped_cp_forward.launches
+    assert torch.isfinite(mxgrid_cuda.encode(lines, pts, spec)).all()
+    assert mxgrid_cuda.unsnapped_cp_forward.launches == n7 + 1
     two = mxgrid.make_mxspec(n_levels=3, base_resolution=4, max_resolution=32, features=16,
                              plane_specs=((16, 16, 4), (8, 8, 4)), snap_levels=True)
     f = mxgrid.init_mxgrid(torch.Generator().manual_seed(0), two, 1)
@@ -221,3 +224,94 @@ def test_uncovered_specs_raise_on_cuda(cuda):
          for k, v in f.items()}
     with pytest.raises(NotImplementedError, match="plane level"):
         mxgrid_cuda.encode(f, pts, two)
+    monkeypatch.setenv("MX_FUSED", "0")
+    five = mxgrid.make_mxspec(n_levels=3, base_resolution=4, max_resolution=32, features=16,
+                              plane_specs=((8, 8, 2),) * 5, snap_levels=True)
+    with pytest.raises(NotImplementedError, match="plane levels"):
+        mxgrid_cuda.kernel_path(five)
+
+
+def level_specs(n_levels, snap=False):
+    """A spec with `n_levels` plane levels (rectangular, then square)."""
+    levels = ((24, 16, 8), (12, 12, 4))[:n_levels]
+    return mxgrid.make_mxspec(n_levels=3, base_resolution=4, max_resolution=32, features=16,
+                              plane_specs=levels, plane_axes="balanced", snap_levels=snap)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)])
+def test_k7_k8_match_plain(cuda, dtype, tol):
+    spec = small_spec(snap=False, planes=False)
+    pts, lines, _, _, gout = ladder_inputs(spec, 3, 1000, dtype, cuda)
+    n7 = mxgrid_cuda.unsnapped_cp_forward.launches
+    got = mxgrid_cuda.unsnapped_cp_forward(pts, lines, spec)
+    torch.cuda.synchronize()
+    assert mxgrid_cuda.unsnapped_cp_forward.launches == n7 + 1
+    want = mxgrid_cuda.unsnapped_cp_forward_plain(pts, lines, spec)
+    assert got.dtype == dtype and got.shape == want.shape
+    assert rel_err(got, want) < tol
+    n8 = mxgrid_cuda.unsnapped_cp_backward.launches
+    got = mxgrid_cuda.unsnapped_cp_backward(pts, want, gout, spec)
+    torch.cuda.synchronize()
+    assert mxgrid_cuda.unsnapped_cp_backward.launches == n8 + 1
+    ref = mxgrid_cuda.unsnapped_cp_backward_plain(pts, want, gout, spec)
+    assert got.dtype == torch.float32 and got.shape == ref.shape
+    assert rel_err(got, ref) < tol
+
+
+@pytest.mark.parametrize("n_levels", [1, 2])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)])
+def test_k9_k10_match_plain(cuda, dtype, tol, n_levels):
+    spec = level_specs(n_levels)
+    g = torch.Generator(device="cpu").manual_seed(3)
+    tables = mxgrid.init_mxgrid(g, spec, 3)
+    to = lambda t: t.to(device=cuda, dtype=dtype).contiguous()
+    planes = tuple(to(t) for t in tables["planes"])
+    plines = tuple(to(t) for t in tables["plane_lines"])
+    pts = (torch.rand((3, 1000, 3), generator=g) * (1 + 4e-3) - 2e-3).to(cuda)
+    gpl = to(torch.randn((3, 1000, spec.plane_out_dims), generator=g))
+    n9 = mxgrid_cuda.planes_forward.launches
+    got = mxgrid_cuda.planes_forward(pts, planes, plines, spec)
+    torch.cuda.synchronize()
+    assert mxgrid_cuda.planes_forward.launches == n9 + 1
+    want = mxgrid_cuda.planes_forward_plain(pts, planes, plines, spec)
+    for name, a, b in zip(("fpl", "fli"), got, want):
+        assert a.dtype == dtype and a.shape == b.shape
+        assert rel_err(a, b) < tol, name
+    n10 = mxgrid_cuda.planes_backward.launches
+    got = mxgrid_cuda.planes_backward(pts, *want, gpl, spec)
+    torch.cuda.synchronize()
+    assert mxgrid_cuda.planes_backward.launches == n10 + 1
+    ref = mxgrid_cuda.planes_backward_plain(pts, *want, gpl, spec)
+    for name, a, b in zip(("dplanes", "dplines"), got, ref):
+        assert len(a) == len(b) == n_levels
+        for x, y in zip(a, b):
+            assert x.dtype == torch.float32 and x.shape == y.shape
+            assert rel_err(x, y) < tol, name
+
+
+@pytest.mark.parametrize("snap,n_levels", [(False, 1), (True, 2), (False, 2)])
+def test_split_encode_matches_plain_encode(cuda, monkeypatch, snap, n_levels):
+    """MX_FUSED=0: the autograd path through K5/K7, K9, K6/K8 and K10 vs
+    autograd through the plain encode, fp32."""
+    monkeypatch.setenv("MX_FUSED", "0")
+    spec = level_specs(n_levels, snap)
+    assert mxgrid_cuda.kernel_path(spec) == ("folded_split" if snap else "unsnapped_split")
+    g = torch.Generator().manual_seed(5)
+    f = mxgrid.init_mxgrid(g, spec, 2)
+    pts = (torch.rand((2, 700, 3), generator=g) * (1 + 4e-3) - 2e-3).to(cuda)
+    tgt = torch.randn((2, 700, spec.n_output_dims), generator=g).to(cuda)
+
+    def run(enc):
+        ff = {"lines": f["lines"].to(cuda).requires_grad_(True),
+              "planes": tuple(t.to(cuda).requires_grad_(True) for t in f["planes"]),
+              "plane_lines": tuple(t.to(cuda).requires_grad_(True) for t in f["plane_lines"])}
+        out = enc(ff, pts, spec)
+        leaves = [ff["lines"], *ff["planes"], *ff["plane_lines"]]
+        return [out] + list(torch.autograd.grad(torch.sum((out - tgt) ** 2), leaves))
+
+    n9, n10 = mxgrid_cuda.planes_forward.launches, mxgrid_cuda.planes_backward.launches
+    got = run(mxgrid_cuda.encode)
+    assert (mxgrid_cuda.planes_forward.launches, mxgrid_cuda.planes_backward.launches) == (
+        n9 + 1, n10 + 1)
+    for a, b in zip(got, run(mxgrid.encode)):
+        assert rel_err(a, b) < 1e-4

@@ -212,7 +212,7 @@ def test_offline_runner_matches_jax(dataset_dir, tmp_path, monkeypatch, cp_only)
     pixels."""
     cfg = tiny_cfg(cp_only)
     jr = JRunner(dataset_dir, cfg, use_depth=True)
-    tr = TRunner(dataset_dir, cfg, use_depth=True)
+    tr = TRunner(dataset_dir, cfg, use_depth=True, device="cpu")
     assert jr.create_nerfs_from_dir() == tr.create_nerfs_from_dir() == 2
     for r, lib in ((jr, "j"), (tr, "t")):
         r.train(waves=1, steps_per_wave=3, mesh_every=1, out_dir=str(tmp_path / f"{lib}_out"))
@@ -253,7 +253,7 @@ def test_offline_runner_matches_jax(dataset_dir, tmp_path, monkeypatch, cp_only)
 def test_rebuilt_object_table_keeps_one_copy_of_held_out_views(dataset_dir, tmp_path):
     """Divergence from romap_tpu (offline.py:123): rebuilding the table
     does not append the held-out views a second time."""
-    r = TRunner(dataset_dir, tiny_cfg(), use_depth=True, holdout=4)
+    r = TRunner(dataset_dir, tiny_cfg(), use_depth=True, holdout=4, device="cpu")
     r.create_nerfs_from_dir()
     r._build_object_table()
     first = [len(o["holdout_views"]) for o in r.objects]
@@ -273,7 +273,7 @@ def test_empty_held_out_set_raises(dataset_dir, tmp_path):
     lines = open(src).read().splitlines()
     obj = tmp_path / "0.txt"
     obj.write_text("\n".join(lines[:2] + ["999.0000 1 1 4 4"] + lines[2:]) + "\n")
-    r = TRunner(dataset_dir, tiny_cfg(), use_depth=True, holdout=100)
+    r = TRunner(dataset_dir, tiny_cfg(), use_depth=True, holdout=100, device="cpu")
     r.create_nerf(str(obj))
     r.train(waves=1, steps_per_wave=1, out_dir=str(tmp_path / "out"))
     assert r.objects[0]["holdout_views"] == []

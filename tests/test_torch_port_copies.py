@@ -1,0 +1,116 @@
+"""The port's own copies of the four romap_tpu modules it needs
+(`config`, `data.synthetic`, `data.formats`, `utils.camera`) behave as the
+originals: equal configs, bit-equal scenes, datasets that each side's
+reader reads back from either side's writer, and equal camera math."""
+
+import dataclasses
+import json
+import os
+
+import numpy as np
+import pytest
+
+from romap_tpu import config as jcfg
+from romap_tpu.data import formats as jformats
+from romap_tpu.data import synthetic as jsyn
+from romap_tpu.utils import camera as jcam
+from romap_tpu_torch import config as tcfg
+from romap_tpu_torch.data import formats as tformats
+from romap_tpu_torch.data import synthetic as tsyn
+from romap_tpu_torch.utils import camera as tcam
+
+REFERENCE_JSON = {  # the schema of the reference's Core/configs/base.json
+    "loss": {"otype": "Huber"},
+    "optimizer": {"otype": "Ema", "decay": 0.9, "nested": {
+        "otype": "ExponentialDecay", "decay_start": 1000, "decay_interval": 500,
+        "decay_base": 0.5, "nested": {"otype": "Adam", "learning_rate": 0.02, "beta1": 0.8,
+                                      "beta2": 0.95, "epsilon": 1e-12, "l2_reg": 1e-5}}},
+    "encoding": {"otype": "HashGrid", "n_levels": 12, "n_features_per_level": 4,
+                 "log2_hashmap_size": 17, "base_resolution": 8},
+    "network": {"otype": "FullyFusedMLP", "n_neurons": 32, "n_hidden_layers": 2},
+}
+
+
+@pytest.mark.parametrize("preset", [None, "flagship", "fast", "quality", "tcnn"])
+def test_config_equals_jax(preset):
+    if preset is None:
+        got, want = tcfg.NerfConfig(), jcfg.NerfConfig()
+    else:
+        got = tcfg.NerfConfig(encoding=tcfg.EncodingConfig.preset(preset))
+        want = jcfg.NerfConfig(encoding=jcfg.EncodingConfig.preset(preset))
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert got.encoding.plane_specs == want.encoding.plane_specs
+    assert got.encoding.n_output_dims == want.encoding.n_output_dims
+    assert got.encoding.per_level_scale == want.encoding.per_level_scale
+
+
+def test_load_network_config_equals_jax(tmp_path):
+    path = tmp_path / "base.json"
+    path.write_text(json.dumps(REFERENCE_JSON))
+    got, want = tcfg.load_network_config(str(path)), jcfg.load_network_config(str(path))
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert got.optimizer.decay_start == 1000 and got.network.n_hidden_layers == 2
+    with pytest.raises(ValueError):
+        tcfg.EncodingConfig.preset("no such preset")
+
+
+@pytest.mark.parametrize("n_objects,seed", [(1, 0), (3, 2)])
+def test_scene_and_sequence_bit_equal(n_objects, seed):
+    cam_args = dict(fx=40.0, fy=40.0, cx=24.0, cy=24.0, h=48, w=48)
+    got_objs = tsyn.make_scene(n_objects, seed=seed)
+    want_objs = jsyn.make_scene(n_objects, seed=seed)
+    assert [type(o).__name__ for o in got_objs] == [type(o).__name__ for o in want_objs]
+    for g, w in zip(got_objs, want_objs):
+        np.testing.assert_array_equal(g.center, w.center)
+        np.testing.assert_array_equal(g.aabb_half_extents(), w.aabb_half_extents())
+    got = tsyn.make_sequence(tsyn.Camera(**cam_args), got_objs, 5, seed=seed)
+    want = jsyn.make_sequence(jsyn.Camera(**cam_args), want_objs, 5, seed=seed)
+    assert len(got) == len(want) == 5
+    for g, w in zip(got, want):
+        assert sorted(g) == sorted(w) and g["stamp"] == w["stamp"] and g["bboxes"] == w["bboxes"]
+        for k in ("rgb", "depth", "instance", "twc"):
+            assert g[k].dtype == w[k].dtype
+            np.testing.assert_array_equal(g[k], w[k])
+
+
+@pytest.mark.parametrize("writer", ["jax", "torch"])
+def test_dataset_written_by_either_reads_back_in_both(tmp_path, writer):
+    cam = jsyn.Camera(fx=30.0, fy=30.0, cx=16.0, cy=16.0, h=32, w=32)
+    objects = jsyn.make_scene(2, seed=1)
+    frames = jsyn.make_sequence(cam, objects, 4, radius=5.5, seed=1)
+    write = jformats.write_dataset if writer == "jax" else tformats.write_dataset
+    root = str(tmp_path / "ds")
+    write(root, cam, frames, objects=objects, use_depth=True)
+    metas = [m.load_dataset_meta(root, use_depth=True) for m in (jformats, tformats)]
+    for a, b in zip(dataclasses.astuple(metas[0]), dataclasses.astuple(metas[1])):
+        if isinstance(a, list) and a and isinstance(a[0], np.ndarray):
+            for x, y in zip(a, b):
+                np.testing.assert_array_equal(x, y)
+        else:
+            assert a == b
+    for i in range(len(frames)):
+        got = tformats.load_frame_images(metas[1], i, use_depth=True)
+        want = jformats.load_frame_images(metas[0], i, use_depth=True)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+        np.testing.assert_array_equal(got[0], frames[i]["rgb"])
+    for oi in range(len(objects)):
+        path = os.path.join(root, "obj_offline", f"{oi}.txt")
+        got, want = tformats.load_object_file(path), jformats.load_object_file(path)
+        for a, b in zip(dataclasses.astuple(got), dataclasses.astuple(want)):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_camera_functions_agree():
+    rng = np.random.default_rng(4)
+    for _ in range(20):
+        q = rng.normal(size=4)
+        q /= np.linalg.norm(q)
+        r_t, r_j = tcam.quat_to_rot(*q), jcam.quat_to_rot(*q)
+        np.testing.assert_array_equal(r_t, r_j)
+        np.testing.assert_array_equal(tcam.rot_to_quat(r_t), jcam.rot_to_quat(r_j))
+        t = rng.normal(size=3)
+        m_t, m_j = tcam.pose_from_tq(t, q), jcam.pose_from_tq(t, q)
+        np.testing.assert_array_equal(m_t, m_j)
+        np.testing.assert_array_equal(tcam.invert_pose(m_t), jcam.invert_pose(m_j))
+        np.testing.assert_allclose(tcam.invert_pose(m_t) @ m_t, np.eye(4), atol=1e-5)

@@ -216,23 +216,37 @@ def test_inactive_slot_and_empty_batch_keep_state(worlds):
 
 
 def test_port_runs_without_jax():
+    """A train wave and the online manager run in a process that has
+    imported neither jax nor any module of romap_tpu."""
     code = (
         "import sys, torch\n"
         "torch.set_num_threads(2)\n"
-        "from romap_tpu.config import EncodingConfig, NerfConfig, TrainConfig\n"
+        "from romap_tpu_torch.config import EncodingConfig, NerfConfig, TrainConfig\n"
         "from romap_tpu_torch.data.world import build_synthetic_world\n"
         "from romap_tpu_torch.models import nerf\n"
+        "from romap_tpu_torch.runtime.manager import NerfManagerOnline\n"
         "import romap_tpu_torch.ops.mxgrid_cuda, romap_tpu_torch.utils.jax_bridge\n"
+        "import romap_tpu_torch.runtime.server, romap_tpu_torch.runtime.offline\n"
         "cfg = NerfConfig(encoding=EncodingConfig(mx_levels=2, mx_max_resolution=32,"
         " mx_features=8, mx_plane_res=16, mx_plane_features=4),"
-        " train=TrainConfig(rays_per_batch=64, samples_per_ray=4))\n"
+        " train=TrainConfig(rays_per_batch=64, samples_per_ray=4, mc_resolution=9))\n"
         "spec = nerf.make_field_spec(cfg)\n"
-        "_, _, _, store, objs = build_synthetic_world(2, 3, 32)\n"
+        "cam, objects, frames, store, objs = build_synthetic_world(2, 3, 32)\n"
         "g = torch.Generator().manual_seed(0)\n"
         "s = nerf.init_train_state(g, objs.capacity, cfg, spec)\n"
         "s = nerf.train_objects(s, objs, store.arrays(), cfg, spec, 2, generator=g)\n"
         "assert torch.isfinite(s.loss).all() and s.step.tolist() == [2, 2]\n"
-        "assert 'jax' not in sys.modules, 'jax was imported'\n"
+        "m = NerfManagerOnline(cfg, train_step_iterations=2, capacity=2, device='cpu')\n"
+        "m.dataset_init(cam.fx, cam.fy, cam.cx, cam.cy, cam.h, cam.w, 16)\n"
+        "for i, f in enumerate(frames):\n"
+        "    m.new_frame_to_dataset(i, f['stamp'], f['rgb'], f['instance'], pose=f['twc'])\n"
+        "idx = m.create_nerf(int(objects[0].instance_id), objs.tow[0].numpy(),"
+        " objs.aabb_min[0].numpy() / 1.1, objs.aabb_max[0].numpy() / 1.1)\n"
+        "m.update_nerf_bbox(idx, [(i % 3, 0, 0, 32, 32) for i in range(11)], 1)\n"
+        "assert m.pump() == 1 and m.state.step.tolist() == [2, 0]\n"
+        "bad = [k for k in sys.modules if k == 'jax' or k.startswith(('jax.', 'romap_tpu.'))"
+        " or k == 'romap_tpu']\n"
+        "assert not bad, bad\n"
         "print('ok')\n"
     )
     env = dict(os.environ)

@@ -16,14 +16,19 @@ Phases, one or more lines each, each closed by its seconds:
                runs them) and K9/K10 (the flagship plane level on the split
                path) vs their plain versions, and each backward
                vs autograd through its forward's plain version, O=2 x
-               P=131072, bf16 and fp32: max abs / relative error beside the
-               tolerance, the median kernel and plain times, and the bound
-               (the least time the card could take: bytes over its memory
-               rate or fp32 operations over its peak, the larger)
+               P=131072, bf16 and fp32, then K1/K2 in bf16 at O=10 x
+               P=131072, the shape the train step launches them at: max abs
+               / relative error beside the tolerance, the median kernel and
+               plain times, the bound (the least time the card could take:
+               bytes over its memory rate or operations over its peak, the
+               larger) and, for the folded kernels, the variant the spec and
+               dtype select (the flagship and `fast` bf16 backward must take
+               the tensor cores)
   4 parity     one tiny train step, fp32, kernels on the card vs the plain
                path on the CPU, from the same state and uniforms
   5 train      build_synthetic_world(10, 16, 128) + NerfConfig(): init, 1
-               step, then a timed 50-step wave (obj-iters/s)
+               step, then a timed 50-step wave (obj-iters/s; host_enqueue_s is
+               the part of wave_s the host needed to queue the launches)
   6 render     one held-out bbox view per object through render_rays (fp32):
                PSNR on object pixels and mask IoU; launch counts of K1/K2
                over phases 5-6
@@ -82,7 +87,9 @@ from romap_tpu_torch.runtime.offline import OfflineRunner  # noqa: E402
 N_OBJECTS, WAVE = 10, 50
 KERNEL_O, KERNEL_P = 2, 4096 * 32
 # Kernel vs plain: fp32 differs only in summation order (and K2's atomic
-# order), bf16 additionally by one rounding step of a stored value.
+# order), bf16 additionally by one rounding step of a stored value; the
+# tensor-core backward also rounds its two operands (`hat`, u) to bf16,
+# 2^-9 a term and unbiased, which the sums in fp32 average out.
 REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 CSRC = "romap_tpu_torch/csrc/"
 FOLDED, UNSNAPPED, PLANES = (CSRC + f for f in (
@@ -95,7 +102,9 @@ PALLAS_LINES = {"K1": 448, "K2": 468, "K3": 281, "K4": 352, "K5": 583, "K6": 591
                 "K7": 205, "K8": 255, "K9": 268, "K10": 622}
 # The card's published peaks (NVIDIA H100 SXM data sheet, at a 700 W limit):
 # HBM bytes per second, and fp32 operations per second outside the tensor
-# cores, which the encode kernels do not use.
+# cores. The bound counts the operations the function needs (a two-tap lerp
+# or scatter per axis), which are fp32 whatever a kernel does with them: the
+# tensor-core backward multiplies 93 % zeros on top of them.
 PEAK_BYTES_PER_S, PEAK_FP32_PER_S = 3.35e12, 67e12
 ONLINE_ITERS = 25  # steps per online wave (the reference's 500, cut)
 
@@ -173,29 +182,33 @@ def phase_build() -> None:
     say("2 build", seconds=f"{dt:.3f}", lib=os.path.relpath(lib))
 
 
-# (spec of kernel_specs(), forward kernel, backward kernel), each pair at the
-# spec its path in chip_smoke runs. K7/K8 run twice: at the `fast` ladder
-# unsnapped (580 rows x K = 64, their largest shared-memory tables) and at
-# the flagship unsnapped ladder that phase 9 runs (465 rows x K = 48). A
-# kernel's record in the JSON line is its last check here: its main path's.
+# (spec of kernel_specs(), forward kernel, backward kernel, objects, dtypes),
+# each pair at the spec its path in chip_smoke runs. K7/K8 run twice: at the
+# `fast` ladder unsnapped (580 rows x K = 64, their largest shared-memory
+# tables) and at the flagship unsnapped ladder that phase 9 runs (465 rows x
+# K = 48); K1/K2 twice: at O=2 like the others and at the train step's O=10.
+# A kernel's record in the JSON line is its last bf16 check here: its main
+# path's.
+BOTH = (torch.bfloat16, torch.float32)
 CHECKS = (
-    ("folded", "K1", "K2"),
-    ("unsnapped", "K3", "K4"),
-    ("folded_cp", "K5", "K6"),
-    ("unsnapped_cp", "K7", "K8"),
-    ("unsnapped_split", "K7", "K8"),
-    ("unsnapped_split", "K9", "K10"),
+    ("folded", "K1", "K2", KERNEL_O, BOTH),
+    ("folded", "K1", "K2", N_OBJECTS, (torch.bfloat16,)),
+    ("unsnapped", "K3", "K4", KERNEL_O, BOTH),
+    ("folded_cp", "K5", "K6", KERNEL_O, BOTH),
+    ("unsnapped_cp", "K7", "K8", KERNEL_O, BOTH),
+    ("unsnapped_split", "K7", "K8", KERNEL_O, BOTH),
+    ("unsnapped_split", "K9", "K10", KERNEL_O, BOTH),
 )
 FUSED = ("K1", "K3")  # forward kernels that also form the products
 
 
-def kernel_inputs(spec, dtype, dev, seed, kf):
+def kernel_inputs(spec, dtype, dev, seed, kf, o):
     """Points (edges included), the forward kernel `kf`'s table arguments in
     `dtype` (folded W_eff or raw ladder lines, then for K1/K3 the planes and
     plane lines; for K9 the tuples of planes and of plane lines) and a
-    cotangent of its encode block, at O=2 x P=131072."""
+    cotangent of its encode block, at `o` objects x P=131072."""
     g = torch.Generator(device="cpu").manual_seed(seed)
-    o, p = KERNEL_O, KERNEL_P
+    p = KERNEL_P
     pts = torch.rand((o, p, 3), generator=g) * (1 + 4e-3) - 2e-3  # edges included
     tables = mxgrid.init_mxgrid(g, spec, o)
     if kf == "K9":
@@ -250,11 +263,21 @@ def work(kernel, spec, dtype, o, p):
     return nbytes, ops * n
 
 
-def bound(kernel, spec, dtype):
+def bound(kernel, spec, dtype, o):
     """(least ms the card could take for the call, "bytes" or "operations")."""
-    nbytes, ops = work(kernel, spec, dtype, KERNEL_O, KERNEL_P)
+    nbytes, ops = work(kernel, spec, dtype, o, KERNEL_P)
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_FP32_PER_S
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def variants(kf, spec, dtype) -> tuple[dict, dict]:
+    """The `variant=` field of a folded forward kernel's line and of its
+    backward's: what the spec and dtype select (K5/K6 never take planes)."""
+    if kf not in ("K1", "K5"):
+        return {}, {}
+    planes = kf == "K1"
+    return (dict(variant=mxgrid_cuda.forward_variant(spec, dtype, planes)),
+            dict(variant=mxgrid_cuda.folded_variant(spec, dtype, planes)))
 
 
 def phase_kernels(specs: dict, dev) -> dict:
@@ -262,23 +285,31 @@ def phase_kernels(specs: dict, dev) -> dict:
     its plain twin and vs autograd through the forward twin, on the
     kernels' own residuals; bf16 and fp32. Returns the bf16 (train dtype)
     records for the JSON line."""
+    for path in ("folded", "folded_cp"):  # the train paths' backward is on the tensor cores
+        chosen = mxgrid_cuda.folded_variant(specs[path], torch.bfloat16)
+        if chosen != "tensor_core":
+            raise AssertionError(f"{path}: bf16 backward variant is {chosen}")
     records = {}
-    for path, kf, kb in CHECKS:
+    for path, kf, kb, o, dtypes in CHECKS:
         spec = specs[path]
         fwd, bwd = mxgrid_cuda.KERNELS[kf], mxgrid_cuda.KERNELS[kb]
         fwd_plain = getattr(mxgrid_cuda, fwd.__name__ + "_plain")
         bwd_plain = getattr(mxgrid_cuda, bwd.__name__ + "_plain")
-        for dtype in (torch.bfloat16, torch.float32):
+        shape = f"{o}x{KERNEL_P}"
+        plain_reps = 7 if o == KERNEL_O else 3
+        for dtype in dtypes:
             tol, dname = REL_TOL[dtype], str(dtype).split(".")[1]
-            pts, args, gout = kernel_inputs(spec, dtype, dev, seed=3, kf=kf)
+            f_var, b_var = variants(kf, spec, dtype)
+            pts, args, gout = kernel_inputs(spec, dtype, dev, seed=3, kf=kf, o=o)
             got = fwd(pts, *args, spec)
             want = fwd_plain(pts, *args, spec)
             torch.cuda.synchronize()
             f_abs, f_rel = errors(pytree.tree_leaves(got), pytree.tree_leaves(want))
             f_ms = median_ms(lambda: fwd(pts, *args, spec))
-            f_plain_ms = median_ms(lambda: fwd_plain(pts, *args, spec))
-            f_bound, f_by = bound(kf, spec, dtype)
-            say("3 kernels", kernel=kf, spec=path, dtype=dname, max_abs_err=f"{f_abs:.3e}",
+            f_plain_ms = median_ms(lambda: fwd_plain(pts, *args, spec), plain_reps)
+            f_bound, f_by = bound(kf, spec, dtype, o)
+            say("3 kernels", kernel=kf, spec=path, shape=shape, dtype=dname, **f_var,
+                max_abs_err=f"{f_abs:.3e}",
                 max_rel_err=f"{f_rel:.3e}", rel_tol=tol, ms=f"{f_ms:.4f}",
                 plain_ms=f"{f_plain_ms:.4f}", bound_ms=f"{f_bound:.4f}", bound_by=f_by)
             if not f_rel <= tol or not all(torch.isfinite(t.float()).all()
@@ -296,9 +327,9 @@ def phase_kernels(specs: dict, dev) -> dict:
             b_abs, b_rel = errors(got_b, want_ad)
             b_abs_p, b_rel_p = errors(got_b, pytree.tree_leaves(bwd_plain(pts, *res, gout, spec)))
             b_ms = median_ms(lambda: bwd(pts, *res, gout, spec))
-            b_plain_ms = median_ms(lambda: bwd_plain(pts, *res, gout, spec))
-            b_bound, b_by = bound(kb, spec, dtype)
-            say("3 kernels", kernel=kb, spec=path, dtype=dname,
+            b_plain_ms = median_ms(lambda: bwd_plain(pts, *res, gout, spec), plain_reps)
+            b_bound, b_by = bound(kb, spec, dtype, o)
+            say("3 kernels", kernel=kb, spec=path, shape=shape, dtype=dname, **b_var,
                 max_abs_err_vs_autograd=f"{b_abs:.3e}", max_rel_err_vs_autograd=f"{b_rel:.3e}",
                 max_rel_err_vs_plain=f"{b_rel_p:.3e}", rel_tol=tol, ms=f"{b_ms:.4f}",
                 plain_ms=f"{b_plain_ms:.4f}", bound_ms=f"{b_bound:.4f}", bound_by=b_by)
@@ -386,6 +417,7 @@ def phase_train_and_render(dev) -> tuple[dict, float]:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     state = nerf.train_objects(state, objs, frames, cfg, spec, WAVE, generator=gen)
+    enqueue_s = time.perf_counter() - t0  # the host alone: the wave's launches queued
     torch.cuda.synchronize()
     wave_s = time.perf_counter() - t0
     loss2 = state.loss.cpu()
@@ -393,6 +425,7 @@ def phase_train_and_render(dev) -> tuple[dict, float]:
     rate = N_OBJECTS * WAVE / wave_s
     say("5 train", loss_step1=[round(x, 5) for x in loss1.tolist()],
         loss_wave=[round(x, 5) for x in loss2.tolist()], wave_s=f"{wave_s:.4f}",
+        host_enqueue_s=f"{enqueue_s:.4f}",
         obj_iters_per_s=f"{rate:.2f}",
         peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.3f}")
     if not (torch.isfinite(loss1[active]).all() and torch.isfinite(loss2[active]).all()):

@@ -125,13 +125,18 @@ __device__ __forceinline__ void plane_pair_bwd(
   }
 }
 
-// One grid of (blocks per object, O, nz): enough blocks per object and z
-// slice that every SM holds as many blocks as its shared memory allows,
-// and no more blocks than the points need; each block strides over its
-// object's points. Returns the error of a launch the card would refuse
-// (e.g. cudaErrorInvalidValue when `smem` exceeds a block's limit).
+// One grid of (blocks per object, O, nz) that is resident in one wave: as
+// many blocks per object and z slice as fit the slots the card has for this
+// kernel (blocks per SM by its shared memory and registers, times SMs),
+// rounded down, at least one, and no more than the points need (`per_block`
+// points a block and pass); each block strides over its object's points.
+// Rounding up instead (10 objects on 132 one-block SMs: 14 x 10 = 140
+// blocks) leaves a second wave of a few blocks that runs alone.
+// Returns the error of a launch the card would refuse (e.g.
+// cudaErrorInvalidValue when `smem` exceeds a block's limit).
 template <typename Kern>
-cudaError_t plan(Kern kernel, size_t smem, int O, int P, int nz, dim3* grid) {
+cudaError_t plan(Kern kernel, size_t smem, int O, int P, int nz, dim3* grid,
+                 int threads = kThreads, int per_block = kThreads) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -141,11 +146,11 @@ cudaError_t plan(Kern kernel, size_t smem, int O, int P, int nz, dim3* grid) {
                                     dev)) != cudaSuccess)
     return err;
   if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, kernel, kThreads, smem)) != cudaSuccess)
+           &per_sm, kernel, threads, smem)) != cudaSuccess)
     return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  const int need = (P + kThreads - 1) / kThreads;
-  const int fill = (per_sm * sms + O * nz - 1) / (O * nz);
+  const int need = (P + per_block - 1) / per_block;
+  const int fill = per_sm * sms / (O * nz);
   int bpo = need < fill ? need : fill;
   *grid = dim3(bpo < 1 ? 1 : bpo, O, nz);
   return cudaSuccess;

@@ -9,30 +9,70 @@
 // `_folded_bwd_cp_kernel` (591-600, driven by `_bwd_impl_t` 790-807): the
 // same kernels instantiated without the plane level (kPlanes = false), as
 // the CP-only `fast` preset needs. The Python side (ops/mxgrid_cuda.py)
-// folds the CP ladder into W_eff before K1/K5 and unfolds dW_eff after
-// K2/K6.
+// folds the CP ladder into W_eff before K1/K5, unfolds dW_eff after K2/K6,
+// and names the variant of each launch from the spec and dtype alone
+// (`folded_variant`, `forward_variant`).
 //
-// The Pallas kernels build dense tent bases and feed the TPU's matrix unit.
-// A tent row has exactly two non-zeros (knots floor(t) and floor(t)+1 with
-// t = x (r-1)), so here every basis product is a two-tap lerp per axis and a
-// four-corner bilinear read per plane, one point per thread.
+// Forward (K1, K5; `folded_fused_fwd`). A tent row has exactly two
+// non-zeros (knots floor(t) and floor(t)+1 with t = x (r-1)), so every basis
+// product is a two-tap lerp per axis and a four-corner bilinear read per
+// plane, one point per thread, fp32 in registers, one rounding at the store.
+// W_eff (3 x rfp x K, 57,600 B in bf16 at the flagship spec) is staged once
+// per block in shared memory, rows padded to an odd word count so that
+// lanes at unrelated knots fall into unrelated banks; a bf16 row is read two
+// channels a 32-bit load. What bounds it is the store side: per point K +
+// 3kp features, 3K factors and 6kp plane residuals. The residuals are
+// channel-major ([.., P]), so a warp's 32 points store 64 contiguous bytes.
+// The feature rows are point-major (120 B a row at the flagship spec): a
+// thread storing its own row one value at a time touches 32 sectors an
+// instruction. Variant "staged": a warp collects its 32 rows in shared
+// memory (four channels a 64- or 128-bit store, conflict-free) and writes
+// them out as one contiguous run of 16-byte vectors. It costs occupancy
+// (bf16 flagship: 88,320 B, two blocks an SM instead of three; fp32:
+// 174,336 B, one instead of two) and is still 2.2x faster in both dtypes.
+// Variant "direct": a thread stores four channels as one vector into its
+// own row; taken only where the staged rows do not fit beside the table
+// (`fast` in fp32: 199,680 B of table).
 //
-// What bounds them on the card. K1 reads, per point, 2 taps x 3 axes x K
-// rows of W_eff (the bulk of its loads), 4 corners x 3 pairs x kp plane
-// values and 2 x 3 x kp line values, and writes the features plus the
-// residuals (K + 3K + 2 x 3kp values). The scattered table reads dominate:
-// W_eff (3 x rfp x K, 55 KB in bf16 at the flagship spec) is staged once
-// per block in shared memory, rows padded to an odd word count against
-// bank conflicts; planes and plane lines stay in global memory
-// behind L1/L2. K2 does the transposed scatter: per point 6K fp32 adds
-// into dW_eff, 6kp into the plane lines and 12kp into the planes. dW_eff
-// and dL accumulate per block in shared memory (110 KB fp32 at the
-// flagship spec) and are flushed with one global atomicAdd per entry; the
-// plane gradient (3 x 128 x 64 x 4 fp32 = 393 KB) does not fit and takes
-// global atomics into L2. Atomics make K2's sums order-dependent.
-// At the `fast` spec (K = 64, rf = 256) K5 stages 101,376 B in bf16 and
-// 199,680 B in fp32, and K6's fp32 dW_eff takes 199,680 B: one 256-thread
-// block per SM in fp32, two in bf16.
+// Backward, tensor cores (K2, K6 in bf16 at the instantiated shapes;
+// `folded_bwd_tc`). The function is dW_d[j, k] = sum_p hat_d[j, p] u_d[p, k]
+// with u_d = g A_e A_f: per axis a [rfp x points] x [points x K] product.
+// A block of 12 warps walks its points in tiles of 64. Per tile the raw
+// inputs (64 rows of g: one contiguous run; afac, fpl, fli: 128 B rows; the
+// points) arrive by 16-byte cp.async into one of two stages, so the next
+// tile loads while this one is used. All threads then form u_d in bf16 in
+// shared memory ([3, K, 64], 144 B rows: conflict-free for ldmatrix) and
+// t = x (rf - 1); each warp owns one axis and MT row tiles of 16, builds
+// its `hat` fragments in registers from t (max(0, 1 - |t - j|), the dense
+// tent's own operations, rounded to bf16), reads u_d with ldmatrix and
+// runs mma.sync.m16n8k16 (bf16 in, fp32 out). The fp32 sums stay in
+// registers for the block's whole point range (flagship: 3 x 6 tiles x 4 =
+// 72 registers a thread; `fast`: 128) and are flushed once, one global
+// atomicAdd per non-zero entry: at most floor(SMs / O) blocks an object
+// meet on an entry, and a second pass over per-block partials would move
+// more bytes than these atomics do. 93 % of `hat` is zeros; the tensor
+// cores have nothing else to do here. With planes (kp = 4, rw = 128), the
+// line gradient dL_i = hat_w^T (g_i f_pl) is two more row tiles a warp on
+// the same path (channels padded to 8), and the plane gradient, which does
+// not fit a block (393 KB), is scattered with one 16-byte vector atomicAdd
+// per corner (four a point and pair) into L2. What bounds it now
+// (tools/ablate_backward.py, three runs on an NVIDIA H100 80GB HBM3 at 700
+// W, 10 objects x 131072 points, 0.65-0.70 ms): the products 0.14-0.20 ms
+// (55 kFLOP a point: about what mma.sync reaches without wgmma), the
+// cp.async loads 0.08-0.14 ms although started a tile ahead, `hat`, u and
+// the scatter 0.03-0.16 ms each depending on the run, the rest launch,
+// memsets, barriers and the flush. The parts add up: forming tile n + 1's
+// operands before tile n's products under one barrier a tile measured no
+// faster.
+// Rounding `hat` and `u` to bf16 costs 2^-9 a term, unbiased; the error
+// against the fp32 plain version is reported by chip_smoke.py.
+//
+// Backward, scalar (`folded_fused_bwd`): fp32 (dtype 0: tests and renders'
+// tiny fp32 step, never the train path) and every bf16 spec the tensor-core
+// tile does not cover. One thread a point, fp32 atomicAdd into a per-block
+// shared-memory accumulator (compiled to a compare-and-swap loop,
+// ATOMS.CAST.SPIN), one global atomicAdd per entry at the end. Atomics make
+// the backward sums order-dependent in both variants.
 //
 // Layouts (per object o, leading axis O on every array):
 //   pts    [O, P, 3] f32          weff   [O, 3, rfp, K]   T
@@ -49,9 +89,36 @@
 
 #include "mxgrid_common.cuh"
 
+#include <stdint.h>
+
 namespace {
 
-template <typename T, bool kPlanes>
+__host__ __device__ __forceinline__ size_t align16(size_t n) { return (n + 15) & ~(size_t)15; }
+
+// Four consecutive channels of a staged table row, as fp32.
+__device__ __forceinline__ void load4(const float* p, float* v) {
+  v[0] = p[0]; v[1] = p[1]; v[2] = p[2]; v[3] = p[3];
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* v) {
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p + 2));
+  v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
+}
+
+// Four consecutive channels stored as one vector (16 B fp32, 8 B bf16).
+__device__ __forceinline__ void store4(float* p, const float* v) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, const float* v) {
+  const __nv_bfloat162 a = __floats2bfloat162_rn(v[0], v[1]);
+  const __nv_bfloat162 b = __floats2bfloat162_rn(v[2], v[3]);
+  uint2 w;
+  w.x = *reinterpret_cast<const uint32_t*>(&a);
+  w.y = *reinterpret_cast<const uint32_t*>(&b);
+  *reinterpret_cast<uint2*>(p) = w;
+}
+
+template <typename T, bool kPlanes, bool kStage>
 __global__ void __launch_bounds__(kThreads) folded_fused_fwd(
     const float* __restrict__ pts, const T* __restrict__ weff,
     const T* __restrict__ planes, const T* __restrict__ plines,
@@ -70,44 +137,92 @@ __global__ void __launch_bounds__(kThreads) folded_fused_fwd(
 
   const int kpl = 3 * kp;
   const int kout = K + kpl;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  // this warp's 32 staged feature rows [32, kout]
+  T* st = reinterpret_cast<T*>(smem_raw + align16((size_t)3 * rfp * ks * sizeof(T))) +
+          (size_t)warp * 32 * kout;
+  // four channels a step where the rows keep a vector store aligned
+  const int k_vec = (K % 4 == 0 && kout % 4 == 0) ? K : 0;
   T* afac_o = afac + (size_t)o * 3 * K * P;
 
-  for (int p = blockIdx.x * blockDim.x + threadIdx.x; p < P;
-       p += gridDim.x * blockDim.x) {
-    const size_t op = (size_t)o * P + p;
-    const float x[3] = {pts[op * 3 + 0], pts[op * 3 + 1], pts[op * 3 + 2]};
-    T* out_p = out + op * kout;
+  for (int pw = blockIdx.x * blockDim.x + warp * 32; pw < P;
+       pw += gridDim.x * blockDim.x) {
+    const int p = pw + lane;
+    if (p < P) {
+      const size_t op = (size_t)o * P + p;
+      const float x[3] = {pts[op * 3 + 0], pts[op * 3 + 1], pts[op * 3 + 2]};
+      T* row = kStage ? st + lane * kout : out + op * kout;
 
-    // CP lines: A_d[k] = lerp of W_eff_d rows; out[k] = A_0 A_1 A_2 from
-    // the stored (rounded) factors, as the Pallas kernel forms it.
-    Taps t[3];
+      // CP lines: A_d[k] = lerp of W_eff_d rows; out[k] = A_0 A_1 A_2 from
+      // the stored (rounded) factors, as the Pallas kernel forms it.
+      Taps t[3];
 #pragma unroll
-    for (int d = 0; d < 3; ++d) t[d] = tent_taps(x[d], rf);
-    for (int k = 0; k < K; ++k) {
-      float prod = 1.f;
+      for (int d = 0; d < 3; ++d) t[d] = tent_taps(x[d], rf);
+      int k = 0;
+      for (; k < k_vec; k += 4) {
+        float prod[4] = {1.f, 1.f, 1.f, 1.f};
 #pragma unroll
-      for (int d = 0; d < 3; ++d) {
-        const T* wd = w_s + d * rfp * ks;
-        const float a = t[d].w0 * to_f(wd[t[d].j0 * ks + k]) +
-                        t[d].w1 * to_f(wd[t[d].j1 * ks + k]);
-        const T a_t = from_f<T>(a);
-        afac_o[((size_t)d * K + k) * P + p] = a_t;
-        prod = kPlanes ? prod * to_f(a_t) : to_f(from_f<T>(prod * to_f(a_t)));
+        for (int d = 0; d < 3; ++d) {
+          const T* wd = w_s + d * rfp * ks;
+          float w0[4], w1[4];
+          load4(wd + t[d].j0 * ks + k, w0);
+          load4(wd + t[d].j1 * ks + k, w1);
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const float a = t[d].w0 * w0[c] + t[d].w1 * w1[c];
+            const T a_t = from_f<T>(a);
+            afac_o[((size_t)d * K + k + c) * P + p] = a_t;
+            prod[c] = kPlanes ? prod[c] * to_f(a_t) : to_f(from_f<T>(prod[c] * to_f(a_t)));
+          }
+        }
+        store4(row + k, prod);
       }
-      out_p[k] = from_f<T>(prod);
+      for (; k < K; ++k) {
+        float prod = 1.f;
+#pragma unroll
+        for (int d = 0; d < 3; ++d) {
+          const T* wd = w_s + d * rfp * ks;
+          const float a = t[d].w0 * to_f(wd[t[d].j0 * ks + k]) +
+                          t[d].w1 * to_f(wd[t[d].j1 * ks + k]);
+          const T a_t = from_f<T>(a);
+          afac_o[((size_t)d * K + k) * P + p] = a_t;
+          prod = kPlanes ? prod * to_f(a_t) : to_f(from_f<T>(prod * to_f(a_t)));
+        }
+        row[k] = from_f<T>(prod);
+      }
+
+      if constexpr (kPlanes) {
+        const T* pl_o = planes + (size_t)o * 3 * ru * rv * kp;
+        const T* li_o = plines + (size_t)o * 3 * rw * kp;
+        T* fpl_o = fpl + (size_t)o * kpl * P;
+        T* fli_o = fli + (size_t)o * kpl * P;
+        for (int i = 0; i < 3; ++i)
+          plane_pair_fwd<T>(x, i, axes, pl_o, li_o, fpl_o, fli_o,
+                            row + K + i * kp, P, p, ru, rv, kp, rw);
+      }
     }
 
-    if constexpr (kPlanes) {
-      const T* pl_o = planes + (size_t)o * 3 * ru * rv * kp;
-      const T* li_o = plines + (size_t)o * 3 * rw * kp;
-      T* fpl_o = fpl + (size_t)o * kpl * P;
-      T* fli_o = fli + (size_t)o * kpl * P;
-      for (int i = 0; i < 3; ++i)
-        plane_pair_fwd<T>(x, i, axes, pl_o, li_o, fpl_o, fli_o,
-                          out_p + K + i * kp, P, p, ru, rv, kp, rw);
+    if constexpr (kStage) {
+      // the warp's rows are one contiguous run of the output
+      __syncwarp();
+      const int n_rows = P - pw < 32 ? P - pw : 32;
+      T* dst = out + ((size_t)o * P + pw) * kout;
+      const size_t n_bytes = (size_t)n_rows * kout * sizeof(T);
+      if (n_bytes % 16 == 0 && reinterpret_cast<uintptr_t>(dst) % 16 == 0) {
+        const uint4* src4 = reinterpret_cast<const uint4*>(st);
+        uint4* dst4 = reinterpret_cast<uint4*>(dst);
+        for (int v = lane; v < (int)(n_bytes / 16); v += 32) dst4[v] = src4[v];
+      } else {
+        for (int e = lane; e < n_rows * kout; e += 32) dst[e] = st[e];
+      }
+      __syncwarp();
     }
   }
 }
+
+// --------------------------------------------------------------------------
+// Backward, scalar
+// --------------------------------------------------------------------------
 
 template <typename T, bool kPlanes>
 __global__ void __launch_bounds__(kThreads) folded_fused_bwd(
@@ -182,19 +297,361 @@ __global__ void __launch_bounds__(kThreads) folded_fused_bwd(
   }
 }
 
-template <typename T, bool kPlanes>
+// --------------------------------------------------------------------------
+// Backward, tensor cores (bf16)
+// --------------------------------------------------------------------------
+
+typedef __nv_bfloat16 bf16;
+
+constexpr int kTcThreads = 384;  // 12 warps: four an axis (and plane pair)
+constexpr int kTcWarps = kTcThreads / 32;
+constexpr int kTile = 64;        // points a tile: four k-steps of 16
+constexpr int kRow = 72;         // bf16 elements of a 64-point row in shared
+                                 // memory: 128 B + 16 B, so that 8 rows of a
+                                 // 16-byte column fall into 8 bank groups
+constexpr int kTcKp = 4;         // plane channels (one 16-byte vector)
+constexpr int kTcRw = 128;       // plane line rows: 2 row tiles x 4 warps
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(smem);
+  const int n = valid ? 16 : 0;  // 0: nothing is read, 16 zero bytes land
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// {lo, hi} -> bf16x2 of max(0, .), round to nearest even.
+__device__ __forceinline__ uint32_t pack_relu(float lo, float hi) {
+  uint32_t d;
+  asm("cvt.rn.relu.bf16x2.f32 %0, %1, %2;\n" : "=r"(d) : "f"(hi), "f"(lo));
+  return d;
+}
+
+// A fragment (16 rows x 16 points) of a tent basis: rows j0 and j0 + 8 of
+// this lane, points (2q, 2q+1) from t_lo and (2q+8, 2q+9) from t_hi.
+__device__ __forceinline__ void hat_fragment(float j0, float2 t_lo, float2 t_hi, uint32_t* a) {
+  const float j1 = j0 + 8.f;
+  a[0] = pack_relu(1.f - fabsf(t_lo.x - j0), 1.f - fabsf(t_lo.y - j0));
+  a[1] = pack_relu(1.f - fabsf(t_lo.x - j1), 1.f - fabsf(t_lo.y - j1));
+  a[2] = pack_relu(1.f - fabsf(t_hi.x - j0), 1.f - fabsf(t_hi.y - j0));
+  a[3] = pack_relu(1.f - fabsf(t_hi.x - j1), 1.f - fabsf(t_hi.y - j1));
+}
+
+__device__ __forceinline__ void mma16816(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(const void* smem, uint32_t* r) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(smem);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+
+// dst[0..3] += w * v[0..3] as one 16-byte atomic.
+__device__ __forceinline__ void red4_if(float* dst, float w, const float* v) {
+  if (w == 0.f) return;
+#if defined(CUDART_VERSION) && CUDART_VERSION >= 12010
+  atomicAdd(reinterpret_cast<float4*>(dst), make_float4(w * v[0], w * v[1], w * v[2], w * v[3]));
+#else
+#pragma unroll
+  for (int c = 0; c < 4; ++c) atomicAdd(dst + c, w * v[c]);
+#endif
+}
+
+// Shared-memory bytes of folded_bwd_tc<MT, NT, kPlanes>: two input stages
+// (g, afac, fpl + fli, points), then u, the line operand, t and t_w.
+template <int NT, bool kPlanes>
+struct TcSmem {
+  static constexpr int K = NT * 8;
+  static constexpr int kout = K + (kPlanes ? 3 * kTcKp : 0);
+  static constexpr int g_bytes = kTile * kout * 2;
+  static constexpr int a_bytes = 3 * K * kRow * 2;
+  static constexpr int f_bytes = kPlanes ? 2 * 3 * kTcKp * kRow * 2 : 0;
+  static constexpr int x_bytes = kTile * 3 * 4;
+  static constexpr int stage = g_bytes + a_bytes + f_bytes + x_bytes;
+  static constexpr int v_bytes = kPlanes ? 3 * 8 * kRow * 2 : 0;
+  static constexpr int t_bytes = 3 * kTile * 4;
+  static constexpr int total = 2 * stage + a_bytes + v_bytes + 2 * t_bytes;
+};
+
+template <int MT, int NT, bool kPlanes>
+__global__ void __launch_bounds__(kTcThreads, 1) folded_bwd_tc(
+    const float* __restrict__ pts, const bf16* __restrict__ afac,
+    const bf16* __restrict__ fpl, const bf16* __restrict__ fli,
+    const bf16* __restrict__ g, float* __restrict__ dweff,
+    float* __restrict__ dplanes, float* __restrict__ dplines, int P, int rf,
+    int ru, int rv, int axes, int vec) {
+  using S = TcSmem<NT, kPlanes>;
+  constexpr int K = S::K, kout = S::kout, rfp = MT * 64;
+  constexpr int kpl = 3 * kTcKp;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* u_s = reinterpret_cast<bf16*>(smem_raw + 2 * S::stage);         // [3, K, kRow]
+  bf16* v_s = reinterpret_cast<bf16*>(smem_raw + 2 * S::stage + S::a_bytes);  // [3, 8, kRow]
+  float* t_s = reinterpret_cast<float*>(smem_raw + 2 * S::stage + S::a_bytes + S::v_bytes);
+  float* tw_s = t_s + 3 * kTile;  // [3, 64] each
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int grp = lane >> 2, q = lane & 3;
+  const int d = warp >> 2;                  // this warp's axis and plane pair
+  const int row0 = (warp & 3) * MT * 16;    // its first row of dW_eff_d
+  const int o = blockIdx.y;
+  const bf16* afac_o = afac + (size_t)o * 3 * K * P;
+  const bf16* g_o = g + (size_t)o * P * kout;
+  const float* pts_o = pts + (size_t)o * P * 3;
+  const bf16* fpl_o = kPlanes ? fpl + (size_t)o * kpl * P : nullptr;
+  const bf16* fli_o = kPlanes ? fli + (size_t)o * kpl * P : nullptr;
+
+  float acc[MT][NT][4];
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[m][n][c] = 0.f;
+  float lacc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+
+  if constexpr (kPlanes) {  // channel rows 4-7 of the line operand stay zero
+    for (int j = tid; j < 3 * 8 * kRow; j += kTcThreads) v_s[j] = __float2bfloat16(0.f);
+  }
+
+  // Raw inputs of one tile into a stage; points past P arrive as zeros, so
+  // that they add nothing (u = 0) and no stale shared memory reaches a sum.
+  auto load_tile = [&](int tile, int s) {
+    unsigned char* base = smem_raw + s * S::stage;
+    bf16* sg = reinterpret_cast<bf16*>(base);
+    bf16* sa = reinterpret_cast<bf16*>(base + S::g_bytes);
+    bf16* sf = reinterpret_cast<bf16*>(base + S::g_bytes + S::a_bytes);
+    float* sx = reinterpret_cast<float*>(base + S::g_bytes + S::a_bytes + S::f_bytes);
+    const int p0 = tile * kTile;
+    const int nv = P - p0 < kTile ? P - p0 : kTile;
+    if (vec) {  // P % 8 == 0 and 16-byte aligned bases: whole 16-byte chunks
+      const unsigned char* gsrc = reinterpret_cast<const unsigned char*>(g_o + (size_t)p0 * kout);
+      for (int c = tid; c < S::g_bytes / 16; c += kTcThreads) {
+        const bool ok = c * 16 < nv * kout * 2;
+        cp_async16(reinterpret_cast<unsigned char*>(sg) + c * 16, ok ? gsrc + c * 16 : gsrc, ok);
+      }
+      for (int c = tid; c < 3 * K * 8; c += kTcThreads) {
+        const int r = c >> 3, cc = (c & 7) * 8;
+        const bool ok = cc < nv;
+        cp_async16(sa + r * kRow + cc, afac_o + (size_t)r * P + (ok ? p0 + cc : 0), ok);
+      }
+      if constexpr (kPlanes) {
+        for (int c = tid; c < 2 * kpl * 8; c += kTcThreads) {
+          const int r = c >> 3, cc = (c & 7) * 8;
+          const bool ok = cc < nv;
+          const bf16* src = r < kpl ? fpl_o + (size_t)r * P : fli_o + (size_t)(r - kpl) * P;
+          cp_async16(sf + r * kRow + cc, src + (ok ? p0 + cc : 0), ok);
+        }
+      }
+      const unsigned char* xsrc = reinterpret_cast<const unsigned char*>(pts_o + (size_t)p0 * 3);
+      for (int c = tid; c < S::x_bytes / 16; c += kTcThreads) {
+        const bool ok = c * 16 < nv * 12;
+        cp_async16(reinterpret_cast<unsigned char*>(sx) + c * 16, ok ? xsrc + c * 16 : xsrc, ok);
+      }
+    } else {  // any P, any alignment: element by element
+      const bf16 zero = __float2bfloat16(0.f);
+      for (int e = tid; e < kTile * kout; e += kTcThreads)
+        sg[e] = e < nv * kout ? g_o[(size_t)p0 * kout + e] : zero;
+      for (int e = tid; e < 3 * K * kTile; e += kTcThreads) {
+        const int r = e >> 6, pp = e & 63;
+        sa[r * kRow + pp] = pp < nv ? afac_o[(size_t)r * P + p0 + pp] : zero;
+      }
+      if constexpr (kPlanes) {
+        for (int e = tid; e < 2 * kpl * kTile; e += kTcThreads) {
+          const int r = e >> 6, pp = e & 63;
+          const bf16* src = r < kpl ? fpl_o + (size_t)r * P : fli_o + (size_t)(r - kpl) * P;
+          sf[r * kRow + pp] = pp < nv ? src[p0 + pp] : zero;
+        }
+      }
+      for (int e = tid; e < kTile * 3; e += kTcThreads)
+        sx[e] = e < nv * 3 ? pts_o[(size_t)p0 * 3 + e] : 0.f;
+    }
+    cp_async_commit();
+  };
+
+  const int n_tiles = (P + kTile - 1) / kTile;
+  int s = 0;
+  if ((int)blockIdx.x < n_tiles) load_tile(blockIdx.x, 0);
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, s ^= 1) {
+    if (tile + (int)gridDim.x < n_tiles) load_tile(tile + gridDim.x, s ^ 1);
+    else cp_async_commit();  // an empty group keeps the count below uniform
+    cp_async_wait<1>();      // this tile's stage has landed
+    __syncthreads();         // ... for every thread; the last tile's products are done
+
+    unsigned char* base = smem_raw + s * S::stage;
+    const bf16* sg = reinterpret_cast<const bf16*>(base);
+    const bf16* sa = reinterpret_cast<const bf16*>(base + S::g_bytes);
+    const bf16* sf = reinterpret_cast<const bf16*>(base + S::g_bytes + S::a_bytes);
+    const float* sx = reinterpret_cast<const float*>(base + S::g_bytes + S::a_bytes + S::f_bytes);
+
+    // ---- build: t, then (planes) the line operand and the plane scatter
+    if (tid < 3 * kTile) {
+      const int dd = tid >> 6, pp = tid & 63;
+      t_s[dd * kTile + pp] = __fmul_rn(sx[pp * 3 + dd], (float)(rf - 1));
+    } else if constexpr (kPlanes) {
+      const int i = (tid - 3 * kTile) >> 6, pp = tid & 63;
+      const float x[3] = {sx[pp * 3 + 0], sx[pp * 3 + 1], sx[pp * 3 + 2]};
+      const uint2 graw = *reinterpret_cast<const uint2*>(sg + pp * kout + K + i * kTcKp);
+      const float2 g01 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&graw.x));
+      const float2 g23 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&graw.y));
+      const float gi[4] = {g01.x, g01.y, g23.x, g23.y};
+      float gl[4];
+#pragma unroll
+      for (int c = 0; c < kTcKp; ++c) {
+        const int r = i * kTcKp + c;
+        const float f_pl = __bfloat162float(sf[r * kRow + pp]);
+        const float f_li = __bfloat162float(sf[(kpl + r) * kRow + pp]);
+        v_s[(i * 8 + c) * kRow + pp] = __float2bfloat16(gi[c] * f_pl);  // dL operand
+        gl[c] = gi[c] * f_li;
+      }
+      tw_s[i * kTile + pp] = __fmul_rn(x[pair_axis(axes, i, 2)], (float)(kTcRw - 1));
+      if (tile * kTile + pp < P) {
+        // dP_i[a, b, :] += hat_u[a] hat_v[b] g_i f_li
+        const Taps tu = tent_taps(x[pair_axis(axes, i, 0)], ru);
+        const Taps tv = tent_taps(x[pair_axis(axes, i, 1)], rv);
+        float* p_i = dplanes + ((size_t)o * 3 + i) * ru * rv * kTcKp;
+        red4_if(p_i + ((size_t)tu.j0 * rv + tv.j0) * kTcKp, tu.w0 * tv.w0, gl);
+        red4_if(p_i + ((size_t)tu.j0 * rv + tv.j1) * kTcKp, tu.w0 * tv.w1, gl);
+        red4_if(p_i + ((size_t)tu.j1 * rv + tv.j0) * kTcKp, tu.w1 * tv.w0, gl);
+        red4_if(p_i + ((size_t)tu.j1 * rv + tv.j1) * kTcKp, tu.w1 * tv.w1, gl);
+      }
+    }
+    // ---- build: u_d[k, p] = g[p, k] A_e[k, p] A_f[k, p], two points a
+    // thread; a warp covers 8 channels x 4 point pairs, which keeps its
+    // 32-bit reads of afac and writes of u in 32 different banks
+    for (int ws = warp; ws < K; ws += kTcWarps) {
+      const int ch = (ws >> 3) * 8 + (lane & 7);
+      const int p2 = ((ws & 7) * 4 + (lane >> 3)) * 2;
+      const float2 a0 = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(sa + (0 * K + ch) * kRow + p2));
+      const float2 a1 = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(sa + (1 * K + ch) * kRow + p2));
+      const float2 a2 = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(sa + (2 * K + ch) * kRow + p2));
+      const float gx = __bfloat162float(sg[p2 * kout + ch]);
+      const float gy = __bfloat162float(sg[(p2 + 1) * kout + ch]);
+      const __nv_bfloat162 u0 = __floats2bfloat162_rn(gx * a1.x * a2.x, gy * a1.y * a2.y);
+      const __nv_bfloat162 u1 = __floats2bfloat162_rn(gx * a0.x * a2.x, gy * a0.y * a2.y);
+      const __nv_bfloat162 u2 = __floats2bfloat162_rn(gx * a0.x * a1.x, gy * a0.y * a1.y);
+      *reinterpret_cast<__nv_bfloat162*>(u_s + (0 * K + ch) * kRow + p2) = u0;
+      *reinterpret_cast<__nv_bfloat162*>(u_s + (1 * K + ch) * kRow + p2) = u1;
+      *reinterpret_cast<__nv_bfloat162*>(u_s + (2 * K + ch) * kRow + p2) = u2;
+    }
+    __syncthreads();
+
+    // ---- products: dW_d[row0.., :] += hat_d[rows, 64 points] u_d[64 points, :]
+#pragma unroll 1
+    for (int k16 = 0; k16 < kTile; k16 += 16) {
+      const float2 t_lo = *reinterpret_cast<const float2*>(t_s + d * kTile + k16 + 2 * q);
+      const float2 t_hi = *reinterpret_cast<const float2*>(t_s + d * kTile + k16 + 8 + 2 * q);
+      uint32_t a[MT][4];
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+        hat_fragment((float)(row0 + m * 16 + grp), t_lo, t_hi, a[m]);
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        // four 8 x 8 blocks of u_d: channels 16 np + (0-7, 0-7, 8-15, 8-15),
+        // points k16 + (0-7, 8-15, 0-7, 8-15); lane l gives row l % 8 of
+        // block l / 8
+        const int blk = lane >> 3;
+        const bf16* src = u_s + (d * K + (2 * np + (blk >> 1)) * 8 + (lane & 7)) * kRow +
+                          k16 + (blk & 1) * 8;
+        uint32_t b[4];
+        ldmatrix_x4(src, b);
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          mma16816(acc[m][2 * np], a[m], b[0], b[1]);
+          mma16816(acc[m][2 * np + 1], a[m], b[2], b[3]);
+        }
+      }
+      if constexpr (kPlanes) {
+        // dL_d[rows, 0-3] += hat_w[rows, points] (g_d f_pl)[points, 0-3]
+        const float2 w_lo = *reinterpret_cast<const float2*>(tw_s + d * kTile + k16 + 2 * q);
+        const float2 w_hi = *reinterpret_cast<const float2*>(tw_s + d * kTile + k16 + 8 + 2 * q);
+        const bf16* vrow = v_s + (d * 8 + grp) * kRow + k16 + 2 * q;
+        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(vrow);
+        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(vrow + 8);
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {
+          uint32_t al[4];
+          hat_fragment((float)((warp & 3) * 32 + m * 16 + grp), w_lo, w_hi, al);
+          mma16816(lacc[m], al, b0, b1);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // ---- flush: lane holds rows grp, grp + 8 and columns 2q, 2q + 1 of a tile
+  float* dw_g = dweff + ((size_t)o * 3 + d) * rfp * K;
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int r = row0 + m * 16 + grp + (c >> 1) * 8;
+        const float v = acc[m][n][c];
+        if (r < rf && v != 0.f) atomicAdd(dw_g + (size_t)r * K + n * 8 + 2 * q + (c & 1), v);
+      }
+  if constexpr (kPlanes) {
+    float* dl_g = dplines + ((size_t)o * 3 + d) * kTcRw * kTcKp;
+    if (q < 2) {
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int r = (warp & 3) * 32 + m * 16 + grp + (c >> 1) * 8;
+          const float v = lacc[m][c];
+          if (v != 0.f) atomicAdd(dl_g + (size_t)r * kTcKp + 2 * q + (c & 1), v);
+        }
+    }
+  }
+}
+
+// --------------------------------------------------------------------------
+// Launchers
+// --------------------------------------------------------------------------
+
+template <typename T, bool kPlanes, bool kStage>
 int launch_fwd(const void* pts, const void* weff, const void* planes,
                const void* plines, void* out, void* afac, void* fpl, void* fli,
                int O, int P, int K, int rf, int rfp, int ru, int rv, int kp,
                int rw, int axes, cudaStream_t stream) {
-  const size_t smem = (size_t)3 * rfp * odd_word_stride(K, sizeof(T)) * sizeof(T);
+  size_t smem = (size_t)3 * rfp * odd_word_stride(K, sizeof(T)) * sizeof(T);
+  if (kStage) smem = align16(smem) + (size_t)(kThreads / 32) * 32 * (K + 3 * kp) * sizeof(T);
   dim3 grid;
-  cudaError_t err = plan(folded_fused_fwd<T, kPlanes>, smem, O, P, 1, &grid);
+  cudaError_t err = plan(folded_fused_fwd<T, kPlanes, kStage>, smem, O, P, 1, &grid);
   if (err != cudaSuccess) return (int)err;
-  folded_fused_fwd<T, kPlanes><<<grid, kThreads, smem, stream>>>(
+  folded_fused_fwd<T, kPlanes, kStage><<<grid, kThreads, smem, stream>>>(
       (const float*)pts, (const T*)weff, (const T*)planes, (const T*)plines,
       (T*)out, (T*)afac, (T*)fpl, (T*)fli, P, K, rf, rfp, ru, rv, kp, rw, axes);
   return (int)cudaGetLastError();
+}
+
+// variant 0: "direct", 1: "staged"
+template <bool kPlanes>
+int dispatch_fwd(int dtype, int variant, const void* pts, const void* weff,
+                 const void* planes, const void* plines, void* out, void* afac,
+                 void* fpl, void* fli, int O, int P, int K, int rf, int rfp,
+                 int ru, int rv, int kp, int rw, int axes, cudaStream_t s) {
+#define ROMAP_FWD(T, STAGE)                                                      \
+  return launch_fwd<T, kPlanes, STAGE>(pts, weff, planes, plines, out, afac, fpl, \
+                                       fli, O, P, K, rf, rfp, ru, rv, kp, rw, axes, s)
+  if (dtype == 0 && variant == 0) ROMAP_FWD(float, false);
+  if (dtype == 0 && variant == 1) ROMAP_FWD(float, true);
+  if (dtype == 1 && variant == 0) ROMAP_FWD(__nv_bfloat16, false);
+  if (dtype == 1 && variant == 1) ROMAP_FWD(__nv_bfloat16, true);
+#undef ROMAP_FWD
+  return (int)cudaErrorInvalidValue;
 }
 
 template <typename T, bool kPlanes>
@@ -214,42 +671,69 @@ int launch_bwd(const void* pts, const void* afac, const void* fpl,
   return (int)cudaGetLastError();
 }
 
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+template <int MT, int NT, bool kPlanes>
+int launch_bwd_tc(const void* pts, const void* afac, const void* fpl,
+                  const void* fli, const void* g, void* dweff, void* dplanes,
+                  void* dplines, int O, int P, int rf, int ru, int rv, int axes,
+                  cudaStream_t stream) {
+  const size_t smem = TcSmem<NT, kPlanes>::total;
+  dim3 grid;
+  cudaError_t err = plan(folded_bwd_tc<MT, NT, kPlanes>, smem, O, P, 1, &grid,
+                         kTcThreads, kTile);
+  if (err != cudaSuccess) return (int)err;
+  const int vec = P % 8 == 0 && aligned16(pts) && aligned16(afac) && aligned16(g) &&
+                  aligned16(fpl) && aligned16(fli);
+  folded_bwd_tc<MT, NT, kPlanes><<<grid, kTcThreads, smem, stream>>>(
+      (const float*)pts, (const bf16*)afac, (const bf16*)fpl, (const bf16*)fli,
+      (const bf16*)g, (float*)dweff, (float*)dplanes, (float*)dplines, P, rf, ru,
+      rv, axes, vec);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 // Each returns a cudaError_t code (0 = launched). The launch is asynchronous
 // on `stream`; faults during the run surface at the caller's next sync.
+// `variant` is the caller's choice from the spec and dtype (mxgrid_cuda.py:
+// `forward_variant`: 0 direct, 1 staged; `folded_variant`: 0 scalar, 1 tensor
+// cores); a combination that is not instantiated returns
+// cudaErrorInvalidValue.
 
 // K1.
-int romap_mx_folded_fwd(int dtype, const void* pts, const void* weff,
+int romap_mx_folded_fwd(int dtype, int variant, const void* pts, const void* weff,
                         const void* planes, const void* plines, void* out,
                         void* afac, void* fpl, void* fli, int O, int P, int K,
                         int rf, int rfp, int ru, int rv, int kp, int rw,
                         int axes, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0)
-    return launch_fwd<float, true>(pts, weff, planes, plines, out, afac, fpl,
-                                   fli, O, P, K, rf, rfp, ru, rv, kp, rw, axes, s);
-  if (dtype == 1)
-    return launch_fwd<__nv_bfloat16, true>(pts, weff, planes, plines, out,
-                                           afac, fpl, fli, O, P, K, rf, rfp,
-                                           ru, rv, kp, rw, axes, s);
-  return (int)cudaErrorInvalidValue;
+  return dispatch_fwd<true>(dtype, variant, pts, weff, planes, plines, out, afac, fpl,
+                            fli, O, P, K, rf, rfp, ru, rv, kp, rw, axes,
+                            (cudaStream_t)stream);
 }
 
-// K2. dweff, dplanes and dplines must be zero-filled by the caller.
-int romap_mx_folded_bwd(int dtype, const void* pts, const void* afac,
+// K2. dweff, dplanes and dplines must be zero-filled by the caller. The
+// tensor-core variant takes bf16 at (rfp, K) = (192, 48) with kp = 4 and
+// rw = 128.
+int romap_mx_folded_bwd(int dtype, int variant, const void* pts, const void* afac,
                         const void* fpl, const void* fli, const void* g,
                         void* dweff, void* dplanes, void* dplines, int O,
                         int P, int K, int rf, int rfp, int ru, int rv, int kp,
                         int rw, int axes, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0)
+  if (variant == 1) {
+    if (dtype == 1 && rfp == 192 && K == 48 && kp == kTcKp && rw == kTcRw)
+      return launch_bwd_tc<3, 6, true>(pts, afac, fpl, fli, g, dweff, dplanes,
+                                       dplines, O, P, rf, ru, rv, axes, s);
+    return (int)cudaErrorInvalidValue;
+  }
+  if (variant == 0 && dtype == 0)
     return launch_bwd<float, true>(pts, afac, fpl, fli, g, dweff, dplanes,
                                    dplines, O, P, K, rf, rfp, ru, rv, kp, rw,
                                    axes, s);
-  if (dtype == 1)
+  if (variant == 0 && dtype == 1)
     return launch_bwd<__nv_bfloat16, true>(pts, afac, fpl, fli, g, dweff,
                                            dplanes, dplines, O, P, K, rf, rfp,
                                            ru, rv, kp, rw, axes, s);
@@ -257,32 +741,35 @@ int romap_mx_folded_bwd(int dtype, const void* pts, const void* afac,
 }
 
 // K5: out [O, P, K] and afac [O, 3, K, P] from W_eff alone.
-int romap_mx_folded_cp_fwd(int dtype, const void* pts, const void* weff,
+int romap_mx_folded_cp_fwd(int dtype, int variant, const void* pts, const void* weff,
                            void* out, void* afac, int O, int P, int K, int rf,
                            int rfp, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0)
-    return launch_fwd<float, false>(pts, weff, nullptr, nullptr, out, afac,
-                                    nullptr, nullptr, O, P, K, rf, rfp, 0, 0,
-                                    0, 0, 0, s);
-  if (dtype == 1)
-    return launch_fwd<__nv_bfloat16, false>(pts, weff, nullptr, nullptr, out,
-                                            afac, nullptr, nullptr, O, P, K,
-                                            rf, rfp, 0, 0, 0, 0, 0, s);
-  return (int)cudaErrorInvalidValue;
+  return dispatch_fwd<false>(dtype, variant, pts, weff, nullptr, nullptr, out, afac,
+                             nullptr, nullptr, O, P, K, rf, rfp, 0, 0, 0, 0, 0,
+                             (cudaStream_t)stream);
 }
 
 // K6: dweff [O, 3, rfp, K] f32 (zero-filled by the caller) from afac and
-// the cotangent g [O, P, K].
-int romap_mx_folded_cp_bwd(int dtype, const void* pts, const void* afac,
+// the cotangent g [O, P, K]. The tensor-core variant takes bf16 at
+// (rfp, K) = (192, 48) and (256, 64).
+int romap_mx_folded_cp_bwd(int dtype, int variant, const void* pts, const void* afac,
                            const void* g, void* dweff, int O, int P, int K,
                            int rf, int rfp, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0)
+  if (variant == 1) {
+    if (dtype == 1 && rfp == 192 && K == 48)
+      return launch_bwd_tc<3, 6, false>(pts, afac, nullptr, nullptr, g, dweff,
+                                        nullptr, nullptr, O, P, rf, 0, 0, 0, s);
+    if (dtype == 1 && rfp == 256 && K == 64)
+      return launch_bwd_tc<4, 8, false>(pts, afac, nullptr, nullptr, g, dweff,
+                                        nullptr, nullptr, O, P, rf, 0, 0, 0, s);
+    return (int)cudaErrorInvalidValue;
+  }
+  if (variant == 0 && dtype == 0)
     return launch_bwd<float, false>(pts, afac, nullptr, nullptr, g, dweff,
                                     nullptr, nullptr, O, P, K, rf, rfp, 0, 0,
                                     0, 0, 0, s);
-  if (dtype == 1)
+  if (variant == 0 && dtype == 1)
     return launch_bwd<__nv_bfloat16, false>(pts, afac, nullptr, nullptr, g,
                                             dweff, nullptr, nullptr, O, P, K,
                                             rf, rfp, 0, 0, 0, 0, 0, s);

@@ -21,6 +21,13 @@ the fused K1-K4 take one, and a spec with more raises NotImplementedError
 there, as does any spec no kernel covers: a CUDA tensor never falls back
 to the plain encode.
 
+The folded kernels have variants, named from the spec and the table dtype
+alone: the backward K2/K6 runs on the tensor cores in bf16 at the shapes
+mxgrid_folded.cu instantiates and as the scalar kernel otherwise
+(`folded_variant`); the forward K1/K5 stages its feature rows in shared
+memory wherever they fit (`forward_variant`). The C entry refuses a
+combination it does not have, and the wrapper raises.
+
 The CUDA sources are `romap_tpu_torch/csrc/*.cu`; they are built with nvcc
 into one shared library with a plain C interface at the first CUDA call
 (never at import) and loaded with ctypes. The build lands in
@@ -131,10 +138,10 @@ def _library() -> ctypes.CDLL:
     ptr, i32, ints = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
     ptrs = ctypes.POINTER(ctypes.c_void_p)
     argtypes = {
-        "romap_mx_folded_fwd": [i32] + [ptr] * 8 + [i32] * 10 + [ptr],
-        "romap_mx_folded_bwd": [i32] + [ptr] * 8 + [i32] * 10 + [ptr],
-        "romap_mx_folded_cp_fwd": [i32] + [ptr] * 4 + [i32] * 5 + [ptr],
-        "romap_mx_folded_cp_bwd": [i32] + [ptr] * 4 + [i32] * 5 + [ptr],
+        "romap_mx_folded_fwd": [i32] * 2 + [ptr] * 8 + [i32] * 10 + [ptr],
+        "romap_mx_folded_bwd": [i32] * 2 + [ptr] * 8 + [i32] * 10 + [ptr],
+        "romap_mx_folded_cp_fwd": [i32] * 2 + [ptr] * 4 + [i32] * 5 + [ptr],
+        "romap_mx_folded_cp_bwd": [i32] * 2 + [ptr] * 4 + [i32] * 5 + [ptr],
         "romap_mx_unsnapped_fwd": [i32] + [ptr] * 8 + [ints] * 2 + [i32] * 10 + [ptr],
         "romap_mx_unsnapped_bwd": [i32] + [ptr] * 8 + [ints] * 2 + [i32] * 10 + [ptr],
         "romap_mx_unsnapped_cp_fwd": [i32] + [ptr] * 3 + [ints] * 2 + [i32] * 5 + [ptr],
@@ -173,6 +180,59 @@ def kernel_path(spec: MXGridSpec) -> str:
             f"{n_planes} (MX_FUSED=0 selects the split kernels K9/K10, which take "
             "several; fused multi-level support is in ROADMAP.md)")
     return "folded" if snap else "unsnapped"
+
+
+# (rfp, K) of the tensor-core backward's instantiations in mxgrid_folded.cu:
+# with the plane level (K2), which must be (line rows, channels) = TC_PLANE,
+# and CP-only (K6)
+TC_SHAPES = {True: ((192, 48),), False: ((192, 48), (256, 64))}
+TC_PLANE = (128, 4)
+SMEM_PER_BLOCK = 232448  # bytes of dynamic shared memory a block may take on sm_90
+BACKWARD_VARIANTS = ("scalar", "tensor_core")  # the C side's variant codes
+FORWARD_VARIANTS = ("direct", "staged")
+
+
+def folded_variant(spec: MXGridSpec, dtype: torch.dtype, planes: bool | None = None) -> str:
+    """The variant of the folded backward for this spec and table dtype:
+    "tensor_core" for bf16 at the shapes mxgrid_folded.cu instantiates (rfp
+    a multiple of 64, K a multiple of 8: the flagship's 192 x 48 with its
+    (128, 64, 4) plane level, and CP-only 192 x 48 and `fast`'s 256 x 64),
+    "scalar" for fp32 and every other spec. `planes` says whether the
+    kernel takes the plane level (K2) or not (K6); by default, whether the
+    spec has one. Chosen from the spec and dtype alone; a failed build or
+    launch never changes it."""
+    if planes is None:
+        planes = bool(spec.plane_specs)
+    if dtype != torch.bfloat16 or (spec.fold_res[1], spec.features) not in TC_SHAPES[planes]:
+        return "scalar"
+    if planes and [(max(ru, rv), kp) for ru, rv, kp in spec.plane_specs] != [TC_PLANE]:
+        return "scalar"
+    return "tensor_core"
+
+
+def _forward_smem(spec: MXGridSpec, dtype: torch.dtype, planes: bool, staged: bool) -> int:
+    """Dynamic shared memory of the folded forward, as mxgrid_folded.cu's
+    launch_fwd sizes it: W_eff at an odd word stride, then (staged) 32
+    feature rows for each of a block's 8 warps."""
+    elem = torch.empty((), dtype=dtype).element_size()
+    words = -(-spec.features * elem // 4)
+    row = (words + 1 - words % 2) * 4  # bytes of a table row
+    table = 3 * spec.fold_res[1] * row
+    kout = spec.features + (spec.plane_out_dims if planes else 0)
+    return table + (-table % 16 + 8 * 32 * kout * elem if staged else 0)
+
+
+def forward_variant(spec: MXGridSpec, dtype: torch.dtype, planes: bool | None = None) -> str:
+    """The variant of the folded forward (K1 with `planes`, K5 without):
+    "staged" (a warp's feature rows collected in shared memory and stored
+    as one contiguous run) wherever the rows fit a block's shared memory
+    beside the table, else "direct" (each thread stores four channels a
+    vector into its own row): the fp32 table of `fast` (199,680 B) leaves no
+    room. Chosen from the spec and dtype alone."""
+    if planes is None:
+        planes = bool(spec.plane_specs)
+    fits = _forward_smem(spec, dtype, planes, staged=True) <= SMEM_PER_BLOCK
+    return "staged" if fits else "direct"
 
 
 def _axes_code(spec: MXGridSpec) -> int:
@@ -362,8 +422,9 @@ def folded_fused_forward(points, w_eff, planes, plines, spec: MXGridSpec):
     afac = torch.empty((o, 3, k, p), dtype=dt, device=dev)
     fpl = torch.empty((o, 3 * kp, p), dtype=dt, device=dev)
     fli = torch.empty_like(fpl)
+    variant = FORWARD_VARIANTS.index(forward_variant(spec, dt, planes=True))
     _launch(folded_fused_forward, "K1 folded_fused_forward", "romap_mx_folded_fwd", dt, dev,
-            points.data_ptr(), w_eff.data_ptr(), planes.data_ptr(), plines.data_ptr(),
+            variant, points.data_ptr(), w_eff.data_ptr(), planes.data_ptr(), plines.data_ptr(),
             out.data_ptr(), afac.data_ptr(), fpl.data_ptr(), fli.data_ptr(),
             o, p, k, rf, rfp, ru, rv, kp, rw, axes)
     return out, afac, fpl, fli
@@ -401,8 +462,9 @@ def folded_fused_backward(points, afac, fpl, fli, g, spec: MXGridSpec):
     dw = torch.zeros((o, 3, rfp, k), **f32)
     dplanes = torch.zeros((o, 3, ru, rv, kp), **f32)
     dplines = torch.zeros((o, 3, rw, kp), **f32)
+    variant = BACKWARD_VARIANTS.index(folded_variant(spec, dt, planes=True))
     _launch(folded_fused_backward, "K2 folded_fused_backward", "romap_mx_folded_bwd", dt, dev,
-            points.data_ptr(), afac.data_ptr(), fpl.data_ptr(), fli.data_ptr(),
+            variant, points.data_ptr(), afac.data_ptr(), fpl.data_ptr(), fli.data_ptr(),
             g.data_ptr(), dw.data_ptr(), dplanes.data_ptr(), dplines.data_ptr(),
             o, p, k, rf, rfp, ru, rv, kp, rw, axes)
     return dw, dplanes, dplines
@@ -515,8 +577,9 @@ def folded_cp_forward(points, w_eff, spec: MXGridSpec):
     _check("w_eff", w_eff, (o, 3, rfp, k), dt, dev)
     out = torch.empty((o, p, k), dtype=dt, device=dev)
     afac = torch.empty((o, 3, k, p), dtype=dt, device=dev)
+    variant = FORWARD_VARIANTS.index(forward_variant(spec, dt, planes=False))
     _launch(folded_cp_forward, "K5 folded_cp_forward", "romap_mx_folded_cp_fwd", dt, dev,
-            points.data_ptr(), w_eff.data_ptr(), out.data_ptr(), afac.data_ptr(),
+            variant, points.data_ptr(), w_eff.data_ptr(), out.data_ptr(), afac.data_ptr(),
             o, p, k, rf, rfp)
     return out, afac
 
@@ -541,8 +604,9 @@ def folded_cp_backward(points, afac, g, spec: MXGridSpec):
     _check("afac", afac, (o, 3, k, p), dt, dev)
     _check("g", g, (o, p, k), dt, dev)
     dw = torch.zeros((o, 3, rfp, k), dtype=torch.float32, device=dev)
+    variant = BACKWARD_VARIANTS.index(folded_variant(spec, dt, planes=False))
     _launch(folded_cp_backward, "K6 folded_cp_backward", "romap_mx_folded_cp_bwd", dt, dev,
-            points.data_ptr(), afac.data_ptr(), g.data_ptr(), dw.data_ptr(),
+            variant, points.data_ptr(), afac.data_ptr(), g.data_ptr(), dw.data_ptr(),
             o, p, k, rf, rfp)
     return dw
 

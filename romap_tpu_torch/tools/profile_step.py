@@ -5,14 +5,26 @@ K3/K4, the CP-only `fast` preset K5/K6, and the split path MX_FUSED=0
 MX_SNAP=0 that the online phase of chip_smoke.py runs, K7-K10), at the
 reference batch geometry on the scene of build_synthetic_world(10, 16, 128):
   - step ms and obj-iters/s: host clock around 20 steps ending in a
-    synchronize, after 3 warm-up steps;
+    synchronize, after 3 warm-up steps; host enqueue ms: the same clock read
+    before the synchronize, the time Python needs to queue a step's
+    launches (a step whose enqueue time equals its step time is paced by the
+    host, not the card);
   - device busy ms per step: CUDA kernel time under torch.profiler over 5
     steps;
   - two idle shares: `idle_share_profiled`, 1 - busy / wall time of the
     profiled steps (the profiler's own host overhead stretches that
     window), and `idle_share_unprofiled_step`, 1 - busy / the unprofiled
     step ms;
-  - the kernels by device time, largest first.
+  - the kernels by device time, largest first;
+  - the device time under each part of the step, and its largest kernels:
+    batch generation, encode forward, MLP forward, render + loss, render +
+    loss backward, MLP backward, encode backward (with the unfold), and the
+    optimizer. The parts are `torch.profiler.record_function` spans that
+    this script wraps around the step's own functions while it runs (the
+    library carries none); the backward spans open and close in tensor
+    hooks, on the autograd thread that launches those kernels. The spans'
+    own device-side ranges are left out of the busy time and the kernel
+    list.
 
 Usage: python3 -m romap_tpu_torch.tools.profile_step [--steps 20] [--top 8]
 (from the repo root; needs a CUDA device; prints the card's name and power
@@ -34,6 +46,92 @@ from romap_tpu_torch.data.world import build_synthetic_world
 from romap_tpu_torch.models import nerf
 
 N_OBJECTS = 10
+SPANS = ("batch generation", "encode forward", "MLP forward", "render + loss",
+         "render + loss backward", "MLP backward", "encode backward", "optimizer")
+
+
+class Spans:
+    """record_function spans around the parts of `nerf._object_train_step`,
+    installed by wrapping the functions it calls; `restore()` undoes it."""
+
+    def __init__(self):
+        self.saved = {name: getattr(nerf, name) for name in
+                      ("generate_batch", "apply_mlp", "composite_loss", "_optimizer_update")}
+        self.saved_encode = nerf.mxgrid_cuda.encode
+        self.open = None  # the backward span now open on the autograd thread
+        nerf.generate_batch = self.spanned("batch generation", self.saved["generate_batch"])
+        nerf._optimizer_update = self.optimizer
+        nerf.composite_loss = self.composite_loss
+        nerf.apply_mlp = self.apply_mlp
+        nerf.mxgrid_cuda.encode = self.encode
+
+    def restore(self):
+        for name, fn in self.saved.items():
+            setattr(nerf, name, fn)
+        nerf.mxgrid_cuda.encode = self.saved_encode
+
+    @staticmethod
+    def spanned(name, fn):
+        def wrapper(*args, **kwargs):
+            with torch.profiler.record_function(name):
+                return fn(*args, **kwargs)
+        return wrapper
+
+    def switch(self, name):
+        """Close the open backward span and open `name` (None: none)."""
+        if self.open is not None:
+            self.open.__exit__(None, None, None)
+        self.open = torch.profiler.record_function(name) if name else None
+        if self.open is not None:
+            self.open.__enter__()
+
+    def hook(self, tensor, name):
+        """When the backward pass has `tensor`'s gradient: the span `name`."""
+        if tensor.requires_grad:
+            tensor.register_hook(lambda grad: self.switch(name))
+
+    def apply_mlp(self, mlp, feats, network):
+        with torch.profiler.record_function("MLP forward"):
+            raw = self.saved["apply_mlp"](mlp, feats, network)
+        self.hook(raw, "MLP backward")       # the loss's backward ends here
+        self.hook(feats, "encode backward")  # ... and the MLP's here
+        return raw
+
+    def encode(self, factors, points, spec):
+        with torch.profiler.record_function("encode forward"):
+            out = self.saved_encode(factors, points, spec)
+        # the tables' gradients leave the encode's backward node together
+        self.hook(factors["lines"] if isinstance(factors, dict) else factors, None)
+        return out
+
+    def composite_loss(self, raw, batch, train):
+        with torch.profiler.record_function("render + loss"):
+            loss, aux = self.saved["composite_loss"](raw, batch, train)
+        self.hook(loss, "render + loss backward")
+        return loss, aux
+
+    def optimizer(self, *args, **kwargs):
+        with torch.profiler.record_function("optimizer"):
+            return self.saved["_optimizer_update"](*args, **kwargs)
+
+
+def span_report(prof, steps):
+    """{span: (device ms a step, [(kernel, ms a step), ...])} from the
+    profiler's event tree: the kernels launched by a span and its children."""
+    out = {}
+    for evt in prof.events():
+        if evt.name not in SPANS:
+            continue
+        ms, kernels = out.setdefault(evt.name, [0.0, {}])
+        stack = [evt]
+        while stack:
+            e = stack.pop()
+            for k in getattr(e, "kernels", []):
+                kernels[k.name] = kernels.get(k.name, 0.0) + k.duration / 1e3 / steps
+                out[evt.name][0] += k.duration / 1e3 / steps
+            stack.extend(getattr(e, "cpu_children", []))
+    return {name: (ms, sorted(ks.items(), key=lambda kv: -kv[1])[:4])
+            for name, (ms, ks) in out.items()}
 CONFIGS = {  # name -> (encoding, environment)
     "flagship K1/K2": (EncodingConfig(), {}),
     "unsnapped K3/K4": (EncodingConfig(), {"MX_SNAP": "0"}),
@@ -57,32 +155,49 @@ def profile(name, encoding, env, steps, top, world):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     state = run(state, steps)
+    enqueue_ms = 1e3 * (time.perf_counter() - t0) / steps  # the host alone: launches queued
     torch.cuda.synchronize()
     step_ms = 1e3 * (time.perf_counter() - t0) / steps
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        state = run(state, 5)
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    spans = Spans()
+    try:
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            state = run(state, 5)
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+    finally:
+        spans.restore()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.key not in SPANS]
     dev_us = lambda e: getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
     busy_ms = sum(dev_us(e) for e in kernels) / 1e3
     kernels.sort(key=dev_us, reverse=True)
-    out = dict(config=name, step_ms=step_ms, obj_iters_per_s=N_OBJECTS * 1e3 / step_ms,
+    out = dict(config=name, step_ms=step_ms, host_enqueue_ms_per_step=enqueue_ms,
+               obj_iters_per_s=N_OBJECTS * 1e3 / step_ms,
                busy_ms_per_step=busy_ms / 5, idle_share_profiled=1 - busy_ms / wall_ms,
                idle_share_unprofiled_step=1 - busy_ms / 5 / step_ms,
                launches_per_step=sum(e.count for e in kernels) / 5,
                top=[dict(kernel=e.key[:90], ms_per_step=dev_us(e) / 5e3, calls_per_step=e.count / 5)
                     for e in kernels[:top]])
-    print(f"[{name}] step_ms={step_ms:.4f} obj_iters_per_s={out['obj_iters_per_s']:.2f} "
+    print(f"[{name}] step_ms={step_ms:.4f} host_enqueue_ms_per_step={enqueue_ms:.4f} "
+          f"obj_iters_per_s={out['obj_iters_per_s']:.2f} "
           f"busy_ms_per_step={out['busy_ms_per_step']:.4f} "
           f"idle_share_profiled={out['idle_share_profiled']:.4f} "
           f"idle_share_unprofiled_step={out['idle_share_unprofiled_step']:.4f} "
           f"launches_per_step={out['launches_per_step']:.1f}", flush=True)
     for t in out["top"]:
         print(f"  {t['ms_per_step']:9.4f} ms  x{t['calls_per_step']:.1f}  {t['kernel']}", flush=True)
+    report = span_report(prof, 5)
+    out["spans"] = {name: dict(device_ms_per_step=ms, top=[dict(kernel=k[:90], ms_per_step=v)
+                                                           for k, v in top])
+                    for name, (ms, top) in report.items()}
+    for name in SPANS:
+        ms, top_kernels = report.get(name, (0.0, []))
+        print(f"  span {name!r}: device_ms_per_step={ms:.4f}", flush=True)
+        for k, v in top_kernels:
+            print(f"      {v:9.4f} ms  {k[:90]}", flush=True)
     return out
 
 

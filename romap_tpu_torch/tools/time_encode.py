@@ -1,0 +1,167 @@
+"""Times of the encode kernels alone, on one GPU, at a chosen batch shape.
+
+For each kernel pair asked for (K1/K2 flagship, K3/K4 flagship unsnapped,
+K5/K6 `fast`, K7/K8 flagship unsnapped ladder), in bf16 unless --dtype says
+otherwise: the forward kernel's residuals feed the backward kernel, and each
+is timed with CUDA events around single launches (median and minimum of
+--reps, after a warm-up). Only the wrappers of `ops.mxgrid_cuda` are called,
+so the script also runs against another checkout of the package:
+
+  python3 romap_tpu_torch/tools/time_encode.py --objects 10
+  python3 romap_tpu_torch/tools/time_encode.py --roots build/parent,.,.,build/parent
+
+`--forward-variant` and `--backward-variant` force a variant of the folded
+kernels (K1/K5: direct, staged; K2/K6: scalar, tensor_core) that the spec
+and dtype would not pick, to time both on one card.
+`--roots` runs the script once per listed checkout, in that order, each in a
+process of its own that imports `romap_tpu_torch` from that checkout (and
+builds its kernels there): the way to compare two versions on one card in
+one run. `--sass` prints, for each kernel of the built library, how its
+shared and global atomics were compiled (counts of ATOMS.*, ATOMG.*, RED.*
+opcodes in `cuobjdump -sass`). Needs a CUDA device; prints the card's name
+and power limit first and one JSON line per run last.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import dataclasses
+import json
+import os
+import re
+import shutil
+import statistics
+import subprocess
+import sys
+
+PAIRS = {"K1": ("folded", "K1", "K2"), "K3": ("unsnapped", "K3", "K4"),
+         "K5": ("folded_cp", "K5", "K6"), "K7": ("unsnapped_cp", "K7", "K8")}
+
+
+def run_roots(args) -> None:
+    """One child process per root; each prints its own lines."""
+    for root in args.roots.split(","):
+        root = os.path.abspath(root)
+        cmd = [sys.executable, os.path.abspath(__file__), "--objects", str(args.objects),
+               "--points", str(args.points), "--pairs", args.pairs, "--dtype", args.dtype,
+               "--reps", str(args.reps)] + (["--sass"] if args.sass else [])
+        if os.path.exists(os.path.join(root, "romap_tpu_torch", "tools", "time_encode.py")):
+            # a checkout that has this script knows the folded kernels' variants
+            cmd += ["--forward-variant", args.forward_variant,
+                    "--backward-variant", args.backward_variant]
+        env = dict(os.environ, PYTHONPATH=root)
+        print(f"== root {root}", flush=True)
+        subprocess.run(cmd, env=env, cwd=root, check=True)
+
+
+def sass_atomics(lib) -> dict:
+    """{kernel function: {opcode: count}} of the atomics in the library."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    out, fn = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            continue
+        m = re.search(r"\b((?:ATOMS|ATOMG|ATOM|RED)(?:\.[A-Z0-9_]+)*)", line)
+        if m and fn:
+            out.setdefault(fn, collections.Counter())[m.group(1)] += 1
+    return {k: dict(v) for k, v in out.items()}
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--objects", type=int, default=10)
+    ap.add_argument("--points", type=int, default=4096 * 32)
+    ap.add_argument("--pairs", default="K1", help="comma list of K1, K3, K5, K7")
+    ap.add_argument("--dtype", default="bfloat16", choices=("bfloat16", "float32"))
+    ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--forward-variant", default="auto", choices=("auto", "direct", "staged"),
+                    help="force K1/K5's variant instead of mxgrid_cuda.forward_variant's choice")
+    ap.add_argument("--backward-variant", default="auto",
+                    choices=("auto", "scalar", "tensor_core"),
+                    help="force K2/K6's variant instead of mxgrid_cuda.folded_variant's choice")
+    ap.add_argument("--roots", default=None)
+    ap.add_argument("--sass", action="store_true")
+    args = ap.parse_args(argv)
+    if args.roots:
+        return run_roots(args)
+
+    import torch
+
+    # run by path, the repo root is not on sys.path; a root on PYTHONPATH wins
+    sys.path.append(os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))))
+    from romap_tpu_torch.config import EncodingConfig, NerfConfig
+    from romap_tpu_torch.models import nerf
+    from romap_tpu_torch.ops import mxgrid, mxgrid_cuda
+
+    if not torch.cuda.is_available():
+        raise SystemExit("time_encode: no CUDA device")
+    if args.forward_variant != "auto":
+        mxgrid_cuda.forward_variant = lambda *a, **k: args.forward_variant
+    if args.backward_variant != "auto":
+        mxgrid_cuda.folded_variant = lambda *a, **k: args.backward_variant
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    print(smi, flush=True)
+    dtype = getattr(torch, args.dtype)
+    o, p, dev = args.objects, args.points, "cuda"
+    flagship, fast = EncodingConfig(), EncodingConfig.preset("fast")
+    unsnap = lambda e: dataclasses.replace(e, mx_snap_levels=False)
+    cp_only = lambda e: dataclasses.replace(e, mx_plane_features=0)
+    encodings = {"folded": flagship, "unsnapped": unsnap(flagship), "folded_cp": fast,
+                 "unsnapped_cp": unsnap(cp_only(flagship))}
+
+    def ms(fn):
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(args.reps):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            torch.cuda.synchronize()
+            times.append(a.elapsed_time(b))
+        return statistics.median(times), min(times)
+
+    results = {}
+    for pair in args.pairs.split(","):
+        path, kf, kb = PAIRS[pair]
+        spec = nerf.make_field_spec(NerfConfig(encoding=encodings[path]))
+        g = torch.Generator().manual_seed(3)
+        pts = (torch.rand((o, p, 3), generator=g) * (1 + 4e-3) - 2e-3).to(dev)
+        tables = mxgrid.init_mxgrid(g, spec, o)
+        lines = tables["lines"] if spec.plane_specs else tables
+        to = lambda t: t.to(device=dev, dtype=dtype).contiguous()
+        tabs = [to(mxgrid.fold_lines(lines, spec) if spec.snap_levels else lines)]
+        if spec.plane_specs:
+            tabs += [to(tables["planes"][0]), to(tables["plane_lines"][0])]
+        gout = to(torch.randn((o, p, spec.n_output_dims), generator=g))
+        fwd, bwd = mxgrid_cuda.KERNELS[kf], mxgrid_cuda.KERNELS[kb]
+        got = fwd(pts, *tabs, spec)
+        res = (got,) if kf == "K7" else got[1:]
+        results[kf] = ms(lambda: fwd(pts, *tabs, spec))
+        results[kb] = ms(lambda: bwd(pts, *res, gout, spec))
+        for k in (kf, kb):
+            print(f"[time_encode] kernel={k} spec={path} dtype={args.dtype} O={o} P={p} "
+                  f"forward_variant={args.forward_variant} "
+                  f"backward_variant={args.backward_variant} "
+                  f"median_ms={results[k][0]:.4f} min_ms={results[k][1]:.4f}", flush=True)
+        del got, res, gout, tabs, pts
+        torch.cuda.empty_cache()
+    out = dict(device=torch.cuda.get_device_name(0), smi=smi, objects=o, points=p,
+               dtype=args.dtype, root=os.getcwd(),
+               ms={k: dict(median=v[0], min=v[1]) for k, v in results.items()})
+    if args.sass:
+        out["sass_atomics"] = sass_atomics(mxgrid_cuda.build_library())
+        for fn, ops in out["sass_atomics"].items():
+            print(f"[sass] {fn[:100]} {ops}", flush=True)
+    print(json.dumps(out), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -431,3 +431,94 @@ def test_kernel_encode_matches_pallas_vjp(monkeypatch, path):
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(out), rtol=1e-4, atol=2e-4)
     for a, b in zip(got_g, jax.tree.leaves(want_g)):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-3, atol=1e-3)
+
+
+# --------------------------------------------------------------------------
+# The folded kernels' variants: the choice, and the tensor-core arithmetic
+# --------------------------------------------------------------------------
+
+
+def preset_spec(name):
+    """The port's spec of a shipped preset: "flagship" (the EncodingConfig
+    defaults), "fast" (CP only, 256 x 64), "quality" (256 x 64 with a
+    (128, 128, 8) plane level), "tiny" (the spec of these tests)."""
+    if name == "tiny":
+        return specs(True)[1]
+    res, k, planes = {"flagship": (192, 48, ((128, 64, 4),)), "fast": (256, 64, ()),
+                      "quality": (256, 64, ((128, 128, 8),))}[name]
+    return tmx.make_mxspec(n_levels=6, base_resolution=16, max_resolution=res, features=k,
+                           plane_specs=planes, plane_axes="balanced", snap_levels=True)
+
+
+@pytest.mark.parametrize("preset,dtype,planes,backward,forward", [
+    ("flagship", torch.bfloat16, None, "tensor_core", "staged"),   # K1/K2, the train step
+    ("flagship", torch.float32, None, "scalar", "staged"),         # renders, meshes
+    ("flagship", torch.bfloat16, False, "tensor_core", "staged"),  # K5/K6 on the split path
+    ("fast", torch.bfloat16, None, "tensor_core", "staged"),       # K5/K6
+    ("fast", torch.float32, None, "scalar", "direct"),             # 199,680 B of table
+    ("quality", torch.bfloat16, None, "scalar", "staged"),         # kp = 8: not instantiated
+    ("tiny", torch.bfloat16, None, "scalar", "staged"),
+    ("tiny", torch.float32, None, "scalar", "staged"),
+])
+def test_folded_variant_follows_spec_and_dtype(preset, dtype, planes, backward, forward):
+    spec = preset_spec(preset)
+    assert mxgrid_cuda.folded_variant(spec, dtype, planes) == backward
+    assert mxgrid_cuda.forward_variant(spec, dtype, planes) == forward
+    assert backward in mxgrid_cuda.BACKWARD_VARIANTS and forward in mxgrid_cuda.FORWARD_VARIANTS
+    if backward == "tensor_core":  # the tile's needs
+        rfp, k = spec.fold_res[1], spec.features
+        assert rfp % 64 == 0 and k % 8 == 0
+
+
+def flagship_points(kind, rng, n):
+    """uniform: the cube with its faces and a rim outside; cell: every point
+    in one knot cell of every table; outside: half the points up to 0.3
+    outside the cube."""
+    if kind == "cell":
+        return (0.4 + 2e-3 * rng.uniform(size=(N_OBJ, n, 3))).astype(np.float32)
+    if kind == "outside":
+        return rng.uniform(-0.3, 1.3, (N_OBJ, n, 3)).astype(np.float32)
+    pts = rng.uniform(-2e-3, 1 + 2e-3, (N_OBJ, n, 3)).astype(np.float32)
+    pts[:, :3] = np.array([[0, 1, 0.5], [1, 0, 1], [0, 0, 0]], np.float32)
+    return pts
+
+
+@pytest.mark.parametrize("kind", ["uniform", "cell", "outside"])
+def test_tensor_core_arithmetic_stays_within_half_percent(kind):
+    """The tensor-core backward's arithmetic at the flagship width (rf = 192,
+    K = 48, the (128, 64, 4) plane level), emulated: `hat` and u = g A_e A_f
+    (for the line gradient, g f_pl) rounded to bf16, products exact, sums in
+    fp32. Against K2's fp32 plain twin on the same bf16 residuals and
+    cotangent it stays within 5e-3 of each tensor's largest entry (the
+    kernel's tolerance is 1e-2)."""
+    spec = preset_spec("flagship")
+    assert mxgrid_cuda.folded_variant(spec, torch.bfloat16) == "tensor_core"
+    rf, rfp = spec.fold_res
+    k, (_, _, kp) = spec.features, spec.plane_specs[0]
+    rng = np.random.default_rng(23)
+    n = 3001
+    pts = torch.from_numpy(flagship_points(kind, rng, n))
+    bf = lambda *s: torch.from_numpy(rng.normal(0, 0.3, s).astype(np.float32)).bfloat16()
+    tables = tmx.init_mxgrid(torch.Generator().manual_seed(3), spec, N_OBJ)
+    w_eff = tmx.fold_lines(tables["lines"], spec).bfloat16()
+    _, afac, fpl, fli = mxgrid_cuda.folded_fused_forward_plain(
+        pts, w_eff, tables["planes"][0].bfloat16(), tables["plane_lines"][0].bfloat16(), spec)
+    g = (bf(N_OBJ, n, spec.n_output_dims) / 0.3)
+    want_dw, _, want_dl = mxgrid_cuda.folded_fused_backward_plain(pts, afac, fpl, fli, g, spec)
+
+    r16 = lambda t: t.bfloat16().float()
+    a = afac.float().transpose(2, 3)  # [O, 3, P, K]
+    gf = g.float()
+    for d, (e, f) in enumerate(((1, 2), (0, 2), (0, 1))):
+        hat = r16(torch.nn.functional.pad(tmx.hat1(pts[..., d], rf), (0, rfp - rf)))
+        u = r16(gf[..., :k] * a[:, e] * a[:, f])
+        got = torch.matmul(hat.transpose(1, 2), u)
+        err = float((got - want_dw[:, d]).abs().max() / want_dw[:, d].abs().max())
+        assert err <= 5e-3, ("dW_eff", d, err)
+    for i, (_, _, w) in enumerate(spec.plane_axes):
+        hat = r16(tmx.hat1(pts[..., w], 128))
+        v = r16(gf[..., k + i * kp : k + (i + 1) * kp]
+                * fpl[:, i * kp : (i + 1) * kp].float().transpose(1, 2))
+        got = torch.matmul(hat.transpose(1, 2), v)
+        err = float((got - want_dl[:, i]).abs().max() / want_dl[:, i].abs().max())
+        assert err <= 5e-3, ("dplines", i, err)

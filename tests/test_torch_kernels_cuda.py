@@ -315,3 +315,130 @@ def test_split_encode_matches_plain_encode(cuda, monkeypatch, snap, n_levels):
         n9 + 1, n10 + 1)
     for a, b in zip(got, run(mxgrid.encode)):
         assert rel_err(a, b) < 1e-4
+
+
+# --------------------------------------------------------------------------
+# The folded kernels' variants at the widths of the shipped presets
+# --------------------------------------------------------------------------
+
+
+def preset_spec(name):
+    """"flagship": 6 levels to 192 x 48 with the (128, 64, 4) plane level;
+    "fast": CP only, 6 levels to 256 x 64 (the EncodingConfig defaults and
+    its `fast` preset)."""
+    planes = ((128, 64, 4),) if name == "flagship" else ()
+    res, k = (192, 48) if name == "flagship" else (256, 64)
+    return mxgrid.make_mxspec(n_levels=6, base_resolution=16, max_resolution=res, features=k,
+                              plane_specs=planes, plane_axes="balanced", snap_levels=True)
+
+
+def preset_points(kind, n_obj, n_pts, g):
+    """uniform: the unit cube with its faces and a rim outside; cell: every
+    point inside one knot cell of every axis and plane (all sums meet on two
+    rows a table: the worst case for atomics); outside: half the points up
+    to 0.3 outside the cube (no knot in reach: they add nothing)."""
+    u = torch.rand((n_obj, n_pts, 3), generator=g)
+    if kind == "uniform":
+        pts = u * (1 + 4e-3) - 2e-3
+        pts[:, :3] = torch.tensor([[0.0, 1.0, 0.5], [1.0, 0.0, 1.0], [0.0, 0.0, 0.0]])[:n_pts]
+        return pts
+    if kind == "cell":
+        return 0.4 + u * 2e-3
+    return u * 1.6 - 0.3
+
+
+TC_SHAPES = [(1, 1), (1, 63), (10, 65), (2, 4097), (10, 4096)]
+
+
+@pytest.mark.parametrize("kind", ["uniform", "cell", "outside"])
+@pytest.mark.parametrize("n_obj,n_pts", TC_SHAPES)
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)])
+def test_k1_k2_flagship_widths(cuda, dtype, tol, n_obj, n_pts, kind):
+    """K1 and K2 at the flagship spec (the staged forward; the tensor-core
+    backward in bf16, the scalar one in fp32) for point counts around
+    the 64-point tile, one and ten objects: against the plain twins, and K2
+    against autograd through K1's twin."""
+    spec = preset_spec("flagship")
+    bf16 = dtype == torch.bfloat16
+    assert mxgrid_cuda.folded_variant(spec, dtype) == ("tensor_core" if bf16 else "scalar")
+    assert mxgrid_cuda.forward_variant(spec, dtype) == "staged"
+    g = torch.Generator().manual_seed(11)
+    pts = preset_points(kind, n_obj, n_pts, g).to(cuda)
+    tables = mxgrid.init_mxgrid(g, spec, n_obj)
+    to = lambda t: t.to(device=cuda, dtype=dtype).contiguous()
+    args = [to(mxgrid.fold_lines(tables["lines"], spec)), to(tables["planes"][0]),
+            to(tables["plane_lines"][0])]
+    gout = to(torch.randn((n_obj, n_pts, spec.n_output_dims), generator=g))
+
+    got = mxgrid_cuda.folded_fused_forward(pts, *args, spec)
+    torch.cuda.synchronize()
+    want = mxgrid_cuda.folded_fused_forward_plain(pts, *args, spec)
+    for name, a, b in zip(("out", "afac", "fpl", "fli"), got, want):
+        assert a.dtype == dtype and a.shape == b.shape
+        assert torch.isfinite(a.float()).all(), name
+        assert rel_err(a, b) < tol, name
+
+    res = want[1:]
+    got_b = mxgrid_cuda.folded_fused_backward(pts, *res, gout, spec)
+    torch.cuda.synchronize()
+    ref = mxgrid_cuda.folded_fused_backward_plain(pts, *res, gout, spec)
+    leaves = [a.clone().requires_grad_(True) for a in args]
+    out = mxgrid_cuda.folded_fused_forward_plain(pts, *leaves, spec)[0]
+    auto = torch.autograd.grad(out, leaves, grad_outputs=gout)
+    for name, a, b, c in zip(("dW_eff", "dplanes", "dplines"), got_b, ref, auto):
+        assert a.dtype == torch.float32 and a.shape == b.shape
+        assert rel_err(a, b) < tol, name + " vs plain"
+        assert rel_err(a, c) < tol, name + " vs autograd"
+
+
+@pytest.mark.parametrize("preset", ["flagship", "fast"])
+@pytest.mark.parametrize("n_obj,n_pts", [(1, 63), (3, 4097), (10, 4096)])
+def test_k6_tensor_core_matches_plain(cuda, preset, n_obj, n_pts):
+    """K5/K6 in bf16 at both instantiated CP shapes (K6 on the flagship spec
+    is the split path's CP backward)."""
+    spec = preset_spec(preset)
+    dtype, tol = torch.bfloat16, 1e-2
+    assert mxgrid_cuda.folded_variant(spec, dtype, planes=False) == "tensor_core"
+    g = torch.Generator().manual_seed(12)
+    pts = preset_points("uniform", n_obj, n_pts, g).to(cuda)
+    tables = mxgrid.init_mxgrid(g, spec, n_obj)
+    lines = tables["lines"] if spec.plane_specs else tables
+    w_eff = mxgrid.fold_lines(lines, spec).to(device=cuda, dtype=dtype).contiguous()
+    gout = torch.randn((n_obj, n_pts, spec.features), generator=g).to(device=cuda, dtype=dtype)
+    got = mxgrid_cuda.folded_cp_forward(pts, w_eff, spec)
+    torch.cuda.synchronize()
+    want = mxgrid_cuda.folded_cp_forward_plain(pts, w_eff, spec)
+    for name, a, b in zip(("out", "afac"), got, want):
+        assert rel_err(a, b) < tol, name
+    got_b = mxgrid_cuda.folded_cp_backward(pts, want[1], gout, spec)
+    torch.cuda.synchronize()
+    assert rel_err(got_b, mxgrid_cuda.folded_cp_backward_plain(pts, want[1], gout, spec)) < tol
+
+
+def test_flagship_encode_matches_plain_encode(cuda):
+    """`encode` and its backward at the flagship spec in bf16 (fold, K1
+    staged, K2 on the tensor cores, unfold) against autograd through the
+    plain `ops.mxgrid.encode` in fp32 on the same bf16 tables: 1e-2 of each
+    tensor's largest entry (bf16 roundings of the stored features, the
+    residuals, `hat` and `u`, and of the returned gradients)."""
+    spec = preset_spec("flagship")
+    g = torch.Generator().manual_seed(13)
+    f = mxgrid.init_mxgrid(g, spec, 2)
+    pts = preset_points("uniform", 2, 5000, g).to(cuda)
+    tgt = torch.randn((2, 5000, spec.n_output_dims), generator=g).to(cuda)
+
+    def run(enc, dtype):
+        leaves = [t.to(cuda).bfloat16().to(dtype).requires_grad_(True)
+                  for t in (f["lines"], f["planes"][0], f["plane_lines"][0])]
+        ff = {"lines": leaves[0], "planes": (leaves[1],), "plane_lines": (leaves[2],)}
+        out = enc(ff, pts, spec)
+        grads = torch.autograd.grad(torch.sum(out.float() * tgt), leaves)
+        return [out] + list(grads)
+
+    n1, n2 = mxgrid_cuda.folded_fused_forward.launches, mxgrid_cuda.folded_fused_backward.launches
+    got = run(mxgrid_cuda.encode, torch.bfloat16)
+    assert (mxgrid_cuda.folded_fused_forward.launches,
+            mxgrid_cuda.folded_fused_backward.launches) == (n1 + 1, n2 + 1)
+    for name, a, b in zip(("out", "dlines", "dplanes", "dplines"), got,
+                          run(mxgrid.encode, torch.float32)):
+        assert rel_err(a, b) < 1e-2, name

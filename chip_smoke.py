@@ -16,14 +16,15 @@ Phases, one or more lines each, each closed by its seconds:
                runs them) and K9/K10 (the flagship plane level on the split
                path) vs their plain versions, and each backward
                vs autograd through its forward's plain version, O=2 x
-               P=131072, bf16 and fp32, then K1/K2 in bf16 at O=10 x
-               P=131072, the shape the train step launches them at: max abs
-               / relative error beside the tolerance, the median kernel and
-               plain times, the bound (the least time the card could take:
-               bytes over its memory rate or operations over its peak, the
-               larger) and, for the folded kernels, the variant the spec and
-               dtype select (the flagship and `fast` bf16 backward must take
-               the tensor cores)
+               P=131072, bf16 and fp32, then K1/K2, K3/K4 and K7/K8 in bf16
+               at O=10 x P=131072, the shape their train steps launch them
+               at: max abs / relative error beside the tolerance, the median
+               kernel and plain times, the bound (the least time the card
+               could take: bytes over its memory rate or operations over its
+               peak, the larger), the peak memory of the check and, where a
+               kernel has variants, the one the spec and dtype select (the
+               flagship and `fast` bf16 backwards, folded and unsnapped,
+               must take the tensor cores)
   4 parity     one tiny train step, fp32, kernels on the card vs the plain
                path on the CPU, from the same state and uniforms
   5 train      build_synthetic_world(10, 16, 128) + NerfConfig(): init, 1
@@ -186,9 +187,10 @@ def phase_build() -> None:
 # each pair at the spec its path in chip_smoke runs. K7/K8 run twice: at the
 # `fast` ladder unsnapped (580 rows x K = 64, their largest shared-memory
 # tables) and at the flagship unsnapped ladder that phase 9 runs (465 rows x
-# K = 48); K1/K2 twice: at O=2 like the others and at the train step's O=10.
-# A kernel's record in the JSON line is its last bf16 check here: its main
-# path's.
+# K = 48); K1/K2, K3/K4 and K7/K8 also at their train steps' O=10, in bf16
+# (there the plain twins hold dense [10, 131072, 465] fp32 bases, 2.4 GB an
+# axis). A kernel's record in the JSON line is its last bf16 check here: its
+# main path's.
 BOTH = (torch.bfloat16, torch.float32)
 CHECKS = (
     ("folded", "K1", "K2", KERNEL_O, BOTH),
@@ -198,6 +200,8 @@ CHECKS = (
     ("unsnapped_cp", "K7", "K8", KERNEL_O, BOTH),
     ("unsnapped_split", "K7", "K8", KERNEL_O, BOTH),
     ("unsnapped_split", "K9", "K10", KERNEL_O, BOTH),
+    ("unsnapped", "K3", "K4", N_OBJECTS, (torch.bfloat16,)),
+    ("unsnapped_split", "K7", "K8", N_OBJECTS, (torch.bfloat16,)),
 )
 FUSED = ("K1", "K3")  # forward kernels that also form the products
 
@@ -271,13 +275,16 @@ def bound(kernel, spec, dtype, o):
 
 
 def variants(kf, spec, dtype) -> tuple[dict, dict]:
-    """The `variant=` field of a folded forward kernel's line and of its
-    backward's: what the spec and dtype select (K5/K6 never take planes)."""
-    if kf not in ("K1", "K5"):
-        return {}, {}
-    planes = kf == "K1"
-    return (dict(variant=mxgrid_cuda.forward_variant(spec, dtype, planes)),
-            dict(variant=mxgrid_cuda.folded_variant(spec, dtype, planes)))
+    """The `variant=` field of a forward kernel's line and of its backward's:
+    what the spec and dtype select (K5/K6 and K7/K8 never take planes; the
+    unsnapped forwards have one variant)."""
+    if kf in ("K1", "K5"):
+        planes = kf == "K1"
+        return (dict(variant=mxgrid_cuda.forward_variant(spec, dtype, planes)),
+                dict(variant=mxgrid_cuda.folded_variant(spec, dtype, planes)))
+    if kf in ("K3", "K7"):
+        return {}, dict(variant=mxgrid_cuda.unsnapped_variant(spec, dtype, kf == "K3"))
+    return {}, {}
 
 
 def phase_kernels(specs: dict, dev) -> dict:
@@ -285,10 +292,14 @@ def phase_kernels(specs: dict, dev) -> dict:
     its plain twin and vs autograd through the forward twin, on the
     kernels' own residuals; bf16 and fp32. Returns the bf16 (train dtype)
     records for the JSON line."""
-    for path in ("folded", "folded_cp"):  # the train paths' backward is on the tensor cores
-        chosen = mxgrid_cuda.folded_variant(specs[path], torch.bfloat16)
-        if chosen != "tensor_core":
-            raise AssertionError(f"{path}: bf16 backward variant is {chosen}")
+    # the train paths' backward is on the tensor cores
+    chosen = {path: mxgrid_cuda.folded_variant(specs[path], torch.bfloat16)
+              for path in ("folded", "folded_cp")}
+    chosen.update({path: mxgrid_cuda.unsnapped_variant(specs[path], torch.bfloat16, planes)
+                   for path, planes in (("unsnapped", True), ("unsnapped_cp", False),
+                                        ("unsnapped_split", False))})
+    if set(chosen.values()) != {"tensor_core"}:
+        raise AssertionError(f"bf16 backward variants: {chosen}")
     records = {}
     for path, kf, kb, o, dtypes in CHECKS:
         spec = specs[path]
@@ -300,6 +311,7 @@ def phase_kernels(specs: dict, dev) -> dict:
         for dtype in dtypes:
             tol, dname = REL_TOL[dtype], str(dtype).split(".")[1]
             f_var, b_var = variants(kf, spec, dtype)
+            torch.cuda.reset_peak_memory_stats()
             pts, args, gout = kernel_inputs(spec, dtype, dev, seed=3, kf=kf, o=o)
             got = fwd(pts, *args, spec)
             want = fwd_plain(pts, *args, spec)
@@ -332,7 +344,8 @@ def phase_kernels(specs: dict, dev) -> dict:
             say("3 kernels", kernel=kb, spec=path, shape=shape, dtype=dname, **b_var,
                 max_abs_err_vs_autograd=f"{b_abs:.3e}", max_rel_err_vs_autograd=f"{b_rel:.3e}",
                 max_rel_err_vs_plain=f"{b_rel_p:.3e}", rel_tol=tol, ms=f"{b_ms:.4f}",
-                plain_ms=f"{b_plain_ms:.4f}", bound_ms=f"{b_bound:.4f}", bound_by=b_by)
+                plain_ms=f"{b_plain_ms:.4f}", bound_ms=f"{b_bound:.4f}", bound_by=b_by,
+                peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.3f}")
             if not (b_rel <= tol and b_rel_p <= tol):
                 raise AssertionError(f"{kb} {dtype}: relative error {b_rel}/{b_rel_p} above {tol}")
             if dtype == torch.bfloat16:
@@ -402,6 +415,7 @@ def held_out_views(cam, objects, n_frames=16, min_pixels=64):
 def phase_train_and_render(dev) -> tuple[dict, float]:
     cfg = NerfConfig()
     spec = nerf.make_field_spec(cfg)
+    torch.cuda.reset_peak_memory_stats()  # this phase's peak, not the kernel checks'
     t0 = time.perf_counter()
     cam, objects, _, store, objs = build_synthetic_world(N_OBJECTS, 16, 128, device=dev)
     frames = store.arrays()

@@ -87,9 +87,7 @@
 // (`afac[0] * afac[1] * afac[2]` in the table dtype, mxgrid_pallas.py:736).
 // `axes` packs the (u, v, w) axis of the three plane pairs, 2 bits each.
 
-#include "mxgrid_common.cuh"
-
-#include <stdint.h>
+#include "mxgrid_tc.cuh"
 
 namespace {
 
@@ -301,70 +299,8 @@ __global__ void __launch_bounds__(kThreads) folded_fused_bwd(
 // Backward, tensor cores (bf16)
 // --------------------------------------------------------------------------
 
-typedef __nv_bfloat16 bf16;
-
 constexpr int kTcThreads = 384;  // 12 warps: four an axis (and plane pair)
 constexpr int kTcWarps = kTcThreads / 32;
-constexpr int kTile = 64;        // points a tile: four k-steps of 16
-constexpr int kRow = 72;         // bf16 elements of a 64-point row in shared
-                                 // memory: 128 B + 16 B, so that 8 rows of a
-                                 // 16-byte column fall into 8 bank groups
-constexpr int kTcKp = 4;         // plane channels (one 16-byte vector)
-constexpr int kTcRw = 128;       // plane line rows: 2 row tiles x 4 warps
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  const uint32_t s = (uint32_t)__cvta_generic_to_shared(smem);
-  const int n = valid ? 16 : 0;  // 0: nothing is read, 16 zero bytes land
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// {lo, hi} -> bf16x2 of max(0, .), round to nearest even.
-__device__ __forceinline__ uint32_t pack_relu(float lo, float hi) {
-  uint32_t d;
-  asm("cvt.rn.relu.bf16x2.f32 %0, %1, %2;\n" : "=r"(d) : "f"(hi), "f"(lo));
-  return d;
-}
-
-// A fragment (16 rows x 16 points) of a tent basis: rows j0 and j0 + 8 of
-// this lane, points (2q, 2q+1) from t_lo and (2q+8, 2q+9) from t_hi.
-__device__ __forceinline__ void hat_fragment(float j0, float2 t_lo, float2 t_hi, uint32_t* a) {
-  const float j1 = j0 + 8.f;
-  a[0] = pack_relu(1.f - fabsf(t_lo.x - j0), 1.f - fabsf(t_lo.y - j0));
-  a[1] = pack_relu(1.f - fabsf(t_lo.x - j1), 1.f - fabsf(t_lo.y - j1));
-  a[2] = pack_relu(1.f - fabsf(t_hi.x - j0), 1.f - fabsf(t_hi.y - j0));
-  a[3] = pack_relu(1.f - fabsf(t_hi.x - j1), 1.f - fabsf(t_hi.y - j1));
-}
-
-__device__ __forceinline__ void mma16816(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(const void* smem, uint32_t* r) {
-  const uint32_t s = (uint32_t)__cvta_generic_to_shared(smem);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
-
-// dst[0..3] += w * v[0..3] as one 16-byte atomic.
-__device__ __forceinline__ void red4_if(float* dst, float w, const float* v) {
-  if (w == 0.f) return;
-#if defined(CUDART_VERSION) && CUDART_VERSION >= 12010
-  atomicAdd(reinterpret_cast<float4*>(dst), make_float4(w * v[0], w * v[1], w * v[2], w * v[3]));
-#else
-#pragma unroll
-  for (int c = 0; c < 4; ++c) atomicAdd(dst + c, w * v[c]);
-#endif
-}
 
 // Shared-memory bytes of folded_bwd_tc<MT, NT, kPlanes>: two input stages
 // (g, afac, fpl + fli, points), then u, the line operand, t and t_w.
@@ -670,8 +606,6 @@ int launch_bwd(const void* pts, const void* afac, const void* fpl,
       rfp, ru, rv, kp, rw, axes);
   return (int)cudaGetLastError();
 }
-
-bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 template <int MT, int NT, bool kPlanes>
 int launch_bwd_tc(const void* pts, const void* afac, const void* fpl,

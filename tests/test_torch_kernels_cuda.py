@@ -11,6 +11,8 @@ entry. In bf16 both round the same fp32 value once at the store, so a
 stored value may differ by one bf16 step (2^-8 relative): 1e-2 relative.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -442,3 +444,168 @@ def test_flagship_encode_matches_plain_encode(cuda):
     for name, a, b in zip(("out", "dlines", "dplanes", "dplines"), got,
                           run(mxgrid.encode, torch.float32)):
         assert rel_err(a, b) < 1e-2, name
+
+
+# --------------------------------------------------------------------------
+# The unsnapped backward on the tensor cores (K4, K8)
+# --------------------------------------------------------------------------
+
+
+def unsnapped_preset(name, planes=True):
+    """The preset's spec with the ladder unsnapped; `planes=False` drops the
+    flagship's plane level (K8 on the split path runs that ladder)."""
+    spec = preset_spec(name)
+    return mxgrid.make_mxspec(n_levels=6, base_resolution=16,
+                              max_resolution=max(spec.resolutions), features=spec.features,
+                              plane_specs=spec.plane_specs if planes else (),
+                              plane_axes="balanced", snap_levels=False)
+
+
+def unsnapped_case(spec, n_obj, n_pts, kind, cuda, seed):
+    """Points, the forward twin's bf16 residuals and a bf16 cotangent."""
+    g = torch.Generator().manual_seed(seed)
+    pts = preset_points(kind, n_obj, n_pts, g).to(cuda)
+    tables = mxgrid.init_mxgrid(g, spec, n_obj)
+    to = lambda t: t.to(device=cuda, dtype=torch.bfloat16).contiguous()
+    gout = to(torch.randn((n_obj, n_pts, spec.n_output_dims), generator=g))
+    if spec.plane_specs:
+        args = [to(tables["lines"]), to(tables["planes"][0]), to(tables["plane_lines"][0])]
+        res = mxgrid_cuda.unsnapped_fused_forward_plain(pts, *args, spec)[1:]
+    else:
+        args = [to(tables)]
+        res = (mxgrid_cuda.unsnapped_cp_forward_plain(pts, *args, spec),)
+    return pts, args, res, gout
+
+
+@pytest.mark.parametrize("kind", ["uniform", "cell", "outside"])
+@pytest.mark.parametrize("n_obj,n_pts", TC_SHAPES)
+def test_k4_tensor_core_flagship_widths(cuda, n_obj, n_pts, kind):
+    """K4 in bf16 at the flagship ladder with its plane level, for point
+    counts around the 64-point tile (4097: the element-wise loader), one, two
+    and ten objects: against the plain twin and against autograd through
+    K3's twin."""
+    spec = unsnapped_preset("flagship")
+    assert mxgrid_cuda.unsnapped_variant(spec, torch.bfloat16) == "tensor_core"
+    pts, args, res, gout = unsnapped_case(spec, n_obj, n_pts, kind, cuda, seed=21)
+    n4 = mxgrid_cuda.unsnapped_fused_backward.launches
+    got = mxgrid_cuda.unsnapped_fused_backward(pts, *res, gout, spec)
+    torch.cuda.synchronize()
+    assert mxgrid_cuda.unsnapped_fused_backward.launches == n4 + 1
+    ref = mxgrid_cuda.unsnapped_fused_backward_plain(pts, *res, gout, spec)
+    leaves = [a.clone().requires_grad_(True) for a in args]
+    out = mxgrid_cuda.unsnapped_fused_forward_plain(pts, *leaves, spec)[0]
+    auto = torch.autograd.grad(out, leaves, grad_outputs=gout)
+    for name, a, b, c in zip(("dlines", "dplanes", "dplines"), got, ref, auto):
+        assert a.dtype == torch.float32 and a.shape == b.shape
+        assert torch.isfinite(a).all(), name
+        assert rel_err(a, b) < 1e-2, name + " vs plain"
+        assert rel_err(a, c) < 1e-2, name + " vs autograd"
+
+
+@pytest.mark.parametrize("preset", ["flagship", "fast"])
+@pytest.mark.parametrize("kind", ["uniform", "cell", "outside"])
+@pytest.mark.parametrize("n_obj,n_pts", TC_SHAPES)
+def test_k8_tensor_core_matches_plain(cuda, preset, n_obj, n_pts, kind):
+    """K8 in bf16 at both instantiated ladders (the flagship's, as the split
+    path runs it, and `fast`'s)."""
+    spec = unsnapped_preset(preset, planes=False)
+    assert mxgrid_cuda.unsnapped_variant(spec, torch.bfloat16) == "tensor_core"
+    pts, _, (afac,), gout = unsnapped_case(spec, n_obj, n_pts, kind, cuda, seed=22)
+    n8 = mxgrid_cuda.unsnapped_cp_backward.launches
+    got = mxgrid_cuda.unsnapped_cp_backward(pts, afac, gout, spec)
+    torch.cuda.synchronize()
+    assert mxgrid_cuda.unsnapped_cp_backward.launches == n8 + 1
+    ref = mxgrid_cuda.unsnapped_cp_backward_plain(pts, afac, gout, spec)
+    assert got.dtype == torch.float32 and got.shape == ref.shape
+    assert torch.isfinite(got).all() and rel_err(got, ref) < 1e-2
+
+
+def test_k4_tensor_core_takes_unaligned_bases(cuda):
+    """P a multiple of 8 but every input two or four bytes off a 16-byte
+    boundary: the kernel's element-wise loader, same sums."""
+    spec = unsnapped_preset("flagship")
+    pts, _, res, gout = unsnapped_case(spec, 2, 4096, "uniform", cuda, seed=23)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        out = buf[1:].view(t.shape)
+        out.copy_(t)
+        assert out.is_contiguous() and out.data_ptr() % 16 != 0
+        return out
+
+    want = mxgrid_cuda.unsnapped_fused_backward(pts, *res, gout, spec)
+    got = mxgrid_cuda.unsnapped_fused_backward(shifted(pts), *map(shifted, res),
+                                               shifted(gout), spec)
+    torch.cuda.synchronize()
+    ref = mxgrid_cuda.unsnapped_fused_backward_plain(pts, *res, gout, spec)
+    for name, a, b, c in zip(("dlines", "dplanes", "dplines"), got, want, ref):
+        assert rel_err(a, c) < 1e-2, name + " vs plain"
+        assert rel_err(a, b) < 1e-4, name + " vs the vector loader (atomic order only)"
+
+
+@pytest.mark.parametrize("fused", ["1", "0"])
+def test_unsnapped_flagship_encode_matches_plain_encode(cuda, monkeypatch, fused):
+    """`encode` and its backward at the flagship spec unsnapped in bf16, on
+    the fused path (K3, K4 on the tensor cores) and on the split path
+    (MX_FUSED=0: K7 + K9, K8 on the tensor cores + K10), against autograd
+    through the plain `ops.mxgrid.encode` in fp32 on the same bf16 tables:
+    1e-2 of each tensor's largest entry."""
+    monkeypatch.setenv("MX_FUSED", fused)
+    spec = unsnapped_preset("flagship")
+    assert mxgrid_cuda.kernel_path(spec) == ("unsnapped" if fused == "1" else "unsnapped_split")
+    g = torch.Generator().manual_seed(14)
+    f = mxgrid.init_mxgrid(g, spec, 2)
+    pts = preset_points("uniform", 2, 5000, g).to(cuda)
+    tgt = torch.randn((2, 5000, spec.n_output_dims), generator=g).to(cuda)
+
+    def run(enc, dtype):
+        leaves = [t.to(cuda).bfloat16().to(dtype).requires_grad_(True)
+                  for t in (f["lines"], f["planes"][0], f["plane_lines"][0])]
+        ff = {"lines": leaves[0], "planes": (leaves[1],), "plane_lines": (leaves[2],)}
+        out = enc(ff, pts, spec)
+        return [out] + list(torch.autograd.grad(torch.sum(out.float() * tgt), leaves))
+
+    bwd = (mxgrid_cuda.unsnapped_fused_backward if fused == "1"
+           else mxgrid_cuda.unsnapped_cp_backward)
+    n = bwd.launches
+    got = run(mxgrid_cuda.encode, torch.bfloat16)
+    assert bwd.launches == n + 1
+    for name, a, b in zip(("out", "dlines", "dplanes", "dplines"), got,
+                          run(mxgrid.encode, torch.float32)):
+        assert rel_err(a, b) < 1e-2, name
+
+
+def test_unsnapped_specs_outside_the_instantiations(cuda, monkeypatch):
+    """A bf16 spec the tensor-core tile does not cover (K = 16; the
+    `quality` preset's kp = 8) takes the scalar kernel and agrees with the
+    plain twin; forcing the tensor-core variant on it is refused by the C
+    entry, and the wrapper raises."""
+    quality = mxgrid.make_mxspec(n_levels=6, base_resolution=16, max_resolution=256,
+                                 features=64, plane_specs=((128, 128, 8),),
+                                 plane_axes="balanced", snap_levels=False)
+    for spec in (small_spec(snap=False), quality):
+        assert mxgrid_cuda.unsnapped_variant(spec, torch.bfloat16) == "scalar"
+        pts, _, res, gout = unsnapped_case(spec, 2, 1000, "uniform", cuda, seed=24)
+        got = mxgrid_cuda.unsnapped_fused_backward(pts, *res, gout, spec)
+        torch.cuda.synchronize()
+        ref = mxgrid_cuda.unsnapped_fused_backward_plain(pts, *res, gout, spec)
+        for name, a, b in zip(("dlines", "dplanes", "dplines"), got, ref):
+            assert rel_err(a, b) < 1e-2, name
+        monkeypatch.setattr(mxgrid_cuda, "unsnapped_variant", lambda *a, **k: "tensor_core")
+        n4 = mxgrid_cuda.unsnapped_fused_backward.launches
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            mxgrid_cuda.unsnapped_fused_backward(pts, *res, gout, spec)
+        if spec.features != 64:  # `quality`'s ladder and K are K8's `fast` instantiation
+            with pytest.raises(RuntimeError, match="CUDA error"):
+                mxgrid_cuda.unsnapped_cp_backward(
+                    pts, res[0], gout[..., : spec.features].contiguous(),
+                    dataclasses.replace(spec, plane_specs=()))
+        assert mxgrid_cuda.unsnapped_fused_backward.launches == n4
+        monkeypatch.undo()
+    # fp32 at an instantiated shape: refused too
+    flagship = unsnapped_preset("flagship")
+    pts, _, res, gout = unsnapped_case(flagship, 1, 64, "uniform", cuda, seed=25)
+    monkeypatch.setattr(mxgrid_cuda, "unsnapped_variant", lambda *a, **k: "tensor_core")
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        mxgrid_cuda.unsnapped_fused_backward(pts, *(t.float() for t in res), gout.float(),
+                                             flagship)

@@ -2,8 +2,10 @@
 each against its plain PyTorch version at the shapes of its path, then
 drives the main paths through the port's public entry points: a 10-object
 train wave with held-out renders, the offline runner with the CP-only
-`fast` preset, the offline CLI with the unsnapped ladder, and the online
-socket server on the split kernels.
+`fast` preset, the offline CLI with the unsnapped ladder, the online
+socket server on the split kernels with a pose-refined test render, pose
+refinement of perturbed views against a converged field, and a hash-grid
+(`tcnn`) train wave.
 
 Usage: python3 chip_smoke.py     (needs one CUDA device; exits non-zero on
 any failure and prints no result line then)
@@ -24,7 +26,15 @@ Phases, one or more lines each, each closed by its seconds:
                peak, the larger), the peak memory of the check and, where a
                kernel has variants, the one the spec and dtype select (the
                flagship and `fast` bf16 backwards, folded and unsnapped,
-               must take the tensor cores)
+               must take the tensor cores; the bf16 unsnapped forwards the
+               three-axis kernel, the fp32 ones the per-axis one); K3/K4 and
+               K7/K8 also in fp32 and K9/K10 in bf16 at O=10; then K3 and
+               K7 in bf16 at O=10 in the per-axis design with its product
+               pass (forced) and in the selected variant, in turns, and
+               each product pass alone; then K0 (the points gradient) at one
+               view's refinement points (1 x 4 x 1536 x 32) on the folded and
+               split paths, bf16 and fp32, against its plain twin and (fp32)
+               autograd over the points through the plain encode
   4 parity     one tiny train step, fp32, kernels on the card vs the plain
                path on the CPU, from the same state and uniforms
   5 train      build_synthetic_world(10, 16, 128) + NerfConfig(): init, 1
@@ -45,8 +55,20 @@ Phases, one or more lines each, each closed by its seconds:
                K10 backward) and a client speaking its wire protocol: the
                same 16 frames, a NeRF per object past 10 bboxes, 25-step
                waves (cut from 500), a volume update, the background pump,
-               WAIT_END (final retrain), losses, meshes, one test render:
-               waves, wave seconds, online obj-iters/s, K7-K10 counts
+               WAIT_END (final retrain), losses, meshes, one test render
+               with pixel crops (the reply, and the `pose refine` line the
+               server prints; the refinement runs K7 + K9 forward and K0):
+               waves, wave seconds, online obj-iters/s, K0 and K7-K10
+               counts, product passes (none in bf16)
+ 9b refine    pose refinement against a converged field: one object trained
+               400 steps at the flagship width (as the reference's
+               tests/test_pose_refine.py), two views moved by a known SE(3)
+               delta, refined at the reference's 4 starts x 300 steps x 1536
+               pixels x 32 samples through K1 and K0: losses, pose errors
+               before and after, seconds, launches
+ 10 tcnn      EncodingConfig.preset("tcnn") (hash grid) on the scene of
+               phase 5: 1 + 20 steps of train_objects, obj-iters/s, the
+               losses falling, peak memory
 then the total seconds, a JSON line with each kernel's record, and as the
 last line {"ok": true, "device": {...}}.
 """
@@ -55,6 +77,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import io
 import json
 import math
 import os
@@ -82,7 +105,7 @@ from romap_tpu_torch.data.world import build_synthetic_world  # noqa: E402
 from romap_tpu_torch.models import nerf  # noqa: E402
 from romap_tpu_torch.ops import mxgrid, mxgrid_cuda  # noqa: E402
 from romap_tpu_torch.ops.geometry import camera_rays, ray_aabb_intersect  # noqa: E402
-from romap_tpu_torch.runtime import offline, server  # noqa: E402
+from romap_tpu_torch.runtime import offline, pose_refine, server  # noqa: E402
 from romap_tpu_torch.runtime.offline import OfflineRunner  # noqa: E402
 
 N_OBJECTS, WAVE = 10, 50
@@ -93,14 +116,18 @@ KERNEL_O, KERNEL_P = 2, 4096 * 32
 # 2^-9 a term and unbiased, which the sums in fp32 average out.
 REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 CSRC = "romap_tpu_torch/csrc/"
-FOLDED, UNSNAPPED, PLANES = (CSRC + f for f in (
-    "mxgrid_folded.cu", "mxgrid_unsnapped.cu", "mxgrid_planes.cu"))
-SOURCES = {"K1": FOLDED, "K2": FOLDED, "K3": UNSNAPPED, "K4": UNSNAPPED, "K5": FOLDED,
-           "K6": FOLDED, "K7": UNSNAPPED, "K8": UNSNAPPED, "K9": PLANES, "K10": PLANES}
+FOLDED, UNSNAPPED, PLANES, POINTS = (CSRC + f for f in (
+    "mxgrid_folded.cu", "mxgrid_unsnapped.cu", "mxgrid_planes.cu", "mxgrid_points.cu"))
+SOURCES = {"K0": POINTS, "K1": FOLDED, "K2": FOLDED, "K3": UNSNAPPED, "K4": UNSNAPPED,
+           "K5": FOLDED, "K6": FOLDED, "K7": UNSNAPPED, "K8": UNSNAPPED, "K9": PLANES,
+           "K10": PLANES}
 PALLAS = "romap_tpu/ops/mxgrid_pallas.py"
-# line of each Pallas kernel's factory (or kernel function)
-PALLAS_LINES = {"K1": 448, "K2": 468, "K3": 281, "K4": 352, "K5": 583, "K6": 591,
-                "K7": 205, "K8": 255, "K9": 268, "K10": 622}
+# line of each Pallas kernel's factory (or kernel function); K0 has none: it
+# replaces the autodiff over the points of the reference's XLA encode
+REPLACES = {"K0": "romap_tpu/ops/mxgrid.py:242", **{
+    k: f"{PALLAS}:{line}" for k, line in {
+        "K1": 448, "K2": 468, "K3": 281, "K4": 352, "K5": 583, "K6": 591, "K7": 205,
+        "K8": 255, "K9": 268, "K10": 622}.items()}}
 # The card's published peaks (NVIDIA H100 SXM data sheet, at a 700 W limit):
 # HBM bytes per second, and fp32 operations per second outside the tensor
 # cores. The bound counts the operations the function needs (a two-tap lerp
@@ -200,8 +227,9 @@ CHECKS = (
     ("unsnapped_cp", "K7", "K8", KERNEL_O, BOTH),
     ("unsnapped_split", "K7", "K8", KERNEL_O, BOTH),
     ("unsnapped_split", "K9", "K10", KERNEL_O, BOTH),
-    ("unsnapped", "K3", "K4", N_OBJECTS, (torch.bfloat16,)),
-    ("unsnapped_split", "K7", "K8", N_OBJECTS, (torch.bfloat16,)),
+    ("unsnapped", "K3", "K4", N_OBJECTS, (torch.float32, torch.bfloat16)),
+    ("unsnapped_split", "K7", "K8", N_OBJECTS, (torch.float32, torch.bfloat16)),
+    ("unsnapped_split", "K9", "K10", N_OBJECTS, (torch.bfloat16,)),
 )
 FUSED = ("K1", "K3")  # forward kernels that also form the products
 
@@ -231,10 +259,8 @@ def kernel_inputs(spec, dtype, dev, seed, kf, o):
 
 def encode_block(kf, result):
     """(the encode's output block, the backward kernel's residuals) from the
-    forward kernel `kf`'s result: K7 and K9 leave the products to the
-    caller (mxgrid_cuda.cp_product, plane_product)."""
-    if kf == "K7":
-        return mxgrid_cuda.cp_product(result), (result,)
+    forward kernel `kf`'s result: K9 leaves the product to the caller
+    (mxgrid_cuda.plane_product)."""
     if kf == "K9":
         return mxgrid_cuda.plane_product(*result), result
     return result[0], result[1:]
@@ -283,8 +309,10 @@ def variants(kf, spec, dtype) -> tuple[dict, dict]:
         return (dict(variant=mxgrid_cuda.forward_variant(spec, dtype, planes)),
                 dict(variant=mxgrid_cuda.folded_variant(spec, dtype, planes)))
     if kf in ("K3", "K7"):
-        return {}, dict(variant=mxgrid_cuda.unsnapped_variant(spec, dtype, kf == "K3"))
-    return {}, {}
+        planes = kf == "K3"
+        return (dict(variant=mxgrid_cuda.unsnapped_forward_variant(spec, dtype, planes)),
+                dict(variant=mxgrid_cuda.unsnapped_variant(spec, dtype, planes)))
+    return dict(variant=None), dict(variant=None)
 
 
 def phase_kernels(specs: dict, dev) -> dict:
@@ -311,6 +339,12 @@ def phase_kernels(specs: dict, dev) -> dict:
         for dtype in dtypes:
             tol, dname = REL_TOL[dtype], str(dtype).split(".")[1]
             f_var, b_var = variants(kf, spec, dtype)
+            if kf in ("K3", "K7"):  # the new design where its tables fit, else per_axis
+                want_var = "per_axis" if dtype == torch.float32 else "three_axis_staged"
+                if path == "unsnapped_cp":
+                    want_var = "per_axis" if dtype == torch.float32 else "three_axis_direct"
+                if f_var["variant"] != want_var:
+                    raise AssertionError(f"{kf} {path} {dtype}: variant {f_var}")
             torch.cuda.reset_peak_memory_stats()
             pts, args, gout = kernel_inputs(spec, dtype, dev, seed=3, kf=kf, o=o)
             got = fwd(pts, *args, spec)
@@ -320,7 +354,8 @@ def phase_kernels(specs: dict, dev) -> dict:
             f_ms = median_ms(lambda: fwd(pts, *args, spec))
             f_plain_ms = median_ms(lambda: fwd_plain(pts, *args, spec), plain_reps)
             f_bound, f_by = bound(kf, spec, dtype, o)
-            say("3 kernels", kernel=kf, spec=path, shape=shape, dtype=dname, **f_var,
+            say("3 kernels", kernel=kf, spec=path, shape=shape, dtype=dname,
+                **{k: v for k, v in f_var.items() if v},
                 max_abs_err=f"{f_abs:.3e}",
                 max_rel_err=f"{f_rel:.3e}", rel_tol=tol, ms=f"{f_ms:.4f}",
                 plain_ms=f"{f_plain_ms:.4f}", bound_ms=f"{f_bound:.4f}", bound_by=f_by)
@@ -341,7 +376,8 @@ def phase_kernels(specs: dict, dev) -> dict:
             b_ms = median_ms(lambda: bwd(pts, *res, gout, spec))
             b_plain_ms = median_ms(lambda: bwd_plain(pts, *res, gout, spec), plain_reps)
             b_bound, b_by = bound(kb, spec, dtype, o)
-            say("3 kernels", kernel=kb, spec=path, shape=shape, dtype=dname, **b_var,
+            say("3 kernels", kernel=kb, spec=path, shape=shape, dtype=dname,
+                **{k: v for k, v in b_var.items() if v},
                 max_abs_err_vs_autograd=f"{b_abs:.3e}", max_rel_err_vs_autograd=f"{b_rel:.3e}",
                 max_rel_err_vs_plain=f"{b_rel_p:.3e}", rel_tol=tol, ms=f"{b_ms:.4f}",
                 plain_ms=f"{b_plain_ms:.4f}", bound_ms=f"{b_bound:.4f}", bound_by=b_by,
@@ -352,14 +388,141 @@ def phase_kernels(specs: dict, dev) -> dict:
                 # no single PyTorch call computes these functions (a K-channel
                 # two-tap lerp per axis times a product; a 3-pair bilinear and
                 # line sample; their scatter transposes): library_ms is null
-                records[kf] = dict(max_abs_err=f_abs, ms=f_ms, plain_ms=f_plain_ms,
-                                   bound_ms=f_bound, bound_by=f_by, library_ms=None)
-                records[kb] = dict(max_abs_err=max(b_abs, b_abs_p), ms=b_ms,
-                                   plain_ms=b_plain_ms, bound_ms=b_bound, bound_by=b_by,
+                records[kf] = dict(variant=f_var["variant"], max_abs_err=f_abs, ms=f_ms,
+                                   plain_ms=f_plain_ms, bound_ms=f_bound, bound_by=f_by,
                                    library_ms=None)
+                records[kb] = dict(variant=b_var["variant"], max_abs_err=max(b_abs, b_abs_p),
+                                   ms=b_ms, plain_ms=b_plain_ms, bound_ms=b_bound,
+                                   bound_by=b_by, library_ms=None)
             del got, got_b, want_ad, res, leaves, args, gout, pts
             torch.cuda.empty_cache()
     return records
+
+
+@contextlib.contextmanager
+def forced_unsnapped_forward(variant: str):
+    """Run K3/K7 in `variant` instead of the one the spec and dtype select."""
+    chosen = mxgrid_cuda.unsnapped_forward_variant
+    mxgrid_cuda.unsnapped_forward_variant = lambda *a, **k: variant
+    try:
+        yield
+    finally:
+        mxgrid_cuda.unsnapped_forward_variant = chosen
+
+
+def time_unsnapped_forwards(specs: dict, dev) -> None:
+    """K3 (flagship unsnapped) and K7 (the split path's ladder) in bf16 at
+    O=10 x 131072: the per-axis design with its product pass (forced)
+    and the variant the spec selects, in turns (per_axis, new, new,
+    per_axis), then each product pass alone: `cp_product_pass` (K3's second
+    kernel) and `cp_product` (the PyTorch product after K7)."""
+    for path, kf in (("unsnapped", "K3"), ("unsnapped_split", "K7")):
+        spec = specs[path]
+        fwd = mxgrid_cuda.KERNELS[kf]
+        pts, args, _ = kernel_inputs(spec, torch.bfloat16, dev, seed=3, kf=kf, o=N_OBJECTS)
+        new = mxgrid_cuda.unsnapped_forward_variant(spec, torch.bfloat16, planes=kf == "K3")
+        times = {"per_axis": [], new: []}
+        for variant in ("per_axis", new, new, "per_axis"):
+            with forced_unsnapped_forward(variant):
+                times[variant].append(median_ms(lambda: fwd(pts, *args, spec)))
+        out, afac = fwd(pts, *args, spec)[:2]
+        if kf == "K3":
+            pass_ms = median_ms(lambda: mxgrid_cuda.cp_product_pass(afac, out))
+            pass_name = "cp_product_pass"
+        else:
+            pass_ms = median_ms(lambda: mxgrid_cuda.cp_product(afac))
+            pass_name = "cp_product"
+        say("3 kernels", kernel=kf, spec=path, shape=f"{N_OBJECTS}x{KERNEL_P}", dtype="bfloat16",
+            per_axis_with_pass_ms=[f"{t:.4f}" for t in times["per_axis"]],
+            **{f"{new}_ms": [f"{t:.4f}" for t in times[new]]},
+            **{f"{pass_name}_alone_ms": f"{pass_ms:.4f}"})
+        del pts, args, out, afac
+        torch.cuda.empty_cache()
+
+
+REFINE_P = (pose_refine.N_STARTS * pose_refine.N_PIXELS * pose_refine.N_SAMPLES)
+# (spec of kernel_specs(), dtypes) of K0's checks: the crop RENDER_TEST's
+# refinement (split unsnapped, phase 9) and the perturbed views' (flagship
+# folded, phase 9b), one object x one view's points a step, fp32 as
+# refinement runs; then bf16. K0's record is the split path's fp32 check.
+K0_CHECKS = (("folded", BOTH), ("unsnapped_split", (torch.bfloat16, torch.float32)))
+
+
+def points_work(spec, dtype, o, p):
+    """(bytes, fp32 operations) of K0 on O x P points: the point, the
+    factors, the cotangent and the plane residuals read once, the gradient
+    written once, the tables once an object; per axis and channel 2 taps x
+    levels multiply-adds and 4 operations, 30 a plane pair and channel (the
+    u and v slopes of the bilinear sample, the w slope of the line, and
+    three products with the cotangent)."""
+    t = torch.tensor([], dtype=dtype).element_size()
+    k, kpl, n = spec.features, spec.plane_out_dims, o * p
+    folded = spec.snap_levels
+    taps = 2 if folded else 2 * len(spec.resolutions)
+    cp_tab = 3 * (spec.fold_res[1] if folded else spec.total_res) * k
+    pl_tab = sum(3 * (ru * rv + max(ru, rv)) * kp for ru, rv, kp in spec.plane_specs)
+    nbytes = 24 * n + n * t * (3 * k + k + kpl + 2 * kpl) + o * t * (cp_tab + pl_tab)
+    return nbytes, n * (3 * (2 * taps * k + 4 * k) + 30 * kpl)
+
+
+def check_points_gradient(specs: dict, dev) -> dict:
+    """K0 against its plain twin on the residuals of the path's forward
+    kernels, and (fp32) against autograd over the points through the plain
+    encode `mxgrid.encode`, off the knots (`mxgrid_cuda.on_a_knot`: the
+    tent has no derivative there); times and bound. Returns K0's record."""
+    record = None
+    for path, dtypes in K0_CHECKS:
+        spec = specs[path]
+        for dtype in dtypes:
+            tol, dname = REL_TOL[dtype], str(dtype).split(".")[1]
+            g = torch.Generator(device="cpu").manual_seed(7)
+            pts = (torch.rand((1, REFINE_P, 3), generator=g) * (1 + 4e-3) - 2e-3).to(dev)
+            f = pytree.tree_map(lambda a: a.to(dev, dtype), mxgrid.init_mxgrid(g, spec, 1))
+            gout = torch.randn((1, REFINE_P, spec.n_output_dims), generator=g).to(dev, dtype)
+            table = (mxgrid.fold_lines(f["lines"], spec) if spec.snap_levels
+                     else f["lines"]).contiguous()
+            planes, plines = tuple(f["planes"]), tuple(f["plane_lines"])
+            with environ(MX_FUSED="0" if path.endswith("split") else "1"):
+                assert mxgrid_cuda.kernel_path(spec) == path
+                if path == "folded":
+                    _, afac, fpl, fli = mxgrid_cuda.folded_fused_forward(
+                        pts, table, planes[0], plines[0], spec)
+                else:
+                    _, afac = mxgrid_cuda.unsnapped_cp_forward(pts, table, spec)
+                    fpl, fli = mxgrid_cuda.planes_forward(pts, planes, plines, spec)
+                args = (pts, table, afac, planes, plines, fpl, fli, gout, spec)
+                got = mxgrid_cuda.points_gradient(*args)
+                want = mxgrid_cuda.points_gradient_plain(*args)
+                torch.cuda.synchronize()
+                abs_err, rel_err = errors([got], [want])
+                extra = {}
+                if dtype == torch.float32:
+                    p = pts.clone().requires_grad_(True)
+                    (want_ad,) = torch.autograd.grad(mxgrid.encode(f, p, spec), p,
+                                                     grad_outputs=gout)
+                    off = ~mxgrid_cuda.on_a_knot(pts, spec)  # no derivative on a knot
+                    ad_abs, ad_rel = errors([got[off]], [want_ad[off]])
+                    extra = dict(max_rel_err_vs_autograd=f"{ad_rel:.3e}",
+                                 points_on_a_knot=int((~off).sum()))
+                    rel_err, abs_err = max(rel_err, ad_rel), max(abs_err, ad_abs)
+                ms = median_ms(lambda: mxgrid_cuda.points_gradient(*args))
+                plain_ms = median_ms(lambda: mxgrid_cuda.points_gradient_plain(*args), 3)
+            nbytes, ops = points_work(spec, dtype, 1, REFINE_P)
+            t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_FP32_PER_S
+            bound_ms, bound_by = 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                                              else "operations")
+            say("3 kernels", kernel="K0", spec=path, shape=f"1x{REFINE_P}", dtype=dname,
+                max_abs_err=f"{abs_err:.3e}", max_rel_err=f"{rel_err:.3e}", rel_tol=tol, **extra,
+                ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound_ms:.4f}",
+                bound_by=bound_by)
+            if not rel_err <= tol or not torch.isfinite(got).all():
+                raise AssertionError(f"K0 {path} {dtype}: relative error {rel_err} above {tol}")
+            if path == "unsnapped_split" and dtype == torch.float32:
+                record = dict(variant=None, max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                              bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+            del got, want, args, afac, fpl, fli, pts, f, gout
+            torch.cuda.empty_cache()
+    return record
 
 
 def phase_parity(dev) -> None:
@@ -610,6 +773,7 @@ def phase_unsnapped_cli(dev, root: str) -> dict:
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
     k3 = dict(mxgrid_cuda.KERNELS["K3"].launches_by_dtype)
+    passes = product_passes()
     launches = {k: mxgrid_cuda.KERNELS[k].launches for k in ("K3", "K4")}
     others = {k: fn.launches for k, fn in mxgrid_cuda.KERNELS.items() if k not in launches}
     loss = runner.state.loss.cpu()
@@ -617,13 +781,22 @@ def phase_unsnapped_cli(dev, root: str) -> dict:
     n_files = check_artifacts(out, n, video=False)
     say("8 unsnapped", snap=runner.spec.snap_levels, loss_step20=[round(x, 5) for x in loss.tolist()],
         wave_s=f"{runner.wave_seconds[0]:.4f}", seconds=f"{dt:.3f}", files=n_files,
-        k3_by_dtype=k3, launches=launches, other_kernels=others)
+        k3_by_dtype=k3, launches=launches, other_kernels=others, product_passes=passes)
     if runner.spec.snap_levels or not torch.isfinite(loss).all():
         raise AssertionError("unsnapped CLI run: spec still snapped or a loss not finite")
     if (k3.get("bfloat16", 0) < 1 or k3.get("float32", 0) < 1 or launches["K4"] < 1
             or any(others.values())):
         raise AssertionError(f"unsnapped CLI run: launches {k3} {launches} {others}")
+    if any(n.get("bfloat16", 0) for n in passes.values()):
+        raise AssertionError(f"unsnapped CLI run: a bf16 product pass ran: {passes}")
     return launches
+
+
+def product_passes() -> dict:
+    """Launches of the product passes by dtype since the last reset: K3's
+    per-axis variant launches `cp_product_pass`, K7's calls `cp_product`;
+    the three-axis variants (every bf16 path) launch neither."""
+    return {k: dict(fn.launches_by_dtype) for k, fn in mxgrid_cuda.PRODUCT_PASSES.items()}
 
 
 def kernel_specs() -> dict:
@@ -766,9 +939,19 @@ def phase_online(root: str) -> dict:
             meshes.append((nv, nf))
         view = frames[-1]
         x, y, h, w = view["bboxes"][obj.instance_id]
-        c.call("RENDER_TEST", struct.pack("<ifB", ids[obj.instance_id], 1.5, 0) + pack_str(out)
-               + struct.pack("<i", 1) + pack_str(view["stamp"])
-               + np.asarray([x, y, h, w], np.int32).tobytes() + f32(view["twc"]) + b"\0")
+        crop = (np.ascontiguousarray(view["rgb"][y : y + h, x : x + w]).tobytes()
+                + ((view["instance"][y : y + h, x : x + w] == obj.instance_id) * 255)
+                .astype(np.uint8).tobytes())
+        printed = io.StringIO()
+        t_render = time.perf_counter()
+        with contextlib.redirect_stdout(printed):  # the server thread prints the refinement
+            c.call("RENDER_TEST", struct.pack("<ifB", ids[obj.instance_id], 1.5, 0)
+                   + pack_str(out) + struct.pack("<i", 1) + pack_str(view["stamp"])
+                   + np.asarray([x, y, h, w], np.int32).tobytes() + f32(view["twc"]) + b"\1"
+                   + crop)
+        t_render = time.perf_counter() - t_render
+        refine_lines = [ln for ln in printed.getvalue().splitlines() if ln.startswith("pose refine")]
+        print(printed.getvalue(), end="", flush=True)
         c.call("SHUTDOWN")
         th.join(timeout=120)
         torch.cuda.synchronize()
@@ -778,8 +961,9 @@ def phase_online(root: str) -> dict:
     mgr = box["srv"].mgr
     secs, slots = mgr.wave_seconds, mgr.wave_slots
     rate = sum(n * ONLINE_ITERS for n in slots[1:]) / sum(secs[1:])
-    launches = {k: mxgrid_cuda.KERNELS[k].launches for k in ("K7", "K8", "K9", "K10")}
+    launches = {k: mxgrid_cuda.KERNELS[k].launches for k in ("K0", "K7", "K8", "K9", "K10")}
     by_dtype = {k: dict(mxgrid_cuda.KERNELS[k].launches_by_dtype) for k in launches}
+    passes = product_passes()
     others = {k: fn.launches for k, fn in mxgrid_cuda.KERNELS.items() if k not in launches}
     rendered = os.path.isfile(os.path.join(out, str(ids[obj.instance_id]), "test_img",
                                            f"{view['stamp']}.png"))
@@ -791,7 +975,8 @@ def phase_online(root: str) -> dict:
         volume_half=[round(float(v), 5) for v in new_half],
         mesh_verts=[m[0] for m in meshes], mesh_faces=[m[1] for m in meshes],
         test_render=rendered, launches=launches, by_dtype=by_dtype, other_kernels=others,
-        seconds=f"{dt:.3f}")
+        product_passes=passes, seconds=f"{dt:.3f}")
+    say("9 online", render_test_with_crops_s=f"{t_render:.3f}", pose_refine_lines=len(refine_lines))
     if len(ids) != N_OBJECTS or not np.allclose(new_half, half * 1.1, rtol=1e-5):
         raise AssertionError(f"online run: {len(ids)} objects, volume half {new_half}")
     if not (np.isfinite(final).all() and (final < first).all()):
@@ -802,7 +987,124 @@ def phase_online(root: str) -> dict:
     if (min(launches.values()) < 1 or k7.get("bfloat16", 0) < 1 or k7.get("float32", 0) < 1
             or any(others.values())):
         raise AssertionError(f"online run: launches {by_dtype}, other kernels {others}")
+    if any(n.get("bfloat16", 0) for n in passes.values()):
+        raise AssertionError(f"online run: a bf16 product pass ran: {passes}")
+    if len(refine_lines) != 1:
+        raise AssertionError(f"online run: pose refinement printed {refine_lines}")
     return launches
+
+
+REFINE_TRAIN_STEPS = 400  # the reference's tests/test_pose_refine.py trains 400
+
+
+def phase_refine(dev) -> dict:
+    """Pose refinement on the card against a converged field, as the
+    reference's own test sets it up (tests/test_pose_refine.py), at the
+    flagship's width: one object of build_synthetic_world(1, 24, 96) trained
+    400 steps (bf16, K1/K2), two views (frames 5, 15) rotated by 0.02 rad
+    about z and shifted by N(0, 0.02) m per axis, refined at the reference's
+    4 starts x 300 steps x 1536 pixels x 32 samples through the kernel
+    encode (fp32: K1 forward, K0 for the points, no table kernel). Fails
+    unless the loss falls and a view comes strictly closer in both rotation
+    and translation (the reference test's criterion), and prints every
+    view's errors."""
+    cfg = NerfConfig()
+    spec = nerf.make_field_spec(cfg)
+    _, objects, seq, store, objs = build_synthetic_world(1, 24, 96, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(cfg.seed)
+    state = nerf.init_train_state(gen, 1, cfg, spec, device=dev)
+    t0 = time.perf_counter()
+    state = nerf.train_objects(state, objs, store.arrays(), cfg, spec, REFINE_TRAIN_STEPS,
+                               generator=gen)
+    loss = float(state.loss[0])
+    train_s = time.perf_counter() - t0
+    params = pytree.tree_map(lambda a: a[0], state.ema)
+    obj = objects[0]
+    rng = np.random.default_rng(0)
+    boxes, crops, twcs_true, twcs_pert = [], [], [], []
+    for fi in (5, 15):
+        x, y, h, w = seq[fi]["bboxes"][obj.instance_id]
+        mask = (seq[fi]["instance"][y : y + h, x : x + w] == obj.instance_id)
+        crops.append((seq[fi]["rgb"][y : y + h, x : x + w], mask.astype(np.uint8) * 255))
+        boxes.append((x, y, h, w))
+        twc = np.asarray(seq[fi]["twc"], np.float32)
+        pert = np.eye(4, dtype=np.float32)
+        c, s = np.cos(0.02), np.sin(0.02)
+        pert[:3, :3] = [[c, -s, 0], [s, c, 0], [0, 0, 1]]
+        pert[:3, 3] = rng.normal(0, 0.02, 3)
+        twcs_true.append(twc)
+        twcs_pert.append(twc @ pert)
+    host = lambda a: a.cpu().numpy()
+    mxgrid_cuda.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    refined, stats = pose_refine.refine_view_poses_host(
+        params, store._intrinsics, twcs_pert, host(objs.tow[0]), host(objs.aabb_min[0]),
+        host(objs.aabb_max[0]), boxes, crops, cfg, spec)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in mxgrid_cuda.KERNELS.items() if fn.launches}
+
+    def err(a, b):
+        cos = np.clip((np.trace(a[:3, :3].T @ b[:3, :3]) - 1) / 2, -1, 1)
+        return float(np.linalg.norm(a[:3, 3] - b[:3, 3])), float(np.degrees(np.arccos(cos)))
+
+    before = [err(t, p) for t, p in zip(twcs_true, twcs_pert)]
+    after = [err(t, r) for t, r in zip(twcs_true, refined)]
+    closer = sum(a[0] < b[0] and a[1] < b[1] for a, b in zip(after, before))
+    say("9b refine", train_steps=REFINE_TRAIN_STEPS, train_s=f"{train_s:.3f}",
+        train_loss=f"{loss:.5f}", views=len(boxes), refine_s=f"{secs:.3f}",
+        steps_starts_pixels_samples=(f"{pose_refine.N_STEPS}x{pose_refine.N_STARTS}x"
+                                     f"{pose_refine.N_PIXELS}x{pose_refine.N_SAMPLES}"),
+        loss_before=f"{stats['mean_loss_before']:.5f}",
+        loss_after=f"{stats['mean_loss_after']:.5f}", views_improved=stats["refined"])
+    say("9b refine", pose_err_m_deg_before=[(round(t, 5), round(r, 4)) for t, r in before],
+        pose_err_m_deg_after=[(round(t, 5), round(r, 4)) for t, r in after],
+        views_closer_in_both=closer, launches=launches,
+        by_dtype={k: dict(mxgrid_cuda.KERNELS[k].launches_by_dtype) for k in launches})
+    if not loss < 0.3:
+        raise AssertionError(f"refinement field: loss {loss} after {REFINE_TRAIN_STEPS} steps")
+    if not (all(np.isfinite(r).all() for r in refined) and stats["refined"] >= 1
+            and stats["mean_loss_after"] < stats["mean_loss_before"] and closer >= 1):
+        raise AssertionError(f"pose refinement: {stats}, errors {before} -> {after}")
+    if set(launches) != {"K0", "K1"}:
+        raise AssertionError(f"pose refinement: launches {launches} (want K1 and K0 only)")
+    return {"seconds": secs}
+
+
+def phase_tcnn(dev) -> float:
+    """EncodingConfig.preset("tcnn") (the hash grid: gather and index_add_,
+    no kernel of this repo) through train_objects on the card: the scene of
+    phase 5, 10 objects x 4096 x 32, 1 + 20 steps."""
+    cfg = NerfConfig(encoding=EncodingConfig.preset("tcnn"))
+    spec = nerf.make_field_spec(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    _, _, _, store, objs = build_synthetic_world(N_OBJECTS, 16, 128, device=dev)
+    frames = store.arrays()
+    gen = torch.Generator(device=dev).manual_seed(cfg.seed)
+    state = nerf.init_train_state(gen, N_OBJECTS, cfg, spec, device=dev)
+    mxgrid_cuda.reset_launch_counts()
+    state = nerf.train_objects(state, objs, frames, cfg, spec, 1, generator=gen)
+    loss1 = state.loss.cpu()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = nerf.train_objects(state, objs, frames, cfg, spec, 20, generator=gen)
+    torch.cuda.synchronize()
+    wave_s = time.perf_counter() - t0
+    loss2 = state.loss.cpu()
+    active = objs.active.cpu()
+    rate = N_OBJECTS * 20 / wave_s
+    launches = {k: fn.launches for k, fn in mxgrid_cuda.KERNELS.items()}
+    say("10 tcnn", levels=spec.n_levels, table_rows=spec.total_params, features=spec.n_features,
+        loss_step1=[round(x, 5) for x in loss1.tolist()],
+        loss_step21=[round(x, 5) for x in loss2.tolist()], wave_s=f"{wave_s:.4f}",
+        obj_iters_per_s=f"{rate:.2f}",
+        peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.3f}", kernels=launches)
+    if not (torch.isfinite(loss2[active]).all() and (loss2[active] < loss1[active]).all()):
+        raise AssertionError("tcnn: a loss is not finite or did not fall")
+    if any(launches.values()):
+        raise AssertionError(f"tcnn: an MX-grid kernel ran: {launches}")
+    return rate
 
 
 def timed(label: str, fn, *args):
@@ -817,7 +1119,10 @@ def main() -> None:
     name, _ = phase_device()
     dev = "cuda"
     timed("2 build", phase_build)
-    records = timed("3 kernels", phase_kernels, kernel_specs(), dev)
+    specs = kernel_specs()
+    records = timed("3 kernels", phase_kernels, specs, dev)
+    timed("3 kernels", time_unsnapped_forwards, specs, dev)
+    records["K0"] = timed("3 kernels", check_points_gradient, specs, dev)
     timed("4 parity", phase_parity, dev)
     launches, _ = timed("5-6 train+render", phase_train_and_render, dev)
     root = tempfile.mkdtemp(prefix="romap_chip_smoke_")
@@ -828,12 +1133,16 @@ def main() -> None:
         launches.update(timed("8 unsnapped", phase_unsnapped_cli, dev, root))
         torch.cuda.empty_cache()
         launches.update(timed("9 online", phase_online, root))
+        torch.cuda.empty_cache()
+        timed("9b refine", phase_refine, dev)
+        torch.cuda.empty_cache()
+        timed("10 tcnn", phase_tcnn, dev)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     say("total", seconds=f"{time.perf_counter() - t_start:.3f}")
     kernels = [
         dict(name=f"{k} {fn.__name__}", route="cuda", source=SOURCES[k],
-             replaces=f"{PALLAS}:{PALLAS_LINES[k]}", launches=launches[k], **records[k])
+             replaces=REPLACES[k], launches=launches[k], **records[k])
         for k, fn in mxgrid_cuda.KERNELS.items()
     ]
     print(json.dumps({"kernels": kernels}))

@@ -1,5 +1,6 @@
 // Helpers shared by the MX-grid encode kernels (mxgrid_folded.cu: K1, K2,
-// K5, K6; mxgrid_unsnapped.cu: K3, K4, K7, K8; mxgrid_planes.cu: K9, K10).
+// K5, K6; mxgrid_unsnapped.cu: K3, K4, K7, K8; mxgrid_planes.cu: K9, K10;
+// mxgrid_points.cu: K0).
 // Everything here is internal to the translation unit that includes it.
 #pragma once
 
@@ -7,6 +8,7 @@
 #include <cuda_runtime.h>
 
 #include <stddef.h>
+#include <stdint.h>
 
 namespace {
 
@@ -48,6 +50,75 @@ __device__ __forceinline__ Taps tent_taps(float x, int r) {
   return tp;
 }
 
+// d w0 / dx and d w1 / dx of tent_taps' two knots: -(r-1) and r-1 where a
+// knot is kept, 0 where it is dropped. Away from the knots this is autograd
+// of the dense tent; on a knot (a measure-zero set) it takes the slope of
+// the interval [j0, j1] that tent_taps picks.
+struct Slopes {
+  float s0, s1;
+};
+
+__device__ __forceinline__ Slopes tent_slopes(float x, int r) {
+  Slopes s{0.f, 0.f};
+  const float t = __fmul_rn(x, (float)(r - 1));
+  if (!(t > -1.f && t < (float)r)) return s;
+  const int i = (int)floorf(t);
+  if (i >= 0) s.s0 = -(float)(r - 1);
+  if (i + 1 <= r - 1) s.s1 = (float)(r - 1);
+  return s;
+}
+
+// The CP resolution ladder: level l has res[l] knots starting at row off[l]
+// (the unsnapped ladder; a folded table is one level of rf knots).
+constexpr int kMaxLevels = 8;
+
+struct Ladder {
+  int n;
+  int res[kMaxLevels];
+  int off[kMaxLevels];
+};
+
+inline int make_ladder(const int* res, const int* off, int n, Ladder* lad) {
+  if (n < 1 || n > kMaxLevels) return (int)cudaErrorInvalidValue;
+  lad->n = n;
+  for (int l = 0; l < kMaxLevels; ++l) {
+    lad->res[l] = l < n ? res[l] : 0;
+    lad->off[l] = l < n ? off[l] : 0;
+  }
+  return 0;
+}
+
+// The plane levels: shapes, and per level one pointer to the planes (or
+// their gradient) and one to the plane lines (or theirs).
+constexpr int kMaxPlaneLevels = 4;
+
+struct Levels {
+  int n;
+  int ru[kMaxPlaneLevels], rv[kMaxPlaneLevels], kp[kMaxPlaneLevels],
+      rw[kMaxPlaneLevels];
+  void* planes[kMaxPlaneLevels];
+  void* plines[kMaxPlaneLevels];
+};
+
+inline int make_levels(int n, void* const* planes, void* const* plines,
+                       const int* ru, const int* rv, const int* kp, Levels* lv,
+                       int* kpl) {
+  if (n < 1 || n > kMaxPlaneLevels) return (int)cudaErrorInvalidValue;
+  *lv = Levels{};
+  lv->n = n;
+  *kpl = 0;
+  for (int l = 0; l < n; ++l) {
+    lv->ru[l] = ru[l];
+    lv->rv[l] = rv[l];
+    lv->kp[l] = kp[l];
+    lv->rw[l] = ru[l] > rv[l] ? ru[l] : rv[l];
+    lv->planes[l] = planes[l];
+    lv->plines[l] = plines[l];
+    *kpl += 3 * kp[l];
+  }
+  return 0;
+}
+
 // Row stride (in elements of `bytes` each) of a table staged in shared
 // memory: n rounded up so that a row spans an odd number of 4-byte words.
 // Threads of a warp read rows at unrelated knots; with an even word stride
@@ -56,6 +127,32 @@ __host__ __device__ __forceinline__ int odd_word_stride(int n, int bytes) {
   int words = (n * bytes + 3) / 4;
   if (words % 2 == 0) ++words;
   return words * 4 / bytes;
+}
+
+__host__ __device__ __forceinline__ size_t align16(size_t n) { return (n + 15) & ~(size_t)15; }
+
+// Four consecutive channels of a table row staged in shared memory, as fp32
+// (two 32-bit loads in bf16: an odd-word row stride aligns rows to 4 bytes).
+__device__ __forceinline__ void load4(const float* p, float* v) {
+  v[0] = p[0]; v[1] = p[1]; v[2] = p[2]; v[3] = p[3];
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* v) {
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p + 2));
+  v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
+}
+
+// Four consecutive channels stored as one vector (16 B fp32, 8 B bf16).
+__device__ __forceinline__ void store4(float* p, const float* v) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, const float* v) {
+  const __nv_bfloat162 a = __floats2bfloat162_rn(v[0], v[1]);
+  const __nv_bfloat162 b = __floats2bfloat162_rn(v[2], v[3]);
+  uint2 w;
+  w.x = *reinterpret_cast<const uint32_t*>(&a);
+  w.y = *reinterpret_cast<const uint32_t*>(&b);
+  *reinterpret_cast<uint2*>(p) = w;
 }
 
 __device__ __forceinline__ int pair_axis(int axes, int pair, int slot) {

@@ -91,31 +91,6 @@
 
 namespace {
 
-__host__ __device__ __forceinline__ size_t align16(size_t n) { return (n + 15) & ~(size_t)15; }
-
-// Four consecutive channels of a staged table row, as fp32.
-__device__ __forceinline__ void load4(const float* p, float* v) {
-  v[0] = p[0]; v[1] = p[1]; v[2] = p[2]; v[3] = p[3];
-}
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* v) {
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p + 2));
-  v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
-}
-
-// Four consecutive channels stored as one vector (16 B fp32, 8 B bf16).
-__device__ __forceinline__ void store4(float* p, const float* v) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
-__device__ __forceinline__ void store4(__nv_bfloat16* p, const float* v) {
-  const __nv_bfloat162 a = __floats2bfloat162_rn(v[0], v[1]);
-  const __nv_bfloat162 b = __floats2bfloat162_rn(v[2], v[3]);
-  uint2 w;
-  w.x = *reinterpret_cast<const uint32_t*>(&a);
-  w.y = *reinterpret_cast<const uint32_t*>(&b);
-  *reinterpret_cast<uint2*>(p) = w;
-}
-
 template <typename T, bool kPlanes, bool kStage>
 __global__ void __launch_bounds__(kThreads) folded_fused_fwd(
     const float* __restrict__ pts, const T* __restrict__ weff,

@@ -43,18 +43,6 @@
 
 namespace {
 
-constexpr int kMaxPlaneLevels = 4;
-
-// The plane levels: shapes, and per level one pointer to the planes (or
-// their gradient) and one to the plane lines (or theirs).
-struct Levels {
-  int n;
-  int ru[kMaxPlaneLevels], rv[kMaxPlaneLevels], kp[kMaxPlaneLevels],
-      rw[kMaxPlaneLevels];
-  void* planes[kMaxPlaneLevels];
-  void* plines[kMaxPlaneLevels];
-};
-
 template <typename T>
 __global__ void __launch_bounds__(kThreads) planes_fwd(
     const float* __restrict__ pts, Levels lv, T* __restrict__ fpl,
@@ -129,25 +117,6 @@ __global__ void __launch_bounds__(kThreads) planes_bwd(
     }
     s0 += 3 * rw * ls;
   }
-}
-
-int make_levels(int n, void* const* planes, void* const* plines,
-                const int* ru, const int* rv, const int* kp, Levels* lv,
-                int* kpl) {
-  if (n < 1 || n > kMaxPlaneLevels) return (int)cudaErrorInvalidValue;
-  *lv = Levels{};
-  lv->n = n;
-  *kpl = 0;
-  for (int l = 0; l < n; ++l) {
-    lv->ru[l] = ru[l];
-    lv->rv[l] = rv[l];
-    lv->kp[l] = kp[l];
-    lv->rw[l] = ru[l] > rv[l] ? ru[l] : rv[l];
-    lv->planes[l] = planes[l];
-    lv->plines[l] = plines[l];
-    *kpl += 3 * kp[l];
-  }
-  return 0;
 }
 
 template <typename T>

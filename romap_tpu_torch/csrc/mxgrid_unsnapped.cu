@@ -9,10 +9,7 @@
 // `_bwd_impl_t` 809-827): the same kernels instantiated without the plane
 // pair (kPlanes = false), as K5/K6 are K1/K2 without it. They serve
 // `mx_snap_levels=False` (or MX_SNAP=0): the CP ladder is not folded, so
-// every level of it is read. K7 writes the factors only: on its paths (a
-// CP-only spec, or the split path MX_FUSED=0) the caller forms the product
-// A_0 A_1 A_2 in the table dtype, as the reference does outside its kernel
-// (mxgrid_pallas.py:736).
+// every level of it is read.
 //
 // The Pallas kernels multiply by the concatenated multi-level tent basis,
 // row (level l, index i) carrying a = r_l - 1, b = i (`_column_consts`,
@@ -21,18 +18,31 @@
 // the folded K1), each tap weight computed as tent_taps does, so points
 // just outside the cube drop knots exactly as the dense tent does.
 //
-// What bounds them on the card: the per-axis table reads (2L x K values a
-// point and axis), which come from shared memory. The whole table
-// [3, total_res, K] does not fit a block in fp32 (273,420 B at the
-// flagship's 465 rows, K = 48, odd-word row stride 49; the limit is
-// 232,448 B), and K4's fp32 accumulator is as large in either dtype. So a
-// block handles one axis, blockIdx.z = d: it stages W_d (91,140 B fp32,
-// 46,500 B bf16), computes A_d for its points, and also plane pair d.
-// K3 writes the factors A_d as residuals; a second short kernel forms
-// out[:K] = A_0 A_1 A_2 from the stored (rounded) factors, in fp32, rounded
-// once, as the Pallas kernel does (295-298). At the `fast` ladder (6 levels
-// to 256, 580 rows, K = 64, odd-word stride 65) K7 stages 150,800 B per
-// axis in fp32 and 76,560 B in bf16.
+// Forward, three axes a block (`unsnapped_fwd3`; bf16 at the flagship and
+// `fast` ladders, and any spec whose tables fit). What the function needs
+// is the bytes (0.18 ms at 10 objects x 131072 points in bf16: the factors
+// and features written once); what costs the kernel time is the 12 table
+// rows a point, axis and channel it reads from shared memory. A block holds
+// all three axes of its object (bf16 flagship: 3 x 465 rows x 50, 139,500
+// B), so it forms afac and the product A_0 A_1 A_2 in registers: no second
+// pass reads the factors back. Rows are read four channels a step (two
+// 32-bit loads; the odd-word stride aligns a row to 4 bytes only). A warp
+// stages its 32 output rows in shared memory and stores them as one
+// contiguous run, as K1 does ("three_axis_staged", 30,720 B more at the
+// flagship); where the rows do not fit beside the tables (K7 at the `fast`
+// ladder: 229,680 B of tables) each lane stores four channels a vector into
+// its own row ("three_axis_direct"). K3 rounds the product once from the
+// rounded factors (mxgrid_pallas.py:295-298), K7 after each factor, as the
+// reference forms it outside its kernel in the table dtype (736). The
+// blocks split the flattened (object, point) range evenly, one block an SM,
+// so that every SM of the card works in one wave.
+//
+// Forward, one axis a block (`unsnapped_fwd`, "per_axis"; fp32 at the
+// flagship and `fast` ladders, where the three fp32 axes take 273,420 B and
+// 452,400 B, above a block's 232,448). Block (o, d) stages W_d alone
+// (91,140 B fp32), writes the factors A_d and plane pair d; K3 then
+// launches `cp_product`, which reads the factors back and forms out[:K] in
+// fp32, rounded once; K7's caller forms the product in the table dtype.
 //
 // Backward, tensor cores (K4, K8 in bf16 at the instantiated shapes;
 // `unsnapped_bwd_tc`, the variant `mxgrid_cuda.unsnapped_variant` names).
@@ -94,15 +104,6 @@
 #include "mxgrid_tc.cuh"
 
 namespace {
-
-constexpr int kMaxLevels = 8;
-
-// The CP resolution ladder: level l has res[l] knots starting at row off[l].
-struct Ladder {
-  int n;
-  int res[kMaxLevels];
-  int off[kMaxLevels];
-};
 
 template <typename T, bool kPlanes>
 __global__ void __launch_bounds__(kThreads) unsnapped_fwd(
@@ -179,6 +180,193 @@ __global__ void __launch_bounds__(kThreads) cp_product(
                          to_f(a_o[((size_t)2 * K + k) * P + p]);
       out_p[k] = from_f<T>(prod);
     }
+  }
+}
+
+// Forward, all three axes a block (`unsnapped_fwd3`; the variants
+// "three_axis_staged" and "three_axis_direct" of
+// mxgrid_cuda.unsnapped_forward_variant). The block's range of the
+// flattened (object, point) index is cut where the object changes; for each
+// object it stages W_0, W_1, W_2 at the odd-word stride ([3 total_res, ks],
+// axis d from row d total_res), one row a warp and 4 bytes a lane. A lane
+// takes one point: its 2 x L taps per axis (tent_taps, so a knot outside
+// [0, r_l - 1] is dropped, never clamped), kept as one row j and two
+// weights of rows j and j + 1 (`Pair`: 3 registers a level, not 4), then,
+// four channels a step (load4: two 32-bit shared loads in bf16), the three
+// factors a_d = sum_l w0 W_d[j0] + w1 W_d[j1] in fp32 (the per-axis
+// kernel's order of operations), each rounded to T and stored to afac
+// (consecutive lanes, consecutive points: coalesced), and the product of
+// the rounded factors: with planes (K3) in fp32, rounded once, as the
+// Pallas kernel forms it (mxgrid_pallas.py:295-298); without (K7) rounded
+// to T after each factor, as the reference forms it outside its kernel
+// (mxgrid_pallas.py:736). With kStage the warp's 32 output rows (plane
+// features included) are collected in shared memory and stored as one
+// contiguous run of 16-byte vectors; without, each lane stores four
+// channels a vector into its own row. One block of 16 warps an SM (the bf16
+// flagship tables take 139,500 B, the staged rows 61,440 B more), and as
+// many blocks as the card has SMs, each a range of `span` points (a
+// multiple of 32): every SM works, and no block is left for a second wave.
+// kLv is the ladder's level count where it is 6 (the shipped presets),
+// else kMaxLevels with a guard.
+constexpr int kFwd3Threads = 512;
+
+// The two taps of one level as the rows j, j + 1 and their weights: the
+// value is a * W[j] + b * W[j + 1]. A tap that tent_taps drops has weight 0;
+// where only knot 0 is in reach, j = 0 and a carries its weight; where only
+// knot r - 1 is, j = r - 2 and b carries it; both rows stay in the level
+// (r >= 2), and a term of weight 0 adds an exact 0.
+struct Pair {
+  int row;  // shared-memory offset of row j
+  float a, b;
+};
+
+__device__ __forceinline__ Pair tap_pair(float x, int r, int row0, int ks) {
+  const Taps tp = tent_taps(x, r);
+  Pair q{row0 * ks, 0.f, 0.f};
+  if (tp.w0 != 0.f && tp.j0 == r - 1) {  // knot r - 1 alone
+    q.row = (row0 + r - 2) * ks;
+    q.b = tp.w0;
+  } else if (tp.w0 != 0.f) {
+    q.row = (row0 + tp.j0) * ks;
+    q.a = tp.w0;
+    q.b = tp.w1;
+  } else if (tp.w1 != 0.f) {  // knot 0 alone (t in (-1, 0))
+    q.a = tp.w1;
+  }
+  return q;
+}
+
+template <typename T, bool kPlanes, bool kStage, int kLv>
+__global__ void __launch_bounds__(kFwd3Threads, 1) unsnapped_fwd3(
+    const float* __restrict__ pts, const T* __restrict__ lines,
+    const T* __restrict__ planes, const T* __restrict__ plines,
+    T* __restrict__ out, T* __restrict__ afac, T* __restrict__ fpl,
+    T* __restrict__ fli, Ladder lad, int O, int P, int K, int total_res, int ru,
+    int rv, int kp, int rw, int axes, int span) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* w_s = reinterpret_cast<T*>(smem_raw);  // W [3 * total_res, ks]
+  const int ks = odd_word_stride(K, sizeof(T));
+  const int kpl = 3 * kp;
+  const int kout = K + kpl;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n_warps = blockDim.x >> 5;
+  // this warp's 32 staged output rows [32, kout]
+  T* st = reinterpret_cast<T*>(smem_raw + align16((size_t)3 * total_res * ks * sizeof(T))) +
+          (size_t)warp * 32 * kout;
+  // four channels a step where the rows keep a vector store aligned
+  const int k_vec = (K % 4 == 0 && kout % 4 == 0) ? K : 0;
+  const int n_rows = 3 * total_res;
+  const long long n_all = (long long)O * P;
+  const long long q_stop = (long long)(blockIdx.x + 1) * span;
+  const long long q_end = q_stop < n_all ? q_stop : n_all;
+
+  for (long long s0 = (long long)blockIdx.x * span; s0 < q_end;) {
+    const int o = (int)(s0 / P);
+    const long long o_end = (long long)(o + 1) * P;
+    const long long s1 = q_end < o_end ? q_end : o_end;
+    __syncthreads();  // the previous object's table is no longer read
+    const T* w_g = lines + (size_t)o * n_rows * K;
+    if ((K * sizeof(T)) % 4 == 0) {  // 4-byte words, a row a warp
+      const int kw = K * sizeof(T) / 4, ksw = ks * sizeof(T) / 4;
+      const uint32_t* src = reinterpret_cast<const uint32_t*>(w_g);
+      uint32_t* dst = reinterpret_cast<uint32_t*>(w_s);
+      for (int r = warp; r < n_rows; r += n_warps)
+        for (int c = lane; c < kw; c += 32) dst[r * ksw + c] = src[r * kw + c];
+    } else {
+      for (int j = threadIdx.x; j < n_rows * K; j += blockDim.x)
+        w_s[(j / K) * ks + j % K] = w_g[j];
+    }
+    __syncthreads();
+    T* afac_o = afac + (size_t)o * 3 * K * P;
+    const T* pl_o = planes + (size_t)o * 3 * ru * rv * kp;
+    const T* li_o = plines + (size_t)o * 3 * rw * kp;
+    T* fpl_o = fpl + (size_t)o * kpl * P;
+    T* fli_o = fli + (size_t)o * kpl * P;
+
+    for (long long qw = s0 + warp * 32; qw < s1; qw += n_warps * 32) {
+      const long long q = qw + lane;
+      if (q < s1) {
+        const int p = (int)(q - (long long)o * P);
+        const float x[3] = {pts[q * 3 + 0], pts[q * 3 + 1], pts[q * 3 + 2]};
+        T* row = kStage ? st + lane * kout : out + q * kout;
+
+        // per axis and level: row j's offset and the weights of rows j, j + 1
+        Pair tp[3][kLv];
+#pragma unroll
+        for (int d = 0; d < 3; ++d) {
+#pragma unroll
+          for (int l = 0; l < kLv; ++l) {
+            tp[d][l] = Pair{0, 0.f, 0.f};
+            if (kLv != kMaxLevels || l < lad.n)
+              tp[d][l] = tap_pair(x[d], lad.res[l], d * total_res + lad.off[l], ks);
+          }
+        }
+        int k = 0;
+        for (; k < k_vec; k += 4) {
+          float prod[4] = {1.f, 1.f, 1.f, 1.f};
+#pragma unroll
+          for (int d = 0; d < 3; ++d) {
+            float a[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+            for (int l = 0; l < kLv; ++l) {
+              if (kLv != kMaxLevels || l < lad.n) {
+                float v0[4], v1[4];
+                load4(w_s + tp[d][l].row + k, v0);
+                load4(w_s + tp[d][l].row + ks + k, v1);
+#pragma unroll
+                for (int c = 0; c < 4; ++c) a[c] += tp[d][l].a * v0[c] + tp[d][l].b * v1[c];
+              }
+            }
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              const T a_t = from_f<T>(a[c]);
+              afac_o[((size_t)d * K + k + c) * P + p] = a_t;
+              prod[c] = kPlanes ? prod[c] * to_f(a_t) : to_f(from_f<T>(prod[c] * to_f(a_t)));
+            }
+          }
+          store4(row + k, prod);
+        }
+        for (; k < K; ++k) {
+          float prod = 1.f;
+#pragma unroll
+          for (int d = 0; d < 3; ++d) {
+            float a = 0.f;
+#pragma unroll
+            for (int l = 0; l < kLv; ++l)
+              if (kLv != kMaxLevels || l < lad.n)
+                a += tp[d][l].a * to_f(w_s[tp[d][l].row + k]) +
+                     tp[d][l].b * to_f(w_s[tp[d][l].row + ks + k]);
+            const T a_t = from_f<T>(a);
+            afac_o[((size_t)d * K + k) * P + p] = a_t;
+            prod = kPlanes ? prod * to_f(a_t) : to_f(from_f<T>(prod * to_f(a_t)));
+          }
+          row[k] = from_f<T>(prod);
+        }
+
+        if constexpr (kPlanes) {
+          for (int i = 0; i < 3; ++i)
+            plane_pair_fwd<T>(x, i, axes, pl_o, li_o, fpl_o, fli_o, row + K + i * kp, P, p,
+                              ru, rv, kp, rw);
+        }
+      }
+
+      if constexpr (kStage) {
+        // the warp's rows are one contiguous run of the output
+        __syncwarp();
+        const int n_rows = s1 - qw < 32 ? (int)(s1 - qw) : 32;
+        T* dst = out + qw * kout;
+        const size_t n_bytes = (size_t)n_rows * kout * sizeof(T);
+        if (n_bytes % 16 == 0 && reinterpret_cast<uintptr_t>(dst) % 16 == 0) {
+          const uint4* src4 = reinterpret_cast<const uint4*>(st);
+          uint4* dst4 = reinterpret_cast<uint4*>(dst);
+          for (int v = lane; v < (int)(n_bytes / 16); v += 32) dst4[v] = src4[v];
+        } else {
+          for (int e = lane; e < n_rows * kout; e += 32) dst[e] = st[e];
+        }
+        __syncwarp();
+      }
+    }
+    s0 = s1;
   }
 }
 
@@ -568,16 +756,8 @@ __global__ void __launch_bounds__(kWarps * 32, 1) unsnapped_bwd_tc(
   }
 }
 
-int make_ladder(const int* res, const int* off, int n, Ladder* lad) {
-  if (n < 1 || n > kMaxLevels) return (int)cudaErrorInvalidValue;
-  lad->n = n;
-  for (int l = 0; l < kMaxLevels; ++l) {
-    lad->res[l] = l < n ? res[l] : 0;
-    lad->off[l] = l < n ? off[l] : 0;
-  }
-  return 0;
-}
-
+// The per-axis forward (variant "per_axis"): the factors (and plane pair d
+// in block d); with planes the caller then launches `cp_product`.
 template <typename T, bool kPlanes>
 int launch_fwd(const void* pts, const void* lines, const void* planes,
                const void* plines, void* out, void* afac, void* fpl, void* fli,
@@ -591,13 +771,72 @@ int launch_fwd(const void* pts, const void* lines, const void* planes,
       (const float*)pts, (const T*)lines, (const T*)planes, (const T*)plines,
       (T*)out, (T*)afac, (T*)fpl, (T*)fli, lad, P, K, total_res, ru, rv, kp,
       rw, axes);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  if constexpr (!kPlanes) return 0;  // K7: the caller forms the product
-  if ((err = plan(cp_product<T>, 0, O, P, 1, &grid)) != cudaSuccess)
-    return (int)err;
-  cp_product<T><<<grid, kThreads, 0, stream>>>((const T*)afac, (T*)out, P, K,
-                                               K + 3 * kp);
   return (int)cudaGetLastError();
+}
+
+// The three-axis forward: one wave of blocks over the flattened points.
+template <typename T, bool kPlanes, bool kStage, int kLv>
+int launch_fwd3(const void* pts, const void* lines, const void* planes,
+                const void* plines, void* out, void* afac, void* fpl, void* fli,
+                const Ladder& lad, int O, int P, int K, int total_res, int ru,
+                int rv, int kp, int rw, int axes, cudaStream_t stream) {
+  for (int l = 0; l < lad.n; ++l)
+    if (lad.res[l] < 2) return (int)cudaErrorInvalidValue;  // tap_pair needs r >= 2
+  size_t smem = (size_t)3 * total_res * odd_word_stride(K, sizeof(T)) * sizeof(T);
+  if (kStage)
+    smem = align16(smem) + (size_t)(kFwd3Threads / 32) * 32 * (K + 3 * kp) * sizeof(T);
+  const long long n_all = (long long)O * P;
+  dim3 grid;
+  // one object and z slice: the blocks the card holds at once, capped by
+  // one block a kFwd3Threads points
+  cudaError_t err = plan(unsnapped_fwd3<T, kPlanes, kStage, kLv>, smem, 1,
+                         n_all > (1LL << 30) ? (1 << 30) : (int)n_all, 1, &grid,
+                         kFwd3Threads, kFwd3Threads);
+  if (err != cudaSuccess) return (int)err;
+  long long span = (n_all + grid.x - 1) / grid.x;
+  span = (span + 31) / 32 * 32;
+  const int blocks = (int)((n_all + span - 1) / span);
+  unsnapped_fwd3<T, kPlanes, kStage, kLv><<<blocks, kFwd3Threads, smem, stream>>>(
+      (const float*)pts, (const T*)lines, (const T*)planes, (const T*)plines,
+      (T*)out, (T*)afac, (T*)fpl, (T*)fli, lad, O, P, K, total_res, ru, rv, kp, rw,
+      axes, (int)span);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, bool kPlanes, bool kStage>
+int launch_fwd3_levels(const void* pts, const void* lines, const void* planes,
+                       const void* plines, void* out, void* afac, void* fpl, void* fli,
+                       const Ladder& lad, int O, int P, int K, int total_res, int ru,
+                       int rv, int kp, int rw, int axes, cudaStream_t stream) {
+  if (lad.n == 6)
+    return launch_fwd3<T, kPlanes, kStage, 6>(pts, lines, planes, plines, out, afac, fpl,
+                                               fli, lad, O, P, K, total_res, ru, rv, kp,
+                                               rw, axes, stream);
+  return launch_fwd3<T, kPlanes, kStage, kMaxLevels>(pts, lines, planes, plines, out, afac,
+                                                      fpl, fli, lad, O, P, K, total_res,
+                                                      ru, rv, kp, rw, axes, stream);
+}
+
+// variant 0: "per_axis", 1: "three_axis_direct", 2: "three_axis_staged"
+template <bool kPlanes>
+int dispatch_fwd(int dtype, int variant, const void* pts, const void* lines,
+                 const void* planes, const void* plines, void* out, void* afac,
+                 void* fpl, void* fli, const Ladder& lad, int O, int P, int K,
+                 int total_res, int ru, int rv, int kp, int rw, int axes,
+                 cudaStream_t s) {
+#define ROMAP_ARGS pts, lines, planes, plines, out, afac, fpl, fli, lad, O, P, K, \
+                   total_res, ru, rv, kp, rw, axes, s
+  if (dtype == 0 && variant == 0) return launch_fwd<float, kPlanes>(ROMAP_ARGS);
+  if (dtype == 1 && variant == 0) return launch_fwd<__nv_bfloat16, kPlanes>(ROMAP_ARGS);
+  if (dtype == 0 && variant == 1)
+    return launch_fwd3_levels<float, kPlanes, false>(ROMAP_ARGS);
+  if (dtype == 1 && variant == 1)
+    return launch_fwd3_levels<__nv_bfloat16, kPlanes, false>(ROMAP_ARGS);
+  if (dtype == 0 && variant == 2) return launch_fwd3_levels<float, kPlanes, true>(ROMAP_ARGS);
+  if (dtype == 1 && variant == 2)
+    return launch_fwd3_levels<__nv_bfloat16, kPlanes, true>(ROMAP_ARGS);
+#undef ROMAP_ARGS
+  return (int)cudaErrorInvalidValue;
 }
 
 template <typename T, bool kPlanes>
@@ -646,8 +885,12 @@ extern "C" {
 // asynchronous on `stream`. `res` and `off` are host arrays of `n_levels`
 // ints (the ladder's resolutions and row offsets), at most 8 levels.
 
-// K3.
-int romap_mx_unsnapped_fwd(int dtype, const void* pts, const void* lines,
+// K3. `variant` is the caller's choice from the spec and dtype
+// (mxgrid_cuda.py: `unsnapped_forward_variant`): 0 per_axis (the factors
+// and planes only: the caller launches romap_mx_cp_product for out[:K]),
+// 1 three_axis_direct, 2 three_axis_staged (out written whole). A variant
+// whose tables do not fit a block's shared memory returns an error.
+int romap_mx_unsnapped_fwd(int dtype, int variant, const void* pts, const void* lines,
                            const void* planes, const void* plines, void* out,
                            void* afac, void* fpl, void* fli, const int* res,
                            const int* off, int n_levels, int O, int P, int K,
@@ -656,16 +899,30 @@ int romap_mx_unsnapped_fwd(int dtype, const void* pts, const void* lines,
   Ladder lad;
   const int bad = make_ladder(res, off, n_levels, &lad);
   if (bad) return bad;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0)
-    return launch_fwd<float, true>(pts, lines, planes, plines, out, afac,
-                                   fpl, fli, lad, O, P, K, total_res, ru, rv,
-                                   kp, rw, axes, s);
-  if (dtype == 1)
-    return launch_fwd<__nv_bfloat16, true>(pts, lines, planes, plines, out,
-                                           afac, fpl, fli, lad, O, P, K,
-                                           total_res, ru, rv, kp, rw, axes, s);
-  return (int)cudaErrorInvalidValue;
+  return dispatch_fwd<true>(dtype, variant, pts, lines, planes, plines, out, afac, fpl,
+                            fli, lad, O, P, K, total_res, ru, rv, kp, rw, axes,
+                            (cudaStream_t)stream);
+}
+
+// K3's product pass after its per-axis variant: out[o, p, :K] = A_0 A_1 A_2
+// from afac [O, 3, K, P], in fp32, rounded once; out has kout columns.
+int romap_mx_cp_product(int dtype, const void* afac, void* out, int O, int P, int K,
+                        int kout, void* stream) {
+  dim3 grid;
+  cudaError_t err;
+  if (dtype == 0) {
+    if ((err = plan(cp_product<float>, 0, O, P, 1, &grid)) != cudaSuccess) return (int)err;
+    cp_product<float><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+        (const float*)afac, (float*)out, P, K, kout);
+  } else if (dtype == 1) {
+    if ((err = plan(cp_product<__nv_bfloat16>, 0, O, P, 1, &grid)) != cudaSuccess)
+      return (int)err;
+    cp_product<__nv_bfloat16><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+        (const __nv_bfloat16*)afac, (__nv_bfloat16*)out, P, K, kout);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
 }
 
 // K4. dlines, dplanes and dplines must be zero-filled by the caller.
@@ -702,25 +959,19 @@ int romap_mx_unsnapped_bwd(int dtype, int variant, const void* pts, const void* 
   return (int)cudaErrorInvalidValue;
 }
 
-// K7: afac [O, 3, K, P] from the raw ladder lines alone.
-int romap_mx_unsnapped_cp_fwd(int dtype, const void* pts, const void* lines,
-                              void* afac, const int* res, const int* off,
+// K7: afac [O, 3, K, P] from the raw ladder lines alone; the three-axis
+// variants (1, 2) also write out [O, P, K] = (A_0 A_1) A_2 rounded to the
+// table dtype after each factor (with per_axis, 0, the caller forms it).
+int romap_mx_unsnapped_cp_fwd(int dtype, int variant, const void* pts, const void* lines,
+                              void* out, void* afac, const int* res, const int* off,
                               int n_levels, int O, int P, int K, int total_res,
                               void* stream) {
   Ladder lad;
   const int bad = make_ladder(res, off, n_levels, &lad);
   if (bad) return bad;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0)
-    return launch_fwd<float, false>(pts, lines, nullptr, nullptr, nullptr,
-                                    afac, nullptr, nullptr, lad, O, P, K,
-                                    total_res, 0, 0, 0, 0, 0, s);
-  if (dtype == 1)
-    return launch_fwd<__nv_bfloat16, false>(pts, lines, nullptr, nullptr,
-                                            nullptr, afac, nullptr, nullptr,
-                                            lad, O, P, K, total_res, 0, 0, 0,
-                                            0, 0, s);
-  return (int)cudaErrorInvalidValue;
+  return dispatch_fwd<false>(dtype, variant, pts, lines, nullptr, nullptr, out, afac,
+                             nullptr, nullptr, lad, O, P, K, total_res, 0, 0, 0, 0, 0,
+                             (cudaStream_t)stream);
 }
 
 // K8: dlines [O, 3, total_res, K] f32 (zero-filled by the caller) from afac

@@ -6,7 +6,7 @@ leading object axis O. One `train_objects` step trains every slot at once:
 
   generate_batch   R rays x S samples per object from per-frame bboxes,
                    occlusion and AABB gates, stable compaction + rollover
-  field_apply      MX-grid encode (kernels K1-K6 on the card) + MLP
+  field_apply      MX-grid encode (kernels K0-K10 on the card) or hash grid, + MLP
   composite_loss   volume render + RGB, depth, mask and background-sigma terms
   optimizer        zero_nans -> L2 1e-6 -> Adam(.9, .99, 1e-15) -> exp-decay
                    rate -> EMA .95, masked per slot
@@ -26,7 +26,7 @@ from torch.utils import _pytree as pytree
 
 from romap_tpu_torch.config import NerfConfig
 from romap_tpu_torch.data.frame_store import FrameArrays
-from romap_tpu_torch.ops import mxgrid, mxgrid_cuda
+from romap_tpu_torch.ops import hashgrid, mxgrid, mxgrid_cuda
 from romap_tpu_torch.ops.geometry import (
     camera_rays,
     ray_aabb_intersect,
@@ -42,13 +42,18 @@ from romap_tpu_torch.ops.render import density_activation, render_composite, vol
 # --------------------------------------------------------------------------
 
 
-def make_field_spec(cfg: NerfConfig) -> mxgrid.MXGridSpec:
-    """Static MX-grid spec from the config (the hash grid is not ported).
+def make_field_spec(cfg: NerfConfig):
+    """Static encoding spec from the config: an MX-grid spec, or for
+    kind="hashgrid" a hash-grid spec (its gather path; `hash_impl="sorted"`,
+    a workaround for the TPU's scatter, is not ported and raises).
     MX_SNAP=1/0 in the environment overrides `mx_snap_levels`, as in the
     reference (romap_tpu/models/nerf.py:58-67)."""
     e = cfg.encoding
     if e.kind != "mxgrid":
-        raise NotImplementedError(f"encoding kind {e.kind!r} is not ported (mxgrid only)")
+        if e.hash_impl != "gather":
+            raise NotImplementedError(
+                f"hash_impl={e.hash_impl!r} is not ported (the gather path only)")
+        return hashgrid.make_spec(e)
     snap_env = os.environ.get("MX_SNAP")
     return mxgrid.make_mxspec(
         n_levels=e.mx_levels, base_resolution=e.base_resolution,
@@ -70,17 +75,21 @@ def compute_dtype(cfg: NerfConfig, device: torch.device) -> torch.dtype:
 def field_apply(params, points: torch.Tensor, cfg: NerfConfig, spec, dtype=None):
     """points [O, ..., 3] in [0,1]^3 -> raw (rgb logits, log-sigma) [O, ..., 4].
 
-    The device alone picks the encode: a CUDA tensor goes through the
-    kernels the spec selects (`mxgrid_cuda.encode`: K1/K2, K3/K4 or K5/K6;
-    a spec none of them covers raises), a CPU tensor through the plain
-    `mxgrid.encode`. `dtype` overrides the compute dtype; the render and
-    mesh paths pass float32.
+    A hash-grid spec takes `hashgrid.encode` (gather and index_add_) on any
+    device. For an MX-grid spec the device picks the encode: a CUDA tensor
+    goes through the kernels the spec selects (`mxgrid_cuda.encode`, K1-K10,
+    and K0 for the points' gradient in pose refinement; a spec none of them
+    covers raises), a CPU tensor through the plain `mxgrid.encode`. `dtype`
+    overrides the compute dtype; the render, mesh and refinement paths pass
+    float32.
     """
     if dtype is None:
         dtype = compute_dtype(cfg, points.device)
     table = pytree.tree_map(lambda a: a.to(dtype), params["table"])
     mlp = pytree.tree_map(lambda a: a.to(dtype), params["mlp"])
-    if points.device.type == "cuda":
+    if isinstance(spec, hashgrid.HashGridSpec):
+        feats = hashgrid.encode(table, points, spec)
+    elif points.device.type == "cuda":
         feats = mxgrid_cuda.encode(table, points, spec)
     else:
         feats = mxgrid.encode(table, points, spec)
@@ -144,11 +153,15 @@ class TrainState(NamedTuple):
 
 def init_train_state(generator: torch.Generator, capacity: int, cfg: NerfConfig,
                      spec, device="cpu") -> TrainState:
-    """Fresh state for `capacity` slots: params {"table": MX-grid factors,
-    "mlp": {"w0", "w1"}} drawn from `generator`, EMA = params, zero Adam
-    moments, step 0."""
+    """Fresh state for `capacity` slots: params {"table": MX-grid factors or
+    the hash table, "mlp": {"w0", "w1"}} drawn from `generator`, EMA =
+    params, zero Adam moments, step 0."""
+    if isinstance(spec, hashgrid.HashGridSpec):
+        table = hashgrid.init_table(generator, spec, capacity, device=device)
+    else:
+        table = mxgrid.init_mxgrid(generator, spec, capacity, device=device)
     params = {
-        "table": mxgrid.init_mxgrid(generator, spec, capacity, device=device),
+        "table": table,
         "mlp": init_mlp(generator, spec.n_output_dims, cfg.network, capacity,
                         device=device),
     }

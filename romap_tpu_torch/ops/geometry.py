@@ -107,3 +107,38 @@ def orbit_pose(theta_deg: float, phi_deg: float, radius: float) -> torch.Tensor:
     toc = torch.eye(4, dtype=torch.float32)
     toc[:3, 0], toc[:3, 1], toc[:3, 2], toc[:3, 3] = x_axis, y_axis, z_axis, t
     return toc
+
+
+def se3_exp(delta: torch.Tensor) -> torch.Tensor:
+    """SE(3) exponential map: [..., 6] (omega, v) -> [..., 4, 4]
+    (romap_tpu/ops/geometry.py:128-169).
+
+    Below theta^2 = 1e-12 the Taylor forms of A, B, C are taken. The other
+    branch is still differentiated, and (theta - sin theta) / theta^3 has a
+    gradient that divides by ~0 there: theta = 1 is put in wherever the
+    Taylor branch wins, so no NaN reaches the gradient at zero angle.
+    """
+    w, v = delta[..., :3], delta[..., 3:]
+    theta2_raw = torch.sum(w * w, dim=-1, keepdim=True)[..., None]  # [..., 1, 1]
+    small = theta2_raw < 1e-12
+    theta2 = torch.where(small, torch.ones_like(theta2_raw), theta2_raw)
+    theta = torch.sqrt(theta2)
+    zeros = torch.zeros_like(w[..., 0])
+    k = torch.stack([
+        torch.stack([zeros, -w[..., 2], w[..., 1]], dim=-1),
+        torch.stack([w[..., 2], zeros, -w[..., 0]], dim=-1),
+        torch.stack([-w[..., 1], w[..., 0], zeros], dim=-1),
+    ], dim=-2)  # [..., 3, 3]
+    kk = k @ k
+    a = torch.where(small, 1.0 - theta2_raw / 6.0, torch.sin(theta) / theta)
+    b = torch.where(small, 0.5 - theta2_raw / 24.0, (1.0 - torch.cos(theta)) / theta2)
+    c = torch.where(small, 1.0 / 6.0 - theta2_raw / 120.0,
+                    (theta - torch.sin(theta)) / (theta2 * theta))
+    eye = torch.eye(3, dtype=delta.dtype, device=delta.device).expand(k.shape)
+    r = eye + a * k + b * kk
+    vmat = eye + b * k + c * kk
+    t = torch.einsum("...ij,...j->...i", vmat, v)
+    top = torch.cat([r, t[..., None]], dim=-1)  # [..., 3, 4]
+    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=delta.dtype,
+                          device=delta.device).expand(*top.shape[:-2], 1, 4)
+    return torch.cat([top, bottom], dim=-2)

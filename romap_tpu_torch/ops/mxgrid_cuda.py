@@ -1,4 +1,4 @@
-"""MX-grid encode on the card: kernels K1-K10.
+"""MX-grid encode on the card: kernels K0-K10.
 
 Counterpart of romap_tpu/ops/mxgrid_pallas.py. The spec and MX_FUSED pick
 the kernels as `_fwd_impl_t` / `_bwd_impl_t` do (724-875):
@@ -13,19 +13,24 @@ the kernels as `_fwd_impl_t` / `_bwd_impl_t` do (724-875):
 
 MX_FUSED is read from the environment each time `kernel_path` routes (the
 reference reads its module global FUSED_FWD at call time), so a process
-that sets it before its first encode gets the reference's pairs. On the
-split path (MX_FUSED=0) the products are formed outside the kernels in the
-table dtype, as the reference forms them in XLA (mxgrid_pallas.py:736,
-741): `cp_product` and `plane_product`. K9/K10 take several plane levels;
-the fused K1-K4 take one, and a spec with more raises NotImplementedError
-there, as does any spec no kernel covers: a CUDA tensor never falls back
-to the plain encode.
+that sets it before its first encode gets the reference's pairs. Where
+the reference forms a product outside its kernels in the table dtype
+(mxgrid_pallas.py:736, 741), the port keeps those roundings: K5 and K7 (in
+its three-axis variants) form the CP product in the kernel, rounding after
+each factor; K7's per-axis variant leaves it to `cp_product`, and the
+split path's plane features come from `plane_product`. K9/K10 take
+several plane levels; the fused K1-K4 take one, and a spec with more raises
+NotImplementedError there, as does any spec no kernel covers: a CUDA
+tensor never falls back to the plain encode.
 
 Some kernels have variants, named from the spec and the table dtype alone:
 the backwards K2/K6 (`folded_variant`) and K4/K8 (`unsnapped_variant`) run
 on the tensor cores in bf16 at the shapes their sources instantiate and as
 the scalar kernel otherwise; the forward K1/K5 stages its feature rows in
-shared memory wherever they fit (`forward_variant`). The C entry refuses a
+shared memory wherever they fit (`forward_variant`); the forward K3/K7
+holds all three axes' ladders in a block wherever they fit, else one axis a
+block with the product as a second pass (`unsnapped_forward_variant`;
+`cp_product_pass` after K3, `cp_product` after K7). The C entry refuses a
 combination it does not have, and the wrapper raises.
 
 The CUDA sources are `romap_tpu_torch/csrc/*.cu`; they are built with nvcc
@@ -44,8 +49,10 @@ Each wrapper counts its kernel launches in a plain int attribute
 (`folded_fused_forward.launches`, ...) and, per table dtype, in
 `launches_by_dtype` (e.g. {"bfloat16": 3, "float32": 1}).
 
-Points get no gradient, as in the Pallas VJP (mxgrid_pallas.py:892-895,
-916-919): `encode` raises when the points require one.
+The points get their gradient from K0 (`points_gradient`, csrc/
+mxgrid_points.cu), on every path, where they require one (pose
+refinement): the Pallas VJP gives them none (mxgrid_pallas.py:892-895,
+916-919), and the reference differentiates them through its XLA encode.
 """
 
 from __future__ import annotations
@@ -75,8 +82,8 @@ BUILD_DIR = _PKG.parent / "build" / "romap_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-MAX_LEVELS = 8  # kMaxLevels of mxgrid_unsnapped.cu
-MAX_PLANE_LEVELS = 4  # kMaxPlaneLevels of mxgrid_planes.cu
+MAX_LEVELS = 8  # kMaxLevels of mxgrid_common.cuh
+MAX_PLANE_LEVELS = 4  # kMaxPlaneLevels of mxgrid_common.cuh
 
 
 def _find_nvcc() -> str:
@@ -142,14 +149,17 @@ def _library() -> ctypes.CDLL:
         "romap_mx_folded_bwd": [i32] * 2 + [ptr] * 8 + [i32] * 10 + [ptr],
         "romap_mx_folded_cp_fwd": [i32] * 2 + [ptr] * 4 + [i32] * 5 + [ptr],
         "romap_mx_folded_cp_bwd": [i32] * 2 + [ptr] * 4 + [i32] * 5 + [ptr],
-        "romap_mx_unsnapped_fwd": [i32] + [ptr] * 8 + [ints] * 2 + [i32] * 10 + [ptr],
+        "romap_mx_unsnapped_fwd": [i32] * 2 + [ptr] * 8 + [ints] * 2 + [i32] * 10 + [ptr],
+        "romap_mx_cp_product": [i32] + [ptr] * 2 + [i32] * 4 + [ptr],
         "romap_mx_unsnapped_bwd": [i32] * 2 + [ptr] * 8 + [ints] * 2 + [i32] * 10 + [ptr],
-        "romap_mx_unsnapped_cp_fwd": [i32] + [ptr] * 3 + [ints] * 2 + [i32] * 5 + [ptr],
+        "romap_mx_unsnapped_cp_fwd": [i32] * 2 + [ptr] * 4 + [ints] * 2 + [i32] * 5 + [ptr],
         "romap_mx_unsnapped_cp_bwd": [i32] * 2 + [ptr] * 4 + [ints] * 2 + [i32] * 5 + [ptr],
         "romap_mx_planes_fwd": ([i32, ptr, i32, ptrs, ptrs] + [ints] * 3 + [ptr] * 2
                                 + [i32] * 3 + [ptr]),
         "romap_mx_planes_bwd": ([i32] + [ptr] * 4 + [i32, ptrs, ptrs] + [ints] * 3
                                 + [i32] * 3 + [ptr]),
+        "romap_mx_points_grad": ([i32] + [ptr] * 2 + [ints] * 2 + [i32] * 2 + [ptr, i32]
+                                 + [ptrs] * 2 + [ints] * 3 + [ptr] * 4 + [i32] * 4 + [ptr]),
     }
     for name, types in argtypes.items():
         fn = getattr(lib, name)
@@ -252,16 +262,18 @@ def unsnapped_variant(spec: MXGridSpec, dtype: torch.dtype, planes: bool | None 
     return "tensor_core"
 
 
-def _forward_smem(spec: MXGridSpec, dtype: torch.dtype, planes: bool, staged: bool) -> int:
-    """Dynamic shared memory of the folded forward, as mxgrid_folded.cu's
-    launch_fwd sizes it: W_eff at an odd word stride, then (staged) 32
-    feature rows for each of a block's 8 warps."""
+def _forward_smem(rows: int, spec: MXGridSpec, dtype: torch.dtype, planes: bool,
+                  staged: bool, warps: int = 8) -> int:
+    """Dynamic shared memory of a forward that stages `rows` table rows at
+    an odd word stride, then (staged) 32 output rows for each of a block's
+    `warps` warps: `launch_fwd` of mxgrid_folded.cu (rows 3 rfp, 8 warps)
+    and `launch_fwd3` of mxgrid_unsnapped.cu (rows 3 total_res, 16 warps)."""
     elem = torch.empty((), dtype=dtype).element_size()
     words = -(-spec.features * elem // 4)
     row = (words + 1 - words % 2) * 4  # bytes of a table row
-    table = 3 * spec.fold_res[1] * row
+    table = rows * row
     kout = spec.features + (spec.plane_out_dims if planes else 0)
-    return table + (-table % 16 + 8 * 32 * kout * elem if staged else 0)
+    return table + (-table % 16 + warps * 32 * kout * elem if staged else 0)
 
 
 def forward_variant(spec: MXGridSpec, dtype: torch.dtype, planes: bool | None = None) -> str:
@@ -273,8 +285,37 @@ def forward_variant(spec: MXGridSpec, dtype: torch.dtype, planes: bool | None = 
     room. Chosen from the spec and dtype alone."""
     if planes is None:
         planes = bool(spec.plane_specs)
-    fits = _forward_smem(spec, dtype, planes, staged=True) <= SMEM_PER_BLOCK
+    rows = 3 * spec.fold_res[1]
+    fits = _forward_smem(rows, spec, dtype, planes, staged=True) <= SMEM_PER_BLOCK
     return "staged" if fits else "direct"
+
+
+UNSNAPPED_FORWARD_VARIANTS = ("per_axis", "three_axis_direct", "three_axis_staged")
+FWD3_WARPS = 16  # kFwd3Threads / 32 of mxgrid_unsnapped.cu
+
+
+def unsnapped_forward_variant(spec: MXGridSpec, dtype: torch.dtype,
+                              planes: bool | None = None) -> str:
+    """The variant of the unsnapped forward (K3 with `planes`, K7 without):
+    "three_axis_staged" (a block holds the three axes' ladders, forms the
+    factors and their product in registers and stages a warp's output rows)
+    where the tables and the staged rows fit a block's shared memory;
+    "three_axis_direct" (each thread stores its own row) where only the
+    tables fit (K7 at `fast`'s ladder in bf16: 229,680 B); else "per_axis"
+    (a block an axis, then the product as a second pass: the fp32 flagship
+    ladder's three axes take 273,420 B). Chosen from the spec and dtype
+    alone."""
+    if planes is None:
+        planes = bool(spec.plane_specs)
+    rows = 3 * spec.total_res
+    if min(spec.resolutions) < 2:  # a level's two rows j, j + 1 (`tap_pair`)
+        return "per_axis"
+    smem = lambda staged: _forward_smem(rows, spec, dtype, planes, staged, FWD3_WARPS)
+    if smem(True) <= SMEM_PER_BLOCK:
+        return "three_axis_staged"
+    if smem(False) <= SMEM_PER_BLOCK:
+        return "three_axis_direct"
+    return "per_axis"
 
 
 def _axes_code(spec: MXGridSpec) -> int:
@@ -336,7 +377,7 @@ def _ladder(spec: MXGridSpec):
     n = len(spec.resolutions)
     if n > MAX_LEVELS:
         raise NotImplementedError(
-            f"K3/K4/K7/K8 take at most {MAX_LEVELS} ladder levels; this spec has {n}")
+            f"K0, K3/K4 and K7/K8 take at most {MAX_LEVELS} ladder levels; this spec has {n}")
     arr = ctypes.c_int * n
     return arr(*spec.resolutions), arr(*spec.offsets), n
 
@@ -543,11 +584,31 @@ def unsnapped_fused_forward(points, lines, planes, plines, spec: MXGridSpec):
     afac = torch.empty((o, 3, k, p), dtype=dt, device=dev)
     fpl = torch.empty((o, 3 * kp, p), dtype=dt, device=dev)
     fli = torch.empty_like(fpl)
+    variant = unsnapped_forward_variant(spec, dt, planes=True)
     _launch(unsnapped_fused_forward, "K3 unsnapped_fused_forward", "romap_mx_unsnapped_fwd",
-            dt, dev, points.data_ptr(), lines.data_ptr(), planes.data_ptr(),
-            plines.data_ptr(), out.data_ptr(), afac.data_ptr(), fpl.data_ptr(),
-            fli.data_ptr(), res, off, n_lvl, o, p, k, total, ru, rv, kp, rw, axes)
+            dt, dev, UNSNAPPED_FORWARD_VARIANTS.index(variant), points.data_ptr(),
+            lines.data_ptr(), planes.data_ptr(), plines.data_ptr(), out.data_ptr(),
+            afac.data_ptr(), fpl.data_ptr(), fli.data_ptr(), res, off, n_lvl, o, p, k, total,
+            ru, rv, kp, rw, axes)
+    if variant == "per_axis":
+        cp_product_pass(afac, out)
     return out, afac, fpl, fli
+
+
+@_counted
+def cp_product_pass(afac: torch.Tensor, out: torch.Tensor) -> None:
+    """K3's second pass after its per-axis variant (the `cp_product` kernel
+    of mxgrid_unsnapped.cu): out[..., :K] = A_0 A_1 A_2 from the factors
+    afac [O, 3, K, P], in fp32, rounded once. CUDA tensors only: the plain
+    twin forms the product inside `unsnapped_fused_forward_plain`."""
+    dt, dev = afac.dtype, afac.device
+    if not _on_card(afac, dt):
+        raise ValueError("cp_product_pass launches a kernel: CUDA tensors only")
+    o, _, k, p = afac.shape
+    _check("afac", afac, (o, 3, k, p), dt, dev)
+    _check("out", out, (o, p, out.shape[-1]), dt, dev)
+    _launch(cp_product_pass, "cp_product_pass", "romap_mx_cp_product", dt, dev,
+            afac.data_ptr(), out.data_ptr(), o, p, k, out.shape[-1])
 
 
 def unsnapped_fused_backward_plain(points, afac, fpl, fli, g, spec: MXGridSpec):
@@ -660,10 +721,13 @@ def folded_cp_backward(points, afac, g, spec: MXGridSpec):
 
 
 def unsnapped_cp_forward_plain(points, lines, spec: MXGridSpec):
-    """Plain twin of K7 (`_cp_forward`): the axis factors afac [O, 3, K, P]
-    in the table dtype from the raw ladder lines [O, 3, total_res, K]."""
+    """Plain twin of K7 (`_cp_forward` and the product formed after it,
+    mxgrid_pallas.py:734-736): out [O, P, K] and the axis factors afac
+    [O, 3, K, P] in the table dtype from the raw ladder lines
+    [O, 3, total_res, K]; the product is (A_0 A_1) A_2 in the table dtype,
+    rounded after each factor, as the reference forms it (`cp_product`)."""
     a = _cp_factors_plain(points, lines, _ladder_basis(spec)).to(lines.dtype)
-    return a.transpose(2, 3).contiguous()
+    return a[:, 0] * a[:, 1] * a[:, 2], a.transpose(2, 3).contiguous()
 
 
 @_counted
@@ -679,11 +743,16 @@ def unsnapped_cp_forward(points, lines, spec: MXGridSpec):
     o, p = points.shape[:2]
     _check("points", points, (o, p, 3), torch.float32, dev)
     _check("lines", lines, (o, 3, total, k), dt, dev)
+    out = torch.empty((o, p, k), dtype=dt, device=dev)
     afac = torch.empty((o, 3, k, p), dtype=dt, device=dev)
+    variant = unsnapped_forward_variant(spec, dt, planes=False)
     _launch(unsnapped_cp_forward, "K7 unsnapped_cp_forward", "romap_mx_unsnapped_cp_fwd",
-            dt, dev, points.data_ptr(), lines.data_ptr(), afac.data_ptr(), res, off,
-            n_lvl, o, p, k, total)
-    return afac
+            dt, dev, UNSNAPPED_FORWARD_VARIANTS.index(variant), points.data_ptr(),
+            lines.data_ptr(), out.data_ptr(), afac.data_ptr(), res, off, n_lvl, o, p, k,
+            total)
+    if variant == "per_axis":
+        out = cp_product(afac)
+    return out, afac
 
 
 def unsnapped_cp_backward_plain(points, afac, g, spec: MXGridSpec):
@@ -809,10 +878,14 @@ def planes_backward(points, fpl, fli, g, spec: MXGridSpec):
     return dplanes, dplines
 
 
+@_counted
 def cp_product(afac: torch.Tensor) -> torch.Tensor:
     """CP features [O, P, K] from the factors [O, 3, K, P]: (A_0 A_1) A_2 in
     the table dtype, rounded after each factor, as the reference forms them
-    after its split CP kernel (mxgrid_pallas.py:736)."""
+    after its split CP kernel (mxgrid_pallas.py:736). K7's per-axis variant
+    needs it; its calls are counted as a kernel's launches are."""
+    cp_product.launches += 1
+    cp_product.launches_by_dtype[str(afac.dtype).split(".")[1]] += 1
     return (afac[:, 0] * afac[:, 1] * afac[:, 2]).transpose(1, 2).contiguous()
 
 
@@ -822,7 +895,133 @@ def plane_product(fpl: torch.Tensor, fli: torch.Tensor) -> torch.Tensor:
     return (fpl * fli).transpose(1, 2).contiguous()
 
 
+# --------------------------------------------------------------------------
+# K0: the points gradient (pose refinement)
+# --------------------------------------------------------------------------
+
+
+def _slope1(x: torch.Tensor, r: int) -> torch.Tensor:
+    """[...] coords -> [..., r] d hat1/dx at the two knots `tent_taps`
+    keeps: -(r-1) at floor(t), r-1 at floor(t) + 1 (t = x (r-1)), 0 where
+    a knot is out of [0, r-1] or t out of reach (`tent_slopes`). Away from
+    the knots this equals autograd of `hat1`."""
+    t = x * (r - 1)
+    f = torch.floor(t)[..., None]
+    i = torch.arange(r, dtype=x.dtype, device=x.device)
+    reach = ((t > -1) & (t < r))[..., None]
+    return (r - 1) * reach * ((i == f + 1).to(x.dtype) - (i == f).to(x.dtype))
+
+
+def on_a_knot(points: torch.Tensor, spec: MXGridSpec) -> torch.Tensor:
+    """[O, P] bool: a coordinate of the point lies on a knot of a tent the
+    encode reads (x (r-1) an integer, in fp32). The encode has no derivative
+    there; K0 takes the slope to the right, autograd of the plain encode
+    the sum of both sides, JAX's autodiff of its tent 0, so comparisons of
+    the points' gradient leave these points out (a few in 10^5 uniform fp32
+    points)."""
+    rs = {spec.fold_res[0]} if spec.snap_levels else set(spec.resolutions)
+    rs |= {r for ru, rv, _ in spec.plane_specs for r in (ru, rv, max(ru, rv))}
+    hit = torch.zeros(points.shape[:-1], dtype=torch.bool, device=points.device)
+    for r in rs:
+        t = points * (r - 1)
+        hit |= (t == torch.floor(t)).any(dim=-1)
+    return hit
+
+
+def _cp_slope_basis(spec: MXGridSpec):
+    """x -> [..., rows] slopes of the CP basis: the folded one (rf knots,
+    padded to rfp) or the concatenated ladder."""
+    if spec.snap_levels:
+        rf, rfp = spec.fold_res
+        return lambda x: torch.nn.functional.pad(_slope1(x, rf), (0, rfp - rf))
+    return lambda x: torch.cat([_slope1(x, r) for r in spec.resolutions], dim=-1)
+
+
+def points_gradient_plain(points, table, afac, planes, plines, fpl, fli, g,
+                          spec: MXGridSpec) -> torch.Tensor:
+    """Plain twin of K0: d loss / d points [O, P, 3] f32 of the encode.
+
+    Args:
+      points [O, P, 3] f32; table: W_eff [O, 3, rfp, K] (folded spec) or
+      the ladder lines [O, 3, total_res, K]; afac [O, 3, K, P]; planes,
+      plines: one tensor a plane level (empty for CP only); fpl, fli
+      [O, 3 sum(kp), P] or None; g [O, P, K + 3 sum(kp)]: the forward's
+      residuals and the encode's cotangent, one dtype.
+    The residuals are taken as stored (their roundings as the identity);
+    sums are fp32.
+    """
+    o, p = points.shape[:2]
+    k = spec.features
+    g = g.float()
+    a = afac.float().transpose(2, 3)  # [O, 3, P, K]
+    slope = _cp_slope_basis(spec)
+    others = ((1, 2), (0, 2), (0, 1))
+    cols = [torch.sum(g[..., :k] * a[:, e] * a[:, f]
+                      * torch.matmul(slope(points[..., d]), table[:, d].float()), dim=-1)
+            for d, (e, f) in enumerate(others)]
+    dx = torch.stack(cols, dim=-1)
+    row = 0
+    for (ru, rv, kp), pl, li in zip(spec.plane_specs, planes, plines):
+        for i, (u, v, w) in enumerate(spec.plane_axes):
+            gi = g[..., k + row : k + row + kp]
+            f_pl = fpl[:, row : row + kp].float().transpose(1, 2)
+            f_li = fli[:, row : row + kp].float().transpose(1, 2)
+            pmat = pl[:, i].float().reshape(o, ru, rv * kp)
+            hu, hv = hat1(points[..., u], ru), hat1(points[..., v], rv)
+            su, sv = _slope1(points[..., u], ru), _slope1(points[..., v], rv)
+            t_s = torch.matmul(su, pmat).reshape(o, p, rv, kp)
+            t_h = torch.matmul(hu, pmat).reshape(o, p, rv, kp)
+            dpl_u = torch.sum(t_s * hv[..., None], dim=2)
+            dpl_v = torch.sum(t_h * sv[..., None], dim=2)
+            dli_w = torch.matmul(_slope1(points[..., w], max(ru, rv)), li[:, i].float())
+            dx[..., u] += torch.sum(gi * f_li * dpl_u, dim=-1)
+            dx[..., v] += torch.sum(gi * f_li * dpl_v, dim=-1)
+            dx[..., w] += torch.sum(gi * f_pl * dli_w, dim=-1)
+            row += kp
+    return dx
+
+
+@_counted
+def points_gradient(points, table, afac, planes, plines, fpl, fli, g,
+                    spec: MXGridSpec) -> torch.Tensor:
+    """K0 on a CUDA tensor, its plain twin on a CPU tensor (same contract as
+    `points_gradient_plain`)."""
+    dt = afac.dtype
+    if not _on_card(points, dt):
+        return points_gradient_plain(points, table, afac, planes, plines, fpl, fli, g, spec)
+    k, n_pl = spec.features, len(spec.plane_specs)
+    if spec.snap_levels:
+        (rf, rows), n_lvl = spec.fold_res, 1
+        res, off = (ctypes.c_int * 1)(rf), (ctypes.c_int * 1)(0)
+    else:
+        res, off, n_lvl = _ladder(spec)
+        rows = spec.total_res
+    dev = points.device
+    o, p = points.shape[:2]
+    kpl = spec.plane_out_dims
+    _check("points", points, (o, p, 3), torch.float32, dev)
+    _check("table", table, (o, 3, rows, k), dt, dev)
+    _check("afac", afac, (o, 3, k, p), dt, dev)
+    _check("g", g, (o, p, k + kpl), dt, dev)
+    if n_pl:
+        _check_levels(planes, plines, spec, o, dt, dev)
+        _check("fpl", fpl, (o, kpl, p), dt, dev)
+        _check("fli", fli, (o, kpl, p), dt, dev)
+        n, pl_ptrs, li_ptrs, ru, rv, kp = _level_args(spec, planes, plines)
+        fpl_ptr, fli_ptr = fpl.data_ptr(), fli.data_ptr()
+    else:
+        n, pl_ptrs, li_ptrs, ru, rv, kp = 0, None, None, None, None, None
+        fpl_ptr = fli_ptr = None
+    dpts = torch.empty((o, p, 3), dtype=torch.float32, device=dev)
+    _launch(points_gradient, "K0 points_gradient", "romap_mx_points_grad", dt, dev,
+            points.data_ptr(), table.data_ptr(), res, off, n_lvl, rows, afac.data_ptr(),
+            n, pl_ptrs, li_ptrs, ru, rv, kp, fpl_ptr, fli_ptr, g.data_ptr(),
+            dpts.data_ptr(), o, p, k, _axes_code(spec))
+    return dpts
+
+
 KERNELS = {
+    "K0": points_gradient,
     "K1": folded_fused_forward, "K2": folded_fused_backward,
     "K3": unsnapped_fused_forward, "K4": unsnapped_fused_backward,
     "K5": folded_cp_forward, "K6": folded_cp_backward,
@@ -831,8 +1030,12 @@ KERNELS = {
 }
 
 
+# the product passes the per-axis unsnapped forwards need after K3 / K7
+PRODUCT_PASSES = {"cp_product_pass": cp_product_pass, "cp_product": cp_product}
+
+
 def reset_launch_counts() -> None:
-    for fn in KERNELS.values():
+    for fn in (*KERNELS.values(), *PRODUCT_PASSES.values()):
         fn.launches = 0
         fn.launches_by_dtype.clear()
 
@@ -846,7 +1049,9 @@ class _Encode(torch.autograd.Function):
     """Forward: fold the lines (one einsum) where the spec snaps, then the
     forward kernels of `path`; on a split path, the products in the table
     dtype. Backward: the backward kernels, then the transposed fold, as JAX
-    does around its kernels (mxgrid_pallas.py:490-493, 538-544, 724-875).
+    does around its kernels (mxgrid_pallas.py:490-493, 538-544, 724-875),
+    where the tables need a gradient; K0 where the points need one (then
+    the forward also keeps its table, planes and plane lines).
     `tables` are the planes, then the plane lines, one tensor a level."""
 
     @staticmethod
@@ -854,33 +1059,40 @@ class _Encode(torch.autograd.Function):
         n_lvl = len(spec.plane_specs)
         planes = [t.contiguous() for t in tables[:n_lvl]]
         plines = [t.contiguous() for t in tables[n_lvl:]]
+        table = (fold_lines(lines, spec) if spec.snap_levels else lines).contiguous()
         if path == "unsnapped":
-            out, *res = unsnapped_fused_forward(points, lines.contiguous(), planes[0],
-                                                plines[0], spec)
+            out, *res = unsnapped_fused_forward(points, table, planes[0], plines[0], spec)
         elif path == "folded":
-            out, *res = folded_fused_forward(points, fold_lines(lines, spec).contiguous(),
-                                             planes[0], plines[0], spec)
+            out, *res = folded_fused_forward(points, table, planes[0], plines[0], spec)
         else:  # CP kernel, then (split path) the plane levels
             if spec.snap_levels:
-                out, afac = folded_cp_forward(points, fold_lines(lines, spec).contiguous(),
-                                              spec)
+                out, afac = folded_cp_forward(points, table, spec)
             else:
-                afac = unsnapped_cp_forward(points, lines.contiguous(), spec)
-                out = cp_product(afac)
+                out, afac = unsnapped_cp_forward(points, table, spec)
             res = [afac]
             if n_lvl:
                 fpl, fli = planes_forward(points, planes, plines, spec)
                 out = torch.cat([out, plane_product(fpl, fli)], dim=-1)
                 res += [fpl, fli]
-        ctx.save_for_backward(points, *res)
-        ctx.spec, ctx.path = spec, path
+        kept = [table, *planes, *plines] if ctx.needs_input_grad[0] else []
+        ctx.save_for_backward(points, *res, *kept)
+        ctx.spec, ctx.path, ctx.n_res = spec, path, len(res)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        points, *res = ctx.saved_tensors
+        points, *saved = ctx.saved_tensors
+        res, kept = saved[: ctx.n_res], saved[ctx.n_res :]
         spec, dt = ctx.spec, res[0].dtype
         g = g.to(dt).contiguous()
+        dpts = None
+        if ctx.needs_input_grad[0]:
+            n_lvl = len(spec.plane_specs)
+            table, planes, plines = kept[0], kept[1 : 1 + n_lvl], kept[1 + n_lvl :]
+            fpl, fli = (res[1], res[2]) if n_lvl else (None, None)
+            dpts = points_gradient(points, table, res[0], planes, plines, fpl, fli, g, spec)
+        if not any(ctx.needs_input_grad[3:]):
+            return (dpts, None, None, None, *(None,) * 2 * len(spec.plane_specs))
         if ctx.path == "folded":
             dw, dplanes, dplines = folded_fused_backward(points, *res, g, spec)
             dlines, dplanes, dplines = unfold_dlines(dw, spec, dt), [dplanes], [dplines]
@@ -897,7 +1109,7 @@ class _Encode(torch.autograd.Function):
             dplanes, dplines = (planes_backward(points, res[1], res[2],
                                                 g[..., k:].contiguous(), spec)
                                 if spec.plane_specs else ((), ()))
-        return (None, None, None, dlines.to(dt), *(t.to(dt) for t in dplanes),
+        return (dpts, None, None, dlines.to(dt), *(t.to(dt) for t in dplanes),
                 *(t.to(dt) for t in dplines))
 
 
@@ -912,13 +1124,9 @@ def encode(factors, p: torch.Tensor, spec: MXGridSpec) -> torch.Tensor:
       p: [O, ..., 3] points in the unit cube.
     Returns:
       [O, ..., n_output_dims] features in the parameter dtype. Gradients
-      reach the tables; asking for a gradient of the points raises.
+      reach the tables (the backward kernels) and the points (K0).
     """
     path = kernel_path(spec)
-    if p.requires_grad:
-        raise NotImplementedError(
-            "the kernel encode has no gradient for the points (as the Pallas "
-            "VJP); differentiate the points through ops.mxgrid.encode")
     o, batch_shape = p.shape[0], p.shape[1:-1]
     pts = p.reshape(o, -1, 3).float().contiguous()
     if isinstance(factors, dict):

@@ -28,10 +28,9 @@ state snapshot when ROMAP_SAVE_STATE names a file.
 
 Not ported (ROADMAP M11): the device mesh and sharding, the ahead-of-time
 compiles (PyTorch runs eagerly, there is no jit to warm), and joint
-photometric BA (`joint_ba_iters > 0` raises). Photometric pose refinement
-of RENDER_TEST views with pixel crops is not ported yet (ROADMAP M9): it
-needs the field's gradient with respect to the sample points, which the
-kernel encode does not give; `render_nerfs_test` with pixels raises.
+photometric BA (`joint_ba_iters > 0` raises). RENDER_TEST views with pixel
+crops are photometrically refined first (`runtime/pose_refine.py`), as in
+the reference.
 
 Random numbers come from torch.Generators on the manager's device: the
 initial state and every wave's uniforms from one seeded with `cfg.seed`,
@@ -48,6 +47,7 @@ start()/wait_threads_end() to run it on a background thread.
 from __future__ import annotations
 
 import os
+import pickle
 import threading
 import time
 
@@ -58,7 +58,7 @@ from torch.utils import _pytree as pytree
 from romap_tpu_torch.config import NerfConfig, load_network_config
 from romap_tpu_torch.data.frame_store import FrameStore
 from romap_tpu_torch.models import nerf
-from romap_tpu_torch.runtime import artifacts
+from romap_tpu_torch.runtime import artifacts, pose_refine
 from romap_tpu_torch.utils.checkpoint import save_checkpoint
 from romap_tpu_torch.utils.device import resolve_device
 
@@ -435,18 +435,37 @@ class NerfManagerOnline:
         """ref RenderNeRFsTest nerf_manager.cu:280-285 -> RenderTestImg: the
         artifact tree of object idx for the given held-out views.
 
-        `pixels` (per-view rgb and mask crops) asks for photometric pose
-        refinement of those views first, which is not ported yet (ROADMAP
-        M9): it raises NotImplementedError rather than render unrefined
-        views."""
-        if pixels is not None and any(p is not None for p in pixels):
-            raise NotImplementedError(
-                "RENDER_TEST with pixel crops asks for photometric pose refinement "
-                "(runtime/pose_refine.py), not ported yet: ROADMAP M9, it needs a "
-                "points-gradient encode backward on the card (K0)")
+        `pixels` (per-view rgb and mask crops, or None) asks for those
+        views' poses to be photometrically refined against the trained,
+        frozen field first (`runtime/pose_refine.py`); a refined pose is
+        kept only where it lowers the view's loss. With ROMAP_SAVE_STATE
+        set, the refinement's inputs go to `<that path>.refine_obj<idx>.pkl`
+        (`scripts/debug_refine.py` reads it)."""
         with self._cond:
             self._wait_idle_locked()
             params = pytree.tree_map(lambda a: a[idx], self.state.ema)
+        twcs = [np.asarray(t, np.float32) for t in twcs]
+        dbg = os.environ.get("ROMAP_SAVE_STATE")
+        if dbg and pixels is not None:
+            with open(f"{dbg}.refine_obj{idx}.pkl", "wb") as f:
+                pickle.dump({
+                    "stamps": stamps, "boxes": boxes, "twcs": twcs, "pixels": pixels,
+                    "tow": self._objs["tow"][idx], "aabb_min": self._objs["aabb_min"][idx],
+                    "aabb_max": self._objs["aabb_max"][idx],
+                    "intrinsics": np.asarray(self.store._intrinsics), "radius": radius,
+                }, f)
+        if pixels is not None and any(p is not None for p in pixels):
+            sel = [i for i, p in enumerate(pixels) if p is not None]
+            refined, stats = pose_refine.refine_view_poses_host(
+                params, self.store._intrinsics, [twcs[i] for i in sel], self._objs["tow"][idx],
+                self._objs["aabb_min"][idx], self._objs["aabb_max"][idx],
+                [tuple(int(v) for v in boxes[i]) for i in sel], [pixels[i] for i in sel],
+                self.cfg, self.spec)
+            for i, t in zip(sel, refined):
+                twcs[i] = t
+            print(f"pose refine: object {idx}: {stats['refined']}/{len(sel)} "
+                  f"views improved, loss {stats.get('mean_loss_before', 0):.4f}"
+                  f" -> {stats.get('mean_loss_after', 0):.4f}", flush=True)
         test_views = [dict(stamp=s, twc=np.asarray(t, np.float32), box=tuple(int(v) for v in b))
                       for s, b, t in zip(stamps, boxes, twcs)]
         # training manifest from the slot's bbox table

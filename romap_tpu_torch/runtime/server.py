@@ -24,8 +24,8 @@ Opcodes (keep in sync with native/include/monerf/ipc.h):
   8 RENDER_TEST   i32 idx, f32 radius, u8 video, u16 plen, path, i32 n,
                   n x (u16 slen, stamp, i32 box[4], f32 twc[16],
                        u8 has_pixels, (u8 rgb[h*w*3], u8 mask[h*w])) -> ack
-                  (a view with pixels asks for photometric pose refinement,
-                   not ported yet: the reply is status 1)
+                  (a view with pixels has its pose photometrically refined
+                   against the trained field before it is rendered)
   9 GET_MESH      i32 idx -> i32 nv, i32 nf, f32 v[nv*3], f32 n[nv*3],
                   u8 c[nv*3], i32 f[nf*3]
  10 UPDATE_POSES  i32 cur_id, i32 n, f32 poses[n*16] -> ack

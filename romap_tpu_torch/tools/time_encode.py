@@ -4,15 +4,18 @@ For each kernel pair asked for (K1/K2 flagship, K3/K4 flagship unsnapped,
 K5/K6 `fast`, K7/K8 flagship unsnapped ladder), in bf16 unless --dtype says
 otherwise: the forward kernel's residuals feed the backward kernel, and each
 is timed with CUDA events around single launches (median and minimum of
---reps, after a warm-up). Only the wrappers of `ops.mxgrid_cuda` are called,
+--reps, after a warm-up); `host_us` is the median time a call takes to
+return on the host (the wrapper's work and the enqueue). Only the wrappers of `ops.mxgrid_cuda` are called,
 so the script also runs against another checkout of the package:
 
   python3 romap_tpu_torch/tools/time_encode.py --objects 10
   python3 romap_tpu_torch/tools/time_encode.py --roots build/parent,.,.,build/parent
 
 `--forward-variant` and `--backward-variant` force a variant (K1/K5: direct,
-staged; K2/K6 and K4/K8: scalar, tensor_core) that the spec and dtype would
-not pick, to time both on one card. `--points-kind rays` draws the points
+staged; K3/K7: per_axis, three_axis_direct, three_axis_staged; K2/K6 and
+K4/K8: scalar, tensor_core) that the spec and dtype would not pick, to time
+both on one card. K3's and K7's times include the product pass their
+per-axis variant needs. `--points-kind rays` draws the points
 along rays through the unit cube, 32 consecutive samples a ray, as the train
 step's batches lie (its samples of a ray meet on the same table rows);
 `uniform` (the default) draws them independently.
@@ -37,6 +40,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import time
 
 PAIRS = {"K1": ("folded", "K1", "K2"), "K3": ("unsnapped", "K3", "K4"),
          "K5": ("folded_cp", "K5", "K6"), "K7": ("unsnapped_cp", "K7", "K8")}
@@ -103,8 +107,11 @@ def main(argv=None) -> None:
     ap.add_argument("--pairs", default="K1", help="comma list of K1, K3, K5, K7")
     ap.add_argument("--dtype", default="bfloat16", choices=("bfloat16", "float32"))
     ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--forward-variant", default="auto", choices=("auto", "direct", "staged"),
-                    help="force K1/K5's variant instead of mxgrid_cuda.forward_variant's choice")
+    ap.add_argument("--forward-variant", default="auto",
+                    choices=("auto", "direct", "staged", "per_axis", "three_axis_direct",
+                             "three_axis_staged"),
+                    help="force K1/K5's (direct, staged) or K3/K7's variant instead of "
+                         "mxgrid_cuda.forward_variant / unsnapped_forward_variant")
     ap.add_argument("--backward-variant", default="auto",
                     choices=("auto", "scalar", "tensor_core"),
                     help="force K2/K6's and K4/K8's variant instead of the choice of "
@@ -126,8 +133,10 @@ def main(argv=None) -> None:
 
     if not torch.cuda.is_available():
         raise SystemExit("time_encode: no CUDA device")
-    if args.forward_variant != "auto":
+    if args.forward_variant in ("direct", "staged"):
         mxgrid_cuda.forward_variant = lambda *a, **k: args.forward_variant
+    elif args.forward_variant != "auto":
+        mxgrid_cuda.unsnapped_forward_variant = lambda *a, **k: args.forward_variant
     if args.backward_variant != "auto":
         mxgrid_cuda.folded_variant = lambda *a, **k: args.backward_variant
         mxgrid_cuda.unsnapped_variant = lambda *a, **k: args.backward_variant
@@ -143,17 +152,21 @@ def main(argv=None) -> None:
                  "unsnapped_cp": unsnap(cp_only(flagship))}
 
     def ms(fn):
+        """(median, min) device ms of one call, and the median host us the
+        call took to return (the wrapper's work and the enqueue alone)."""
         fn()
         torch.cuda.synchronize()
-        times = []
+        times, host = [], []
         for _ in range(args.reps):
             a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             a.record()
+            t0 = time.perf_counter()
             fn()
+            host.append(1e6 * (time.perf_counter() - t0))
             b.record()
             torch.cuda.synchronize()
             times.append(a.elapsed_time(b))
-        return statistics.median(times), min(times)
+        return statistics.median(times), min(times), statistics.median(host)
 
     results = {}
     for pair in args.pairs.split(","):
@@ -173,7 +186,7 @@ def main(argv=None) -> None:
         gout = to(torch.randn((o, p, spec.n_output_dims), generator=g))
         fwd, bwd = mxgrid_cuda.KERNELS[kf], mxgrid_cuda.KERNELS[kb]
         got = fwd(pts, *tabs, spec)
-        res = (got,) if kf == "K7" else got[1:]
+        res = (got,) if torch.is_tensor(got) else got[1:]  # K7 of an older checkout: afac
         results[kf] = ms(lambda: fwd(pts, *tabs, spec))
         results[kb] = ms(lambda: bwd(pts, *res, gout, spec))
         for k in (kf, kb):
@@ -181,12 +194,13 @@ def main(argv=None) -> None:
                   f"points={args.points_kind} "
                   f"forward_variant={args.forward_variant} "
                   f"backward_variant={args.backward_variant} "
-                  f"median_ms={results[k][0]:.4f} min_ms={results[k][1]:.4f}", flush=True)
+                  f"median_ms={results[k][0]:.4f} min_ms={results[k][1]:.4f} "
+                  f"host_us={results[k][2]:.1f}", flush=True)
         del got, res, gout, tabs, pts
         torch.cuda.empty_cache()
     out = dict(device=torch.cuda.get_device_name(0), smi=smi, objects=o, points=p,
                dtype=args.dtype, points_kind=args.points_kind, root=os.getcwd(),
-               ms={k: dict(median=v[0], min=v[1]) for k, v in results.items()})
+               ms={k: dict(median=v[0], min=v[1], host_us=v[2]) for k, v in results.items()})
     if args.sass:
         out["sass_atomics"] = sass_atomics(mxgrid_cuda.build_library())
         for fn, ops in out["sass_atomics"].items():

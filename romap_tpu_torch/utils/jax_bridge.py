@@ -4,8 +4,10 @@ The JAX side hands over `jax.device_get(state)`: its TrainState with numpy
 leaves (params, ema, opt_state, key, step, loss). The optax chain's state
 is read by position, (ZeroNansState(found_nan), EmptyState(),
 ScaleByAdamState(count, mu, nu)), so this module needs neither jax nor
-optax. The PRNG key stays on the JAX side: the port draws its uniforms from
-a torch.Generator or a replay source.
+optax. The params' "table" is whatever the encoding holds (MX-grid lines,
+planes and plane lines, or the hash table [O, total_params, F]); it moves
+leaf by leaf like the rest. The PRNG key stays on the JAX side: the port
+draws its uniforms from a torch.Generator or a replay source.
 """
 
 from __future__ import annotations

@@ -173,14 +173,21 @@ def test_k2_twin_matches_autograd_of_k1_twin():
 
 
 def test_encode_folded_refuses_point_gradients_and_other_specs(monkeypatch):
-    """The kernel encode gives the points no gradient; the unsnapped CP-only
-    spec routes to K7/K8; several plane levels run only on the split path
-    (MX_FUSED=0, K9/K10), and the fused path still raises for them."""
-    _, ts = specs(True)
-    factors, pts, _ = make_inputs(ts, seed=11)
+    """The kernel encode no longer refuses a gradient of the points: it
+    equals JAX's (XLA encode, jax.grad over the points; fp32, rtol 1e-4 /
+    atol 1e-4 of sums in another order). The unsnapped CP-only spec routes
+    to K7/K8; several plane levels run only on the split path (MX_FUSED=0,
+    K9/K10), and the fused path still raises for them."""
+    js, ts = specs(True)
+    factors, pts, tgt = make_inputs(ts, seed=11)
     f = jax.tree.map(torch.from_numpy, factors)
-    with pytest.raises(NotImplementedError):
-        mxgrid_cuda.encode(f, torch.from_numpy(pts).requires_grad_(True), ts)
+    p = torch.from_numpy(pts).requires_grad_(True)
+    (got,) = torch.autograd.grad(
+        torch.sum((mxgrid_cuda.encode(f, p, ts) - torch.from_numpy(tgt)) ** 2), p)
+    enc = jax_encode("xla", js)
+    want = jax.grad(lambda q: jnp.sum((enc(jax.tree.map(jnp.asarray, factors), q) - tgt) ** 2))(
+        jnp.asarray(pts))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-4)
     unsnapped_cp = tmx.make_mxspec(n_levels=3, base_resolution=4, max_resolution=32,
                                    features=16)
     assert mxgrid_cuda.kernel_path(unsnapped_cp) == "unsnapped_cp"
@@ -194,6 +201,84 @@ def test_encode_folded_refuses_point_gradients_and_other_specs(monkeypatch):
     assert mxgrid_cuda.kernel_path(two) == "folded_split"
     assert mxgrid_cuda.kernel_path(ts) == "folded_split"
     assert mxgrid_cuda.kernel_path(unsnapped_cp) == "unsnapped_cp"
+
+
+# --------------------------------------------------------------------------
+# K0: the points gradient, on every kernel path
+# --------------------------------------------------------------------------
+
+K0_PATHS = [("folded", True, 1, "1"), ("unsnapped", False, 1, "1"),
+            ("folded_cp", True, 0, "1"), ("unsnapped_cp", False, 0, "1"),
+            ("folded_split", True, 2, "0"), ("unsnapped_split", False, 2, "0")]
+
+
+@pytest.mark.parametrize("path,snap,n_planes,fused", K0_PATHS)
+def test_k0_points_gradient_matches_jax(monkeypatch, path, snap, n_planes, fused):
+    """d loss / d points through the kernel encode (the forward twins, then
+    K0's twin from their residuals) equals jax.grad over the points of the
+    reference's XLA encode, on each path; the split paths with two plane
+    levels. fp32, rtol 1e-4 / atol 1e-4: the same sums in another order (the
+    tent's slopes differ only on a knot, which these points never hit)."""
+    monkeypatch.setenv("MX_FUSED", fused)
+    plane_specs = ((24, 16, 8), (8, 8, 4))[:n_planes]
+    kw = dict(n_levels=3, base_resolution=4, max_resolution=32, features=16,
+              plane_specs=plane_specs, plane_axes="balanced", snap_levels=snap)
+    js, ts = jmx.make_mxspec(**kw), tmx.make_mxspec(**kw)
+    assert mxgrid_cuda.kernel_path(ts) == path
+    rng = np.random.default_rng(21)
+    lines = rng.normal(0, 0.3, (N_OBJ, 3, ts.total_res, ts.features)).astype(np.float32)
+    factors = lines if not n_planes else {
+        "lines": lines,
+        "planes": tuple(rng.normal(0, 0.3, (N_OBJ, 3, ru, rv, kp)).astype(np.float32)
+                        for ru, rv, kp in plane_specs),
+        "plane_lines": tuple(rng.normal(0, 0.3, (N_OBJ, 3, max(ru, rv), kp))
+                             .astype(np.float32) for ru, rv, kp in plane_specs)}
+    pts = rng.uniform(-2e-3, 1 + 2e-3, (N_OBJ, N_PTS, 3)).astype(np.float32)
+    tgt = rng.normal(size=(N_OBJ, N_PTS, ts.n_output_dims)).astype(np.float32)
+    p = torch.from_numpy(pts).requires_grad_(True)
+    out = mxgrid_cuda.encode(jax.tree.map(torch.from_numpy, factors), p, ts)
+    (got,) = torch.autograd.grad(torch.sum((out - torch.from_numpy(tgt)) ** 2), p)
+    enc = jax_encode("xla", js)
+    want = jax.grad(lambda q: jnp.sum((enc(jax.tree.map(jnp.asarray, factors), q) - tgt) ** 2))(
+        jnp.asarray(pts))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-4)
+
+
+def test_k0_twin_matches_autograd_of_plain_encode():
+    """K0's twin from K1's residuals equals autograd over the points of the
+    port's plain encode (fp32, rtol/atol 1e-5), and so does the kernel
+    encode's points gradient when the tables take gradients too."""
+    _, ts = specs(True)
+    factors, pts, tgt = make_inputs(ts, seed=13)
+    f = jax.tree.map(torch.from_numpy, factors)
+    g = torch.from_numpy(tgt)
+    p = torch.from_numpy(pts).requires_grad_(True)
+    (want,) = torch.autograd.grad(torch.sum(tmx.encode(f, p, ts) * g), p)
+    w_eff = tmx.fold_lines(f["lines"], ts)
+    _, afac, fpl, fli = mxgrid_cuda.folded_fused_forward_plain(
+        torch.from_numpy(pts), w_eff, f["planes"][0], f["plane_lines"][0], ts)
+    got = mxgrid_cuda.points_gradient_plain(
+        torch.from_numpy(pts), w_eff, afac, f["planes"], f["plane_lines"], fpl, fli, g, ts)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-5)
+    ft = jax.tree.map(lambda a: torch.tensor(a, requires_grad=True), factors)
+    p2 = torch.from_numpy(pts).requires_grad_(True)
+    grads = torch.autograd.grad(torch.sum(mxgrid_cuda.encode(ft, p2, ts) * g),
+                                [p2, *jax.tree.leaves(ft)])
+    np.testing.assert_allclose(grads[0].numpy(), want.numpy(), rtol=1e-5, atol=1e-5)
+    assert all(torch.isfinite(t).all() and t.abs().max() > 0 for t in grads)
+
+
+def test_k0_slopes_are_the_tent_slopes():
+    """`_slope1` is autograd of `hat1` away from the knots, including points
+    just outside [0, 1] (a dropped knot gets no slope) and far outside (no
+    knot in reach: zero)."""
+    x = torch.tensor([-0.5, -0.01, 0.013, 0.37, 0.5001, 0.99, 1.004, 1.7],
+                     dtype=torch.float64, requires_grad=True)
+    for r in (2, 5, 16):
+        want = torch.stack([torch.autograd.grad(mxgrid_cuda.hat1(x, r)[:, i].sum(), x)[0]
+                            for i in range(r)], dim=-1)
+        np.testing.assert_array_equal(mxgrid_cuda._slope1(x.detach(), r).numpy(),
+                                      want.numpy())
 
 
 # --------------------------------------------------------------------------
@@ -331,8 +416,9 @@ def level_inputs(spec, dtype, seed):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_k7_k8_twins_match_pallas(dtype):
-    """K7's twin vs `_cp_forward` (and cp_product vs the product JAX forms
-    after it in the table dtype); K8's twin vs `_bwd_impl_t`."""
+    """K7's twin vs `_cp_forward` (its product, and cp_product, vs the
+    product JAX forms after it in the table dtype); K8's twin vs
+    `_bwd_impl_t`."""
     kw = dict(n_levels=3, base_resolution=4, max_resolution=32, features=8)
     js, ts = jmx.make_mxspec(**kw), tmx.make_mxspec(**kw)
     lines, pts, g = twin_inputs(js, dtype, seed=23)
@@ -342,13 +428,17 @@ def test_k7_k8_twins_match_pallas(dtype):
         xt, n, npad = mxgrid_pallas._pad_and_tile(jnp.asarray(pts[o]), mxgrid_pallas.TILE)
         afac = mxgrid_pallas._cp_forward(f, xt, npad, js, True)
         p = torch.from_numpy(pts[o : o + 1])
-        got = mxgrid_cuda.unsnapped_cp_forward_plain(p, to_torch(lines[o : o + 1], dtype), ts)
-        assert got.dtype == getattr(torch, dtype) and got.shape == (1, 3, 8, N_PTS)
+        got_out, got = mxgrid_cuda.unsnapped_cp_forward_plain(
+            p, to_torch(lines[o : o + 1], dtype), ts)
+        assert got.dtype == got_out.dtype == getattr(torch, dtype)
+        assert got.shape == (1, 3, 8, N_PTS) and got_out.shape == (1, N_PTS, 8)
         assert_rel_close(got[0].float().numpy(), afac[..., :n], rtol, "afac")
         # the product follows JAX's order and roundings exactly
         ta = jnp.asarray(got[0].float().numpy(), dtype)
+        want_out = np.asarray(ta[0] * ta[1] * ta[2], np.float32)
+        np.testing.assert_array_equal(got_out[0].float().numpy().T, want_out)
         np.testing.assert_array_equal(mxgrid_cuda.cp_product(got)[0].float().numpy().T,
-                                      np.asarray(ta[0] * ta[1] * ta[2], np.float32))
+                                      want_out)
         gt = to_torch(g[o : o + 1], dtype)
         dl = mxgrid_cuda.unsnapped_cp_backward_plain(p, to_torch(afac[..., :n], dtype)[None],
                                                      gt, ts)
@@ -601,7 +691,7 @@ def test_unsnapped_tensor_core_arithmetic_stays_within_half_percent(preset, kind
         want_dw, _, want_dl = mxgrid_cuda.unsnapped_fused_backward_plain(
             pts, afac, fpl, fli, g, spec)
     else:
-        afac = mxgrid_cuda.unsnapped_cp_forward_plain(pts, tables.bfloat16(), spec)
+        _, afac = mxgrid_cuda.unsnapped_cp_forward_plain(pts, tables.bfloat16(), spec)
         want_dw = mxgrid_cuda.unsnapped_cp_backward_plain(pts, afac, g, spec)
 
     r16 = lambda t: t.bfloat16().float()
@@ -621,3 +711,127 @@ def test_unsnapped_tensor_core_arithmetic_stays_within_half_percent(preset, kind
         got = torch.matmul(hat.transpose(1, 2), v)
         err = float((got - want_dl[:, i]).abs().max() / want_dl[:, i].abs().max())
         assert err <= 5e-3, ("dplines", i, err)
+
+
+# --------------------------------------------------------------------------
+# The unsnapped forward's variants (K3/K7): the choice, and the three-axis
+# kernel's arithmetic
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("preset,dtype,planes,forward", [
+    ("flagship", torch.bfloat16, None, "three_axis_staged"),   # K3, MX_SNAP=0
+    ("flagship", torch.bfloat16, False, "three_axis_staged"),  # K7 on the split path
+    ("fast", torch.bfloat16, None, "three_axis_direct"),       # K7: 229,680 B of tables
+    ("quality", torch.bfloat16, None, "three_axis_direct"),
+    ("flagship", torch.float32, None, "per_axis"),             # 273,420 B: renders, meshes
+    ("flagship", torch.float32, False, "per_axis"),
+    ("fast", torch.float32, None, "per_axis"),
+    ("tiny", torch.bfloat16, None, "three_axis_staged"),
+    ("tiny", torch.float32, None, "three_axis_staged"),
+])
+def test_unsnapped_forward_variant_follows_spec_and_dtype(preset, dtype, planes, forward):
+    """Three axes a block where the tables fit a block's shared memory, with
+    the staged rows where those fit too; else one axis a block."""
+    spec = unsnapped_spec(preset)
+    assert mxgrid_cuda.unsnapped_forward_variant(spec, dtype, planes) == forward
+    assert forward in mxgrid_cuda.UNSNAPPED_FORWARD_VARIANTS
+    elem = torch.empty((), dtype=dtype).element_size()
+    words = -(-spec.features * elem // 4)
+    tables = 3 * spec.total_res * (words | 1) * 4  # odd word stride
+    assert (tables <= mxgrid_cuda.SMEM_PER_BLOCK) == (forward != "per_axis")
+    if (preset, dtype, planes) == ("flagship", torch.bfloat16, None):
+        assert tables == 139_500
+    if (preset, dtype) == ("fast", torch.bfloat16):
+        assert tables == 229_680
+
+
+def tent_taps(x, r):
+    """mxgrid_common.cuh's tent_taps, vectorized: (j0, j1, w0, w1), t = x
+    (r - 1) rounded in fp32, a knot outside [0, r - 1] dropped (weight 0)."""
+    t = x * float(r - 1)
+    reach = (t > -1.0) & (t < float(r))
+    f = torch.floor(t)
+    i = f.long()
+    w0 = torch.where(reach & (i >= 0), 1.0 - (t - f), torch.zeros_like(t))
+    w1 = torch.where(reach & (i + 1 <= r - 1), 1.0 - ((f + 1.0) - t), torch.zeros_like(t))
+    return i.clamp(0, r - 1), (i + 1).clamp(0, r - 1), w0, w1
+
+
+def emulate_fwd3(pts, lines, spec, planes):
+    """`unsnapped_fwd3`'s CP arithmetic for one object: per axis, the 2 x L
+    taps summed level after level in fp32 (a += w0 W[j0] + w1 W[j1]), the
+    factor rounded to the table dtype; the product of the rounded factors in
+    fp32 rounded once with planes (K3), rounded after each factor without
+    (K7). pts [P, 3] f32, lines [3, total_res, K] -> (out [P, K], afac
+    [3, P, K]), both in the table dtype."""
+    dt = lines.dtype
+    factors = []
+    for d in range(3):
+        a = torch.zeros(pts.shape[0], spec.features)
+        for r, off in zip(spec.resolutions, spec.offsets):
+            j0, j1, w0, w1 = tent_taps(pts[:, d], r)
+            a = a + (w0[:, None] * lines[d, off + j0].float()
+                     + w1[:, None] * lines[d, off + j1].float())
+        factors.append(a.to(dt))
+    if planes:
+        out = (factors[0].float() * factors[1].float() * factors[2].float()).to(dt)
+    else:
+        out = factors[0] * factors[1] * factors[2]  # torch rounds each product to dt
+    return out, torch.stack(factors)
+
+
+@pytest.mark.parametrize("kernel", ["K3", "K7"])
+def test_three_axis_arithmetic_matches_pallas(kernel):
+    """The three-axis forward's arithmetic, emulated on the CPU at the
+    flagship ladder (465 rows, K = 48) in bf16, against the Pallas kernels
+    in interpret mode: K3 (`_fused_forward`, its product formed in the
+    kernel in fp32 and rounded once) and K7 (`_cp_forward`, then the
+    product JAX forms in bf16, rounded after each factor). The factors and
+    the product agree within 1e-2 of the largest entry (the Pallas kernel
+    rounds its tent weights to bf16, the CUDA kernel does not: a factor may
+    differ by a bf16 step); the emulated product equals the reference's
+    expression on the emulated factors exactly, once-rounded for K3 and
+    twice-rounded for K7, and the two roundings differ somewhere."""
+    flagship = unsnapped_spec("flagship")
+    planes = ((128, 64, 4),) if kernel == "K3" else ()
+    kw = dict(n_levels=6, base_resolution=16, max_resolution=192, features=48,
+              plane_specs=planes, plane_axes="balanced", snap_levels=False)
+    js, ts = jmx.make_mxspec(**kw), tmx.make_mxspec(**kw)
+    assert ts.total_res == flagship.total_res == 465
+    rng = np.random.default_rng(31)
+    bf = lambda *shape: np.array(jnp.asarray(rng.normal(0, 0.5, shape), jnp.bfloat16)
+                                   .astype(jnp.float32))
+    lines = bf(3, ts.total_res, ts.features)
+    pts = rng.uniform(-2e-3, 1 + 2e-3, (300, 3)).astype(np.float32)
+    xt, n, npad = mxgrid_pallas._pad_and_tile(jnp.asarray(pts), mxgrid_pallas.TILE)
+    jl = jnp.asarray(lines, jnp.bfloat16)
+    if planes:
+        f = {"lines": jl, "planes": (jnp.asarray(bf(3, 128, 64, 4), jnp.bfloat16),),
+             "plane_lines": (jnp.asarray(bf(3, 128, 4), jnp.bfloat16),)}
+        j_out, j_afac, _, _ = mxgrid_pallas._fused_forward(f, xt, npad, js, True)
+        j_out = j_out[: ts.features]
+    else:
+        j_afac = mxgrid_pallas._cp_forward(jl, xt, npad, js, True)
+        j_out = j_afac[0] * j_afac[1] * j_afac[2]
+    out, afac = emulate_fwd3(torch.from_numpy(pts), torch.from_numpy(lines).bfloat16(), ts,
+                             bool(planes))
+    assert_rel_close(afac.float().numpy().transpose(0, 2, 1), j_afac[..., :n], 1e-2, "afac")
+    assert_rel_close(out.float().numpy().T, j_out[:, :n], 1e-2, "out")
+    ta = jnp.asarray(afac.float().numpy(), jnp.bfloat16)
+    once = np.asarray((ta[0].astype(jnp.float32) * ta[1].astype(jnp.float32)
+                       * ta[2].astype(jnp.float32)).astype(jnp.bfloat16), np.float32)
+    twice = np.asarray(ta[0] * ta[1] * ta[2], np.float32)
+    np.testing.assert_array_equal(out.float().numpy(), once if planes else twice)
+    assert (once != twice).any()
+    # and the plain twin, which the card's kernel is held against, agrees
+    tl = torch.from_numpy(lines).bfloat16()[None]
+    p1 = torch.from_numpy(pts)[None]
+    if planes:
+        twin = mxgrid_cuda.unsnapped_fused_forward_plain(
+            p1, tl, torch.from_numpy(np.asarray(f["planes"][0], np.float32)).bfloat16()[None],
+            torch.from_numpy(np.asarray(f["plane_lines"][0], np.float32)).bfloat16()[None],
+            ts)[0][0, :, : ts.features]
+    else:
+        twin = mxgrid_cuda.unsnapped_cp_forward_plain(p1, tl, ts)[0][0]
+    assert_rel_close(out.float().numpy(), twin.float().numpy(), 1e-2, "twin")

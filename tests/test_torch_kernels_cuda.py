@@ -1,4 +1,4 @@
-"""K1-K10 (romap_tpu_torch/csrc) against their plain PyTorch twins on
+"""K0-K10 (romap_tpu_torch/csrc) against their plain PyTorch twins on
 the card. Every test needs a CUDA device and skips without one (decided
 inside the fixture, at run time). Run them on a GPU machine with
 `python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q`
@@ -108,12 +108,70 @@ def test_encode_folded_matches_plain_encode(cuda):
 
 
 def test_cuda_encode_refuses_point_gradients(cuda):
+    """The kernel encode no longer refuses a gradient of the points: the
+    forward kernel and K0 (no table kernel: the tables are frozen) give the
+    gradient of autograd through the plain encode, fp32, 1e-4."""
     spec = small_spec()
     f = {k: (v.to(cuda) if torch.is_tensor(v) else tuple(x.to(cuda) for x in v))
          for k, v in mxgrid.init_mxgrid(torch.Generator().manual_seed(2), spec, 1).items()}
-    pts = torch.rand((1, 64, 3), device=cuda, requires_grad=True)
-    with pytest.raises(NotImplementedError):
-        mxgrid_cuda.encode(f, pts, spec)
+    g = torch.Generator().manual_seed(3)
+    pts = torch.rand((1, 640, 3), generator=g).to(cuda)
+    gout = torch.randn((1, 640, spec.n_output_dims), generator=g).to(cuda)
+    assert not mxgrid_cuda.on_a_knot(pts, spec).any()  # where the tent has a derivative
+    grads = []
+    for enc in (mxgrid_cuda.encode, mxgrid.encode):
+        p = pts.clone().requires_grad_(True)
+        mxgrid_cuda.reset_launch_counts()
+        grads.append(torch.autograd.grad(torch.sum(enc(f, p, spec) * gout), p)[0])
+        if enc is mxgrid_cuda.encode:
+            launched = {k: fn.launches for k, fn in mxgrid_cuda.KERNELS.items() if fn.launches}
+    assert launched == {"K0": 1, "K1": 1}
+    assert rel_err(*grads) < 1e-4
+
+
+K0_CASES = [("folded", True, 1, "1"), ("unsnapped", False, 1, "1"),
+            ("folded_cp", True, 0, "1"), ("unsnapped_cp", False, 0, "1"),
+            ("folded_split", True, 2, "0"), ("unsnapped_split", False, 2, "0")]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("path,snap,n_planes,fused", K0_CASES)
+def test_k0_matches_plain(cuda, monkeypatch, path, snap, n_planes, fused, dtype, tol):
+    """K0 on each kernel path against its plain twin, from the same
+    residuals (the split paths with two plane levels); 3 objects x 4097
+    points, some just outside the cube. Both sum the same rounded inputs in
+    fp32, so the tolerances are the forward kernels'."""
+    monkeypatch.setenv("MX_FUSED", fused)
+    spec = mxgrid.make_mxspec(n_levels=3, base_resolution=4, max_resolution=32, features=16,
+                              plane_specs=((24, 16, 8), (8, 8, 4))[:n_planes],
+                              plane_axes="balanced", snap_levels=snap)
+    assert mxgrid_cuda.kernel_path(spec) == path
+    g = torch.Generator().manual_seed(31)
+    f = mxgrid.init_mxgrid(g, spec, 3)
+    lines = f["lines"] if n_planes else f
+    table = mxgrid.fold_lines(lines, spec) if snap else lines
+    planes = tuple(f["planes"]) if n_planes else ()
+    plines = tuple(f["plane_lines"]) if n_planes else ()
+    pts = torch.rand((3, 4097, 3), generator=g) * (1 + 4e-3) - 2e-3
+    to = lambda t: t.to(device=cuda, dtype=dtype).contiguous()
+    table, planes, plines = to(table), tuple(map(to, planes)), tuple(map(to, plines))
+    pts = pts.to(cuda)
+    fwd_basis = (mxgrid_cuda._folded_basis if snap else mxgrid_cuda._ladder_basis)(spec)
+    afac = mxgrid_cuda._cp_factors_plain(pts, table, fwd_basis).to(dtype).transpose(2, 3)
+    afac = afac.contiguous()
+    fpl = fli = None
+    if n_planes:
+        _, fpl, fli = mxgrid_cuda._planes_plain(pts, planes, plines, spec, dtype)
+    gout = to(torch.randn((3, 4097, spec.n_output_dims), generator=g))
+    n0 = mxgrid_cuda.points_gradient.launches
+    got = mxgrid_cuda.points_gradient(pts, table, afac, planes, plines, fpl, fli, gout, spec)
+    torch.cuda.synchronize()
+    assert mxgrid_cuda.points_gradient.launches == n0 + 1
+    want = mxgrid_cuda.points_gradient_plain(pts, table, afac, planes, plines, fpl, fli, gout,
+                                             spec)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert torch.isfinite(got).all()
+    assert rel_err(got, want) < tol
 
 
 def test_wrappers_reject_bad_inputs(cuda):
@@ -249,13 +307,15 @@ def test_k7_k8_match_plain(cuda, dtype, tol):
     torch.cuda.synchronize()
     assert mxgrid_cuda.unsnapped_cp_forward.launches == n7 + 1
     want = mxgrid_cuda.unsnapped_cp_forward_plain(pts, lines, spec)
-    assert got.dtype == dtype and got.shape == want.shape
-    assert rel_err(got, want) < tol
+    for name, a, b in zip(("out", "afac"), got, want):
+        assert a.dtype == dtype and a.shape == b.shape
+        assert rel_err(a, b) < tol, name
+    afac = want[1]
     n8 = mxgrid_cuda.unsnapped_cp_backward.launches
-    got = mxgrid_cuda.unsnapped_cp_backward(pts, want, gout, spec)
+    got = mxgrid_cuda.unsnapped_cp_backward(pts, afac, gout, spec)
     torch.cuda.synchronize()
     assert mxgrid_cuda.unsnapped_cp_backward.launches == n8 + 1
-    ref = mxgrid_cuda.unsnapped_cp_backward_plain(pts, want, gout, spec)
+    ref = mxgrid_cuda.unsnapped_cp_backward_plain(pts, afac, gout, spec)
     assert got.dtype == torch.float32 and got.shape == ref.shape
     assert rel_err(got, ref) < tol
 
@@ -473,7 +533,7 @@ def unsnapped_case(spec, n_obj, n_pts, kind, cuda, seed):
         res = mxgrid_cuda.unsnapped_fused_forward_plain(pts, *args, spec)[1:]
     else:
         args = [to(tables)]
-        res = (mxgrid_cuda.unsnapped_cp_forward_plain(pts, *args, spec),)
+        res = mxgrid_cuda.unsnapped_cp_forward_plain(pts, *args, spec)[1:]
     return pts, args, res, gout
 
 
@@ -609,3 +669,78 @@ def test_unsnapped_specs_outside_the_instantiations(cuda, monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA error"):
         mxgrid_cuda.unsnapped_fused_backward(pts, *(t.float() for t in res), gout.float(),
                                              flagship)
+
+
+# --------------------------------------------------------------------------
+# The unsnapped forward's variants (K3, K7)
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("variant", mxgrid_cuda.UNSNAPPED_FORWARD_VARIANTS)
+@pytest.mark.parametrize("n_obj,n_pts", [(1, 1), (1, 63), (10, 65), (3, 4097), (10, 4096)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)])
+def test_k3_variants_match_plain(cuda, monkeypatch, dtype, tol, n_obj, n_pts, variant):
+    """Each forward variant of K3, forced, at the small ladder with its plane
+    level (every variant's tables fit there), against the plain twin; the
+    per-axis variant launches its product pass, the others do not. Point
+    counts around a warp's 32 rows, and ranges that cross objects."""
+    spec = small_spec(snap=False)
+    monkeypatch.setattr(mxgrid_cuda, "unsnapped_forward_variant", lambda *a, **k: variant)
+    pts, lines, planes, plines, _ = ladder_inputs(spec, n_obj, n_pts, dtype, cuda, seed=5)
+    n3, n_pass = (mxgrid_cuda.unsnapped_fused_forward.launches,
+                  mxgrid_cuda.cp_product_pass.launches)
+    got = mxgrid_cuda.unsnapped_fused_forward(pts, lines, planes, plines, spec)
+    torch.cuda.synchronize()
+    assert mxgrid_cuda.unsnapped_fused_forward.launches == n3 + 1
+    assert mxgrid_cuda.cp_product_pass.launches == n_pass + (variant == "per_axis")
+    want = mxgrid_cuda.unsnapped_fused_forward_plain(pts, lines, planes, plines, spec)
+    for name, a, b in zip(("out", "afac", "fpl", "fli"), got, want):
+        assert a.dtype == dtype and a.shape == b.shape
+        assert rel_err(a, b) < tol, name
+
+
+@pytest.mark.parametrize("variant", mxgrid_cuda.UNSNAPPED_FORWARD_VARIANTS)
+@pytest.mark.parametrize("n_obj,n_pts", [(1, 63), (3, 4097), (10, 4096)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)])
+def test_k7_variants_match_plain(cuda, monkeypatch, dtype, tol, n_obj, n_pts, variant):
+    """Each forward variant of K7, forced, at the small CP-only ladder: out
+    and afac against the plain twin; the three-axis variants form the
+    product in the kernel, rounded after each factor, so their out equals
+    `cp_product` of their own afac exactly."""
+    spec = small_spec(snap=False, planes=False)
+    monkeypatch.setattr(mxgrid_cuda, "unsnapped_forward_variant", lambda *a, **k: variant)
+    pts, lines, _, _, _ = ladder_inputs(spec, n_obj, n_pts, dtype, cuda, seed=6)
+    n_prod = mxgrid_cuda.cp_product.launches
+    out, afac = mxgrid_cuda.unsnapped_cp_forward(pts, lines, spec)
+    torch.cuda.synchronize()
+    assert mxgrid_cuda.cp_product.launches == n_prod + (variant == "per_axis")
+    want = mxgrid_cuda.unsnapped_cp_forward_plain(pts, lines, spec)
+    for name, a, b in zip(("out", "afac"), (out, afac), want):
+        assert a.dtype == dtype and a.shape == b.shape
+        assert rel_err(a, b) < tol, name
+    assert torch.equal(out, mxgrid_cuda.cp_product(afac))
+
+
+@pytest.mark.parametrize("kind", ["uniform", "cell", "outside"])
+@pytest.mark.parametrize("n_obj,n_pts", TC_SHAPES)
+@pytest.mark.parametrize("path", ["K3 flagship", "K7 flagship", "K7 fast"])
+def test_unsnapped_forward_at_preset_widths(cuda, path, n_obj, n_pts, kind):
+    """K3 and K7 in bf16 at the widths their paths run, with the variant the
+    spec selects (K3 and K7 at the flagship ladder: three_axis_staged; K7
+    at `fast`'s: three_axis_direct), against the plain twins; no product
+    pass is launched."""
+    kf, preset = path.split()
+    spec = unsnapped_preset(preset, planes=kf == "K3")
+    want_variant = "three_axis_direct" if preset == "fast" else "three_axis_staged"
+    assert mxgrid_cuda.unsnapped_forward_variant(spec, torch.bfloat16) == want_variant
+    pts, args, _, _ = unsnapped_case(spec, n_obj, n_pts, kind, cuda, seed=23)
+    mxgrid_cuda.reset_launch_counts()
+    got = mxgrid_cuda.KERNELS[kf](pts, *args, spec)
+    torch.cuda.synchronize()
+    plain = (mxgrid_cuda.unsnapped_fused_forward_plain if kf == "K3"
+             else mxgrid_cuda.unsnapped_cp_forward_plain)
+    for a, b in zip(got, plain(pts, *args, spec)):
+        assert a.shape == b.shape and torch.isfinite(a).all()
+        assert rel_err(a, b) < 1e-2
+    assert mxgrid_cuda.KERNELS[kf].launches == 1
+    assert all(fn.launches == 0 for fn in mxgrid_cuda.PRODUCT_PASSES.values())

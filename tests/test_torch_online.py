@@ -33,10 +33,12 @@ from romap_tpu.runtime.replay import TraceRecorder
 from romap_tpu.runtime.server import RuntimeServer as JServer
 from romap_tpu_torch import config as tcfg
 from romap_tpu_torch.models import nerf as tnerf
+from romap_tpu_torch.runtime import pose_refine
 from romap_tpu_torch.runtime import server as tserver
 from romap_tpu_torch.runtime.manager import NerfManagerOnline as TManager
 from romap_tpu_torch.runtime.replay import replay
 from romap_tpu_torch.utils import checkpoint, jax_bridge
+from tests.test_torch_native_build import BUILD_ERROR
 
 torch.set_num_threads(2)
 
@@ -324,11 +326,16 @@ def session_payloads():
     return msgs, frames
 
 
-def test_server_replies_match_jax(tmp_path):
+def test_server_replies_match_jax(tmp_path, monkeypatch, capsys):
     """The port's server (main(), --small --device cpu, on a thread) over a
     real UNIX socket answers as romap_tpu's RuntimeServer.handle where the
-    replies are deterministic; an unknown opcode and a RENDER_TEST with
-    pixel crops get status 1."""
+    replies are deterministic; an unknown opcode gets status 1; a
+    RENDER_TEST with pixel crops refines the view's pose (2 steps of 64
+    pixels x 8 samples here, to keep the CPU test short), renders it and
+    replies 0."""
+    monkeypatch.setattr(pose_refine, "N_STEPS", 2)
+    monkeypatch.setattr(pose_refine, "N_PIXELS", 64)
+    monkeypatch.setattr(pose_refine, "N_SAMPLES", 8)
     sock = str(tmp_path / "s.sock")
     th = threading.Thread(target=tserver.main,
                           args=(["--socket", sock, "--small", "--device", "cpu"],), daemon=True)
@@ -358,9 +365,12 @@ def test_server_replies_match_jax(tmp_path):
     render = (struct.pack("<ifB", 0, 1.0, 0) + pack_str(str(tmp_path / "out"))
               + struct.pack("<i", 1) + pack_str(frames[1]["stamp"])
               + np.asarray([x, y, h, w], np.int32).tobytes() + f32(frames[1]["twc"]) + b"\1"
-              + np.zeros((h, w, 3), np.uint8).tobytes() + np.ones((h, w), np.uint8).tobytes())
+              + np.ascontiguousarray(frames[1]["rgb"][y : y + h, x : x + w]).tobytes()
+              + ((frames[1]["instance"][y : y + h, x : x + w] == 1) * 255).astype(np.uint8).tobytes())
     status, msg = client.call(tserver.OPS["RENDER_TEST"], render)
-    assert status == 1 and b"NotImplementedError" in msg and b"pose refinement" in msg
+    assert status == 0, msg
+    assert os.path.isfile(tmp_path / "out" / "0" / "test_img" / f"{frames[1]['stamp']}.png")
+    assert "pose refine: object 0: " in capsys.readouterr().out
     assert client.call(tserver.OPS["SHUTDOWN"]) == (0, b"")
     th.join(timeout=30)
     assert not th.is_alive() and not os.path.exists(sock)
@@ -382,13 +392,8 @@ def test_server_rejects_joint_ba_and_a_missing_card(tmp_path, monkeypatch):
 def test_cpp_manager_smoke_against_torch_server(tmp_path):
     """native/build/manager_smoke (the C++ shim's end-to-end check) against
     `python -m romap_tpu_torch.runtime.server --small --device cpu`."""
-    build = os.path.join(REPO, "native", "build")
-    smoke = os.path.join(build, "manager_smoke")
-    if not os.path.exists(smoke):
-        gen = ["-G", "Ninja"] if shutil.which("ninja") else []
-        subprocess.run(["cmake", "-S", os.path.join(REPO, "native"), "-B", build, *gen],
-                       check=True, capture_output=True)
-        subprocess.run(["cmake", "--build", build], check=True, capture_output=True)
+    assert BUILD_ERROR is None, BUILD_ERROR  # built at import (tests/test_torch_native_build.py)
+    smoke = os.path.join(REPO, "native", "build", "manager_smoke")
     sock = str(tmp_path / "monerf.sock")
     env = dict(os.environ, OMP_NUM_THREADS="2")
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")

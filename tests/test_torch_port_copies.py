@@ -1,7 +1,8 @@
 """The port's own copies of the four romap_tpu modules it needs
-(`config`, `data.synthetic`, `data.formats`, `utils.camera`) behave as the
-originals: equal configs, bit-equal scenes, datasets that each side's
-reader reads back from either side's writer, and equal camera math."""
+(`config`, `data.synthetic`, `data.formats`, `utils.camera`) and of the numpy
+function `runtime.pose_refine.build_refine_batch` behave as the originals:
+equal configs, bit-equal scenes, datasets that each side's reader reads
+back from either side's writer, equal camera math and equal pixel batches."""
 
 import dataclasses
 import json
@@ -13,10 +14,12 @@ import pytest
 from romap_tpu import config as jcfg
 from romap_tpu.data import formats as jformats
 from romap_tpu.data import synthetic as jsyn
+from romap_tpu.runtime import pose_refine as jpr
 from romap_tpu.utils import camera as jcam
 from romap_tpu_torch import config as tcfg
 from romap_tpu_torch.data import formats as tformats
 from romap_tpu_torch.data import synthetic as tsyn
+from romap_tpu_torch.runtime import pose_refine as tpr
 from romap_tpu_torch.utils import camera as tcam
 
 REFERENCE_JSON = {  # the schema of the reference's Core/configs/base.json
@@ -114,3 +117,32 @@ def test_camera_functions_agree():
         np.testing.assert_array_equal(m_t, m_j)
         np.testing.assert_array_equal(tcam.invert_pose(m_t), jcam.invert_pose(m_j))
         np.testing.assert_allclose(tcam.invert_pose(m_t) @ m_t, np.eye(4), atol=1e-5)
+
+
+@pytest.mark.parametrize("case", ["mixed", "no_background", "too_few", "five_views"])
+def test_build_refine_batch_equals_jax(case):
+    """Equal arrays (or both None) for crops with object and background
+    pixels, an all-object crop, one with fewer than 32 object pixels, and 5
+    views (padded to 8)."""
+    rng = np.random.default_rng(7)
+    n_views = 5 if case == "five_views" else 2
+    boxes, crops = [], []
+    for i in range(n_views):
+        h, w = 12 + i, 10 + 2 * i
+        mask = (rng.random((h, w)) < 0.6).astype(np.uint8) * 255
+        if case == "no_background":
+            mask[:] = 255
+        if case == "too_few":
+            mask[:] = 0
+            mask[0, :5] = 255
+        boxes.append((3 * i, 2 * i, h, w))
+        crops.append((rng.integers(0, 256, (h, w, 3), dtype=np.uint8), mask))
+    got = tpr.build_refine_batch(boxes, crops, n_px=60, seed=3)
+    want = jpr.build_refine_batch(boxes, crops, n_px=60, seed=3)
+    if case == "too_few":
+        assert got is None and want is None
+        return
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert got[k].dtype == want[k].dtype
+        np.testing.assert_array_equal(got[k], want[k])

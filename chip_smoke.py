@@ -16,7 +16,9 @@ Phases, one or more lines each, each closed by its seconds:
   3 kernels    K1/K2 (flagship), K3/K4 (flagship unsnapped), K5/K6 (`fast`),
                K7/K8 (`fast` unsnapped, then flagship unsnapped as phase 9
                runs them) and K9/K10 (the flagship plane level on the split
-               path) vs their plain versions, and each backward
+               path, then `quality`'s (128, 128, 8); K10 reads the plane
+               block of the full cotangent in place) vs their plain
+               versions, and each backward
                vs autograd through its forward's plain version, O=2 x
                P=131072, bf16 and fp32, then K1/K2, K3/K4 and K7/K8 in bf16
                at O=10 x P=131072, the shape their train steps launch them
@@ -26,9 +28,12 @@ Phases, one or more lines each, each closed by its seconds:
                peak, the larger), the peak memory of the check and, where a
                kernel has variants, the one the spec and dtype select (the
                flagship and `fast` bf16 backwards, folded and unsnapped,
-               must take the tensor cores; the bf16 unsnapped forwards the
-               three-axis kernel, the fp32 ones the per-axis one); K3/K4 and
-               K7/K8 also in fp32 and K9/K10 in bf16 at O=10; then K3 and
+               and K10 at the flagship and `quality` plane levels must take
+               the tensor cores; the bf16 unsnapped forwards the
+               three-axis kernel, the fp32 ones the per-axis one); K3/K4,
+               K7/K8 and K9/K10 also in fp32 at O=10, K9 and K10 beside
+               their library yardstick (F.grid_sample's plane and line
+               calls, and their backward); then K3 and
                K7 in bf16 at O=10 in the per-axis design with its product
                pass (forced) and in the selected variant, in turns, and
                each product pass alone; then K0 (the points gradient) at one
@@ -141,13 +146,20 @@ def say(phase: str, **kv) -> None:
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in kv.items()), flush=True)
 
 
+SLEEP_CYCLES = 2_000_000  # ~1.1 ms at 1.755 GHz: longer than a call's host work
+
+
 def median_ms(fn, reps: int = 7) -> float:
-    """Median time of one call, CUDA events around each, after a warm-up."""
+    """Median device time of one call, CUDA events around each, after a
+    warm-up. A sleep kernel holds the card while the host queues the events
+    and the call, so a call's host work (60-200 us for a kernel wrapper) is
+    not counted as device time."""
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
         a.record()
         fn()
         b.record()
@@ -227,24 +239,28 @@ CHECKS = (
     ("unsnapped_cp", "K7", "K8", KERNEL_O, BOTH),
     ("unsnapped_split", "K7", "K8", KERNEL_O, BOTH),
     ("unsnapped_split", "K9", "K10", KERNEL_O, BOTH),
+    ("quality_split", "K9", "K10", KERNEL_O, BOTH),
     ("unsnapped", "K3", "K4", N_OBJECTS, (torch.float32, torch.bfloat16)),
     ("unsnapped_split", "K7", "K8", N_OBJECTS, (torch.float32, torch.bfloat16)),
-    ("unsnapped_split", "K9", "K10", N_OBJECTS, (torch.bfloat16,)),
+    ("unsnapped_split", "K9", "K10", N_OBJECTS, (torch.float32, torch.bfloat16)),
 )
-FUSED = ("K1", "K3")  # forward kernels that also form the products
+FUSED = ("K1", "K3")  # forward kernels that also take the plane level
+PRODUCTS = ("K1", "K3", "K9")  # ... and those that write the plane features
 
 
 def kernel_inputs(spec, dtype, dev, seed, kf, o):
     """Points (edges included), the forward kernel `kf`'s table arguments in
     `dtype` (folded W_eff or raw ladder lines, then for K1/K3 the planes and
     plane lines; for K9 the tuples of planes and of plane lines) and a
-    cotangent of its encode block, at `o` objects x P=131072."""
+    cotangent of its encode block, at `o` objects x P=131072 (for K9 the
+    plane block of a full encode cotangent, as a view: K10 reads it so on
+    the split step)."""
     g = torch.Generator(device="cpu").manual_seed(seed)
     p = KERNEL_P
     pts = torch.rand((o, p, 3), generator=g) * (1 + 4e-3) - 2e-3  # edges included
     tables = mxgrid.init_mxgrid(g, spec, o)
     if kf == "K9":
-        args, cols = [tuple(tables["planes"]), tuple(tables["plane_lines"])], spec.plane_out_dims
+        args, cols = [tuple(tables["planes"]), tuple(tables["plane_lines"])], spec.n_output_dims
     else:
         lines = tables["lines"] if spec.plane_specs else tables
         args = [mxgrid.fold_lines(lines, spec) if spec.snap_levels else lines]
@@ -254,23 +270,16 @@ def kernel_inputs(spec, dtype, dev, seed, kf, o):
             cols = spec.n_output_dims
     gout = torch.randn((o, p, cols), generator=g)
     to = lambda t: t.to(device=dev, dtype=dtype).contiguous()
-    return pts.to(dev), pytree.tree_map(to, args), to(gout)
-
-
-def encode_block(kf, result):
-    """(the encode's output block, the backward kernel's residuals) from the
-    forward kernel `kf`'s result: K9 leaves the product to the caller
-    (mxgrid_cuda.plane_product)."""
-    if kf == "K9":
-        return mxgrid_cuda.plane_product(*result), result
-    return result[0], result[1:]
+    gout = to(gout)[..., spec.features:] if kf == "K9" else to(gout)
+    return pts.to(dev), pytree.tree_map(to, args), gout
 
 
 def work(kernel, spec, dtype, o, p):
     """(bytes, fp32 operations) of one call of `kernel`'s function on O x P
     points: each input read once and each output written once; a multiply
     and an add count as two operations (two per tap of a lerp, twelve per
-    plane pair and channel forward, eighteen backward)."""
+    plane pair and channel forward, a thirteenth where the kernel writes
+    their product, eighteen backward)."""
     t = torch.tensor([], dtype=dtype).element_size()
     k, kpl, n = spec.features, spec.plane_out_dims, o * p
     folded = kernel in ("K1", "K2", "K5", "K6")
@@ -281,11 +290,11 @@ def work(kernel, spec, dtype, o, p):
     pl_tab = sum(3 * (ru * rv + max(ru, rv)) * kp for ru, rv, kp in spec.plane_specs) if pl else 0
     pts = 12 * n
     if kernel in ("K1", "K3", "K5", "K7", "K9"):
-        out_cols = (k if kernel in ("K1", "K3", "K5") else 0) + (kpl if kernel in FUSED else 0)
+        out_cols = (k if kernel in ("K1", "K3", "K5") else 0) + (kpl if kernel in PRODUCTS else 0)
         res_cols = (3 * k if cp else 0) + (2 * kpl if pl else 0)
         nbytes = pts + o * t * (cp_tab + pl_tab) + n * t * (out_cols + res_cols)
         ops = ((6 * k * taps if cp else 0) + (2 * k if kernel in ("K1", "K3", "K5") else 0)
-               + (kpl * (12 + (kernel in FUSED)) if pl else 0))
+               + (kpl * (12 + (kernel in PRODUCTS)) if pl else 0))
     else:
         in_cols = (4 * k if cp else 0) + (3 * kpl if pl else 0)  # residuals + cotangent
         nbytes = pts + n * t * in_cols + o * 4 * (cp_tab + pl_tab)
@@ -312,7 +321,46 @@ def variants(kf, spec, dtype) -> tuple[dict, dict]:
         planes = kf == "K3"
         return (dict(variant=mxgrid_cuda.unsnapped_forward_variant(spec, dtype, planes)),
                 dict(variant=mxgrid_cuda.unsnapped_variant(spec, dtype, planes)))
-    return dict(variant=None), dict(variant=None)
+    return dict(variant=None), dict(variant=mxgrid_cuda.planes_variant(spec, dtype))
+
+
+def grid_sample_planes(pts, planes, plines, gout, fpl, fli, spec):
+    """The library yardstick of K9 and K10 (one plane level): closures that
+    compute K9's plane and line samples with two F.grid_sample calls
+    (bilinear, zeros padding, align_corners=True: coordinate 2x - 1 lands
+    on knot x (r - 1), and knots outside [0, r - 1] drop out, as in
+    `tent_taps`), and K10's two scatters with their backward
+    (aten.grid_sampler_2d_backward) on the cotangents g f_li and g f_pl.
+    The tables are passed as views in grid_sample's [N, C, H, W] order, no
+    copy; the sampling grids (one dtype with the table, as grid_sample
+    requires: bf16 coordinates in bf16) and the cotangents are formed
+    before, outside the timed calls."""
+    (ru, rv, kp), = spec.plane_specs
+    o, p = pts.shape[:2]
+    dt = planes[0].dtype
+    u, v, w = (list(a) for a in zip(*spec.plane_axes))
+    c = 2 * pts - 1
+    grid_pl = torch.stack([c[..., v], c[..., u]], -1).transpose(1, 2).reshape(o * 3, 1, p, 2)
+    grid_li = torch.stack([c[..., w], torch.zeros_like(c[..., w])], -1).transpose(1, 2)
+    grid_pl = grid_pl.to(dt).contiguous()
+    grid_li = grid_li.reshape(o * 3, 1, p, 2).to(dt).contiguous()
+    inp_pl = planes[0].reshape(o * 3, ru, rv, kp).permute(0, 3, 1, 2)
+    inp_li = plines[0].reshape(o * 3, 1, max(ru, rv), kp).permute(0, 3, 1, 2)
+    gt = gout.transpose(1, 2).float()
+    g_pl = (gt * fli.float()).to(dt).reshape(o * 3, kp, 1, p)
+    g_li = (gt * fpl.float()).to(dt).reshape(o * 3, kp, 1, p)
+    kw = dict(mode="bilinear", padding_mode="zeros", align_corners=True)
+    bwd = torch.ops.aten.grid_sampler_2d_backward
+
+    def forward():
+        return (torch.nn.functional.grid_sample(inp_pl, grid_pl, **kw),
+                torch.nn.functional.grid_sample(inp_li, grid_li, **kw))
+
+    def backward():
+        return (bwd(g_pl, inp_pl, grid_pl, 0, 0, True, [True, False])[0],
+                bwd(g_li, inp_li, grid_li, 0, 0, True, [True, False])[0])
+
+    return forward, backward
 
 
 def phase_kernels(specs: dict, dev) -> dict:
@@ -326,6 +374,8 @@ def phase_kernels(specs: dict, dev) -> dict:
     chosen.update({path: mxgrid_cuda.unsnapped_variant(specs[path], torch.bfloat16, planes)
                    for path, planes in (("unsnapped", True), ("unsnapped_cp", False),
                                         ("unsnapped_split", False))})
+    chosen.update({f"{path} K10": mxgrid_cuda.planes_variant(specs[path], torch.bfloat16)
+                   for path in ("unsnapped_split", "quality_split")})
     if set(chosen.values()) != {"tensor_core"}:
         raise AssertionError(f"bf16 backward variants: {chosen}")
     records = {}
@@ -363,10 +413,10 @@ def phase_kernels(specs: dict, dev) -> dict:
                                            for t in pytree.tree_leaves(got)):
                 raise AssertionError(f"{kf} {dtype}: relative error {f_rel} above {tol}")
 
-            res = encode_block(kf, got)[1]
+            res = got[1:]  # the backward kernel's residuals
             leaves, tree = pytree.tree_flatten(args)
             leaves = [a.clone().requires_grad_(True) for a in leaves]
-            block = encode_block(kf, fwd_plain(pts, *pytree.tree_unflatten(leaves, tree), spec))[0]
+            block = fwd_plain(pts, *pytree.tree_unflatten(leaves, tree), spec)[0]
             want_ad = torch.autograd.grad(block, leaves, grad_outputs=gout)
             del block, want
             got_b = pytree.tree_leaves(bwd(pts, *res, gout, spec))
@@ -384,16 +434,32 @@ def phase_kernels(specs: dict, dev) -> dict:
                 peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.3f}")
             if not (b_rel <= tol and b_rel_p <= tol):
                 raise AssertionError(f"{kb} {dtype}: relative error {b_rel}/{b_rel_p} above {tol}")
+            if kf == "K9":  # its features are its residuals' product, bit for bit
+                if not torch.equal(got[0], mxgrid_cuda.plane_product(*got[1:])):
+                    raise AssertionError(f"K9 {path} {dtype}: features != plane_product")
+            lib_f_ms = lib_b_ms = None
+            if kf == "K9" and o == N_OBJECTS:  # the library yardstick, timed only
+                lib_fwd, lib_bwd = grid_sample_planes(pts, *args, gout, *res, spec)
+                lib_out = lib_fwd()
+                _, lib_rel = errors([t.reshape(r.shape) for t, r in zip(lib_out, res)],
+                                          fwd_plain(pts, *args, spec)[1:])
+                lib_f_ms, lib_b_ms = median_ms(lib_fwd), median_ms(lib_bwd)
+                say("3 kernels", kernel="K9+K10 library", spec=path, shape=shape, dtype=dname,
+                    call="F.grid_sample (plane, line) / aten.grid_sampler_2d_backward",
+                    fwd_ms=f"{lib_f_ms:.4f}", bwd_ms=f"{lib_b_ms:.4f}",
+                    fwd_max_rel_err_vs_plain=f"{lib_rel:.3e}",
+                    kernel_ms=f"{f_ms:.4f} / {b_ms:.4f}")
+                del lib_out
             if dtype == torch.bfloat16:
-                # no single PyTorch call computes these functions (a K-channel
-                # two-tap lerp per axis times a product; a 3-pair bilinear and
-                # line sample; their scatter transposes): library_ms is null
+                # no single PyTorch call computes the CP functions (a K-channel
+                # two-tap lerp per axis times a product, and its scatter
+                # transpose): library_ms is null but for K9/K10 (grid_sample)
                 records[kf] = dict(variant=f_var["variant"], max_abs_err=f_abs, ms=f_ms,
                                    plain_ms=f_plain_ms, bound_ms=f_bound, bound_by=f_by,
-                                   library_ms=None)
+                                   library_ms=lib_f_ms)
                 records[kb] = dict(variant=b_var["variant"], max_abs_err=max(b_abs, b_abs_p),
                                    ms=b_ms, plain_ms=b_plain_ms, bound_ms=b_bound,
-                                   bound_by=b_by, library_ms=None)
+                                   bound_by=b_by, library_ms=lib_b_ms)
             del got, got_b, want_ad, res, leaves, args, gout, pts
             torch.cuda.empty_cache()
     return records
@@ -489,7 +555,7 @@ def check_points_gradient(specs: dict, dev) -> dict:
                         pts, table, planes[0], plines[0], spec)
                 else:
                     _, afac = mxgrid_cuda.unsnapped_cp_forward(pts, table, spec)
-                    fpl, fli = mxgrid_cuda.planes_forward(pts, planes, plines, spec)
+                    _, fpl, fli = mxgrid_cuda.planes_forward(pts, planes, plines, spec)
                 args = (pts, table, afac, planes, plines, fpl, fli, gout, spec)
                 got = mxgrid_cuda.points_gradient(*args)
                 want = mxgrid_cuda.points_gradient_plain(*args)
@@ -802,18 +868,21 @@ def product_passes() -> dict:
 def kernel_specs() -> dict:
     """The spec of each kernel pair's path: the flagship with snap on
     (K1/K2) and off (K3/K4), the CP-only `fast` preset with snap on (K5/K6)
-    and off (K7/K8), and the flagship unsnapped on the split path
-    (MX_FUSED=0), whose ladder K7/K8 and plane level (128, 64, 4) K9/K10
-    run."""
+    and off (K7/K8), the flagship unsnapped on the split path (MX_FUSED=0),
+    whose ladder K7/K8 and plane level (128, 64, 4) K9/K10 run, and the
+    `quality` preset there ("quality_split": K9/K10 at (128, 128, 8))."""
     flagship, fast = EncodingConfig(), EncodingConfig.preset("fast")
     unsnap = lambda e: dataclasses.replace(e, mx_snap_levels=False)
     encodings = {"folded": flagship, "unsnapped": unsnap(flagship), "folded_cp": fast,
-                 "unsnapped_cp": unsnap(fast), "unsnapped_split": unsnap(flagship)}
+                 "unsnapped_cp": unsnap(fast), "unsnapped_split": unsnap(flagship),
+                 "quality_split": unsnap(EncodingConfig.preset("quality"))}
     specs = {k: nerf.make_field_spec(NerfConfig(encoding=e)) for k, e in encodings.items()}
     for path, spec in specs.items():
         with environ(MX_FUSED="0" if path.endswith("split") else "1"):
-            assert mxgrid_cuda.kernel_path(spec) == path, (path, spec)
+            route = "unsnapped_split" if path == "quality_split" else path
+            assert mxgrid_cuda.kernel_path(spec) == route, (path, spec)
     assert specs["unsnapped_split"].plane_specs == ((128, 64, 4),)
+    assert specs["quality_split"].plane_specs == ((128, 128, 8),)
     return specs
 
 
@@ -983,9 +1052,11 @@ def phase_online(root: str) -> dict:
         raise AssertionError(f"online run: losses not finite or not below the first wave's")
     if min(m[0] for m in meshes) < 1 or min(m[1] for m in meshes) < 1 or not rendered:
         raise AssertionError(f"online run: an empty mesh {meshes} or no test render")
-    k7 = by_dtype["K7"]
+    k7, k10 = by_dtype["K7"], by_dtype["K10"]
+    if mxgrid_cuda.planes_variant(mgr.spec, torch.bfloat16) != "tensor_core":
+        raise AssertionError("online run: K10 in bf16 is not the tensor-core variant")
     if (min(launches.values()) < 1 or k7.get("bfloat16", 0) < 1 or k7.get("float32", 0) < 1
-            or any(others.values())):
+            or k10.get("bfloat16", 0) < 1 or any(others.values())):
         raise AssertionError(f"online run: launches {by_dtype}, other kernels {others}")
     if any(n.get("bfloat16", 0) for n in passes.values()):
         raise AssertionError(f"online run: a bf16 product pass ran: {passes}")

@@ -192,9 +192,21 @@ __device__ __forceinline__ void plane_pair_fwd(
   }
 }
 
+// dst[0..3] += w * v[0..3] as one 16-byte atomic (dst 16-byte aligned).
+__device__ __forceinline__ void red4_if(float* dst, float w, const float* v) {
+  if (w == 0.f) return;
+#if defined(CUDART_VERSION) && CUDART_VERSION >= 12010
+  atomicAdd(reinterpret_cast<float4*>(dst), make_float4(w * v[0], w * v[1], w * v[2], w * v[3]));
+#else
+#pragma unroll
+  for (int c = 0; c < 4; ++c) atomicAdd(dst + c, w * v[c]);
+#endif
+}
+
 // Plane pair i of one point, backward:
 //   dL_i[j, c] += hat_w[j] g_i[c] f_pl[c]      (l_i: shared, row stride ls)
-//   dP_i[a, b, c] += hat_u[a] hat_v[b] g_i[c] f_li[c]   (p_i: global)
+//   dP_i[a, b, c] += hat_u[a] hat_v[b] g_i[c] f_li[c]   (p_i: global; four
+//   channels a 16-byte atomic where kp % 4 == 0, one at a time otherwise)
 // g_p points at the pair's first cotangent column.
 template <typename T>
 __device__ __forceinline__ void plane_pair_bwd(
@@ -208,17 +220,32 @@ __device__ __forceinline__ void plane_pair_bwd(
   float* c01 = p_i + ((size_t)tu.j0 * rv + tv.j1) * kp;
   float* c10 = p_i + ((size_t)tu.j1 * rv + tv.j0) * kp;
   float* c11 = p_i + ((size_t)tu.j1 * rv + tv.j1) * kp;
-  for (int c = 0; c < kp; ++c) {
-    const int row = i * kp + c;
-    const float gi = to_f(g_p[c]);
-    const float gp = gi * to_f(fpl_o[(size_t)row * P + p]);
-    const float gl = gi * to_f(fli_o[(size_t)row * P + p]);
-    add_if(&l_i[tw.j0 * ls + c], tw.w0, gp);
-    add_if(&l_i[tw.j1 * ls + c], tw.w1, gp);
-    add_if(&c00[c], tu.w0 * tv.w0, gl);
-    add_if(&c01[c], tu.w0 * tv.w1, gl);
-    add_if(&c10[c], tu.w1 * tv.w0, gl);
-    add_if(&c11[c], tu.w1 * tv.w1, gl);
+  const float w00 = tu.w0 * tv.w0, w01 = tu.w0 * tv.w1, w10 = tu.w1 * tv.w0,
+              w11 = tu.w1 * tv.w1;
+  for (int c0 = 0; c0 < kp; c0 += 4) {
+    const int n = kp - c0 < 4 ? kp - c0 : 4;
+    float gl[4];
+    for (int c = 0; c < n; ++c) {
+      const int row = i * kp + c0 + c;
+      const float gi = to_f(g_p[c0 + c]);
+      const float gp = gi * to_f(fpl_o[(size_t)row * P + p]);
+      gl[c] = gi * to_f(fli_o[(size_t)row * P + p]);
+      add_if(&l_i[tw.j0 * ls + c0 + c], tw.w0, gp);
+      add_if(&l_i[tw.j1 * ls + c0 + c], tw.w1, gp);
+    }
+    if (kp % 4 == 0) {
+      red4_if(c00 + c0, w00, gl);
+      red4_if(c01 + c0, w01, gl);
+      red4_if(c10 + c0, w10, gl);
+      red4_if(c11 + c0, w11, gl);
+    } else {
+      for (int c = 0; c < n; ++c) {
+        add_if(&c00[c0 + c], w00, gl[c]);
+        add_if(&c01[c0 + c], w01, gl[c]);
+        add_if(&c10[c0 + c], w10, gl[c]);
+        add_if(&c11[c0 + c], w11, gl[c]);
+      }
+    }
   }
 }
 

@@ -1,9 +1,9 @@
 // Device helpers of the tensor-core encode backwards (mxgrid_folded.cu:
 // `folded_bwd_tc`, K2/K6; mxgrid_unsnapped.cu: `unsnapped_bwd_tc`, K4/K8):
 // 16-byte cp.async, the tent-basis A fragment built in registers,
-// mma.sync.m16n8k16 (bf16 in, fp32 out), ldmatrix, and the 16-byte vector
-// atomic of the plane gradient. Internal to the translation unit that
-// includes it.
+// mma.sync.m16n8k16 (bf16 in, fp32 out) and ldmatrix (the 16-byte vector
+// atomic of the plane gradient, `red4_if`, is in mxgrid_common.cuh).
+// Internal to the translation unit that includes it.
 #pragma once
 
 #include "mxgrid_common.cuh"
@@ -62,17 +62,6 @@ __device__ __forceinline__ void ldmatrix_x4(const void* smem, uint32_t* r) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(s));
-}
-
-// dst[0..3] += w * v[0..3] as one 16-byte atomic.
-__device__ __forceinline__ void red4_if(float* dst, float w, const float* v) {
-  if (w == 0.f) return;
-#if defined(CUDART_VERSION) && CUDART_VERSION >= 12010
-  atomicAdd(reinterpret_cast<float4*>(dst), make_float4(w * v[0], w * v[1], w * v[2], w * v[3]));
-#else
-#pragma unroll
-  for (int c = 0; c < 4; ++c) atomicAdd(dst + c, w * v[c]);
-#endif
 }
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }

@@ -17,17 +17,19 @@ that sets it before its first encode gets the reference's pairs. Where
 the reference forms a product outside its kernels in the table dtype
 (mxgrid_pallas.py:736, 741), the port keeps those roundings: K5 and K7 (in
 its three-axis variants) form the CP product in the kernel, rounding after
-each factor; K7's per-axis variant leaves it to `cp_product`, and the
-split path's plane features come from `plane_product`. K9/K10 take
+each factor; K7's per-axis variant leaves it to `cp_product`; K9 writes the
+split path's plane features, the product of its two rounded samples
+rounded once more (`plane_product`'s value). K9/K10 take
 several plane levels; the fused K1-K4 take one, and a spec with more raises
 NotImplementedError there, as does any spec no kernel covers: a CUDA
 tensor never falls back to the plain encode.
 
 Some kernels have variants, named from the spec and the table dtype alone:
-the backwards K2/K6 (`folded_variant`) and K4/K8 (`unsnapped_variant`) run
-on the tensor cores in bf16 at the shapes their sources instantiate and as
-the scalar kernel otherwise; the forward K1/K5 stages its feature rows in
-shared memory wherever they fit (`forward_variant`); the forward K3/K7
+the backwards K2/K6 (`folded_variant`), K4/K8 (`unsnapped_variant`) and K10
+(`planes_variant`) run on the tensor cores in bf16 at the shapes their
+sources instantiate and as the scalar kernel otherwise; the forward K1/K5
+stages its feature rows in shared memory wherever they fit
+(`forward_variant`); the forward K3/K7
 holds all three axes' ladders in a block wherever they fit, else one axis a
 block with the product as a second pass (`unsnapped_forward_variant`;
 `cp_product_pass` after K3, `cp_product` after K7). The C entry refuses a
@@ -154,9 +156,9 @@ def _library() -> ctypes.CDLL:
         "romap_mx_unsnapped_bwd": [i32] * 2 + [ptr] * 8 + [ints] * 2 + [i32] * 10 + [ptr],
         "romap_mx_unsnapped_cp_fwd": [i32] * 2 + [ptr] * 4 + [ints] * 2 + [i32] * 5 + [ptr],
         "romap_mx_unsnapped_cp_bwd": [i32] * 2 + [ptr] * 4 + [ints] * 2 + [i32] * 5 + [ptr],
-        "romap_mx_planes_fwd": ([i32, ptr, i32, ptrs, ptrs] + [ints] * 3 + [ptr] * 2
+        "romap_mx_planes_fwd": ([i32, ptr, i32, ptrs, ptrs] + [ints] * 3 + [ptr] * 3
                                 + [i32] * 3 + [ptr]),
-        "romap_mx_planes_bwd": ([i32] + [ptr] * 4 + [i32, ptrs, ptrs] + [ints] * 3
+        "romap_mx_planes_bwd": ([i32] * 2 + [ptr] * 4 + [i32] * 2 + [ptrs] * 2 + [ints] * 3
                                 + [i32] * 3 + [ptr]),
         "romap_mx_points_grad": ([i32] + [ptr] * 2 + [ints] * 2 + [i32] * 2 + [ptr, i32]
                                  + [ptrs] * 2 + [ints] * 3 + [ptr] * 4 + [i32] * 4 + [ptr]),
@@ -197,6 +199,9 @@ def kernel_path(spec: MXGridSpec) -> str:
 # and CP-only (K6)
 TC_SHAPES = {True: ((192, 48),), False: ((192, 48), (256, 64))}
 TC_PLANE = (128, 4)
+# (line rows, channels) of the one plane level the tensor-core K10
+# instantiates in mxgrid_planes.cu: the flagship's and `quality`'s
+PLANES_TC_SHAPES = ((128, 4), (128, 8))
 SMEM_PER_BLOCK = 232448  # bytes of dynamic shared memory a block may take on sm_90
 BACKWARD_VARIANTS = ("scalar", "tensor_core")  # the C side's variant codes
 FORWARD_VARIANTS = ("direct", "staged")
@@ -260,6 +265,19 @@ def unsnapped_variant(spec: MXGridSpec, dtype: torch.dtype, planes: bool | None 
     if planes and [(max(ru, rv), kp) for ru, rv, kp in spec.plane_specs] != [TC_PLANE]:
         return "scalar"
     return "tensor_core"
+
+
+def planes_variant(spec: MXGridSpec, dtype: torch.dtype) -> str:
+    """The variant of the split path's plane backward K10 for this spec and
+    table dtype: "tensor_core" for bf16 with one plane level whose (line
+    rows, channels) mxgrid_planes.cu instantiates (PLANES_TC_SHAPES: the
+    flagship's (128, 64, 4) level and `quality`'s (128, 128, 8)), "scalar"
+    for fp32, for several levels and for every other level. Chosen from the
+    spec and dtype alone; a failed build or launch never changes it."""
+    levels = [(max(ru, rv), kp) for ru, rv, kp in spec.plane_specs]
+    if dtype == torch.bfloat16 and len(levels) == 1 and levels[0] in PLANES_TC_SHAPES:
+        return "tensor_core"
+    return "scalar"
 
 
 def _forward_smem(rows: int, spec: MXGridSpec, dtype: torch.dtype, planes: bool,
@@ -330,14 +348,23 @@ def _plane_dims(spec: MXGridSpec) -> tuple[int, int, int, int, int]:
     return ru, rv, kp, max(ru, rv), _axes_code(spec)
 
 
-def _check(name: str, t: torch.Tensor, shape: tuple, dtype, device) -> None:
+def _check(name: str, t: torch.Tensor, shape: tuple, dtype, device,
+           rows: bool = False) -> None:
+    """Device, dtype and shape of `t`, and contiguity; with `rows`, a
+    [O, P, n] tensor may also be a view of wider rows (unit stride in the
+    last axis, the points one row stride apart), as the plane block of a
+    cotangent is."""
     if t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
     if t.dtype != dtype:
         raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if not t.is_contiguous():
+    if rows:
+        p, n = t.shape[1:]
+        if t.stride(2) != 1 or t.stride(1) < n or t.stride(0) != p * t.stride(1):
+            raise ValueError(f"{name}: strides {t.stride()} are not rows of one stride")
+    elif not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
 
 
@@ -811,17 +838,23 @@ def _check_levels(planes, plines, spec, o, dt, dev) -> None:
 
 
 def planes_forward_plain(points, planes, plines, spec: MXGridSpec):
-    """Plain twin of K9 (`_planes_forward`).
+    """Plain twin of K9 (`_planes_forward`, then the product the reference
+    forms after it, mxgrid_pallas.py:741).
 
     Args:
       points [O, P, 3] f32; planes, plines: one tensor a plane level,
       [O, 3, ru, rv, kp] and [O, 3, max(ru, rv), kp], one dtype.
     Returns:
-      fpl and fli [O, 3 sum(kp), P] in the table dtype, rows level-major,
-      then pair, then channel (mxgrid_pallas.py:181-202).
+      out [O, P, 3 sum(kp)]: the plane features, each the product of the two
+      rounded samples in fp32, rounded to the table dtype (K9's arithmetic;
+      equal to `plane_product(fpl, fli)`); fpl and fli [O, 3 sum(kp), P] in
+      the table dtype, rows level-major, then pair, then channel
+      (mxgrid_pallas.py:181-202).
     """
-    _, fpl, fli = _planes_plain(points, planes, plines, spec, planes[0].dtype)
-    return fpl, fli
+    dt = planes[0].dtype
+    _, fpl, fli = _planes_plain(points, planes, plines, spec, dt)
+    out = (fpl.float() * fli.float()).to(dt).transpose(1, 2).contiguous()
+    return out, fpl, fli
 
 
 @_counted
@@ -836,17 +869,20 @@ def planes_forward(points, planes, plines, spec: MXGridSpec):
     _check("points", points, (o, p, 3), torch.float32, dev)
     _check_levels(planes, plines, spec, o, dt, dev)
     args = _level_args(spec, planes, plines)
-    fpl = torch.empty((o, spec.plane_out_dims, p), dtype=dt, device=dev)
+    kpl = spec.plane_out_dims
+    out = torch.empty((o, p, kpl), dtype=dt, device=dev)
+    fpl = torch.empty((o, kpl, p), dtype=dt, device=dev)
     fli = torch.empty_like(fpl)
     _launch(planes_forward, "K9 planes_forward", "romap_mx_planes_fwd", dt, dev,
-            points.data_ptr(), *args, fpl.data_ptr(), fli.data_ptr(), o, p,
+            points.data_ptr(), *args, out.data_ptr(), fpl.data_ptr(), fli.data_ptr(), o, p,
             _axes_code(spec))
-    return fpl, fli
+    return out, fpl, fli
 
 
 def planes_backward_plain(points, fpl, fli, g, spec: MXGridSpec):
     """Plain twin of K10 (`_make_bwd_planes_kernel`): from K9's residuals and
-    the plane block of the cotangent g [O, P, 3 sum(kp)], per level dplanes
+    the plane block of the cotangent g [O, P, 3 sum(kp)] (contiguous, or a
+    view of the encode's full cotangent), per level dplanes
     [O, 3, ru, rv, kp] and dplines [O, 3, max(ru, rv), kp] (two tuples),
     f32."""
     dplanes, dplines = _plane_grad_plain(points, fpl, fli, g, spec, 0)
@@ -856,7 +892,9 @@ def planes_backward_plain(points, fpl, fli, g, spec: MXGridSpec):
 @_counted
 def planes_backward(points, fpl, fli, g, spec: MXGridSpec):
     """K10 on a CUDA tensor, its plain twin on a CPU tensor (same contract as
-    `planes_backward_plain`)."""
+    `planes_backward_plain`). The card reads g in place: its rows may be
+    wider than 3 sum(kp) (the split step passes `g[..., K:]` of the full
+    cotangent). Variant: `planes_variant`."""
     dt = fpl.dtype
     if not _on_card(points, dt):
         return planes_backward_plain(points, fpl, fli, g, spec)
@@ -866,15 +904,16 @@ def planes_backward(points, fpl, fli, g, spec: MXGridSpec):
     _check("points", points, (o, p, 3), torch.float32, dev)
     _check("fpl", fpl, (o, kpl, p), dt, dev)
     _check("fli", fli, (o, kpl, p), dt, dev)
-    _check("g", g, (o, p, kpl), dt, dev)
+    _check("g", g, (o, p, kpl), dt, dev, rows=True)
     f32 = dict(dtype=torch.float32, device=dev)
     dplanes = tuple(torch.zeros((o, 3, ru, rv, kp), **f32) for ru, rv, kp in spec.plane_specs)
     dplines = tuple(torch.zeros((o, 3, max(ru, rv), kp), **f32)
                     for ru, rv, kp in spec.plane_specs)
-    args = _level_args(spec, dplanes, dplines)
-    _launch(planes_backward, "K10 planes_backward", "romap_mx_planes_bwd", dt, dev,
-            points.data_ptr(), fpl.data_ptr(), fli.data_ptr(), g.data_ptr(), *args,
-            o, p, _axes_code(spec))
+    n, pl_ptrs, li_ptrs, ru, rv, kp = _level_args(spec, dplanes, dplines)
+    variant = BACKWARD_VARIANTS.index(planes_variant(spec, dt))
+    _launch(planes_backward, "K10 planes_backward", "romap_mx_planes_bwd", dt, dev, variant,
+            points.data_ptr(), fpl.data_ptr(), fli.data_ptr(), g.data_ptr(), g.stride(1),
+            n, pl_ptrs, li_ptrs, ru, rv, kp, o, p, _axes_code(spec))
     return dplanes, dplines
 
 
@@ -891,7 +930,8 @@ def cp_product(afac: torch.Tensor) -> torch.Tensor:
 
 def plane_product(fpl: torch.Tensor, fli: torch.Tensor) -> torch.Tensor:
     """Plane features [O, P, 3 sum(kp)]: f_pl f_li in the table dtype, as the
-    reference forms them after K9's counterpart (mxgrid_pallas.py:741)."""
+    reference forms them after K9's counterpart (mxgrid_pallas.py:741). K9
+    writes the same values itself; the tests hold it to this."""
     return (fpl * fli).transpose(1, 2).contiguous()
 
 
@@ -1047,9 +1087,11 @@ def reset_launch_counts() -> None:
 
 class _Encode(torch.autograd.Function):
     """Forward: fold the lines (one einsum) where the spec snaps, then the
-    forward kernels of `path`; on a split path, the products in the table
-    dtype. Backward: the backward kernels, then the transposed fold, as JAX
-    does around its kernels (mxgrid_pallas.py:490-493, 538-544, 724-875),
+    forward kernels of `path`; on a split path, the CP product (K5, K7 or
+    `cp_product`) joined to K9's plane features. Backward: the backward
+    kernels (K10 reads the cotangent's plane block in place), then the
+    transposed fold, as JAX does around its kernels (mxgrid_pallas.py:
+    490-493, 538-544, 724-875),
     where the tables need a gradient; K0 where the points need one (then
     the forward also keeps its table, planes and plane lines).
     `tables` are the planes, then the plane lines, one tensor a level."""
@@ -1071,8 +1113,8 @@ class _Encode(torch.autograd.Function):
                 out, afac = unsnapped_cp_forward(points, table, spec)
             res = [afac]
             if n_lvl:
-                fpl, fli = planes_forward(points, planes, plines, spec)
-                out = torch.cat([out, plane_product(fpl, fli)], dim=-1)
+                out_pl, fpl, fli = planes_forward(points, planes, plines, spec)
+                out = torch.cat([out, out_pl], dim=-1)
                 res += [fpl, fli]
         kept = [table, *planes, *plines] if ctx.needs_input_grad[0] else []
         ctx.save_for_backward(points, *res, *kept)
@@ -1106,8 +1148,7 @@ class _Encode(torch.autograd.Function):
                 dlines = unfold_dlines(folded_cp_backward(points, res[0], g_cp, spec), spec, dt)
             else:
                 dlines = unsnapped_cp_backward(points, res[0], g_cp, spec)
-            dplanes, dplines = (planes_backward(points, res[1], res[2],
-                                                g[..., k:].contiguous(), spec)
+            dplanes, dplines = (planes_backward(points, res[1], res[2], g[..., k:], spec)
                                 if spec.plane_specs else ((), ()))
         return (dpts, None, None, dlines.to(dt), *(t.to(dt) for t in dplanes),
                 *(t.to(dt) for t in dplines))

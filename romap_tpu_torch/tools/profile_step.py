@@ -27,8 +27,12 @@ reference batch geometry on the scene of build_synthetic_world(10, 16, 128):
     list.
 
 Usage: python3 -m romap_tpu_torch.tools.profile_step [--steps 20] [--top 8]
-(from the repo root; needs a CUDA device; prints the card's name and power
-limit first and a JSON line of every configuration last).
+[--configs split,...] (from the repo root; needs a CUDA device; prints the
+card's name and power limit first and a JSON line of every configuration
+last; `--configs` keeps the configurations whose name contains one of the
+words). Run by path with another checkout first on PYTHONPATH
+(`PYTHONPATH=build/parent python3 romap_tpu_torch/tools/profile_step.py`),
+it profiles that checkout's package.
 """
 
 from __future__ import annotations
@@ -205,7 +209,11 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--top", type=int, default=8)
+    ap.add_argument("--configs", default="", help="comma list of words of config names")
     args = ap.parse_args(argv)
+    words = [w for w in args.configs.split(",") if w]
+    configs = {name: c for name, c in CONFIGS.items()
+               if not words or any(w in name for w in words)}
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: no CUDA device")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -214,7 +222,7 @@ def main(argv=None) -> None:
     torch.backends.cudnn.allow_tf32 = False
     world = build_synthetic_world(N_OBJECTS, 16, 128, device="cuda")
     results = [profile(name, enc, env, args.steps, args.top, world)
-               for name, (enc, env) in CONFIGS.items()]
+               for name, (enc, env) in configs.items()]
     print(json.dumps({"device": torch.cuda.get_device_name(0), "configs": results}))
 
 

@@ -1,11 +1,15 @@
 """Times of the encode kernels alone, on one GPU, at a chosen batch shape.
 
 For each kernel pair asked for (K1/K2 flagship, K3/K4 flagship unsnapped,
-K5/K6 `fast`, K7/K8 flagship unsnapped ladder), in bf16 unless --dtype says
+K5/K6 `fast`, K7/K8 flagship unsnapped ladder, K9/K10 the split path's
+flagship plane level (128, 64, 4), `K9q` the same kernels at `quality`'s
+(128, 128, 8)), in bf16 unless --dtype says
 otherwise: the forward kernel's residuals feed the backward kernel, and each
 is timed with CUDA events around single launches (median and minimum of
 --reps, after a warm-up); `host_us` is the median time a call takes to
-return on the host (the wrapper's work and the enqueue). Only the wrappers of `ops.mxgrid_cuda` are called,
+return on the host (the wrapper's work and the enqueue), which the device
+time leaves out (a sleep kernel holds the card while the call is queued).
+Only the wrappers of `ops.mxgrid_cuda` are called,
 so the script also runs against another checkout of the package:
 
   python3 romap_tpu_torch/tools/time_encode.py --objects 10
@@ -13,9 +17,12 @@ so the script also runs against another checkout of the package:
 
 `--forward-variant` and `--backward-variant` force a variant (K1/K5: direct,
 staged; K3/K7: per_axis, three_axis_direct, three_axis_staged; K2/K6 and
-K4/K8: scalar, tensor_core) that the spec and dtype would not pick, to time
-both on one card. K3's and K7's times include the product pass their
-per-axis variant needs. `--points-kind rays` draws the points
+K4/K8 and K10: scalar, tensor_core) that the spec and dtype would not pick,
+to time both on one card. K10 takes the plane block of the full encode
+cotangent as a strided view, as the split step passes it (a checkout from
+before `planes_variant` takes a contiguous block, as its step copied it).
+K3's and K7's times include the product pass their per-axis variant needs.
+`--points-kind rays` draws the points
 along rays through the unit cube, 32 consecutive samples a ray, as the train
 step's batches lie (its samples of a ray meet on the same table rows);
 `uniform` (the default) draws them independently.
@@ -42,8 +49,10 @@ import subprocess
 import sys
 import time
 
+SLEEP_CYCLES = 2_000_000  # ~1.1 ms at the H100's 1.755 GHz: longer than a call's host work
 PAIRS = {"K1": ("folded", "K1", "K2"), "K3": ("unsnapped", "K3", "K4"),
-         "K5": ("folded_cp", "K5", "K6"), "K7": ("unsnapped_cp", "K7", "K8")}
+         "K5": ("folded_cp", "K5", "K6"), "K7": ("unsnapped_cp", "K7", "K8"),
+         "K9": ("unsnapped_split", "K9", "K10"), "K9q": ("quality_split", "K9", "K10")}
 
 
 def run_roots(args) -> None:
@@ -104,7 +113,7 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--objects", type=int, default=10)
     ap.add_argument("--points", type=int, default=4096 * 32)
-    ap.add_argument("--pairs", default="K1", help="comma list of K1, K3, K5, K7")
+    ap.add_argument("--pairs", default="K1", help="comma list of K1, K3, K5, K7, K9, K9q")
     ap.add_argument("--dtype", default="bfloat16", choices=("bfloat16", "float32"))
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--forward-variant", default="auto",
@@ -114,8 +123,8 @@ def main(argv=None) -> None:
                          "mxgrid_cuda.forward_variant / unsnapped_forward_variant")
     ap.add_argument("--backward-variant", default="auto",
                     choices=("auto", "scalar", "tensor_core"),
-                    help="force K2/K6's and K4/K8's variant instead of the choice of "
-                         "mxgrid_cuda.folded_variant / unsnapped_variant")
+                    help="force K2/K6's, K4/K8's and K10's variant instead of the choice "
+                         "of mxgrid_cuda.folded_variant / unsnapped_variant / planes_variant")
     ap.add_argument("--points-kind", default="uniform", choices=("uniform", "rays"))
     ap.add_argument("--roots", default=None)
     ap.add_argument("--sass", action="store_true")
@@ -133,6 +142,7 @@ def main(argv=None) -> None:
 
     if not torch.cuda.is_available():
         raise SystemExit("time_encode: no CUDA device")
+    strided_g = hasattr(mxgrid_cuda, "planes_variant")  # K10 reads the cotangent in place
     if args.forward_variant in ("direct", "staged"):
         mxgrid_cuda.forward_variant = lambda *a, **k: args.forward_variant
     elif args.forward_variant != "auto":
@@ -140,6 +150,7 @@ def main(argv=None) -> None:
     if args.backward_variant != "auto":
         mxgrid_cuda.folded_variant = lambda *a, **k: args.backward_variant
         mxgrid_cuda.unsnapped_variant = lambda *a, **k: args.backward_variant
+        mxgrid_cuda.planes_variant = lambda *a, **k: args.backward_variant
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(smi, flush=True)
@@ -149,16 +160,21 @@ def main(argv=None) -> None:
     unsnap = lambda e: dataclasses.replace(e, mx_snap_levels=False)
     cp_only = lambda e: dataclasses.replace(e, mx_plane_features=0)
     encodings = {"folded": flagship, "unsnapped": unsnap(flagship), "folded_cp": fast,
-                 "unsnapped_cp": unsnap(cp_only(flagship))}
+                 "unsnapped_cp": unsnap(cp_only(flagship)), "unsnapped_split": unsnap(flagship),
+                 "quality_split": unsnap(EncodingConfig.preset("quality"))}
 
     def ms(fn):
         """(median, min) device ms of one call, and the median host us the
-        call took to return (the wrapper's work and the enqueue alone)."""
+        call took to return (the wrapper's work and the enqueue alone). A
+        sleep kernel holds the card while the host queues the events and the
+        call, so the events time the device alone: without it, a call whose
+        host work outlasts nothing on the card would count that work too."""
         fn()
         torch.cuda.synchronize()
         times, host = [], []
         for _ in range(args.reps):
             a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(SLEEP_CYCLES)
             a.record()
             t0 = time.perf_counter()
             fn()
@@ -171,6 +187,7 @@ def main(argv=None) -> None:
     results = {}
     for pair in args.pairs.split(","):
         path, kf, kb = PAIRS[pair]
+        tag = pair[len(kf):]  # "q": K9/K10 at `quality`'s plane level
         spec = nerf.make_field_spec(NerfConfig(encoding=encodings[path]))
         g = torch.Generator().manual_seed(3)
         if args.points_kind == "rays":
@@ -180,16 +197,24 @@ def main(argv=None) -> None:
         tables = mxgrid.init_mxgrid(g, spec, o)
         lines = tables["lines"] if spec.plane_specs else tables
         to = lambda t: t.to(device=dev, dtype=dtype).contiguous()
-        tabs = [to(mxgrid.fold_lines(lines, spec) if spec.snap_levels else lines)]
-        if spec.plane_specs:
-            tabs += [to(tables["planes"][0]), to(tables["plane_lines"][0])]
+        if kf == "K9":
+            tabs = [tuple(map(to, tables["planes"])), tuple(map(to, tables["plane_lines"]))]
+        else:
+            tabs = [to(mxgrid.fold_lines(lines, spec) if spec.snap_levels else lines)]
+            if spec.plane_specs:
+                tabs += [to(tables["planes"][0]), to(tables["plane_lines"][0])]
         gout = to(torch.randn((o, p, spec.n_output_dims), generator=g))
+        if kf == "K9":  # the plane block of the cotangent
+            gout = gout[..., spec.features:]
+            gout = gout if strided_g else gout.contiguous()
         fwd, bwd = mxgrid_cuda.KERNELS[kf], mxgrid_cuda.KERNELS[kb]
         got = fwd(pts, *tabs, spec)
         res = (got,) if torch.is_tensor(got) else got[1:]  # K7 of an older checkout: afac
-        results[kf] = ms(lambda: fwd(pts, *tabs, spec))
-        results[kb] = ms(lambda: bwd(pts, *res, gout, spec))
-        for k in (kf, kb):
+        if kf == "K9" and len(got) == 2:  # K9 of an older checkout: fpl, fli
+            res = got
+        results[kf + tag] = ms(lambda: fwd(pts, *tabs, spec))
+        results[kb + tag] = ms(lambda: bwd(pts, *res, gout, spec))
+        for k in (kf + tag, kb + tag):
             print(f"[time_encode] kernel={k} spec={path} dtype={args.dtype} O={o} P={p} "
                   f"points={args.points_kind} "
                   f"forward_variant={args.forward_variant} "

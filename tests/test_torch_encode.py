@@ -451,8 +451,10 @@ def test_k7_k8_twins_match_pallas(dtype):
 @pytest.mark.parametrize("n_levels", [1, 2])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_k9_k10_twins_match_pallas(monkeypatch, dtype, n_levels):
-    """K9's twin vs `_planes_forward` (fpl, fli; rows level-major) and K10's
-    twin vs the plane gradients of `_bwd_impl_t` on the split path
+    """K9's twin vs `_planes_forward` (fpl, fli; rows level-major) and, for
+    its plane features, the product JAX forms after it; K10's twin, fed the
+    plane block of the full cotangent as a view (as the split step passes
+    it), vs the plane gradients of `_bwd_impl_t` on the split path
     (FUSED_FWD off), with one and with two plane levels."""
     monkeypatch.setattr(mxgrid_pallas, "FUSED_FWD", False)
     js, ts = level_specs(n_levels)
@@ -467,22 +469,25 @@ def test_k9_k10_twins_match_pallas(monkeypatch, dtype, n_levels):
         p = torch.from_numpy(pts[o : o + 1])
         tp = tuple(to_torch(a[o : o + 1], dtype) for a in factors["planes"])
         tl = tuple(to_torch(a[o : o + 1], dtype) for a in factors["plane_lines"])
-        got = mxgrid_cuda.planes_forward_plain(p, tp, tl, ts)
+        out, *got = mxgrid_cuda.planes_forward_plain(p, tp, tl, ts)
         for name, a, b in zip(("fpl", "fli"), got, (fpl, fli)):
             assert a.dtype == getattr(torch, dtype) and a.shape == (1, js.plane_out_dims, N_PTS)
             assert_rel_close(a[0].float().numpy(), b[..., :n], rtol, name)
-        np.testing.assert_array_equal(  # the product as JAX forms it
-            mxgrid_cuda.plane_product(*got)[0].float().numpy().T,
-            np.asarray(jnp.asarray(got[0][0].float().numpy(), dtype)
-                       * jnp.asarray(got[1][0].float().numpy(), dtype), np.float32))
+        want_out = np.asarray(jnp.asarray(got[0][0].float().numpy(), dtype)  # JAX's product
+                              * jnp.asarray(got[1][0].float().numpy(), dtype), np.float32)
+        assert out.dtype == getattr(torch, dtype) and out.shape == (1, N_PTS, js.plane_out_dims)
+        np.testing.assert_array_equal(out[0].float().numpy().T, want_out)
+        np.testing.assert_array_equal(mxgrid_cuda.plane_product(*got)[0].float().numpy().T,
+                                      want_out)
 
         xt, _, npad = mxgrid_pallas._pad_and_tile(x, mxgrid_pallas.TILE)
         afac = mxgrid_pallas._cp_forward(f, xt, npad, js, True)
         jg = mxgrid_pallas._bwd_impl_t(f, x, (afac, fpl, fli), jnp.asarray(g[o], dtype).T,
                                        js, True)
         res = tuple(to_torch(r[..., :n], dtype)[None] for r in (fpl, fli))
-        dpl, dli = mxgrid_cuda.planes_backward_plain(
-            p, *res, to_torch(g[o : o + 1, :, k:], dtype), ts)
+        g_view = to_torch(g[o : o + 1], dtype)[..., k:]  # rows of K + 3 sum(kp)
+        assert not g_view.is_contiguous()
+        dpl, dli = mxgrid_cuda.planes_backward_plain(p, *res, g_view, ts)
         assert len(dpl) == len(dli) == n_levels
         for lvl in range(n_levels):
             assert dpl[lvl].dtype == dli[lvl].dtype == torch.float32
@@ -835,3 +840,136 @@ def test_three_axis_arithmetic_matches_pallas(kernel):
     else:
         twin = mxgrid_cuda.unsnapped_cp_forward_plain(p1, tl, ts)[0][0]
     assert_rel_close(out.float().numpy(), twin.float().numpy(), 1e-2, "twin")
+
+
+# --------------------------------------------------------------------------
+# The split path's plane kernels K9/K10: the backward's variant, the
+# tensor-core arithmetic, and K9's plane features
+# --------------------------------------------------------------------------
+
+PLANE_LEVELS = {"flagship": ((128, 64, 4),), "quality": ((128, 128, 8),),
+                "two": ((128, 64, 4), (64, 64, 4)), "tiny": ((16, 8, 4),)}
+
+
+def plane_level_specs(levels):
+    """(JAX spec, port spec) with these plane levels beside a small CP ladder:
+    K9 and K10 read only the plane levels."""
+    kw = dict(n_levels=2, base_resolution=4, max_resolution=8, features=8,
+              plane_specs=PLANE_LEVELS[levels], plane_axes="balanced", snap_levels=False)
+    return jmx.make_mxspec(**kw), tmx.make_mxspec(**kw)
+
+
+@pytest.mark.parametrize("levels,dtype,variant", [
+    ("flagship", torch.bfloat16, "tensor_core"),  # the split step in training
+    ("flagship", torch.float32, "scalar"),        # renders, meshes, pose refinement
+    ("quality", torch.bfloat16, "tensor_core"),   # `quality` with MX_FUSED=0
+    ("quality", torch.float32, "scalar"),
+    ("two", torch.bfloat16, "scalar"),            # several levels: the scalar kernel
+    ("tiny", torch.bfloat16, "scalar"),           # 16 line rows: not instantiated
+])
+def test_planes_variant_follows_spec_and_dtype(levels, dtype, variant):
+    _, spec = plane_level_specs(levels)
+    assert mxgrid_cuda.planes_variant(spec, dtype) == variant
+    assert variant in mxgrid_cuda.BACKWARD_VARIANTS
+    if levels in ("flagship", "quality"):  # the presets' own specs, folded or not
+        for preset in (preset_spec(levels), unsnapped_spec(levels)):
+            assert mxgrid_cuda.planes_variant(preset, dtype) == variant
+    if variant == "tensor_core":  # the tile's needs: 8 row tiles, one 8-channel column tile
+        (ru, rv, kp), = spec.plane_specs
+        assert (max(ru, rv), kp) in mxgrid_cuda.PLANES_TC_SHAPES and max(ru, rv) == 128
+        assert kp % 4 == 0 and kp <= 8
+
+
+def emulate_planes_bwd_tc(pts, fpl, fli, g, spec):
+    """The tensor-core K10's arithmetic in PyTorch: the line gradient from
+    hat_w and the operand g_i f_pl both rounded to bf16, exact products,
+    fp32 sums; the plane gradient in fp32 (the kernel's vector atomics add
+    fp32 products of fp32 weights), as the plain twin forms it."""
+    r16 = lambda t: t.bfloat16().float()
+    (ru, rv, kp), = spec.plane_specs
+    dplanes, _ = mxgrid_cuda.planes_backward_plain(pts, fpl, fli, g, spec)
+    gf = g.float()
+    dl = []
+    for i, (_, _, w) in enumerate(spec.plane_axes):
+        hat = r16(tmx.hat1(pts[..., w], max(ru, rv)))
+        f_pl = fpl[:, i * kp : (i + 1) * kp].float().transpose(1, 2)
+        v = r16(gf[..., i * kp : (i + 1) * kp] * f_pl)
+        dl.append(torch.matmul(hat.transpose(1, 2), v))
+    return dplanes[0], torch.stack(dl, dim=1)
+
+
+@pytest.mark.parametrize("kind", ["uniform", "cell", "outside"])
+@pytest.mark.parametrize("levels", ["flagship", "quality"])
+def test_planes_tensor_core_arithmetic_matches_pallas(monkeypatch, levels, kind):
+    """The tensor-core K10's arithmetic (emulated: bf16 hat_w and operand,
+    fp32 sums) against `_make_bwd_planes_kernel` in interpret mode on the
+    split path, bf16, on the same residuals and cotangent. The line gradient
+    takes the reference's operands and stays within 5e-3 of its largest
+    entry: the reference returns it rounded to bf16 (2^-9 of an entry), and
+    XLA on the CPU may keep its operand g f_pl in fp32 where the kernel (and
+    the TPU) rounds it (measured: up to 2.9e-3). The plane gradient stays
+    fp32 in the kernel, where the reference rounds its operand (g f_li
+    hat_v), hat_u and the result to bf16 (2^-9 each, on entries of one or
+    two terms): within 1e-2 of the largest entry, the kernel's tolerance on
+    the card (measured: up to 5.1e-3)."""
+    monkeypatch.setattr(mxgrid_pallas, "FUSED_FWD", False)
+    js, ts = plane_level_specs(levels)
+    assert mxgrid_cuda.planes_variant(ts, torch.bfloat16) == "tensor_core"
+    rng = np.random.default_rng(41)
+    n = 2500
+    pts = flagship_points(kind, rng, n)[:1]
+    bf = lambda *s: jnp.asarray(rng.normal(0, 0.3, s), jnp.bfloat16)
+    (ru, rv, kp), = ts.plane_specs
+    f = {"lines": bf(3, js.total_res, js.features), "planes": (bf(3, ru, rv, kp),),
+         "plane_lines": (bf(3, max(ru, rv), kp),)}
+    g = bf(n, js.n_output_dims) / 0.3
+    x = jnp.asarray(pts[0])
+    xt_pl, _, npad_pl = mxgrid_pallas._pad_and_tile(x, mxgrid_pallas.PLANE_TILE)
+    fpl, fli = mxgrid_pallas._planes_forward(f, xt_pl, npad_pl, js, True)
+    xt, _, npad = mxgrid_pallas._pad_and_tile(x, mxgrid_pallas.TILE)
+    afac = mxgrid_pallas._cp_forward(f, xt, npad, js, True)
+    jg = mxgrid_pallas._bwd_impl_t(f, x, (afac, fpl, fli), g.T, js, True)
+    res = tuple(to_torch(r[..., :n], "bfloat16")[None] for r in (fpl, fli))
+    g_view = to_torch(g, "bfloat16")[None][..., js.features:]
+    dp, dl = emulate_planes_bwd_tc(torch.from_numpy(pts), *res, g_view, ts)
+    for name, got, want, tol in (("dplanes", dp[0], jg["planes"][0], 1e-2),
+                                 ("dplines", dl[0], jg["plane_lines"][0], 5e-3)):
+        want = np.asarray(want, np.float32)
+        err = float(np.abs(got.numpy() - want).max() / np.abs(want).max())
+        assert err <= tol, (name, err)
+
+
+@pytest.mark.parametrize("levels", ["flagship", "quality", "two"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k9_features_equal_plane_product(levels, dtype):
+    """K9's plane features (its twin's arithmetic: the product of the two
+    rounded samples in fp32, rounded once) are bit-equal to `plane_product`,
+    the product in the table dtype that the reference forms after its
+    kernel; rows [P, 3 sum(kp)], point-major."""
+    _, spec = plane_level_specs(levels)
+    rng = np.random.default_rng(43)
+    n = 1001
+    pts = torch.from_numpy(flagship_points("uniform", rng, n))
+    t = lambda *s: torch.from_numpy(rng.normal(0, 0.3, s).astype(np.float32)).to(dtype)
+    planes = tuple(t(N_OBJ, 3, ru, rv, kp) for ru, rv, kp in spec.plane_specs)
+    plines = tuple(t(N_OBJ, 3, max(ru, rv), kp) for ru, rv, kp in spec.plane_specs)
+    out, fpl, fli = mxgrid_cuda.planes_forward(pts, planes, plines, spec)  # CPU: the twin
+    assert out.dtype == dtype and out.shape == (N_OBJ, n, spec.plane_out_dims)
+    assert out.is_contiguous()
+    assert torch.equal(out, mxgrid_cuda.plane_product(fpl, fli))
+
+
+def test_k10_takes_the_cotangent_rows_in_place():
+    """K10's wrapper takes the plane block of the full cotangent as a view
+    (unit stride in the channels, one row stride between points) and
+    refuses other strides; the contiguous block passes as before."""
+    o, p, k, kpl = 2, 5, 48, 12
+    g = torch.zeros((o, p, k + kpl), dtype=torch.bfloat16)
+    dev = g.device
+    mxgrid_cuda._check("g", g[..., k:], (o, p, kpl), torch.bfloat16, dev, rows=True)
+    mxgrid_cuda._check("g", g[..., k:].contiguous(), (o, p, kpl), torch.bfloat16, dev, rows=True)
+    with pytest.raises(ValueError, match="strides"):
+        mxgrid_cuda._check("g", g[..., k:].transpose(0, 1).contiguous().transpose(0, 1),
+                           (o, p, kpl), torch.bfloat16, dev, rows=True)
+    with pytest.raises(ValueError, match="contiguous"):
+        mxgrid_cuda._check("g", g[..., k:], (o, p, kpl), torch.bfloat16, dev)

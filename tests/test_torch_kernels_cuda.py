@@ -336,9 +336,11 @@ def test_k9_k10_match_plain(cuda, dtype, tol, n_levels):
     torch.cuda.synchronize()
     assert mxgrid_cuda.planes_forward.launches == n9 + 1
     want = mxgrid_cuda.planes_forward_plain(pts, planes, plines, spec)
-    for name, a, b in zip(("fpl", "fli"), got, want):
+    for name, a, b in zip(("out", "fpl", "fli"), got, want):
         assert a.dtype == dtype and a.shape == b.shape
         assert rel_err(a, b) < tol, name
+    assert torch.equal(got[0], mxgrid_cuda.plane_product(*got[1:]))
+    want = want[1:]
     n10 = mxgrid_cuda.planes_backward.launches
     got = mxgrid_cuda.planes_backward(pts, *want, gpl, spec)
     torch.cuda.synchronize()
@@ -386,9 +388,10 @@ def test_split_encode_matches_plain_encode(cuda, monkeypatch, snap, n_levels):
 
 def preset_spec(name):
     """"flagship": 6 levels to 192 x 48 with the (128, 64, 4) plane level;
-    "fast": CP only, 6 levels to 256 x 64 (the EncodingConfig defaults and
-    its `fast` preset)."""
-    planes = ((128, 64, 4),) if name == "flagship" else ()
+    "fast": CP only, 6 levels to 256 x 64; "quality": 256 x 64 with a
+    (128, 128, 8) plane level (the EncodingConfig defaults and its `fast`
+    and `quality` presets)."""
+    planes = {"flagship": ((128, 64, 4),), "quality": ((128, 128, 8),)}.get(name, ())
     res, k = (192, 48) if name == "flagship" else (256, 64)
     return mxgrid.make_mxspec(n_levels=6, base_resolution=16, max_resolution=res, features=k,
                               plane_specs=planes, plane_axes="balanced", snap_levels=True)
@@ -744,3 +747,144 @@ def test_unsnapped_forward_at_preset_widths(cuda, path, n_obj, n_pts, kind):
         assert rel_err(a, b) < 1e-2
     assert mxgrid_cuda.KERNELS[kf].launches == 1
     assert all(fn.launches == 0 for fn in mxgrid_cuda.PRODUCT_PASSES.values())
+
+
+# --------------------------------------------------------------------------
+# The split path's plane kernels at the presets' plane levels: K9, and K10
+# in each variant, on the plane block of the full cotangent
+# --------------------------------------------------------------------------
+
+
+def plane_level_spec(levels):
+    """The flagship's (128, 64, 4) plane level, `quality`'s (128, 128, 8), or
+    two levels, beside a small CP ladder (K9 and K10 read only the planes)."""
+    plane_specs = {"flagship": ((128, 64, 4),), "quality": ((128, 128, 8),),
+                   "two": ((128, 64, 4), (64, 64, 4))}[levels]
+    return mxgrid.make_mxspec(n_levels=2, base_resolution=4, max_resolution=8, features=8,
+                              plane_specs=plane_specs, plane_axes="balanced", snap_levels=False)
+
+
+def plane_case(spec, n_obj, n_pts, kind, dtype, cuda, seed):
+    """Points, plane tables and the full encode cotangent [O, P, K + 3 sum(kp)]."""
+    g = torch.Generator().manual_seed(seed)
+    pts = preset_points(kind, n_obj, n_pts, g).to(cuda)
+    tables = mxgrid.init_mxgrid(g, spec, n_obj)
+    to = lambda t: t.to(device=cuda, dtype=dtype).contiguous()
+    planes = tuple(map(to, tables["planes"]))
+    plines = tuple(map(to, tables["plane_lines"]))
+    gfull = to(torch.randn((n_obj, n_pts, spec.n_output_dims), generator=g))
+    return pts, planes, plines, gfull
+
+
+# (plane levels, dtype, tolerance, K10 variant): every variant the spec and
+# dtype can name, and the scalar kernel where the tensor cores are chosen
+K10_CASES = [
+    ("flagship", torch.bfloat16, 1e-2, "tensor_core"),
+    ("flagship", torch.bfloat16, 1e-2, "scalar"),
+    ("flagship", torch.float32, 1e-4, "scalar"),
+    ("quality", torch.bfloat16, 1e-2, "tensor_core"),
+    ("quality", torch.bfloat16, 1e-2, "scalar"),
+    ("quality", torch.float32, 1e-4, "scalar"),
+    ("two", torch.bfloat16, 1e-2, "scalar"),
+    ("two", torch.float32, 1e-4, "scalar"),
+]
+
+
+@pytest.mark.parametrize("g_layout", ["view", "contiguous"])
+@pytest.mark.parametrize("n_obj,n_pts,kind", [(1, 63, "uniform"), (2, 4097, "cell"),
+                                              (3, 8192, "uniform"), (2, 8192, "outside")])
+@pytest.mark.parametrize("levels,dtype,tol,variant", K10_CASES)
+def test_k9_k10_plane_levels_match_plain(cuda, monkeypatch, levels, dtype, tol, variant,
+                                         n_obj, n_pts, kind, g_layout):
+    """K9 (vector table loads; its plane features bit-equal to
+    `plane_product` of its own residuals) and K10 in `variant` against their
+    plain twins, 1e-4 (fp32) / 1e-2 (bf16) of each tensor's largest entry.
+    K10 reads the plane block of the full cotangent as a view (the split
+    step's layout: rows of K + 3 sum(kp)) or as a contiguous block; 4097
+    points take the tensor-core kernel's element-wise loader."""
+    spec = plane_level_spec(levels)
+    pts, planes, plines, gfull = plane_case(spec, n_obj, n_pts, kind, dtype, cuda, seed=n_pts)
+    n9 = mxgrid_cuda.planes_forward.launches
+    got = mxgrid_cuda.planes_forward(pts, planes, plines, spec)
+    torch.cuda.synchronize()
+    assert mxgrid_cuda.planes_forward.launches == n9 + 1
+    want = mxgrid_cuda.planes_forward_plain(pts, planes, plines, spec)
+    for name, a, b in zip(("out", "fpl", "fli"), got, want):
+        assert a.dtype == dtype and a.shape == b.shape and torch.isfinite(a.float()).all()
+        assert rel_err(a, b) < tol, name
+    assert torch.equal(got[0], mxgrid_cuda.plane_product(*got[1:]))
+
+    gpl = gfull[..., spec.features:]
+    if g_layout == "contiguous":
+        gpl = gpl.contiguous()
+    monkeypatch.setattr(mxgrid_cuda, "planes_variant", lambda *a, **k: variant)
+    n10 = mxgrid_cuda.planes_backward.launches
+    dgot = mxgrid_cuda.planes_backward(pts, *want[1:], gpl, spec)
+    torch.cuda.synchronize()
+    assert mxgrid_cuda.planes_backward.launches == n10 + 1
+    dwant = mxgrid_cuda.planes_backward_plain(pts, *want[1:], gpl, spec)
+    for name, a, b in zip(("dplanes", "dplines"), dgot, dwant):
+        assert len(a) == len(b) == len(spec.plane_specs)
+        for x, y in zip(a, b):
+            assert x.dtype == torch.float32 and x.shape == y.shape
+            assert rel_err(x, y) < tol, name
+
+
+def test_k10_tensor_core_refuses_other_levels(cuda, monkeypatch):
+    """The tensor-core K10 is instantiated for one level of 128 line rows
+    and 4 or 8 channels, in bf16; named for any other spec or dtype, the
+    launch is refused and the wrapper raises (no fallback)."""
+    monkeypatch.setattr(mxgrid_cuda, "planes_variant", lambda *a, **k: "tensor_core")
+    for levels, dtype in (("two", torch.bfloat16), ("flagship", torch.float32)):
+        spec = plane_level_spec(levels)
+        pts, planes, plines, gfull = plane_case(spec, 1, 256, "uniform", dtype, cuda, seed=1)
+        _, fpl, fli = mxgrid_cuda.planes_forward(pts, planes, plines, spec)
+        with pytest.raises(RuntimeError, match="K10"):
+            mxgrid_cuda.planes_backward(pts, fpl, fli, gfull[..., spec.features:], spec)
+
+
+@pytest.mark.parametrize("preset", ["flagship", "quality"])
+def test_split_encode_takes_k9_features_and_k10_in_place(cuda, monkeypatch, preset):
+    """MX_FUSED=0 at a preset's widths unsnapped, bf16: one step of `encode`
+    and its backward launches K9 once and K10 once (its tensor-core
+    variant), forms no separate `plane_product`, and hands K10 the plane
+    block of the cotangent as a view of the full one (no copy); the result
+    agrees with autograd through the plain encode in fp32 on the same bf16
+    tables within 1e-2 of each tensor's largest entry."""
+    monkeypatch.setenv("MX_FUSED", "0")
+    spec = unsnapped_preset(preset)
+    assert mxgrid_cuda.kernel_path(spec) == "unsnapped_split"
+    assert mxgrid_cuda.planes_variant(spec, torch.bfloat16) == "tensor_core"
+
+    def no_product(*args):
+        raise AssertionError("the split step formed plane_product")
+
+    monkeypatch.setattr(mxgrid_cuda, "plane_product", no_product)
+    seen = []  # the cotangent rows K10's wrapper is handed
+    check, k10 = mxgrid_cuda._check, mxgrid_cuda.planes_backward
+
+    def watch(name, t, *args, rows=False):
+        if rows:
+            seen.append((t.is_contiguous(), t.stride(1)))
+        return check(name, t, *args, rows=rows)
+
+    monkeypatch.setattr(mxgrid_cuda, "_check", watch)
+    g = torch.Generator().manual_seed(15)
+    f = mxgrid.init_mxgrid(g, spec, 2)
+    pts = preset_points("uniform", 2, 4096, g).to(cuda)
+    tgt = torch.randn((2, 4096, spec.n_output_dims), generator=g).to(cuda)
+
+    def run(enc, dtype):
+        leaves = [t.to(cuda).bfloat16().to(dtype).requires_grad_(True)
+                  for t in (f["lines"], f["planes"][0], f["plane_lines"][0])]
+        ff = {"lines": leaves[0], "planes": (leaves[1],), "plane_lines": (leaves[2],)}
+        out = enc(ff, pts, spec)
+        return [out] + list(torch.autograd.grad(torch.sum(out.float() * tgt), leaves))
+
+    n9, n10 = mxgrid_cuda.planes_forward.launches, k10.launches
+    got = run(mxgrid_cuda.encode, torch.bfloat16)
+    assert (mxgrid_cuda.planes_forward.launches, k10.launches) == (n9 + 1, n10 + 1)
+    assert seen == [(False, spec.n_output_dims)]
+    for name, a, b in zip(("out", "dlines", "dplanes", "dplines"), got,
+                          run(mxgrid.encode, torch.float32)):
+        assert rel_err(a, b) < 1e-2, name

@@ -4,8 +4,9 @@ drives the main paths through the port's public entry points: a 10-object
 train wave with held-out renders, the offline runner with the CP-only
 `fast` preset, the offline CLI with the unsnapped ladder, the online
 socket server on the split kernels with a pose-refined test render, pose
-refinement of perturbed views against a converged field, and a hash-grid
-(`tcnn`) train wave.
+refinement of perturbed views against a converged field, a hash-grid
+(`tcnn`) train wave, and the flagship-parity quality gate at its full
+budget (3 seeds x 5000 steps).
 
 Usage: python3 chip_smoke.py     (needs one CUDA device; exits non-zero on
 any failure and prints no result line then)
@@ -74,6 +75,14 @@ Phases, one or more lines each, each closed by its seconds:
  10 tcnn      EncodingConfig.preset("tcnn") (hash grid) on the scene of
                phase 5: 1 + 20 steps of train_objects, obj-iters/s, the
                losses falling, peak memory
+ 11 quality   romap_tpu_torch.tools.quality_gate (scripts/quality_gate.py's
+               gate): the bf16 flagship trained 5000 steps (K1/K2) on
+               build_synthetic_world(1, 24, 192, seed) for seeds 0-2, the
+               held-out middle frame's PSNR on object pixels (K1 fp32); the
+               3-seed mean must be within 0.5 dB of the hash-grid anchors'
+               mean (QUALITY.json): per-seed PSNR beside the JAX flagship's
+               and the anchor's, seconds, K1/K2 launches; the record goes to
+               build/quality_torch.json
 then the total seconds, a JSON line with each kernel's record, and as the
 last line {"ok": true, "device": {...}}.
 """
@@ -101,7 +110,8 @@ import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
-sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, ROOT)
 
 from romap_tpu_torch.config import EncodingConfig, NerfConfig, TrainConfig  # noqa: E402
 from romap_tpu_torch.data import synthetic  # noqa: E402
@@ -112,6 +122,7 @@ from romap_tpu_torch.ops import mxgrid, mxgrid_cuda  # noqa: E402
 from romap_tpu_torch.ops.geometry import camera_rays, ray_aabb_intersect  # noqa: E402
 from romap_tpu_torch.runtime import offline, pose_refine, server  # noqa: E402
 from romap_tpu_torch.runtime.offline import OfflineRunner  # noqa: E402
+from romap_tpu_torch.tools import quality_gate  # noqa: E402
 
 N_OBJECTS, WAVE = 10, 50
 KERNEL_O, KERNEL_P = 2, 4096 * 32
@@ -1178,6 +1189,36 @@ def phase_tcnn(dev) -> float:
     return rate
 
 
+def phase_quality() -> None:
+    """The flagship-parity gate (`romap_tpu_torch.tools.quality_gate`, the
+    port's scripts/quality_gate.py) at its full budget: seeds 0-2, 5000 bf16
+    steps each through K1/K2, the held-out PSNR of each (K1 in fp32), the
+    3-seed mean within 0.5 dB of the hash-grid anchors' mean. The record goes
+    to build/, not into the tree; a failed gate fails the script."""
+    out = os.path.join(ROOT, "build", "quality_torch.json")
+    mxgrid_cuda.reset_launch_counts()
+    rc = quality_gate.main(["--out", out])
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in mxgrid_cuda.KERNELS.items() if fn.launches}
+    by_dtype = {k: dict(mxgrid_cuda.KERNELS[k].launches_by_dtype) for k in launches}
+    with open(out) as f:
+        rec = json.load(f)
+    say("11 quality", seeds=rec["seeds"], iters=rec["iters"],
+        flagship_by_seed=rec["flagship_by_seed"],
+        jax_flagship_by_seed=rec["jax_flagship_by_seed"], anchor_by_seed=rec["anchor_by_seed"],
+        seconds_by_seed=rec["seconds_by_seed"])
+    say("11 quality", flagship_mean_db=rec["flagship_psnr_db"],
+        anchor_mean_db=rec["hashgrid_anchor_db"], gap_db=rec["gap_db"],
+        threshold_db=rec["threshold_db"], passed=rec["pass"], launches=by_dtype,
+        record=os.path.relpath(out, ROOT))
+    if rc != 0 or not rec["pass"]:
+        raise AssertionError(f"quality gate failed (exit {rc}): {rec}")
+    steps, renders = rec["iters"] * len(rec["seeds"]), len(rec["seeds"])
+    if by_dtype != {"K1": {"bfloat16": steps, "float32": renders}, "K2": {"bfloat16": steps}}:
+        raise AssertionError(f"quality gate: launches {by_dtype} (want K1/K2 once a bf16 "
+                             f"step, K1 once a fp32 render)")
+
+
 def timed(label: str, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -1208,6 +1249,8 @@ def main() -> None:
         timed("9b refine", phase_refine, dev)
         torch.cuda.empty_cache()
         timed("10 tcnn", phase_tcnn, dev)
+        torch.cuda.empty_cache()
+        timed("11 quality", phase_quality)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     say("total", seconds=f"{time.perf_counter() - t_start:.3f}")

@@ -24,7 +24,8 @@ UpdateNeRFBbox, a mesh every `mesh_every_waves` waves, one final wave and
 mesh at WaitThreadsEnd; and romap_tpu's additions: slot and bbox-table
 growth, `update_nerf_volume` (reinit and re-credit from the lifetime
 budget `_waves_earned`), the shutdown `final_retrain`, `final_waves`, and a
-state snapshot when ROMAP_SAVE_STATE names a file.
+state snapshot when ROMAP_SAVE_STATE names a file (with the random stream's
+state, `extra["generator"]`, as the reference's holds its keys).
 
 Not ported (ROADMAP M11): the device mesh and sharding, the ahead-of-time
 compiles (PyTorch runs eagerly, there is no jit to warm), and joint
@@ -59,7 +60,7 @@ from romap_tpu_torch.config import NerfConfig, load_network_config
 from romap_tpu_torch.data.frame_store import FrameStore
 from romap_tpu_torch.models import nerf
 from romap_tpu_torch.runtime import artifacts, pose_refine
-from romap_tpu_torch.utils.checkpoint import save_checkpoint
+from romap_tpu_torch.utils.checkpoint import generator_state, save_checkpoint
 from romap_tpu_torch.utils.device import resolve_device
 
 MIN_BBOXES_TO_TRAIN = 10  # ref nerf.cu:222
@@ -415,7 +416,8 @@ class NerfManagerOnline:
                     "objs": {k: np.asarray(o[k]).tolist()
                              for k in ("aabb_min", "aabb_max", "instance_id", "n_bbox")},
                     "tow": np.asarray(o["tow"]).tolist(),
-                    "n_objects": self._n_objects})
+                    "n_objects": self._n_objects,
+                    "generator": generator_state(self._gen)})
             print(f"state checkpoint saved to {ckpt}", flush=True)
         print("All NeRF slots completed ...")
 

@@ -5,7 +5,10 @@ The whole TrainState (params, EMA, optimizer moments, step counters, loss)
 plus an optional object table is written with `torch.save` to one file, as
 nested dicts and lists of CPU tensors (so `torch.load(weights_only=True)`
 reads it back); metadata that is not an array goes to the same JSON sidecar
-as the reference's, `<path>.meta.json`.
+as the reference's, `<path>.meta.json`. The reference keeps each object's
+PRNG key in its state; the port draws from one `torch.Generator`, whose
+state a caller puts into the sidecar (`generator_state`) and reads back
+with `restore_generator`.
 """
 
 from __future__ import annotations
@@ -80,3 +83,16 @@ def restore_train_state(raw_state: dict, template):
 def restore_objects(raw_objects: dict, device="cpu") -> ObjectsState:
     """An ObjectsState from a loaded checkpoint's "objects", on `device`."""
     return ObjectsState(**{k: raw_objects[k].to(device) for k in ObjectsState._fields})
+
+
+def generator_state(generator: torch.Generator) -> list[int]:
+    """The generator's state as a list of byte values (JSON-serialisable)."""
+    return generator.get_state().tolist()
+
+
+def restore_generator(saved: list[int], device="cpu") -> torch.Generator:
+    """A generator on `device` that continues the stream `generator_state`
+    saved."""
+    gen = torch.Generator(device=device)
+    gen.set_state(torch.tensor(saved, dtype=torch.uint8))
+    return gen

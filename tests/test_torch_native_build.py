@@ -1,6 +1,6 @@
 """Build `native/build` once, before any test runs, for every test file that
 starts a native binary (`tests/test_native_shim.py`, `tests/test_slam_objects.py`,
-`tests/test_torch_online.py`).
+`tests/test_torch_online.py`, `tests/test_torch_mono_tum.py`).
 
 Those files each build the tree when `manager_smoke` is missing and take
 that one binary as the sign that the build is done. Under pytest-xdist
@@ -12,8 +12,8 @@ every worker imports every test module while it collects. So the build is
 done here, while this module is imported, under an `fcntl.flock` on
 `native/build.lock`: the first worker builds, the others wait on the lock
 and find every binary there. `tests/test_torch_online.py` imports this
-module, so the build also runs where only that file is collected with the
-two reference files. A failed build does not raise at import (that would
+module, as does `tests/test_torch_mono_tum.py`, so the build also runs where
+only one of them is collected with the two reference files. A failed build does not raise at import (that would
 drop every test of the importing module): the error is kept, and
 `test_native_build` fails with it.
 """
@@ -32,9 +32,10 @@ NATIVE = os.path.join(REPO, "native")
 BUILD = os.path.join(NATIVE, "build")
 LOCK = os.path.join(NATIVE, "build.lock")
 # every executable a test starts: manager_smoke (test_native_shim.py,
-# test_torch_online.py), the SLAM tests (test_slam_objects.py), bow_test
+# test_torch_online.py), the SLAM tests (test_slam_objects.py), bow_test,
+# mono_tum (test_torch_mono_tum.py)
 BINARIES = ("manager_smoke", "object_layer_test", "geometry_test", "tracking_test",
-            "bow_test", "loop_test")
+            "bow_test", "loop_test", "mono_tum")
 
 
 def missing_binaries() -> list[str]:

@@ -253,6 +253,29 @@ def test_checkpoint_round_trips_exactly(tmp_path):
         checkpoint.load_checkpoint(str(tmp_path / "missing.pt"))
 
 
+def test_session_checkpoint_continues_the_random_stream(tmp_path, monkeypatch):
+    """The ROMAP_SAVE_STATE checkpoint holds the manager's generator state
+    (the reference's holds each object's key): a generator restored from it
+    draws the same next uniforms as the manager's own, and the session has
+    moved the stream away from a fresh generator's."""
+    _, tc = configs()
+    path = str(tmp_path / "session.pt")
+    monkeypatch.setenv("ROMAP_SAVE_STATE", path)
+    mgr = TManager(tc, train_step_iterations=ITERS, capacity=CAP, device="cpu")
+    replay(make_trace(), mgr)
+    raw = checkpoint.load_checkpoint(path)
+    restored = checkpoint.restore_generator(raw["extra"]["generator"], "cpu")
+    want = tnerf.draw_uniforms(mgr._gen, mgr.capacity, tc)
+    got = tnerf.draw_uniforms(restored, mgr.capacity, tc)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    fresh = tnerf.draw_uniforms(torch.Generator().manual_seed(tc.seed), mgr.capacity, tc)
+    assert not torch.equal(fresh[0], want[0])
+    back = checkpoint.restore_train_state(raw["state"], mgr.state)
+    for a, b in zip(pytree.tree_leaves(back), pytree.tree_leaves(mgr.state)):
+        assert torch.equal(a, b)
+
+
 # --------------------------------------------------------------------------
 # The socket server
 # --------------------------------------------------------------------------

@@ -2,9 +2,14 @@
 (`config`, `data.synthetic`, `data.formats`, `utils.camera`) and of the numpy
 function `runtime.pose_refine.build_refine_batch` behave as the originals:
 equal configs, bit-equal scenes, datasets that each side's reader reads
-back from either side's writer, equal camera math and equal pixel batches."""
+back from either side's writer, equal camera math and equal pixel batches.
+The dataset writers of `data.world` and every function of
+`utils.eval_psnr` are the reference's source with only the imports changed
+(`romap_tpu.` -> `romap_tpu_torch.`); tests/test_torch_world.py holds the
+writers' output byte for byte."""
 
 import dataclasses
+import inspect
 import json
 import os
 
@@ -14,13 +19,17 @@ import pytest
 from romap_tpu import config as jcfg
 from romap_tpu.data import formats as jformats
 from romap_tpu.data import synthetic as jsyn
+from romap_tpu.data import world as jworld
 from romap_tpu.runtime import pose_refine as jpr
 from romap_tpu.utils import camera as jcam
+from romap_tpu.utils import eval_psnr as jeval
 from romap_tpu_torch import config as tcfg
 from romap_tpu_torch.data import formats as tformats
 from romap_tpu_torch.data import synthetic as tsyn
+from romap_tpu_torch.data import world as tworld
 from romap_tpu_torch.runtime import pose_refine as tpr
 from romap_tpu_torch.utils import camera as tcam
+from romap_tpu_torch.utils import eval_psnr as teval
 
 REFERENCE_JSON = {  # the schema of the reference's Core/configs/base.json
     "loss": {"otype": "Huber"},
@@ -146,3 +155,38 @@ def test_build_refine_batch_equals_jax(case):
     for k in want:
         assert got[k].dtype == want[k].dtype
         np.testing.assert_array_equal(got[k], want[k])
+
+
+WORLD_WRITERS = ("_shift_mask", "degrade_frames", "_write_gt_sidecar", "write_adversarial_dataset",
+                 "rewrite_gt_sidecar", "_adversarial_objects", "write_room_dataset")
+
+
+def functions_of(module) -> list[str]:
+    return sorted(n for n, f in vars(module).items()
+                  if inspect.isfunction(f) and f.__module__ == module.__name__)
+
+
+def as_port_source(fn) -> str:
+    """The reference function's source with its imports moved to the port."""
+    return inspect.getsource(fn).replace("romap_tpu.", "romap_tpu_torch.")
+
+
+@pytest.mark.parametrize("name", WORLD_WRITERS)
+def test_world_writer_is_the_reference_source(name):
+    assert inspect.getsource(getattr(tworld, name)) == as_port_source(getattr(jworld, name))
+
+
+def test_world_module_holds_every_reference_function():
+    assert tworld.ADVERSARIAL_SCENES == jworld.ADVERSARIAL_SCENES
+    assert functions_of(tworld) == functions_of(jworld)
+    assert set(WORLD_WRITERS) | {"build_synthetic_world"} == set(functions_of(jworld))
+
+
+@pytest.mark.parametrize("name", functions_of(jeval))
+def test_eval_psnr_function_is_the_reference_source(name):
+    assert inspect.getsource(getattr(teval, name)) == as_port_source(getattr(jeval, name))
+
+
+def test_eval_psnr_module_holds_every_reference_function():
+    assert functions_of(teval) == functions_of(jeval)
+    assert "romap_tpu_torch.utils.mesh_io" in inspect.getsource(teval._mesh_metrics)

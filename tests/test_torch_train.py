@@ -216,8 +216,9 @@ def test_inactive_slot_and_empty_batch_keep_state(worlds):
 
 
 def test_port_runs_without_jax():
-    """A train wave and the online manager run in a process that has
-    imported neither jax nor any module of romap_tpu."""
+    """A train wave, the online manager, a dataset writer and the evaluator
+    run (and the quality gate imports) in a process that has imported
+    neither jax nor any module of romap_tpu."""
     code = (
         "import sys, torch\n"
         "torch.set_num_threads(2)\n"
@@ -244,6 +245,12 @@ def test_port_runs_without_jax():
         " objs.aabb_min[0].numpy() / 1.1, objs.aabb_max[0].numpy() / 1.1)\n"
         "m.update_nerf_bbox(idx, [(i % 3, 0, 0, 32, 32) for i in range(11)], 1)\n"
         "assert m.pump() == 1 and m.state.step.tolist() == [2, 0]\n"
+        "import tempfile, romap_tpu_torch.tools.quality_gate\n"
+        "from romap_tpu_torch.data import world\n"
+        "from romap_tpu_torch.utils import eval_psnr\n"
+        "with tempfile.TemporaryDirectory() as d:\n"
+        "    world.write_room_dataset(d + '/ds', n_frames=2, res=32)\n"
+        "    assert eval_psnr.evaluate_tree(d, d + '/ds') == {'objects': {}, 'aggregate': {}}\n"
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith(('jax.', 'romap_tpu.'))"
         " or k == 'romap_tpu']\n"
         "assert not bad, bad\n"

@@ -31,16 +31,19 @@ Phases, one or more lines each, each closed by its seconds:
                flagship and `fast` bf16 backwards, folded and unsnapped,
                and K10 at the flagship and `quality` plane levels must take
                the tensor cores; the bf16 unsnapped forwards the
-               three-axis kernel, the fp32 ones the per-axis one); K3/K4,
+               three-axis kernel, the fp32 ones channel_split); K3/K4,
                K7/K8 and K9/K10 also in fp32 at O=10, K9 and K10 beside
                their library yardstick (F.grid_sample's plane and line
                calls, and their backward); then K3 and
-               K7 in bf16 at O=10 in the per-axis design with its product
-               pass (forced) and in the selected variant, in turns, and
-               each product pass alone; then K0 (the points gradient) at one
-               view's refinement points (1 x 4 x 1536 x 32) on the folded and
-               split paths, bf16 and fp32, against its plain twin and (fp32)
-               autograd over the points through the plain encode
+               K7 in the per-axis design with its product pass (forced) and
+               in the selected variant, in turns: bf16 at O=10 (and each
+               product pass alone), fp32 (channel_split, held against the
+               plain twin) at O=10, O=2 and one view's refinement points;
+               then K0 (the points gradient) at one view's refinement points
+               (1 x 4 x 1536 x 32) on the folded and split paths, bf16 and
+               fp32, against its plain twin and (fp32) autograd over the
+               points through the plain encode, lanes_over_channels and the
+               first design (per_point, forced) timed in turns
   4 parity     one tiny train step, fp32, kernels on the card vs the plain
                path on the CPU, from the same state and uniforms
   5 train      build_synthetic_world(10, 16, 128) + NerfConfig(): init, 1
@@ -55,7 +58,8 @@ Phases, one or more lines each, each closed by its seconds:
                losses, obj-iters/s, mesh sizes, test_img PSNR, K5/K6 counts
   8 unsnapped  `romap_tpu_torch.runtime.offline.main` with MX_SNAP=0 on that
                dataset, flagship, 1 wave x 20 steps, no video: K3 (bf16 in
-               training, fp32 in render and mesh) and K4 counts
+               training, fp32 in render and mesh) and K4 counts; no product
+               pass (fp32 K3 is channel_split)
   9 online     `romap_tpu_torch.runtime.server.main` on a thread with
                MX_FUSED=0 MX_SNAP=0 (flagship width: K7 + K9 forward, K8 +
                K10 backward) and a client speaking its wire protocol: the
@@ -65,7 +69,7 @@ Phases, one or more lines each, each closed by its seconds:
                with pixel crops (the reply, and the `pose refine` line the
                server prints; the refinement runs K7 + K9 forward and K0):
                waves, wave seconds, online obj-iters/s, K0 and K7-K10
-               counts, product passes (none in bf16)
+               counts, product passes (none: fp32 K7 is channel_split)
  9b refine    pose refinement against a converged field: one object trained
                400 steps at the flagship width (as the reference's
                tests/test_pose_refine.py), two views moved by a known SE(3)
@@ -259,15 +263,14 @@ FUSED = ("K1", "K3")  # forward kernels that also take the plane level
 PRODUCTS = ("K1", "K3", "K9")  # ... and those that write the plane features
 
 
-def kernel_inputs(spec, dtype, dev, seed, kf, o):
+def kernel_inputs(spec, dtype, dev, seed, kf, o, p=KERNEL_P):
     """Points (edges included), the forward kernel `kf`'s table arguments in
     `dtype` (folded W_eff or raw ladder lines, then for K1/K3 the planes and
     plane lines; for K9 the tuples of planes and of plane lines) and a
-    cotangent of its encode block, at `o` objects x P=131072 (for K9 the
+    cotangent of its encode block, at `o` objects x `p` points (for K9 the
     plane block of a full encode cotangent, as a view: K10 reads it so on
     the split step)."""
     g = torch.Generator(device="cpu").manual_seed(seed)
-    p = KERNEL_P
     pts = torch.rand((o, p, 3), generator=g) * (1 + 4e-3) - 2e-3  # edges included
     tables = mxgrid.init_mxgrid(g, spec, o)
     if kf == "K9":
@@ -313,9 +316,9 @@ def work(kernel, spec, dtype, o, p):
     return nbytes, ops * n
 
 
-def bound(kernel, spec, dtype, o):
+def bound(kernel, spec, dtype, o, p=KERNEL_P):
     """(least ms the card could take for the call, "bytes" or "operations")."""
-    nbytes, ops = work(kernel, spec, dtype, o, KERNEL_P)
+    nbytes, ops = work(kernel, spec, dtype, o, p)
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_FP32_PER_S
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
@@ -389,7 +392,7 @@ def phase_kernels(specs: dict, dev) -> dict:
                    for path in ("unsnapped_split", "quality_split")})
     if set(chosen.values()) != {"tensor_core"}:
         raise AssertionError(f"bf16 backward variants: {chosen}")
-    records = {}
+    records, fp32 = {}, {}
     for path, kf, kb, o, dtypes in CHECKS:
         spec = specs[path]
         fwd, bwd = mxgrid_cuda.KERNELS[kf], mxgrid_cuda.KERNELS[kb]
@@ -400,10 +403,10 @@ def phase_kernels(specs: dict, dev) -> dict:
         for dtype in dtypes:
             tol, dname = REL_TOL[dtype], str(dtype).split(".")[1]
             f_var, b_var = variants(kf, spec, dtype)
-            if kf in ("K3", "K7"):  # the new design where its tables fit, else per_axis
-                want_var = "per_axis" if dtype == torch.float32 else "three_axis_staged"
+            if kf in ("K3", "K7"):  # three axes a block where they fit, else channel slices
+                want_var = "channel_split" if dtype == torch.float32 else "three_axis_staged"
                 if path == "unsnapped_cp":
-                    want_var = "per_axis" if dtype == torch.float32 else "three_axis_direct"
+                    want_var = "channel_split" if dtype == torch.float32 else "three_axis_direct"
                 if f_var["variant"] != want_var:
                     raise AssertionError(f"{kf} {path} {dtype}: variant {f_var}")
             torch.cuda.reset_peak_memory_stats()
@@ -461,6 +464,8 @@ def phase_kernels(specs: dict, dev) -> dict:
                     fwd_max_rel_err_vs_plain=f"{lib_rel:.3e}",
                     kernel_ms=f"{f_ms:.4f} / {b_ms:.4f}")
                 del lib_out
+            if kf in ("K3", "K7") and dtype == torch.float32 and o == N_OBJECTS:
+                fp32[kf] = dict(fp32_variant=f_var["variant"], fp32_ms=f_ms)
             if dtype == torch.bfloat16:
                 # no single PyTorch call computes the CP functions (a K-channel
                 # two-tap lerp per axis times a product, and its scatter
@@ -473,51 +478,83 @@ def phase_kernels(specs: dict, dev) -> dict:
                                    bound_by=b_by, library_ms=lib_b_ms)
             del got, got_b, want_ad, res, leaves, args, gout, pts
             torch.cuda.empty_cache()
+    for kf, extra in fp32.items():  # the fp32 design beside the bf16 record
+        records[kf].update(extra)
     return records
 
 
 @contextlib.contextmanager
-def forced_unsnapped_forward(variant: str):
-    """Run K3/K7 in `variant` instead of the one the spec and dtype select."""
-    chosen = mxgrid_cuda.unsnapped_forward_variant
-    mxgrid_cuda.unsnapped_forward_variant = lambda *a, **k: variant
+def forced(selector: str, variant: str):
+    """Run the kernels that `mxgrid_cuda.<selector>` picks a variant for
+    (`unsnapped_forward_variant`: K3/K7; `points_variant`: K0) in `variant`
+    instead of the one the spec and dtype select."""
+    chosen = getattr(mxgrid_cuda, selector)
+    setattr(mxgrid_cuda, selector, lambda *a, **k: variant)
     try:
         yield
     finally:
-        mxgrid_cuda.unsnapped_forward_variant = chosen
-
-
-def time_unsnapped_forwards(specs: dict, dev) -> None:
-    """K3 (flagship unsnapped) and K7 (the split path's ladder) in bf16 at
-    O=10 x 131072: the per-axis design with its product pass (forced)
-    and the variant the spec selects, in turns (per_axis, new, new,
-    per_axis), then each product pass alone: `cp_product_pass` (K3's second
-    kernel) and `cp_product` (the PyTorch product after K7)."""
-    for path, kf in (("unsnapped", "K3"), ("unsnapped_split", "K7")):
-        spec = specs[path]
-        fwd = mxgrid_cuda.KERNELS[kf]
-        pts, args, _ = kernel_inputs(spec, torch.bfloat16, dev, seed=3, kf=kf, o=N_OBJECTS)
-        new = mxgrid_cuda.unsnapped_forward_variant(spec, torch.bfloat16, planes=kf == "K3")
-        times = {"per_axis": [], new: []}
-        for variant in ("per_axis", new, new, "per_axis"):
-            with forced_unsnapped_forward(variant):
-                times[variant].append(median_ms(lambda: fwd(pts, *args, spec)))
-        out, afac = fwd(pts, *args, spec)[:2]
-        if kf == "K3":
-            pass_ms = median_ms(lambda: mxgrid_cuda.cp_product_pass(afac, out))
-            pass_name = "cp_product_pass"
-        else:
-            pass_ms = median_ms(lambda: mxgrid_cuda.cp_product(afac))
-            pass_name = "cp_product"
-        say("3 kernels", kernel=kf, spec=path, shape=f"{N_OBJECTS}x{KERNEL_P}", dtype="bfloat16",
-            per_axis_with_pass_ms=[f"{t:.4f}" for t in times["per_axis"]],
-            **{f"{new}_ms": [f"{t:.4f}" for t in times[new]]},
-            **{f"{pass_name}_alone_ms": f"{pass_ms:.4f}"})
-        del pts, args, out, afac
-        torch.cuda.empty_cache()
+        setattr(mxgrid_cuda, selector, chosen)
 
 
 REFINE_P = (pose_refine.N_STARTS * pose_refine.N_PIXELS * pose_refine.N_SAMPLES)
+# (objects, points) of the unsnapped forwards' timings in turns: the train
+# step's, chip_smoke's kernel checks', and one view's refinement points
+FORWARD_SHAPES = ((N_OBJECTS, KERNEL_P), (KERNEL_O, KERNEL_P), (1, REFINE_P))
+
+
+def time_unsnapped_forwards(specs: dict, dev) -> None:
+    """K3 (flagship unsnapped) and K7 (the split path's ladder): in bf16 at
+    O=10 x 131072, the per-axis design with its product pass (forced) and
+    the variant the spec selects, in turns (per_axis, new, new, per_axis),
+    then each product pass alone: `cp_product_pass` (K3's second kernel)
+    and `cp_product` (the PyTorch product after K7); in fp32 at
+    FORWARD_SHAPES, the per-axis design with its pass against
+    channel_split, in turns, the selected variant first held against the
+    plain twin there (fp32 tolerance)."""
+    for path, kf in (("unsnapped", "K3"), ("unsnapped_split", "K7")):
+        spec = specs[path]
+        fwd = mxgrid_cuda.KERNELS[kf]
+        for dtype, shapes in ((torch.bfloat16, FORWARD_SHAPES[:1]), (torch.float32, FORWARD_SHAPES)):
+            dname = str(dtype).split(".")[1]
+            new = mxgrid_cuda.unsnapped_forward_variant(spec, dtype, planes=kf == "K3")
+            want = "three_axis_staged" if dtype == torch.bfloat16 else "channel_split"
+            if new != want:
+                raise AssertionError(f"{kf} {path} {dname}: variant {new}, want {want}")
+            for o, p in shapes:
+                pts, args, _ = kernel_inputs(spec, dtype, dev, seed=3, kf=kf, o=o, p=p)
+                extra = {}
+                if dtype == torch.float32:
+                    mxgrid_cuda.reset_launch_counts()
+                    got = fwd(pts, *args, spec)
+                    passes = sum(fn.launches for fn in mxgrid_cuda.PRODUCT_PASSES.values())
+                    plain = getattr(mxgrid_cuda, fwd.__name__ + "_plain")
+                    _, rel = errors(got, plain(pts, *args, spec))
+                    extra = dict(max_rel_err=f"{rel:.3e}", rel_tol=REL_TOL[dtype])
+                    if not rel <= REL_TOL[dtype] or passes:
+                        raise AssertionError(f"{kf} fp32 {o}x{p}: error {rel}, passes {passes}")
+                    del got
+                times = {"per_axis": [], new: []}
+                for variant in ("per_axis", new, new, "per_axis"):
+                    with forced("unsnapped_forward_variant", variant):
+                        times[variant].append(median_ms(lambda: fwd(pts, *args, spec)))
+                if dtype == torch.bfloat16:
+                    out, afac = fwd(pts, *args, spec)[:2]
+                    if kf == "K3":
+                        pass_ms = median_ms(lambda: mxgrid_cuda.cp_product_pass(afac, out))
+                        extra["cp_product_pass_alone_ms"] = f"{pass_ms:.4f}"
+                    else:
+                        pass_ms = median_ms(lambda: mxgrid_cuda.cp_product(afac))
+                        extra["cp_product_alone_ms"] = f"{pass_ms:.4f}"
+                    del out, afac
+                b_ms, b_by = bound(kf, spec, dtype, o, p)
+                say("3 kernels", kernel=kf, spec=path, shape=f"{o}x{p}", dtype=dname,
+                    per_axis_with_pass_ms=[f"{t:.4f}" for t in times["per_axis"]],
+                    **{f"{new}_ms": [f"{t:.4f}" for t in times[new]]},
+                    bound_ms=f"{b_ms:.4f}", bound_by=b_by, **extra)
+                del pts, args
+                torch.cuda.empty_cache()
+
+
 # (spec of kernel_specs(), dtypes) of K0's checks: the crop RENDER_TEST's
 # refinement (split unsnapped, phase 9) and the perturbed views' (flagship
 # folded, phase 9b), one object x one view's points a step, fp32 as
@@ -582,21 +619,31 @@ def check_points_gradient(specs: dict, dev) -> dict:
                     extra = dict(max_rel_err_vs_autograd=f"{ad_rel:.3e}",
                                  points_on_a_knot=int((~off).sum()))
                     rel_err, abs_err = max(rel_err, ad_rel), max(abs_err, ad_abs)
-                ms = median_ms(lambda: mxgrid_cuda.points_gradient(*args))
+                variant = mxgrid_cuda.points_variant(spec, dtype)
+                if variant != "lanes_over_channels":
+                    raise AssertionError(f"K0 {path} {dname}: variant {variant}")
+                times = {"per_point": [], variant: []}  # in turns, the first design forced
+                for v in ("per_point", variant, variant, "per_point"):
+                    with forced("points_variant", v):
+                        times[v].append(median_ms(lambda: mxgrid_cuda.points_gradient(*args)))
+                ms, old_ms = min(times[variant]), min(times["per_point"])
                 plain_ms = median_ms(lambda: mxgrid_cuda.points_gradient_plain(*args), 3)
             nbytes, ops = points_work(spec, dtype, 1, REFINE_P)
             t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_FP32_PER_S
             bound_ms, bound_by = 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                                               else "operations")
             say("3 kernels", kernel="K0", spec=path, shape=f"1x{REFINE_P}", dtype=dname,
-                max_abs_err=f"{abs_err:.3e}", max_rel_err=f"{rel_err:.3e}", rel_tol=tol, **extra,
-                ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound_ms:.4f}",
-                bound_by=bound_by)
+                variant=variant, max_abs_err=f"{abs_err:.3e}", max_rel_err=f"{rel_err:.3e}",
+                rel_tol=tol, **extra, ms=f"{ms:.4f}",
+                **{f"{variant}_ms": [f"{t:.4f}" for t in times[variant]],
+                   "per_point_ms": [f"{t:.4f}" for t in times["per_point"]]},
+                plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound_ms:.4f}", bound_by=bound_by)
             if not rel_err <= tol or not torch.isfinite(got).all():
                 raise AssertionError(f"K0 {path} {dtype}: relative error {rel_err} above {tol}")
             if path == "unsnapped_split" and dtype == torch.float32:
-                record = dict(variant=None, max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
-                              bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+                record = dict(variant=variant, max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                              bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                              per_point_ms=old_ms)
             del got, want, args, afac, fpl, fli, pts, f, gout
             torch.cuda.empty_cache()
     return record
@@ -866,13 +913,18 @@ def phase_unsnapped_cli(dev, root: str) -> dict:
         raise AssertionError(f"unsnapped CLI run: launches {k3} {launches} {others}")
     if any(n.get("bfloat16", 0) for n in passes.values()):
         raise AssertionError(f"unsnapped CLI run: a bf16 product pass ran: {passes}")
+    if (mxgrid_cuda.unsnapped_forward_variant(runner.spec, torch.float32) == "channel_split"
+            and any(passes.values())):
+        raise AssertionError(f"unsnapped CLI run: a product pass ran where fp32 K3 takes "
+                             f"channel_split: {passes}")
     return launches
 
 
 def product_passes() -> dict:
     """Launches of the product passes by dtype since the last reset: K3's
     per-axis variant launches `cp_product_pass`, K7's calls `cp_product`;
-    the three-axis variants (every bf16 path) launch neither."""
+    the three-axis variants (every bf16 path) and channel_split (fp32 at
+    the shipped ladders) launch neither."""
     return {k: dict(fn.launches_by_dtype) for k, fn in mxgrid_cuda.PRODUCT_PASSES.items()}
 
 
@@ -1071,6 +1123,10 @@ def phase_online(root: str) -> dict:
         raise AssertionError(f"online run: launches {by_dtype}, other kernels {others}")
     if any(n.get("bfloat16", 0) for n in passes.values()):
         raise AssertionError(f"online run: a bf16 product pass ran: {passes}")
+    if (mxgrid_cuda.unsnapped_forward_variant(mgr.spec, torch.float32, planes=False)
+            == "channel_split" and any(passes.values())):
+        raise AssertionError(f"online run: a product pass ran where fp32 K7 takes "
+                             f"channel_split: {passes}")
     if len(refine_lines) != 1:
         raise AssertionError(f"online run: pose refinement printed {refine_lines}")
     return launches

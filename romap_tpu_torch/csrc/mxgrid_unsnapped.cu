@@ -37,10 +37,16 @@
 // blocks split the flattened (object, point) range evenly, one block an SM,
 // so that every SM of the card works in one wave.
 //
-// Forward, one axis a block (`unsnapped_fwd`, "per_axis"; fp32 at the
-// flagship and `fast` ladders, where the three fp32 axes take 273,420 B and
-// 452,400 B, above a block's 232,448). Block (o, d) stages W_d alone
-// (91,140 B fp32), writes the factors A_d and plane pair d; K3 then
+// Forward, three axes a block in channel slices (`unsnapped_fwd3` with
+// kSplit, "channel_split"; fp32 at the flagship and `fast` ladders, where
+// the three fp32 axes take 273,420 B and 452,400 B, above a block's
+// 232,448): a block holds kc channels of all three axes (flagship: 24,
+// 139,500 B; `fast`: 16, 118,320 B), so the product is formed in registers
+// as above and no second pass reads the factors back.
+//
+// Forward, one axis a block (`unsnapped_fwd`, "per_axis"; where no channel
+// slice fits, and a ladder level of one knot). Block (o, d) stages W_d
+// alone (91,140 B fp32), writes the factors A_d and plane pair d; K3 then
 // launches `cp_product`, which reads the factors back and forms out[:K] in
 // fp32, rounded once; K7's caller forms the product in the table dtype.
 //
@@ -208,6 +214,19 @@ __global__ void __launch_bounds__(kThreads) cp_product(
 // multiple of 32): every SM works, and no block is left for a second wave.
 // kLv is the ladder's level count where it is 6 (the shipped presets),
 // else kMaxLevels with a guard.
+//
+// With kSplit ("channel_split": fp32 at the flagship and `fast` ladders,
+// whose three axes do not fit a block) the channels are cut into K / kc
+// slices of kc, one slice a block row (blockIdx.y): the block stages
+// columns [c0, c0 + kc) of the three axes' rows (fp32 flagship, kc = 24:
+// 3 x 465 x 25 x 4 = 139,500 B, and 49,152 B of staged rows), forms their
+// factors and their product in registers (the product is per channel, so
+// the slices are exact), and stores each warp's 32 rows of kc channels as
+// 16-byte vectors, row by row. Plane pair i goes to slice i % (K / kc),
+// which writes its features into the output row directly. Every slice
+// computes the point's taps again: (K / kc - 1) x 3 x L tent evaluations
+// more a point, in place of the per-axis design's second launch, which
+// read 3 K factors back and wrote the product.
 constexpr int kFwd3Threads = 512;
 
 // The two taps of one level as the rows j, j + 1 and their weights: the
@@ -236,25 +255,27 @@ __device__ __forceinline__ Pair tap_pair(float x, int r, int row0, int ks) {
   return q;
 }
 
-template <typename T, bool kPlanes, bool kStage, int kLv>
+template <typename T, bool kPlanes, bool kStage, int kLv, bool kSplit = false>
 __global__ void __launch_bounds__(kFwd3Threads, 1) unsnapped_fwd3(
     const float* __restrict__ pts, const T* __restrict__ lines,
     const T* __restrict__ planes, const T* __restrict__ plines,
     T* __restrict__ out, T* __restrict__ afac, T* __restrict__ fpl,
     T* __restrict__ fli, Ladder lad, int O, int P, int K, int total_res, int ru,
-    int rv, int kp, int rw, int axes, int span) {
+    int rv, int kp, int rw, int axes, int span, int kc) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* w_s = reinterpret_cast<T*>(smem_raw);  // W [3 * total_res, ks]
-  const int ks = odd_word_stride(K, sizeof(T));
+  T* w_s = reinterpret_cast<T*>(smem_raw);  // W [3 * total_res, ks], columns [c0, c0 + kc)
+  const int c0 = kSplit ? (int)blockIdx.y * kc : 0;  // kc == K without kSplit
+  const int ks = odd_word_stride(kc, sizeof(T));
   const int kpl = 3 * kp;
   const int kout = K + kpl;
+  const int rs = kSplit ? kc : kout;  // length of a staged row
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int n_warps = blockDim.x >> 5;
-  // this warp's 32 staged output rows [32, kout]
+  // this warp's 32 staged output rows [32, rs]
   T* st = reinterpret_cast<T*>(smem_raw + align16((size_t)3 * total_res * ks * sizeof(T))) +
-          (size_t)warp * 32 * kout;
+          (size_t)warp * 32 * rs;
   // four channels a step where the rows keep a vector store aligned
-  const int k_vec = (K % 4 == 0 && kout % 4 == 0) ? K : 0;
+  const int k_vec = (kc % 4 == 0 && (kStage ? rs : kout) % 4 == 0) ? kc : 0;
   const int n_rows = 3 * total_res;
   const long long n_all = (long long)O * P;
   const long long q_stop = (long long)(blockIdx.x + 1) * span;
@@ -265,19 +286,20 @@ __global__ void __launch_bounds__(kFwd3Threads, 1) unsnapped_fwd3(
     const long long o_end = (long long)(o + 1) * P;
     const long long s1 = q_end < o_end ? q_end : o_end;
     __syncthreads();  // the previous object's table is no longer read
-    const T* w_g = lines + (size_t)o * n_rows * K;
-    if ((K * sizeof(T)) % 4 == 0) {  // 4-byte words, a row a warp
-      const int kw = K * sizeof(T) / 4, ksw = ks * sizeof(T) / 4;
+    const T* w_g = lines + (size_t)o * n_rows * K + c0;
+    if ((K * sizeof(T)) % 4 == 0 && (kc * sizeof(T)) % 4 == 0 && (c0 * sizeof(T)) % 4 == 0) {
+      // 4-byte words, a row a warp
+      const int kw = kc * sizeof(T) / 4, gw = K * sizeof(T) / 4, ksw = ks * sizeof(T) / 4;
       const uint32_t* src = reinterpret_cast<const uint32_t*>(w_g);
       uint32_t* dst = reinterpret_cast<uint32_t*>(w_s);
       for (int r = warp; r < n_rows; r += n_warps)
-        for (int c = lane; c < kw; c += 32) dst[r * ksw + c] = src[r * kw + c];
+        for (int c = lane; c < kw; c += 32) dst[r * ksw + c] = src[r * gw + c];
     } else {
-      for (int j = threadIdx.x; j < n_rows * K; j += blockDim.x)
-        w_s[(j / K) * ks + j % K] = w_g[j];
+      for (int j = threadIdx.x; j < n_rows * kc; j += blockDim.x)
+        w_s[(j / kc) * ks + j % kc] = w_g[(size_t)(j / kc) * K + j % kc];
     }
     __syncthreads();
-    T* afac_o = afac + (size_t)o * 3 * K * P;
+    T* afac_o = afac + (size_t)o * 3 * K * P + (size_t)c0 * P;  // channel c0 of axis 0
     const T* pl_o = planes + (size_t)o * 3 * ru * rv * kp;
     const T* li_o = plines + (size_t)o * 3 * rw * kp;
     T* fpl_o = fpl + (size_t)o * kpl * P;
@@ -288,7 +310,7 @@ __global__ void __launch_bounds__(kFwd3Threads, 1) unsnapped_fwd3(
       if (q < s1) {
         const int p = (int)(q - (long long)o * P);
         const float x[3] = {pts[q * 3 + 0], pts[q * 3 + 1], pts[q * 3 + 2]};
-        T* row = kStage ? st + lane * kout : out + q * kout;
+        T* row = kStage ? st + lane * rs : out + q * kout + c0;
 
         // per axis and level: row j's offset and the weights of rows j, j + 1
         Pair tp[3][kLv];
@@ -326,7 +348,7 @@ __global__ void __launch_bounds__(kFwd3Threads, 1) unsnapped_fwd3(
           }
           store4(row + k, prod);
         }
-        for (; k < K; ++k) {
+        for (; k < kc; ++k) {
           float prod = 1.f;
 #pragma unroll
           for (int d = 0; d < 3; ++d) {
@@ -343,14 +365,36 @@ __global__ void __launch_bounds__(kFwd3Threads, 1) unsnapped_fwd3(
           row[k] = from_f<T>(prod);
         }
 
-        if constexpr (kPlanes) {
+        if constexpr (kPlanes && kSplit) {  // pair i in slice i % (K / kc), into out directly
+          for (int i = blockIdx.y; i < 3; i += gridDim.y)
+            plane_pair_fwd<T>(x, i, axes, pl_o, li_o, fpl_o, fli_o, out + q * kout + K + i * kp,
+                              P, p, ru, rv, kp, rw);
+        } else if constexpr (kPlanes) {
           for (int i = 0; i < 3; ++i)
             plane_pair_fwd<T>(x, i, axes, pl_o, li_o, fpl_o, fli_o, row + K + i * kp, P, p,
                               ru, rv, kp, rw);
         }
       }
 
-      if constexpr (kStage) {
+      if constexpr (kStage && kSplit) {
+        // the warp's rows: kc channels of 32 output rows, a row's run after another
+        __syncwarp();
+        const int n_rows = s1 - qw < 32 ? (int)(s1 - qw) : 32;
+        T* dst = out + qw * kout + c0;
+        const int n_vec = kc * sizeof(T) / 16;  // 16-byte vectors a row
+        if ((kc * sizeof(T)) % 16 == 0 && (kout * sizeof(T)) % 16 == 0 &&
+            reinterpret_cast<uintptr_t>(dst) % 16 == 0) {
+          for (int v = lane; v < n_rows * n_vec; v += 32) {
+            const int r = v / n_vec, c = v - r * n_vec;
+            reinterpret_cast<uint4*>(dst + (size_t)r * kout)[c] =
+                reinterpret_cast<const uint4*>(st + r * kc)[c];
+          }
+        } else {
+          for (int e = lane; e < n_rows * kc; e += 32)
+            dst[(size_t)(e / kc) * kout + e % kc] = st[e];
+        }
+        __syncwarp();
+      } else if constexpr (kStage) {
         // the warp's rows are one contiguous run of the output
         __syncwarp();
         const int n_rows = s1 - qw < 32 ? (int)(s1 - qw) : 32;
@@ -774,67 +818,79 @@ int launch_fwd(const void* pts, const void* lines, const void* planes,
   return (int)cudaGetLastError();
 }
 
-// The three-axis forward: one wave of blocks over the flattened points.
-template <typename T, bool kPlanes, bool kStage, int kLv>
+// The three-axis forward: one wave of blocks over the flattened points; with
+// kSplit, K / kc such waves side by side (blockIdx.y: the channel slice).
+template <typename T, bool kPlanes, bool kStage, int kLv, bool kSplit>
 int launch_fwd3(const void* pts, const void* lines, const void* planes,
                 const void* plines, void* out, void* afac, void* fpl, void* fli,
                 const Ladder& lad, int O, int P, int K, int total_res, int ru,
-                int rv, int kp, int rw, int axes, cudaStream_t stream) {
+                int rv, int kp, int rw, int axes, int kc, cudaStream_t stream) {
   for (int l = 0; l < lad.n; ++l)
     if (lad.res[l] < 2) return (int)cudaErrorInvalidValue;  // tap_pair needs r >= 2
-  size_t smem = (size_t)3 * total_res * odd_word_stride(K, sizeof(T)) * sizeof(T);
+  if (!kSplit) kc = K;
+  if (kc < 1 || K % kc != 0) return (int)cudaErrorInvalidValue;
+  const int n_slices = K / kc;
+  size_t smem = (size_t)3 * total_res * odd_word_stride(kc, sizeof(T)) * sizeof(T);
   if (kStage)
-    smem = align16(smem) + (size_t)(kFwd3Threads / 32) * 32 * (K + 3 * kp) * sizeof(T);
+    smem = align16(smem) +
+           (size_t)(kFwd3Threads / 32) * 32 * (kSplit ? kc : K + 3 * kp) * sizeof(T);
   const long long n_all = (long long)O * P;
   dim3 grid;
   // one object and z slice: the blocks the card holds at once, capped by
-  // one block a kFwd3Threads points
-  cudaError_t err = plan(unsnapped_fwd3<T, kPlanes, kStage, kLv>, smem, 1,
-                         n_all > (1LL << 30) ? (1 << 30) : (int)n_all, 1, &grid,
+  // one block a kFwd3Threads points, for each channel slice
+  cudaError_t err = plan(unsnapped_fwd3<T, kPlanes, kStage, kLv, kSplit>, smem, 1,
+                         n_all > (1LL << 30) ? (1 << 30) : (int)n_all, n_slices, &grid,
                          kFwd3Threads, kFwd3Threads);
   if (err != cudaSuccess) return (int)err;
   long long span = (n_all + grid.x - 1) / grid.x;
   span = (span + 31) / 32 * 32;
   const int blocks = (int)((n_all + span - 1) / span);
-  unsnapped_fwd3<T, kPlanes, kStage, kLv><<<blocks, kFwd3Threads, smem, stream>>>(
+  unsnapped_fwd3<T, kPlanes, kStage, kLv, kSplit>
+      <<<dim3(blocks, n_slices), kFwd3Threads, smem, stream>>>(
       (const float*)pts, (const T*)lines, (const T*)planes, (const T*)plines,
       (T*)out, (T*)afac, (T*)fpl, (T*)fli, lad, O, P, K, total_res, ru, rv, kp, rw,
-      axes, (int)span);
+      axes, (int)span, kc);
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool kPlanes, bool kStage>
+template <typename T, bool kPlanes, bool kStage, bool kSplit = false>
 int launch_fwd3_levels(const void* pts, const void* lines, const void* planes,
                        const void* plines, void* out, void* afac, void* fpl, void* fli,
                        const Ladder& lad, int O, int P, int K, int total_res, int ru,
-                       int rv, int kp, int rw, int axes, cudaStream_t stream) {
+                       int rv, int kp, int rw, int axes, int kc, cudaStream_t stream) {
   if (lad.n == 6)
-    return launch_fwd3<T, kPlanes, kStage, 6>(pts, lines, planes, plines, out, afac, fpl,
-                                               fli, lad, O, P, K, total_res, ru, rv, kp,
-                                               rw, axes, stream);
-  return launch_fwd3<T, kPlanes, kStage, kMaxLevels>(pts, lines, planes, plines, out, afac,
-                                                      fpl, fli, lad, O, P, K, total_res,
-                                                      ru, rv, kp, rw, axes, stream);
+    return launch_fwd3<T, kPlanes, kStage, 6, kSplit>(pts, lines, planes, plines, out, afac,
+                                                       fpl, fli, lad, O, P, K, total_res, ru,
+                                                       rv, kp, rw, axes, kc, stream);
+  return launch_fwd3<T, kPlanes, kStage, kMaxLevels, kSplit>(
+      pts, lines, planes, plines, out, afac, fpl, fli, lad, O, P, K, total_res, ru, rv, kp,
+      rw, axes, kc, stream);
 }
 
-// variant 0: "per_axis", 1: "three_axis_direct", 2: "three_axis_staged"
+// variant 0: "per_axis", 1: "three_axis_direct", 2: "three_axis_staged",
+// 3: "channel_split" (slices of kc channels, staged)
 template <bool kPlanes>
 int dispatch_fwd(int dtype, int variant, const void* pts, const void* lines,
                  const void* planes, const void* plines, void* out, void* afac,
                  void* fpl, void* fli, const Ladder& lad, int O, int P, int K,
-                 int total_res, int ru, int rv, int kp, int rw, int axes,
+                 int total_res, int ru, int rv, int kp, int rw, int axes, int kc,
                  cudaStream_t s) {
 #define ROMAP_ARGS pts, lines, planes, plines, out, afac, fpl, fli, lad, O, P, K, \
-                   total_res, ru, rv, kp, rw, axes, s
-  if (dtype == 0 && variant == 0) return launch_fwd<float, kPlanes>(ROMAP_ARGS);
-  if (dtype == 1 && variant == 0) return launch_fwd<__nv_bfloat16, kPlanes>(ROMAP_ARGS);
+                   total_res, ru, rv, kp, rw, axes
+  if (dtype == 0 && variant == 0) return launch_fwd<float, kPlanes>(ROMAP_ARGS, s);
+  if (dtype == 1 && variant == 0) return launch_fwd<__nv_bfloat16, kPlanes>(ROMAP_ARGS, s);
   if (dtype == 0 && variant == 1)
-    return launch_fwd3_levels<float, kPlanes, false>(ROMAP_ARGS);
+    return launch_fwd3_levels<float, kPlanes, false>(ROMAP_ARGS, kc, s);
   if (dtype == 1 && variant == 1)
-    return launch_fwd3_levels<__nv_bfloat16, kPlanes, false>(ROMAP_ARGS);
-  if (dtype == 0 && variant == 2) return launch_fwd3_levels<float, kPlanes, true>(ROMAP_ARGS);
+    return launch_fwd3_levels<__nv_bfloat16, kPlanes, false>(ROMAP_ARGS, kc, s);
+  if (dtype == 0 && variant == 2)
+    return launch_fwd3_levels<float, kPlanes, true>(ROMAP_ARGS, kc, s);
   if (dtype == 1 && variant == 2)
-    return launch_fwd3_levels<__nv_bfloat16, kPlanes, true>(ROMAP_ARGS);
+    return launch_fwd3_levels<__nv_bfloat16, kPlanes, true>(ROMAP_ARGS, kc, s);
+  if (dtype == 0 && variant == 3)
+    return launch_fwd3_levels<float, kPlanes, true, true>(ROMAP_ARGS, kc, s);
+  if (dtype == 1 && variant == 3)
+    return launch_fwd3_levels<__nv_bfloat16, kPlanes, true, true>(ROMAP_ARGS, kc, s);
 #undef ROMAP_ARGS
   return (int)cudaErrorInvalidValue;
 }
@@ -888,19 +944,21 @@ extern "C" {
 // K3. `variant` is the caller's choice from the spec and dtype
 // (mxgrid_cuda.py: `unsnapped_forward_variant`): 0 per_axis (the factors
 // and planes only: the caller launches romap_mx_cp_product for out[:K]),
-// 1 three_axis_direct, 2 three_axis_staged (out written whole). A variant
-// whose tables do not fit a block's shared memory returns an error.
+// 1 three_axis_direct, 2 three_axis_staged, 3 channel_split in slices of
+// `kc` channels (K a multiple of it; read by variant 3 alone) (out written
+// whole). A variant whose tables do not fit a block's shared memory
+// returns an error.
 int romap_mx_unsnapped_fwd(int dtype, int variant, const void* pts, const void* lines,
                            const void* planes, const void* plines, void* out,
                            void* afac, void* fpl, void* fli, const int* res,
                            const int* off, int n_levels, int O, int P, int K,
                            int total_res, int ru, int rv, int kp, int rw,
-                           int axes, void* stream) {
+                           int axes, int kc, void* stream) {
   Ladder lad;
   const int bad = make_ladder(res, off, n_levels, &lad);
   if (bad) return bad;
   return dispatch_fwd<true>(dtype, variant, pts, lines, planes, plines, out, afac, fpl,
-                            fli, lad, O, P, K, total_res, ru, rv, kp, rw, axes,
+                            fli, lad, O, P, K, total_res, ru, rv, kp, rw, axes, kc,
                             (cudaStream_t)stream);
 }
 
@@ -960,17 +1018,18 @@ int romap_mx_unsnapped_bwd(int dtype, int variant, const void* pts, const void* 
 }
 
 // K7: afac [O, 3, K, P] from the raw ladder lines alone; the three-axis
-// variants (1, 2) also write out [O, P, K] = (A_0 A_1) A_2 rounded to the
-// table dtype after each factor (with per_axis, 0, the caller forms it).
+// variants (1, 2, 3) also write out [O, P, K] = (A_0 A_1) A_2 rounded to the
+// table dtype after each factor (with per_axis, 0, the caller forms it);
+// `kc` as for K3.
 int romap_mx_unsnapped_cp_fwd(int dtype, int variant, const void* pts, const void* lines,
                               void* out, void* afac, const int* res, const int* off,
-                              int n_levels, int O, int P, int K, int total_res,
+                              int n_levels, int O, int P, int K, int total_res, int kc,
                               void* stream) {
   Ladder lad;
   const int bad = make_ladder(res, off, n_levels, &lad);
   if (bad) return bad;
   return dispatch_fwd<false>(dtype, variant, pts, lines, nullptr, nullptr, out, afac,
-                             nullptr, nullptr, lad, O, P, K, total_res, 0, 0, 0, 0, 0,
+                             nullptr, nullptr, lad, O, P, K, total_res, 0, 0, 0, 0, 0, kc,
                              (cudaStream_t)stream);
 }
 

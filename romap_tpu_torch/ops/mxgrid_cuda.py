@@ -30,9 +30,10 @@ the backwards K2/K6 (`folded_variant`), K4/K8 (`unsnapped_variant`) and K10
 sources instantiate and as the scalar kernel otherwise; the forward K1/K5
 stages its feature rows in shared memory wherever they fit
 (`forward_variant`); the forward K3/K7
-holds all three axes' ladders in a block wherever they fit, else one axis a
-block with the product as a second pass (`unsnapped_forward_variant`;
-`cp_product_pass` after K3, `cp_product` after K7). The C entry refuses a
+holds all three axes' ladders in a block wherever they fit, else a slice of
+their channels a block (`channel_split`, fp32), else one axis a block with
+the product as a second pass (`unsnapped_forward_variant`; `cp_product_pass`
+after K3, `cp_product` after K7). The C entry refuses a
 combination it does not have, and the wrapper raises.
 
 The CUDA sources are `romap_tpu_torch/csrc/*.cu`; they are built with nvcc
@@ -52,8 +53,8 @@ Each wrapper counts its kernel launches in a plain int attribute
 `launches_by_dtype` (e.g. {"bfloat16": 3, "float32": 1}).
 
 The points get their gradient from K0 (`points_gradient`, csrc/
-mxgrid_points.cu), on every path, where they require one (pose
-refinement): the Pallas VJP gives them none (mxgrid_pallas.py:892-895,
+mxgrid_points.cu; variant `points_variant`), on every path, where they
+require one (pose refinement): the Pallas VJP gives them none (mxgrid_pallas.py:892-895,
 916-919), and the reference differentiates them through its XLA encode.
 """
 
@@ -151,16 +152,16 @@ def _library() -> ctypes.CDLL:
         "romap_mx_folded_bwd": [i32] * 2 + [ptr] * 8 + [i32] * 10 + [ptr],
         "romap_mx_folded_cp_fwd": [i32] * 2 + [ptr] * 4 + [i32] * 5 + [ptr],
         "romap_mx_folded_cp_bwd": [i32] * 2 + [ptr] * 4 + [i32] * 5 + [ptr],
-        "romap_mx_unsnapped_fwd": [i32] * 2 + [ptr] * 8 + [ints] * 2 + [i32] * 10 + [ptr],
+        "romap_mx_unsnapped_fwd": [i32] * 2 + [ptr] * 8 + [ints] * 2 + [i32] * 11 + [ptr],
         "romap_mx_cp_product": [i32] + [ptr] * 2 + [i32] * 4 + [ptr],
         "romap_mx_unsnapped_bwd": [i32] * 2 + [ptr] * 8 + [ints] * 2 + [i32] * 10 + [ptr],
-        "romap_mx_unsnapped_cp_fwd": [i32] * 2 + [ptr] * 4 + [ints] * 2 + [i32] * 5 + [ptr],
+        "romap_mx_unsnapped_cp_fwd": [i32] * 2 + [ptr] * 4 + [ints] * 2 + [i32] * 6 + [ptr],
         "romap_mx_unsnapped_cp_bwd": [i32] * 2 + [ptr] * 4 + [ints] * 2 + [i32] * 5 + [ptr],
         "romap_mx_planes_fwd": ([i32, ptr, i32, ptrs, ptrs] + [ints] * 3 + [ptr] * 3
                                 + [i32] * 3 + [ptr]),
         "romap_mx_planes_bwd": ([i32] * 2 + [ptr] * 4 + [i32] * 2 + [ptrs] * 2 + [ints] * 3
                                 + [i32] * 3 + [ptr]),
-        "romap_mx_points_grad": ([i32] + [ptr] * 2 + [ints] * 2 + [i32] * 2 + [ptr, i32]
+        "romap_mx_points_grad": ([i32] * 2 + [ptr] * 2 + [ints] * 2 + [i32] * 2 + [ptr, i32]
                                  + [ptrs] * 2 + [ints] * 3 + [ptr] * 4 + [i32] * 4 + [ptr]),
     }
     for name, types in argtypes.items():
@@ -308,8 +309,31 @@ def forward_variant(spec: MXGridSpec, dtype: torch.dtype, planes: bool | None = 
     return "staged" if fits else "direct"
 
 
-UNSNAPPED_FORWARD_VARIANTS = ("per_axis", "three_axis_direct", "three_axis_staged")
+UNSNAPPED_FORWARD_VARIANTS = ("per_axis", "three_axis_direct", "three_axis_staged",
+                              "channel_split")
 FWD3_WARPS = 16  # kFwd3Threads / 32 of mxgrid_unsnapped.cu
+
+
+def channel_split_smem(spec: MXGridSpec, dtype: torch.dtype, kc: int) -> int:
+    """Dynamic shared memory of the channel-split forward (`launch_fwd3`
+    with kSplit): kc channels of the three axes' ladders at an odd word
+    stride, then 32 staged rows of kc channels for each of 16 warps."""
+    elem = torch.empty((), dtype=dtype).element_size()
+    words = -(-kc * elem // 4)
+    table = 3 * spec.total_res * (words + 1 - words % 2) * 4
+    return table + -table % 16 + FWD3_WARPS * 32 * kc * elem
+
+
+def channel_split_width(spec: MXGridSpec, dtype: torch.dtype) -> int | None:
+    """Channels a block of the channel-split forward holds: the widest slice
+    kc (K a multiple of it, and of 4 channels, for the 16-byte stores) whose
+    tables and staged rows fit a block's shared memory (fp32 flagship: 24,
+    188,656 B; fp32 `fast`: 16, 151,088 B), or None where none does."""
+    k = spec.features
+    for kc in range(k, 0, -1):
+        if k % kc == 0 and kc % 4 == 0 and channel_split_smem(spec, dtype, kc) <= SMEM_PER_BLOCK:
+            return kc
+    return None
 
 
 def unsnapped_forward_variant(spec: MXGridSpec, dtype: torch.dtype,
@@ -319,10 +343,11 @@ def unsnapped_forward_variant(spec: MXGridSpec, dtype: torch.dtype,
     factors and their product in registers and stages a warp's output rows)
     where the tables and the staged rows fit a block's shared memory;
     "three_axis_direct" (each thread stores its own row) where only the
-    tables fit (K7 at `fast`'s ladder in bf16: 229,680 B); else "per_axis"
-    (a block an axis, then the product as a second pass: the fp32 flagship
-    ladder's three axes take 273,420 B). Chosen from the spec and dtype
-    alone."""
+    tables fit (K7 at `fast`'s ladder in bf16: 229,680 B); else
+    "channel_split" (the same in slices of `channel_split_width` channels,
+    a block a slice: the fp32 flagship ladder's three axes take 273,420 B)
+    where a slice fits; else "per_axis" (a block an axis, then the product
+    as a second pass). Chosen from the spec and dtype alone."""
     if planes is None:
         planes = bool(spec.plane_specs)
     rows = 3 * spec.total_res
@@ -333,7 +358,20 @@ def unsnapped_forward_variant(spec: MXGridSpec, dtype: torch.dtype,
         return "three_axis_staged"
     if smem(False) <= SMEM_PER_BLOCK:
         return "three_axis_direct"
+    if channel_split_width(spec, dtype) is not None:
+        return "channel_split"
     return "per_axis"
+
+
+def _split_width(spec: MXGridSpec, dtype: torch.dtype, variant: str) -> int:
+    """The `kc` argument of the unsnapped forward's C entries: the slice of
+    "channel_split", else K (unread)."""
+    if variant != "channel_split":
+        return spec.features
+    kc = channel_split_width(spec, dtype)
+    if kc is None:
+        raise RuntimeError(f"channel_split: no slice of {spec.features} channels fits a block")
+    return kc
 
 
 def _axes_code(spec: MXGridSpec) -> int:
@@ -616,7 +654,7 @@ def unsnapped_fused_forward(points, lines, planes, plines, spec: MXGridSpec):
             dt, dev, UNSNAPPED_FORWARD_VARIANTS.index(variant), points.data_ptr(),
             lines.data_ptr(), planes.data_ptr(), plines.data_ptr(), out.data_ptr(),
             afac.data_ptr(), fpl.data_ptr(), fli.data_ptr(), res, off, n_lvl, o, p, k, total,
-            ru, rv, kp, rw, axes)
+            ru, rv, kp, rw, axes, _split_width(spec, dt, variant))
     if variant == "per_axis":
         cp_product_pass(afac, out)
     return out, afac, fpl, fli
@@ -776,7 +814,7 @@ def unsnapped_cp_forward(points, lines, spec: MXGridSpec):
     _launch(unsnapped_cp_forward, "K7 unsnapped_cp_forward", "romap_mx_unsnapped_cp_fwd",
             dt, dev, UNSNAPPED_FORWARD_VARIANTS.index(variant), points.data_ptr(),
             lines.data_ptr(), out.data_ptr(), afac.data_ptr(), res, off, n_lvl, o, p, k,
-            total)
+            total, _split_width(spec, dt, variant))
     if variant == "per_axis":
         out = cp_product(afac)
     return out, afac
@@ -977,6 +1015,42 @@ def _cp_slope_basis(spec: MXGridSpec):
     return lambda x: torch.cat([_slope1(x, r) for r in spec.resolutions], dim=-1)
 
 
+POINTS_VARIANTS = ("per_point", "lanes_over_channels")  # the C side's variant codes
+
+
+PTS_TILE = 64  # kPtsTile of mxgrid_points.cu
+
+
+def points_smem(spec: MXGridSpec, dtype: torch.dtype) -> int:
+    """Dynamic shared memory of the lanes-over-channels K0 (`LanesSmem` of
+    mxgrid_points.cu): two stages of a 64-point tile's cotangent rows, 3K
+    factor rows, 2 sum(kp) plane residual rows (16-byte aligned each) and
+    points, then u_d [3, 64, K rounded to an odd number of 16-byte words],
+    the plane values [2, 64, sum 3 kp | 1] and the taps [3, 3 L, 64]."""
+    elem = torch.empty((), dtype=dtype).element_size()
+    k, kpl, t = spec.features, spec.plane_out_dims, PTS_TILE
+    n_lv = 1 if spec.snap_levels else len(spec.resolutions)
+    a16 = lambda n: -(-n // 16) * 16
+    stage = a16(t * (k + kpl) * elem) + a16(3 * k * t * elem) + a16(2 * kpl * t * elem) + t * 12
+    quads = -(-k // 4)
+    us = 4 * (quads + 1 - quads % 2)
+    words = 3 * t * us + 2 * t * (kpl | 1) + 3 * 3 * n_lv * t + 3 * t
+    return 2 * stage + 4 * words
+
+
+def points_variant(spec: MXGridSpec, dtype: torch.dtype) -> str:
+    """The variant of K0 for this spec and table dtype: "lanes_over_channels"
+    (64-point tiles staged by double-buffered cp.async, u_d = g A_e A_f
+    formed once a point, then 8 lanes a point over channel quads, each table
+    row and plane corner read as vectors) wherever K is a multiple of 4 and
+    its shared memory (`points_smem`) fits a block (every shipped preset),
+    else "per_point" (one point a thread, the first design). Chosen from the
+    spec and dtype alone."""
+    if spec.features % 4 == 0 and points_smem(spec, dtype) <= SMEM_PER_BLOCK:
+        return "lanes_over_channels"
+    return "per_point"
+
+
 def points_gradient_plain(points, table, afac, planes, plines, fpl, fli, g,
                           spec: MXGridSpec) -> torch.Tensor:
     """Plain twin of K0: d loss / d points [O, P, 3] f32 of the encode.
@@ -1053,8 +1127,9 @@ def points_gradient(points, table, afac, planes, plines, fpl, fli, g,
         n, pl_ptrs, li_ptrs, ru, rv, kp = 0, None, None, None, None, None
         fpl_ptr = fli_ptr = None
     dpts = torch.empty((o, p, 3), dtype=torch.float32, device=dev)
+    variant = POINTS_VARIANTS.index(points_variant(spec, dt))
     _launch(points_gradient, "K0 points_gradient", "romap_mx_points_grad", dt, dev,
-            points.data_ptr(), table.data_ptr(), res, off, n_lvl, rows, afac.data_ptr(),
+            variant, points.data_ptr(), table.data_ptr(), res, off, n_lvl, rows, afac.data_ptr(),
             n, pl_ptrs, li_ptrs, ru, rv, kp, fpl_ptr, fli_ptr, g.data_ptr(),
             dpts.data_ptr(), o, p, k, _axes_code(spec))
     return dpts

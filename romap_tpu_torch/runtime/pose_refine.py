@@ -102,34 +102,23 @@ def build_refine_batch(boxes, crops, n_px: int = N_PIXELS, seed: int = 0):
     return dict(xy=xy, rgb=rgb, w_rgb=w_rgb, mask=mask_t, valid=valid)
 
 
-def refine_poses(params_one, intrinsics, twc0, tow, aabb_min, aabb_max, xy, rgb_t, w_rgb,
-                 mask_t, view_valid, cfg, spec, noise, n_steps: int = N_STEPS,
-                 n_samples: int = N_SAMPLES, lr: float = LR):
-    """Batched pose-only Adam against the frozen field.
-
-    Each view optimizes from S starts (S = noise.shape[1]): the zero delta
-    and S - 1 SE(3) jitters, noise [V, S, 6] (unit normal draws) scaled to
-    ~1.7 degrees of rotation and 3 % of the box's mean side of translation.
-    The per-view argmin over starts and steps wins.
-
-    Args: tensors on one device; twc0 [V, 4, 4] initial camera-to-world
-    poses, tow [4, 4], xy [V, R, 2], rgb_t [V, R, 3], w_rgb, mask_t [V, R],
-    view_valid [V] bool.
-    Returns (twc_refined [V, 4, 4], loss0 [V], loss_final [V]).
-    """
+def make_view_loss(params_one, intrinsics, twc0, tow, aabb_min, aabb_max, xy, rgb_t, w_rgb,
+                   mask_t, view_valid, cfg, spec, n_starts: int, n_samples: int = N_SAMPLES):
+    """The loss of every start of every view as a function of the SE(3)
+    deltas [V*S, 6] (view-major), against the frozen field: `view_loss`
+    returns the per-start losses [V*S] and the leaf they were taken from.
+    Every evaluation takes the points' gradient path, so the losses
+    compared by `refine_poses` all come from the same encode. Arguments as
+    `refine_poses` takes them; S = n_starts."""
     params_one = pytree.tree_map(lambda a: a.detach(), params_one)
     one = pytree.tree_map(lambda a: a[None], params_one)
     dev = twc0.device
     bg = torch.full((3,), 1.0, dtype=torch.float32, device=dev)  # gray background
-    n_views, s = noise.shape[:2]
-    ex = lambda a: torch.repeat_interleave(a, s, dim=0)  # [V*S, ...], view-major
+    ex = lambda a: torch.repeat_interleave(a, n_starts, dim=0)  # [V*S, ...], view-major
     twc0_e, xy_e = ex(twc0), ex(xy)
     rgb_e, w_e, mask_e, valid_e = ex(rgb_t), ex(w_rgb), ex(mask_t), ex(view_valid)
 
     def view_loss(delta):
-        """Per-start losses [V*S] and the leaf they were taken from. Every
-        evaluation takes the points' gradient path, so the losses compared
-        below all come from the same encode."""
         delta = delta.detach().requires_grad_(True)
         with torch.enable_grad():
             twc = twc0_e @ se3_exp(delta)  # [V*S, 4, 4]
@@ -154,6 +143,29 @@ def refine_poses(params_one, intrinsics, twc0, tow, aabb_min, aabb_max, xy, rgb_
                         + MASK_LAMBDA * torch.mean(torch.abs(opacity - mask_e), dim=-1))
             per_view = torch.where(valid_e, per_view, torch.zeros_like(per_view))
         return per_view, delta
+
+    return view_loss
+
+
+def refine_poses(params_one, intrinsics, twc0, tow, aabb_min, aabb_max, xy, rgb_t, w_rgb,
+                 mask_t, view_valid, cfg, spec, noise, n_steps: int = N_STEPS,
+                 n_samples: int = N_SAMPLES, lr: float = LR):
+    """Batched pose-only Adam against the frozen field.
+
+    Each view optimizes from S starts (S = noise.shape[1]): the zero delta
+    and S - 1 SE(3) jitters, noise [V, S, 6] (unit normal draws) scaled to
+    ~1.7 degrees of rotation and 3 % of the box's mean side of translation.
+    The per-view argmin over starts and steps wins.
+
+    Args: tensors on one device; twc0 [V, 4, 4] initial camera-to-world
+    poses, tow [4, 4], xy [V, R, 2], rgb_t [V, R, 3], w_rgb, mask_t [V, R],
+    view_valid [V] bool.
+    Returns (twc_refined [V, 4, 4], loss0 [V], loss_final [V]).
+    """
+    dev = twc0.device
+    n_views, s = noise.shape[:2]
+    view_loss = make_view_loss(params_one, intrinsics, twc0, tow, aabb_min, aabb_max, xy,
+                               rgb_t, w_rgb, mask_t, view_valid, cfg, spec, s, n_samples)
 
     box_scale = torch.mean(aabb_max - aabb_min)
     scale = torch.cat([torch.full((3,), 0.03, device=dev),

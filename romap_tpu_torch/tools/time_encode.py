@@ -16,7 +16,7 @@ so the script also runs against another checkout of the package:
   python3 romap_tpu_torch/tools/time_encode.py --roots build/parent,.,.,build/parent
 
 `--forward-variant` and `--backward-variant` force a variant (K1/K5: direct,
-staged; K3/K7: per_axis, three_axis_direct, three_axis_staged; K2/K6 and
+staged; K3/K7: per_axis, three_axis_direct, three_axis_staged, channel_split; K2/K6 and
 K4/K8 and K10: scalar, tensor_core) that the spec and dtype would not pick,
 to time both on one card. K10 takes the plane block of the full encode
 cotangent as a strided view, as the split step passes it (a checkout from
@@ -118,7 +118,7 @@ def main(argv=None) -> None:
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--forward-variant", default="auto",
                     choices=("auto", "direct", "staged", "per_axis", "three_axis_direct",
-                             "three_axis_staged"),
+                             "three_axis_staged", "channel_split"),
                     help="force K1/K5's (direct, staged) or K3/K7's variant instead of "
                          "mxgrid_cuda.forward_variant / unsnapped_forward_variant")
     ap.add_argument("--backward-variant", default="auto",

@@ -281,6 +281,189 @@ def test_k0_slopes_are_the_tent_slopes():
                                       want.numpy())
 
 
+@pytest.mark.parametrize("features,variant", [(48, "lanes_over_channels"),
+                                              (64, "lanes_over_channels"),
+                                              (16, "lanes_over_channels"),
+                                              (6, "per_point")])
+def test_k0_points_variant_follows_spec(features, variant):
+    """K0 runs with its lanes over channel quads wherever K is a multiple of
+    4 and its staged tiles fit a block's shared memory, else one point a
+    thread."""
+    spec = tmx.make_mxspec(n_levels=3, base_resolution=4, max_resolution=32,
+                           features=features, plane_specs=((24, 16, 4),), snap_levels=True)
+    for dt in (torch.float32, torch.bfloat16):
+        assert mxgrid_cuda.points_variant(spec, dt) == variant
+    assert variant in mxgrid_cuda.POINTS_VARIANTS
+
+
+@pytest.mark.parametrize("preset,snap,dtype,smem,variant", [
+    # 2 stages x (64 x 60 cotangent + 3 x 48 x 64 factors + 24 x 64 residuals, 4 B,
+    # + 768 B of points) + 4 B x (3 x 64 x 52 + 2 x 64 x 13 + 3 x 3 L x 64 + 192)
+    ("flagship", False, torch.float32, 2 * 59_136 + 4 * (9_984 + 1_664 + 3_456 + 192),
+     "lanes_over_channels"),  # the split path's refinement, L = 6
+    ("flagship", True, torch.float32, 2 * 59_136 + 4 * (9_984 + 1_664 + 576 + 192),
+     "lanes_over_channels"),  # the folded path's, L = 1
+    ("fast", False, torch.float32, 199_936, "lanes_over_channels"),
+    ("quality", True, torch.float32, 237_568, "per_point"),  # above 232,448 B
+    ("quality", True, torch.bfloat16, 153_600, "lanes_over_channels"),
+])
+def test_k0_points_smem_arithmetic(preset, snap, dtype, smem, variant):
+    """The lanes-over-channels K0's shared memory at the presets, and the
+    choice it makes: `quality`'s fp32 tiles (kp = 8) do not fit a block."""
+    spec = dataclasses.replace(preset_spec(preset), snap_levels=snap)
+    assert mxgrid_cuda.points_smem(spec, dtype) == smem
+    assert mxgrid_cuda.points_variant(spec, dtype) == variant
+
+
+def slope_pair(x, r, off):
+    """mxgrid_points.cu's slope_pair, vectorized: a level's two knots as rows
+    off + j, off + j + 1 (j + 1 = j where r = 1) and their slopes a, b."""
+    t = x * float(r - 1)
+    reach = (t > -1.0) & (t < float(r)) & (r >= 2)
+    i = torch.floor(t).long()
+    s = float(r - 1)
+    zero = torch.zeros_like(t)
+    j = torch.where(reach & (i == r - 1), r - 2, torch.where(reach & (i >= 0), i, 0))
+    a = torch.where(reach & (i < 0), s, torch.where(reach & (i >= 0) & (i < r - 1), -s, zero))
+    b = torch.where(reach & (i == r - 1), -s, torch.where(reach & (i >= 0) & (i < r - 1), s, zero))
+    return off + j, off + j + (1 if r >= 2 else 0), a, b
+
+
+def emulate_k0_lanes(pts, table, afac, planes, plines, fpl, fli, g, spec):
+    """`points_grad_lanes`' arithmetic for one object, in fp32: u_d = g A_e
+    A_f once a point; lane q of the point's 8 sums, for its channels 4q ..
+    4q + 3 (and 32 on, for K above 32), a W[j] + b W[j + 1] of every level
+    (`slope_pair`), level after level, dotted with u_d channel after
+    channel; lane (i, quad) = (q / 2, q % 2) adds pair i's plane terms of
+    its channels 4 quad .. (+ 8 m); then the 8 lanes' partial sums are
+    added in a butterfly (xor 4, 2, 1) and lane 0 holds dx. pts [P, 3];
+    the rest as the twin takes them, without the object axis. Returns
+    [P, 3]."""
+    n, k = pts.shape[0], spec.features
+    if spec.snap_levels:
+        levels, offs = (spec.fold_res[0],), (0,)
+    else:
+        levels, offs = spec.resolutions, spec.offsets
+    a = afac.float().transpose(1, 2)  # [3, P, K]
+    gf = g.float()
+    part = torch.zeros(n, 8, 3)
+    for d, (e, f) in enumerate(((1, 2), (0, 2), (0, 1))):
+        u = gf[:, :k] * a[e] * a[f]
+        w = table[d].float()
+        acc = torch.zeros(n, k)
+        for r, off in zip(levels, offs):
+            r0, r1, sa, sb = slope_pair(pts[:, d], r, off)
+            acc = acc + (sa[:, None] * w[r0] + sb[:, None] * w[r1])
+        for q in range(8):
+            for c in range(4 * q, k, 32):
+                for jj in range(4):
+                    part[:, q, d] += acc[:, c + jj] * u[:, c + jj]
+    row0 = 0
+    for (ru, rv, kp), pl, li in zip(spec.plane_specs, planes, plines):
+        rw = max(ru, rv)
+        for q in range(6):
+            i, cq = q // 2, 4 * (q % 2)
+            if cq >= kp:
+                continue
+            u_ax, v_ax, w_ax = spec.plane_axes[i]
+            j0u, j1u, w0u, w1u = tent_taps(pts[:, u_ax], ru)
+            j0v, j1v, w0v, w1v = tent_taps(pts[:, v_ax], rv)
+            j0w, j1w, w0w, w1w = tent_taps(pts[:, w_ax], rw)
+            # tent_slopes: -(r-1) at a kept j0, r-1 at a kept j1, else 0
+            slopes = lambda w0, w1, r: (torch.where(w0 != 0, -float(r - 1), 0.0),
+                                        torch.where(w1 != 0, float(r - 1), 0.0))
+            s0u, s1u = slopes(w0u, w1u, ru)
+            s0v, s1v = slopes(w0v, w1v, rv)
+            s0w, s1w = slopes(w0w, w1w, rw)
+            p_i, l_i = pl[i].float(), li[i].float()
+            du = dv = dw = torch.zeros(n)
+            for c in range(cq, kp, 8):
+                for jj in range(4):
+                    ch = c + jj
+                    if ch >= kp:
+                        continue
+                    v00, v01 = p_i[j0u, j0v, ch], p_i[j0u, j1v, ch]
+                    v10, v11 = p_i[j1u, j0v, ch], p_i[j1u, j1v, ch]
+                    row = row0 + i * kp + ch
+                    gl = gf[:, k + row] * fli[row].float()
+                    gp = gf[:, k + row] * fpl[row].float()
+                    du = du + gl * (s0u * (w0v * v00 + w1v * v01) + s1u * (w0v * v10 + w1v * v11))
+                    dv = dv + gl * (w0u * (s0v * v00 + s1v * v01) + w1u * (s0v * v10 + s1v * v11))
+                    dw = dw + gp * (s0w * l_i[j0w, ch] + s1w * l_i[j1w, ch])
+            for ax in range(3):
+                part[:, q, ax] += ((du if ax == u_ax else 0) + (dv if ax == v_ax else 0)
+                                   + (dw if ax == w_ax else 0))
+        row0 += 3 * kp
+    lanes = torch.arange(8)
+    for m in (4, 2, 1):
+        part = part + part[:, lanes ^ m]
+    return part[:, 0]
+
+
+K0_LANE_PATHS = [("folded", True, 1, "1"), ("unsnapped", False, 1, "1"),
+                 ("folded_cp", True, 0, "1"), ("unsnapped_cp", False, 0, "1"),
+                 ("folded_split", True, 1, "0"), ("folded_split", True, 2, "0"),
+                 ("unsnapped_split", False, 1, "0"), ("unsnapped_split", False, 2, "0")]
+
+
+@pytest.mark.parametrize("path,snap,n_planes,fused", K0_LANE_PATHS)
+def test_k0_lanes_arithmetic_matches_jax(monkeypatch, path, snap, n_planes, fused):
+    """K0's lanes-over-channels arithmetic (`emulate_k0_lanes`: every level's
+    two rows' slopes summed four channels a lane, a dot with u_d, the plane
+    pairs' terms, then the butterfly of shuffles over a point's 8 lanes), on
+    the residuals of each path's forward twins, against jax.grad over the
+    points of the reference's XLA encode (loss sum(encode g), so g is the
+    cotangent); the split paths with one and with two plane levels. K = 48:
+    two channel quads a lane in the lower lanes, as at the flagship. fp32,
+    1e-4 of the largest entry, off the knots (`on_a_knot`: the tent has no
+    derivative there)."""
+    monkeypatch.setenv("MX_FUSED", fused)
+    plane_specs = ((24, 16, 8), (8, 8, 4))[:n_planes]
+    kw = dict(n_levels=3, base_resolution=4, max_resolution=32, features=48,
+              plane_specs=plane_specs, plane_axes="balanced", snap_levels=snap)
+    js, ts = jmx.make_mxspec(**kw), tmx.make_mxspec(**kw)
+    assert mxgrid_cuda.kernel_path(ts) == path
+    assert mxgrid_cuda.points_variant(ts, torch.float32) == "lanes_over_channels"
+    rng = np.random.default_rng(43)
+    n = 257
+    lines = rng.normal(0, 0.3, (1, 3, ts.total_res, ts.features)).astype(np.float32)
+    factors = lines if not n_planes else {
+        "lines": lines,
+        "planes": tuple(rng.normal(0, 0.3, (1, 3, ru, rv, kp)).astype(np.float32)
+                        for ru, rv, kp in plane_specs),
+        "plane_lines": tuple(rng.normal(0, 0.3, (1, 3, max(ru, rv), kp)).astype(np.float32)
+                             for ru, rv, kp in plane_specs)}
+    pts = rng.uniform(-2e-3, 1 + 2e-3, (1, n, 3)).astype(np.float32)
+    g = rng.normal(size=(1, n, ts.n_output_dims)).astype(np.float32)
+    tp = torch.from_numpy(pts)
+    tl = torch.from_numpy(lines)
+    table = tmx.fold_lines(tl, ts) if snap else tl
+    planes = tuple(torch.from_numpy(a) for a in factors["planes"]) if n_planes else ()
+    plines = tuple(torch.from_numpy(a) for a in factors["plane_lines"]) if n_planes else ()
+    fpl = fli = None
+    if path in ("folded", "unsnapped"):
+        fwd = (mxgrid_cuda.folded_fused_forward_plain if snap
+               else mxgrid_cuda.unsnapped_fused_forward_plain)
+        _, afac, fpl, fli = fwd(tp, table, planes[0], plines[0], ts)
+    else:
+        fwd = mxgrid_cuda.folded_cp_forward_plain if snap else mxgrid_cuda.unsnapped_cp_forward_plain
+        _, afac = fwd(tp, table, ts)
+        if n_planes:
+            _, fpl, fli = mxgrid_cuda.planes_forward_plain(tp, planes, plines, ts)
+    got = emulate_k0_lanes(tp[0], table[0], afac[0], [t[0] for t in planes],
+                           [t[0] for t in plines], None if fpl is None else fpl[0],
+                           None if fli is None else fli[0], torch.from_numpy(g)[0], ts)
+    enc = jax_encode("xla", js)
+    want = np.asarray(jax.grad(lambda q: jnp.sum(enc(jax.tree.map(jnp.asarray, factors), q) * g))(
+        jnp.asarray(pts)))[0]
+    off = ~mxgrid_cuda.on_a_knot(tp, ts)[0].numpy()
+    assert off.sum() > 0.9 * n
+    assert_rel_close(got.numpy()[off], want[off], 1e-4, path)
+    twin = mxgrid_cuda.points_gradient_plain(tp, table, afac, planes, plines, fpl, fli,
+                                             torch.from_numpy(g), ts)[0]
+    assert_rel_close(got.numpy(), twin.numpy(), 1e-4, path + " twin")
+
+
 # --------------------------------------------------------------------------
 # K3-K6: twins against the Pallas drivers in interpret mode
 # --------------------------------------------------------------------------
@@ -729,22 +912,24 @@ def test_unsnapped_tensor_core_arithmetic_stays_within_half_percent(preset, kind
     ("flagship", torch.bfloat16, False, "three_axis_staged"),  # K7 on the split path
     ("fast", torch.bfloat16, None, "three_axis_direct"),       # K7: 229,680 B of tables
     ("quality", torch.bfloat16, None, "three_axis_direct"),
-    ("flagship", torch.float32, None, "per_axis"),             # 273,420 B: renders, meshes
-    ("flagship", torch.float32, False, "per_axis"),
-    ("fast", torch.float32, None, "per_axis"),
+    ("flagship", torch.float32, None, "channel_split"),        # 273,420 B: renders, meshes
+    ("flagship", torch.float32, False, "channel_split"),       # K7: pose refinement
+    ("fast", torch.float32, None, "channel_split"),
+    ("quality", torch.float32, None, "channel_split"),
     ("tiny", torch.bfloat16, None, "three_axis_staged"),
     ("tiny", torch.float32, None, "three_axis_staged"),
 ])
 def test_unsnapped_forward_variant_follows_spec_and_dtype(preset, dtype, planes, forward):
     """Three axes a block where the tables fit a block's shared memory, with
-    the staged rows where those fit too; else one axis a block."""
+    the staged rows where those fit too; else a slice of the channels of the
+    three axes a block; else one axis a block."""
     spec = unsnapped_spec(preset)
     assert mxgrid_cuda.unsnapped_forward_variant(spec, dtype, planes) == forward
     assert forward in mxgrid_cuda.UNSNAPPED_FORWARD_VARIANTS
     elem = torch.empty((), dtype=dtype).element_size()
     words = -(-spec.features * elem // 4)
     tables = 3 * spec.total_res * (words | 1) * 4  # odd word stride
-    assert (tables <= mxgrid_cuda.SMEM_PER_BLOCK) == (forward != "per_axis")
+    assert (tables <= mxgrid_cuda.SMEM_PER_BLOCK) == forward.startswith("three_axis")
     if (preset, dtype, planes) == ("flagship", torch.bfloat16, None):
         assert tables == 139_500
     if (preset, dtype) == ("fast", torch.bfloat16):
@@ -840,6 +1025,107 @@ def test_three_axis_arithmetic_matches_pallas(kernel):
     else:
         twin = mxgrid_cuda.unsnapped_cp_forward_plain(p1, tl, ts)[0][0]
     assert_rel_close(out.float().numpy(), twin.float().numpy(), 1e-2, "twin")
+
+
+def ladder_spec(n_levels, max_res, features, plane_specs=()):
+    return tmx.make_mxspec(n_levels=n_levels, base_resolution=16, max_resolution=max_res,
+                           features=features, plane_specs=plane_specs, plane_axes="balanced",
+                           snap_levels=False)
+
+
+@pytest.mark.parametrize("name,spec,planes,kc,smem", [
+    # tables 3 total_res x odd words x 4 B (139,500 B at the flagship, padded to
+    # 16 B), then 16 warps x 32 rows x kc x 4 B
+    ("flagship K3", unsnapped_spec("flagship"), True, 24, 139_504 + 16 * 32 * 24 * 4),
+    ("flagship K7", unsnapped_spec("flagship"), False, 24, 139_504 + 16 * 32 * 24 * 4),
+    ("fast K7", unsnapped_spec("fast"), False, 16, 3 * 580 * 17 * 4 + 16 * 32 * 16 * 4),
+    ("quality K3", unsnapped_spec("quality"), True, 16, 3 * 580 * 17 * 4 + 16 * 32 * 16 * 4),
+    # the split path with two plane levels runs K7: the planes take no room
+    ("two plane levels K7", ladder_spec(6, 192, 48, ((128, 64, 4), (64, 64, 4))), False, 24,
+     139_504 + 16 * 32 * 24 * 4),
+])
+def test_channel_split_smem_arithmetic(name, spec, planes, kc, smem):
+    """The channel-split forward's slice at the fp32 ladders that hold no
+    three axes a block: the widest kc (K a multiple of it, kc of 4 channels)
+    whose staged tables and rows fit 232,448 B, and the bytes it takes."""
+    dt = torch.float32
+    assert mxgrid_cuda.unsnapped_forward_variant(spec, dt, planes) == "channel_split", name
+    assert mxgrid_cuda.channel_split_width(spec, dt) == kc
+    assert mxgrid_cuda.channel_split_smem(spec, dt, kc) == smem <= mxgrid_cuda.SMEM_PER_BLOCK
+    wider = [w for w in range(kc + 1, spec.features + 1) if spec.features % w == 0 and w % 4 == 0]
+    assert all(mxgrid_cuda.channel_split_smem(spec, dt, w) > mxgrid_cuda.SMEM_PER_BLOCK
+               for w in wider)
+    assert mxgrid_cuda._split_width(spec, dt, "channel_split") == kc
+    assert mxgrid_cuda._split_width(spec, dt, "three_axis_staged") == spec.features
+
+
+@pytest.mark.parametrize("name,spec", [
+    ("a level of one knot", tmx.make_mxspec(n_levels=3, base_resolution=1, max_resolution=16,
+                                             features=48, plane_specs=(), snap_levels=False)),
+    ("no slice fits", ladder_spec(8, 4096, 48)),
+    ("K not a multiple of 4", ladder_spec(8, 4096, 6)),
+])
+def test_unsnapped_forward_falls_back_to_per_axis(name, spec):
+    """per_axis stays where the three-axis kernels cannot run: a ladder
+    level of fewer than two knots (`tap_pair` reads rows j and j + 1), or
+    tables of which not even a slice of 4 channels fits a block."""
+    for dt in (torch.float32, torch.bfloat16):
+        assert mxgrid_cuda.unsnapped_forward_variant(spec, dt) == "per_axis", (name, dt)
+    if name != "a level of one knot":
+        assert mxgrid_cuda.channel_split_width(spec, torch.float32) is None
+        with pytest.raises(RuntimeError, match="no slice"):
+            mxgrid_cuda._split_width(spec, torch.float32, "channel_split")
+
+
+def emulate_channel_split(pts, lines, spec, planes, kc):
+    """`unsnapped_fwd3` with kSplit: `emulate_fwd3`'s arithmetic on each slice
+    of kc channels of the three axes' rows, the slices' factors and
+    products put side by side (a channel's factor and product read nothing
+    of another channel)."""
+    outs, afacs = [], []
+    for c0 in range(0, spec.features, kc):
+        sl = dataclasses.replace(spec, features=kc)
+        out, afac = emulate_fwd3(pts, lines[..., c0 : c0 + kc], sl, planes)
+        outs.append(out)
+        afacs.append(afac)
+    return torch.cat(outs, dim=-1), torch.cat(afacs, dim=-1)
+
+
+@pytest.mark.parametrize("kc", [4, 8])
+@pytest.mark.parametrize("kernel", ["K3", "K7"])
+def test_channel_split_arithmetic_matches_pallas(kernel, kc):
+    """The channel-split forward's fp32 arithmetic, emulated on the CPU at a
+    small ladder cut into slices of kc channels, against the Pallas kernels
+    in interpret mode: K3 (`_fused_forward`, the product formed in the
+    kernel) and K7 (`_cp_forward`, then the product JAX forms after it).
+    Factors and product within 1e-4 of the largest entry (fp32: the same
+    two-tap sums as the dense tent product, in another order); the product
+    equals (A_0 A_1) A_2 of the emulated factors exactly; the plane block
+    of K3 is K9's arithmetic (plane_pair_fwd), held by the twins' tests."""
+    planes = ((16, 8, 4),) if kernel == "K3" else ()
+    kw = dict(n_levels=3, base_resolution=4, max_resolution=32, features=16,
+              plane_specs=planes, plane_axes="balanced", snap_levels=False)
+    js, ts = jmx.make_mxspec(**kw), tmx.make_mxspec(**kw)
+    rng = np.random.default_rng(37)
+    lines = rng.normal(0, 0.5, (3, ts.total_res, ts.features)).astype(np.float32)
+    pts = rng.uniform(-2e-3, 1 + 2e-3, (300, 3)).astype(np.float32)
+    xt, n, npad = mxgrid_pallas._pad_and_tile(jnp.asarray(pts), mxgrid_pallas.TILE)
+    if planes:
+        f = {"lines": jnp.asarray(lines),
+             "planes": (jnp.asarray(rng.normal(0, 0.5, (3, 16, 8, 4)), jnp.float32),),
+             "plane_lines": (jnp.asarray(rng.normal(0, 0.5, (3, 16, 4)), jnp.float32),)}
+        j_out, j_afac, _, _ = mxgrid_pallas._fused_forward(f, xt, npad, js, True)
+        j_out = j_out[: ts.features]
+    else:
+        j_afac = mxgrid_pallas._cp_forward(jnp.asarray(lines), xt, npad, js, True)
+        j_out = j_afac[0] * j_afac[1] * j_afac[2]
+    out, afac = emulate_channel_split(torch.from_numpy(pts), torch.from_numpy(lines), ts,
+                                      bool(planes), kc)
+    assert_rel_close(afac.numpy().transpose(0, 2, 1), j_afac[..., :n], 1e-4, "afac")
+    assert_rel_close(out.numpy().T, j_out[:, :n], 1e-4, "out")
+    np.testing.assert_array_equal(out.numpy(), (afac[0] * afac[1] * afac[2]).numpy())
+    whole, _ = emulate_fwd3(torch.from_numpy(pts), torch.from_numpy(lines), ts, bool(planes))
+    np.testing.assert_array_equal(out.numpy(), whole.numpy())  # slicing changes no value
 
 
 # --------------------------------------------------------------------------

@@ -888,3 +888,136 @@ def test_split_encode_takes_k9_features_and_k10_in_place(cuda, monkeypatch, pres
     for name, a, b in zip(("out", "dlines", "dplanes", "dplines"), got,
                           run(mxgrid.encode, torch.float32)):
         assert rel_err(a, b) < 1e-2, name
+
+
+# --------------------------------------------------------------------------
+# K0 in each variant, and the channel-split forward of K3/K7
+# --------------------------------------------------------------------------
+
+
+def k0_case(spec, n_obj, n_pts, dtype, cuda, seed):
+    """Points, the path's table, its planes and plane lines, the plain
+    forwards' residuals in `dtype` and a cotangent: K0's arguments."""
+    g = torch.Generator().manual_seed(seed)
+    f = mxgrid.init_mxgrid(g, spec, n_obj)
+    n_planes = len(spec.plane_specs)
+    lines = f["lines"] if n_planes else f
+    table = mxgrid.fold_lines(lines, spec) if spec.snap_levels else lines
+    to = lambda t: t.to(device=cuda, dtype=dtype).contiguous()
+    table = to(table)
+    planes = tuple(map(to, f["planes"])) if n_planes else ()
+    plines = tuple(map(to, f["plane_lines"])) if n_planes else ()
+    pts = (torch.rand((n_obj, n_pts, 3), generator=g) * (1 + 4e-3) - 2e-3).to(cuda)
+    basis = (mxgrid_cuda._folded_basis if spec.snap_levels else mxgrid_cuda._ladder_basis)(spec)
+    afac = mxgrid_cuda._cp_factors_plain(pts, table, basis).to(dtype).transpose(2, 3)
+    fpl = fli = None
+    if n_planes:
+        _, fpl, fli = mxgrid_cuda._planes_plain(pts, planes, plines, spec, dtype)
+    gout = to(torch.randn((n_obj, n_pts, spec.n_output_dims), generator=g))
+    return pts, table, afac.contiguous(), planes, plines, fpl, fli, gout
+
+
+@pytest.mark.parametrize("variant", mxgrid_cuda.POINTS_VARIANTS)
+@pytest.mark.parametrize("n_obj,n_pts", [(1, 1), (1, 63), (3, 4097), (10, 4096), (1, 65537)])
+@pytest.mark.parametrize("path", ["folded", "unsnapped_cp", "unsnapped_split"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)])
+def test_k0_variants_match_plain(cuda, monkeypatch, dtype, tol, path, n_obj, n_pts, variant):
+    """Each variant of K0, forced, against its plain twin on the same
+    residuals: the flagship folded spec with its plane level, the `fast`
+    ladder unsnapped (CP only, K = 64: a channel quad a lane), and the
+    flagship ladder on the split path with two plane levels; point counts
+    around the 64-point tile and objects side by side. One launch, no
+    other kernel."""
+    monkeypatch.setattr(mxgrid_cuda, "points_variant", lambda *a, **k: variant)
+    if path == "folded":
+        spec = preset_spec("flagship")
+    elif path == "unsnapped_cp":
+        spec = unsnapped_preset("fast", planes=False)
+    else:
+        base = unsnapped_preset("flagship")
+        spec = mxgrid.make_mxspec(n_levels=6, base_resolution=16, max_resolution=192,
+                                  features=48, plane_specs=((128, 64, 4), (64, 64, 8)),
+                                  plane_axes="balanced", snap_levels=False)
+        assert spec.resolutions == base.resolutions
+    args = k0_case(spec, n_obj, n_pts, dtype, cuda, seed=41)
+    mxgrid_cuda.reset_launch_counts()
+    got = mxgrid_cuda.points_gradient(*args, spec)
+    torch.cuda.synchronize()
+    launched = {k: fn.launches for k, fn in mxgrid_cuda.KERNELS.items() if fn.launches}
+    assert launched == {"K0": 1}
+    want = mxgrid_cuda.points_gradient_plain(*args, spec)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert torch.isfinite(got).all()
+    assert rel_err(got, want) < tol
+
+
+def test_k0_variants_agree_on_unaligned_tables(cuda):
+    """The lanes-over-channels K0 reads a table or plane that is not 16-byte
+    aligned (a view one element into its storage) four channels a scalar
+    load, and agrees with its plain twin."""
+    spec = preset_spec("flagship")
+    pts, table, afac, planes, plines, fpl, fli, gout = k0_case(spec, 2, 1000, torch.float32,
+                                                               cuda, seed=43)
+    shift = lambda t: torch.cat([t.new_zeros(1), t.flatten()])[1:].view(t.shape)
+    table, planes = shift(table), (shift(planes[0]),)
+    assert table.data_ptr() % 16 and planes[0].data_ptr() % 16
+    args = (pts, table, afac, planes, plines, fpl, fli, gout, spec)
+    got = mxgrid_cuda.points_gradient(*args)
+    want = mxgrid_cuda.points_gradient_plain(*args)
+    torch.cuda.synchronize()
+    assert rel_err(got, want) < 1e-4
+
+
+@pytest.mark.parametrize("kc", [4, 8, 16])
+@pytest.mark.parametrize("n_obj,n_pts", [(1, 1), (1, 63), (10, 65), (3, 4097), (10, 4096)])
+@pytest.mark.parametrize("kernel", ["K3", "K7"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)])
+def test_channel_split_slices_match_plain(cuda, monkeypatch, dtype, tol, kernel, n_obj, n_pts,
+                                          kc):
+    """The channel-split forward, forced, in slices of kc of the small
+    ladder's 16 channels (4, 2 or 1 slices; K3's three plane pairs spread
+    over the slices), against the plain twins; no product pass."""
+    planes = kernel == "K3"
+    spec = small_spec(snap=False, planes=planes)
+    monkeypatch.setattr(mxgrid_cuda, "unsnapped_forward_variant",
+                        lambda *a, **k: "channel_split")
+    monkeypatch.setattr(mxgrid_cuda, "channel_split_width", lambda *a, **k: kc)
+    pts, lines, pl, pli, _ = ladder_inputs(spec, n_obj, n_pts, dtype, cuda, seed=7)
+    args = [lines, pl, pli] if planes else [lines]
+    mxgrid_cuda.reset_launch_counts()
+    got = mxgrid_cuda.KERNELS[kernel](pts, *args, spec)
+    torch.cuda.synchronize()
+    assert mxgrid_cuda.KERNELS[kernel].launches == 1
+    assert all(fn.launches == 0 for fn in mxgrid_cuda.PRODUCT_PASSES.values())
+    plain = (mxgrid_cuda.unsnapped_fused_forward_plain if planes
+             else mxgrid_cuda.unsnapped_cp_forward_plain)
+    for a, b in zip(got, plain(pts, *args, spec)):
+        assert a.dtype == dtype and a.shape == b.shape and torch.isfinite(a).all()
+        assert rel_err(a, b) < tol
+    if not planes:  # the product, rounded after each factor, from its own factors
+        assert torch.equal(got[0], mxgrid_cuda.cp_product(got[1]))
+
+
+@pytest.mark.parametrize("n_obj,n_pts", [(1, 63), (2, 4097), (10, 4096), (1, 196608)])
+@pytest.mark.parametrize("path", ["K3 flagship", "K7 flagship", "K7 fast", "K3 quality"])
+def test_fp32_unsnapped_forward_at_preset_widths(cuda, path, n_obj, n_pts):
+    """K3 and K7 in fp32 at the presets' ladders (renders, meshes and pose
+    refinement run them so), with the variant the spec selects,
+    channel_split, against the plain twins within 1e-4; one launch and no
+    product pass (the per-axis design launched `cp_product_pass` after K3
+    and `cp_product` after K7)."""
+    kf, preset = path.split()
+    spec = unsnapped_preset(preset, planes=kf == "K3")
+    assert mxgrid_cuda.unsnapped_forward_variant(spec, torch.float32) == "channel_split"
+    pts, lines, pl, pli, _ = ladder_inputs(spec, n_obj, n_pts, torch.float32, cuda, seed=29)
+    args = [lines, pl, pli] if kf == "K3" else [lines]
+    mxgrid_cuda.reset_launch_counts()
+    got = mxgrid_cuda.KERNELS[kf](pts, *args, spec)
+    torch.cuda.synchronize()
+    assert mxgrid_cuda.KERNELS[kf].launches == 1
+    assert all(fn.launches == 0 for fn in mxgrid_cuda.PRODUCT_PASSES.values())
+    plain = (mxgrid_cuda.unsnapped_fused_forward_plain if kf == "K3"
+             else mxgrid_cuda.unsnapped_cp_forward_plain)
+    for a, b in zip(got, plain(pts, *args, spec)):
+        assert a.shape == b.shape and torch.isfinite(a).all()
+        assert rel_err(a, b) < 1e-4

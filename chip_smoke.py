@@ -5,8 +5,9 @@ train wave with held-out renders, the offline runner with the CP-only
 `fast` preset, the offline CLI with the unsnapped ladder, the online
 socket server on the split kernels with a pose-refined test render, pose
 refinement of perturbed views against a converged field, a hash-grid
-(`tcnn`) train wave, and the flagship-parity quality gate at its full
-budget (3 seeds x 5000 steps).
+(`tcnn`) train wave, the flagship-parity quality gate at its full
+budget (3 seeds x 5000 steps), and the `quality` preset's train waves,
+folded and unsnapped.
 
 Usage: python3 chip_smoke.py     (needs one CUDA device; exits non-zero on
 any failure and prints no result line then)
@@ -18,20 +19,24 @@ Phases, one or more lines each, each closed by its seconds:
                K7/K8 (`fast` unsnapped, then flagship unsnapped as phase 9
                runs them) and K9/K10 (the flagship plane level on the split
                path, then `quality`'s (128, 128, 8); K10 reads the plane
-               block of the full cotangent in place) vs their plain
-               versions, and each backward
+               block of the full cotangent in place), K1/K2 and K3/K4 at
+               the `quality` preset (256 x 64, (128, 128, 8)) vs their
+               plain versions, and each backward
                vs autograd through its forward's plain version, O=2 x
-               P=131072, bf16 and fp32, then K1/K2, K3/K4 and K7/K8 in bf16
-               at O=10 x P=131072, the shape their train steps launch them
-               at: max abs / relative error beside the tolerance, the median
+               P=131072, bf16 and fp32, then K1/K2, K3/K4 and K7/K8 (and
+               `quality`'s K1/K2 and K3/K4) in bf16 at O=10 x P=131072, the
+               shape their train steps launch them at: max abs / relative error beside the tolerance, the median
                kernel and plain times, the bound (the least time the card
                could take: bytes over its memory rate or operations over its
                peak, the larger), the peak memory of the check and, where a
                kernel has variants, the one the spec and dtype select (the
                flagship and `fast` bf16 backwards, folded and unsnapped,
                and K10 at the flagship and `quality` plane levels must take
-               the tensor cores; the bf16 unsnapped forwards the
-               three-axis kernel, the fp32 ones channel_split); K3/K4,
+               the tensor cores, `quality`'s K2 and K4 too; the bf16
+               unsnapped forwards the three-axis kernel, the fp32 ones
+               channel_split); `quality`'s bf16 K2 and K4 at O=10 beside
+               their bound, the scalar kernel (forced) timed in turns with
+               them and its sums held to theirs; K3/K4,
                K7/K8 and K9/K10 also in fp32 at O=10, K9 and K10 beside
                their library yardstick (F.grid_sample's plane and line
                calls, and their backward); then K3 and
@@ -87,6 +92,12 @@ Phases, one or more lines each, each closed by its seconds:
                mean (QUALITY.json): per-seed PSNR beside the JAX flagship's
                and the anchor's, seconds, K1/K2 launches; the record goes to
                build/quality_torch.json
+ 12 quality   EncodingConfig.preset("quality") on the scene of phase 5,
+               bf16: 1 step and a timed 50-step wave folded (K1/K2, K2 on
+               the tensor cores), obj-iters/s, host_enqueue_s, peak memory,
+               losses falling on every active slot, launches by dtype, one
+               held-out view per object (K1 fp32: PSNR and mask IoU); then
+               MX_SNAP=0, 1 + 20 steps (K3/K4, K4 on the tensor cores)
 then the total seconds, a JSON line with each kernel's record, and as the
 last line {"ok": true, "device": {...}}.
 """
@@ -243,8 +254,10 @@ def phase_build() -> None:
 # tables) and at the flagship unsnapped ladder that phase 9 runs (465 rows x
 # K = 48); K1/K2, K3/K4 and K7/K8 also at their train steps' O=10, in bf16
 # (there the plain twins hold dense [10, 131072, 465] fp32 bases, 2.4 GB an
-# axis). A kernel's record in the JSON line is its last bf16 check here: its
-# main path's.
+# axis); the `quality` preset's K1/K2 and K3/K4 at O=2 and, in bf16, at the
+# O=10 of `[12]`'s train step (580-row ladder x K = 64: 3.0 GB an axis). A
+# kernel's record in the JSON line is its last bf16 check here: its main
+# path's; the `quality` checks go into the record's "quality" entry.
 BOTH = (torch.bfloat16, torch.float32)
 CHECKS = (
     ("folded", "K1", "K2", KERNEL_O, BOTH),
@@ -255,6 +268,10 @@ CHECKS = (
     ("unsnapped_split", "K7", "K8", KERNEL_O, BOTH),
     ("unsnapped_split", "K9", "K10", KERNEL_O, BOTH),
     ("quality_split", "K9", "K10", KERNEL_O, BOTH),
+    ("quality", "K1", "K2", KERNEL_O, BOTH),
+    ("quality_unsnapped", "K3", "K4", KERNEL_O, BOTH),
+    ("quality", "K1", "K2", N_OBJECTS, (torch.bfloat16,)),
+    ("quality_unsnapped", "K3", "K4", N_OBJECTS, (torch.bfloat16,)),
     ("unsnapped", "K3", "K4", N_OBJECTS, (torch.float32, torch.bfloat16)),
     ("unsnapped_split", "K7", "K8", N_OBJECTS, (torch.float32, torch.bfloat16)),
     ("unsnapped_split", "K9", "K10", N_OBJECTS, (torch.float32, torch.bfloat16)),
@@ -384,15 +401,15 @@ def phase_kernels(specs: dict, dev) -> dict:
     records for the JSON line."""
     # the train paths' backward is on the tensor cores
     chosen = {path: mxgrid_cuda.folded_variant(specs[path], torch.bfloat16)
-              for path in ("folded", "folded_cp")}
+              for path in ("folded", "folded_cp", "quality")}
     chosen.update({path: mxgrid_cuda.unsnapped_variant(specs[path], torch.bfloat16, planes)
                    for path, planes in (("unsnapped", True), ("unsnapped_cp", False),
-                                        ("unsnapped_split", False))})
+                                        ("unsnapped_split", False), ("quality_unsnapped", True))})
     chosen.update({f"{path} K10": mxgrid_cuda.planes_variant(specs[path], torch.bfloat16)
                    for path in ("unsnapped_split", "quality_split")})
     if set(chosen.values()) != {"tensor_core"}:
         raise AssertionError(f"bf16 backward variants: {chosen}")
-    records, fp32 = {}, {}
+    records, fp32, quality = {}, {}, {}
     for path, kf, kb, o, dtypes in CHECKS:
         spec = specs[path]
         fwd, bwd = mxgrid_cuda.KERNELS[kf], mxgrid_cuda.KERNELS[kb]
@@ -405,7 +422,7 @@ def phase_kernels(specs: dict, dev) -> dict:
             f_var, b_var = variants(kf, spec, dtype)
             if kf in ("K3", "K7"):  # three axes a block where they fit, else channel slices
                 want_var = "channel_split" if dtype == torch.float32 else "three_axis_staged"
-                if path == "unsnapped_cp":
+                if path in ("unsnapped_cp", "quality_unsnapped"):  # tables too wide to stage rows
                     want_var = "channel_split" if dtype == torch.float32 else "three_axis_direct"
                 if f_var["variant"] != want_var:
                     raise AssertionError(f"{kf} {path} {dtype}: variant {f_var}")
@@ -466,7 +483,14 @@ def phase_kernels(specs: dict, dev) -> dict:
                 del lib_out
             if kf in ("K3", "K7") and dtype == torch.float32 and o == N_OBJECTS:
                 fp32[kf] = dict(fp32_variant=f_var["variant"], fp32_ms=f_ms)
-            if dtype == torch.bfloat16:
+            if dtype == torch.bfloat16 and path in ("quality", "quality_unsnapped"):
+                rec = quality.setdefault(kb, dict(spec=path, variant=b_var["variant"]))
+                if o == KERNEL_O:
+                    rec.update(max_abs_err_o2=max(b_abs, b_abs_p), ms_o2=b_ms,
+                               plain_ms_o2=b_plain_ms)
+                else:  # the train step's shape: its errors and plain time
+                    rec.update(max_abs_err=max(b_abs, b_abs_p), plain_ms=b_plain_ms)
+            elif dtype == torch.bfloat16:
                 # no single PyTorch call computes the CP functions (a K-channel
                 # two-tap lerp per axis times a product, and its scatter
                 # transpose): library_ms is null but for K9/K10 (grid_sample)
@@ -480,13 +504,16 @@ def phase_kernels(specs: dict, dev) -> dict:
             torch.cuda.empty_cache()
     for kf, extra in fp32.items():  # the fp32 design beside the bf16 record
         records[kf].update(extra)
+    for kb, rec in quality.items():  # `quality`'s check beside the main path's record
+        records[kb]["quality"] = rec
     return records
 
 
 @contextlib.contextmanager
 def forced(selector: str, variant: str):
     """Run the kernels that `mxgrid_cuda.<selector>` picks a variant for
-    (`unsnapped_forward_variant`: K3/K7; `points_variant`: K0) in `variant`
+    (`unsnapped_forward_variant`: K3/K7; `points_variant`: K0;
+    `folded_variant`: K2/K6; `unsnapped_variant`: K4/K8) in `variant`
     instead of the one the spec and dtype select."""
     chosen = getattr(mxgrid_cuda, selector)
     setattr(mxgrid_cuda, selector, lambda *a, **k: variant)
@@ -553,6 +580,46 @@ def time_unsnapped_forwards(specs: dict, dev) -> None:
                     bound_ms=f"{b_ms:.4f}", bound_by=b_by, **extra)
                 del pts, args
                 torch.cuda.empty_cache()
+
+
+def time_quality_backwards(specs: dict, records: dict, dev) -> None:
+    """K2 and K4 at the `quality` preset in bf16 at O=10 x 131072, the train
+    step's shape: the tensor-core kernel (what the spec selects) and the
+    scalar kernel (forced) timed in turns (scalar, tensor_core, tensor_core,
+    scalar) beside the bound; the scalar kernel's sums are held to the
+    tensor-core kernel's as timing context (phase_kernels holds the
+    tensor-core kernel to the plain twin and autograd at this shape). The
+    times go into the record's "quality" entry."""
+    for path, kf, kb, selector in (("quality", "K1", "K2", "folded_variant"),
+                                   ("quality_unsnapped", "K3", "K4", "unsnapped_variant")):
+        spec, dtype = specs[path], torch.bfloat16
+        fwd, bwd = mxgrid_cuda.KERNELS[kf], mxgrid_cuda.KERNELS[kb]
+        new = getattr(mxgrid_cuda, selector)(spec, dtype)
+        if new != "tensor_core":
+            raise AssertionError(f"{kb} {path}: variant {new}")
+        pts, args, gout = kernel_inputs(spec, dtype, dev, seed=3, kf=kf, o=N_OBJECTS)
+        res = fwd(pts, *args, spec)[1:]
+        got = bwd(pts, *res, gout, spec)
+        with forced(selector, "scalar"):
+            scalar = bwd(pts, *res, gout, spec)
+        torch.cuda.synchronize()
+        _, rel = errors(got, scalar)
+        times = {"scalar": [], new: []}
+        for variant in ("scalar", new, new, "scalar"):
+            with forced(selector, variant):
+                times[variant].append(median_ms(lambda: bwd(pts, *res, gout, spec)))
+        b_ms, b_by = bound(kb, spec, dtype, N_OBJECTS)
+        say("3 kernels", kernel=kb, spec=path, shape=f"{N_OBJECTS}x{KERNEL_P}", dtype="bfloat16",
+            variant=new, scalar_ms=[f"{t:.4f}" for t in times["scalar"]],
+            **{f"{new}_ms": [f"{t:.4f}" for t in times[new]]},
+            max_rel_err_vs_scalar=f"{rel:.3e}", rel_tol=REL_TOL[dtype],
+            bound_ms=f"{b_ms:.4f}", bound_by=b_by)
+        if not rel <= REL_TOL[dtype] or not all(torch.isfinite(t).all() for t in got):
+            raise AssertionError(f"{kb} {path} O={N_OBJECTS}: {rel} against the scalar kernel")
+        records[kb]["quality"].update(ms=min(times[new]), scalar_ms=min(times["scalar"]),
+                                      bound_ms=b_ms, bound_by=b_by)
+        del pts, args, gout, res, got, scalar
+        torch.cuda.empty_cache()
 
 
 # (spec of kernel_specs(), dtypes) of K0's checks: the crop RENDER_TEST's
@@ -736,6 +803,21 @@ def phase_train_and_render(dev) -> tuple[dict, float]:
     if not (state.step[objs.active] == WAVE + 1).all():
         raise AssertionError("an active slot skipped steps")
 
+    psnrs, ious = render_held_out("6 render", cam, objects, frames, objs, state, cfg, spec,
+                                  gen, dev)
+    launches = {"K1": mxgrid_cuda.folded_fused_forward.launches,
+                "K2": mxgrid_cuda.folded_fused_backward.launches}
+    say("6 render", mean_psnr_db=f"{np.mean(psnrs):.3f}", mean_mask_iou=f"{np.mean(ious):.4f}",
+        views=len(psnrs), launches=launches)
+    if min(launches.values()) < 1:
+        raise AssertionError(f"a kernel of the main path never launched: {launches}")
+    return launches, rate
+
+
+def render_held_out(label, cam, objects, frames, objs, state, cfg, spec, gen, dev):
+    """One held-out bbox view per object rendered from the EMA through
+    `render_rays` (fp32): PSNR on the object's pixels and mask IoU, a line
+    each. Returns (psnrs, ious); fails unless every object renders finite."""
     psnrs, ious = [], []
     for oi, (obj, view) in enumerate(zip(objects, held_out_views(cam, objects))):
         if view is None:
@@ -763,18 +845,12 @@ def phase_train_and_render(dev) -> tuple[dict, float]:
         mse = float(np.mean((rgb[inst] - gt[inst]) ** 2))
         psnrs.append(-10 * math.log10(mse) if mse > 0 else float("inf"))
         ious.append(float(np.sum((mask > 0.5) & inst) / max(np.sum((mask > 0.5) | inst), 1)))
-        say("6 render", object=oi, psnr_db=f"{psnrs[-1]:.3f}", mask_iou=f"{ious[-1]:.4f}",
+        say(label, object=oi, psnr_db=f"{psnrs[-1]:.3f}", mask_iou=f"{ious[-1]:.4f}",
             rays=h * w)
     torch.cuda.synchronize()
-    launches = {"K1": mxgrid_cuda.folded_fused_forward.launches,
-                "K2": mxgrid_cuda.folded_fused_backward.launches}
-    say("6 render", mean_psnr_db=f"{np.mean(psnrs):.3f}", mean_mask_iou=f"{np.mean(ious):.4f}",
-        views=len(psnrs), launches=launches)
-    if len(psnrs) != N_OBJECTS or not all(np.isfinite(psnrs)):
+    if len(psnrs) != len(objects) or not all(np.isfinite(psnrs)):
         raise AssertionError("held-out render failed")
-    if min(launches.values()) < 1:
-        raise AssertionError(f"a kernel of the main path never launched: {launches}")
-    return launches, rate
+    return psnrs, ious
 
 
 def write_world_dataset(root: str):
@@ -928,24 +1004,33 @@ def product_passes() -> dict:
     return {k: dict(fn.launches_by_dtype) for k, fn in mxgrid_cuda.PRODUCT_PASSES.items()}
 
 
+# the `quality` preset's paths and the kernel path each routes to
+QUALITY_PATHS = {"quality": "folded", "quality_unsnapped": "unsnapped",
+                 "quality_split": "unsnapped_split"}
+
+
 def kernel_specs() -> dict:
     """The spec of each kernel pair's path: the flagship with snap on
     (K1/K2) and off (K3/K4), the CP-only `fast` preset with snap on (K5/K6)
     and off (K7/K8), the flagship unsnapped on the split path (MX_FUSED=0),
     whose ladder K7/K8 and plane level (128, 64, 4) K9/K10 run, and the
-    `quality` preset there ("quality_split": K9/K10 at (128, 128, 8))."""
+    `quality` preset (256 x 64 with a (128, 128, 8) plane level) folded
+    ("quality": K1/K2), unsnapped ("quality_unsnapped": K3/K4) and on the
+    split path ("quality_split": K9/K10)."""
     flagship, fast = EncodingConfig(), EncodingConfig.preset("fast")
+    quality = EncodingConfig.preset("quality")
     unsnap = lambda e: dataclasses.replace(e, mx_snap_levels=False)
     encodings = {"folded": flagship, "unsnapped": unsnap(flagship), "folded_cp": fast,
                  "unsnapped_cp": unsnap(fast), "unsnapped_split": unsnap(flagship),
-                 "quality_split": unsnap(EncodingConfig.preset("quality"))}
+                 "quality": quality, "quality_unsnapped": unsnap(quality),
+                 "quality_split": unsnap(quality)}
     specs = {k: nerf.make_field_spec(NerfConfig(encoding=e)) for k, e in encodings.items()}
     for path, spec in specs.items():
         with environ(MX_FUSED="0" if path.endswith("split") else "1"):
-            route = "unsnapped_split" if path == "quality_split" else path
+            route = QUALITY_PATHS.get(path, path)
             assert mxgrid_cuda.kernel_path(spec) == route, (path, spec)
     assert specs["unsnapped_split"].plane_specs == ((128, 64, 4),)
-    assert specs["quality_split"].plane_specs == ((128, 128, 8),)
+    assert all(specs[p].plane_specs == ((128, 128, 8),) for p in QUALITY_PATHS)
     return specs
 
 
@@ -1275,6 +1360,75 @@ def phase_quality() -> None:
                              f"step, K1 once a fp32 render)")
 
 
+QUALITY_UNSNAPPED_WAVE = 20
+
+
+def phase_quality_preset(dev) -> dict:
+    """`EncodingConfig.preset("quality")` (256 x 64 with a (128, 128, 8)
+    plane level) through train_objects on the scene of phase 5, bf16: 1 step
+    and a timed 50-step wave folded (K1/K2, K2 on the tensor cores), one
+    held-out view per object rendered (K1 fp32), then with MX_SNAP=0 1 + 20
+    steps (K3/K4, K4 on the tensor cores). Nothing is cut: these are the
+    preset's own widths and the train step's batch. Returns the K2 and K4
+    launches of the two runs."""
+    cfg = NerfConfig(encoding=EncodingConfig.preset("quality"))
+    cam, objects, _, store, objs = build_synthetic_world(N_OBJECTS, 16, 128, device=dev)
+    frames = store.arrays()
+    active = objs.active.cpu()
+    launches = {}
+    for snap, n_steps in (("1", WAVE), ("0", QUALITY_UNSNAPPED_WAVE)):
+        with environ(MX_SNAP=snap):
+            spec = nerf.make_field_spec(cfg)
+            kf, kb = ("K1", "K2") if spec.snap_levels else ("K3", "K4")
+            selector = "folded_variant" if spec.snap_levels else "unsnapped_variant"
+            variant = getattr(mxgrid_cuda, selector)(spec, torch.bfloat16)
+            if variant != "tensor_core" or spec.snap_levels != (snap == "1"):
+                raise AssertionError(f"quality {kb}: variant {variant}, snap {spec.snap_levels}")
+            gen = torch.Generator(device=dev).manual_seed(cfg.seed)
+            state = nerf.init_train_state(gen, N_OBJECTS, cfg, spec, device=dev)
+            torch.cuda.reset_peak_memory_stats()
+            mxgrid_cuda.reset_launch_counts()
+            state = nerf.train_objects(state, objs, frames, cfg, spec, 1, generator=gen)
+            loss1 = state.loss.cpu()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state = nerf.train_objects(state, objs, frames, cfg, spec, n_steps, generator=gen)
+            enqueue_s = time.perf_counter() - t0  # the host alone: the wave's launches queued
+            torch.cuda.synchronize()
+            wave_s = time.perf_counter() - t0
+            loss2 = state.loss.cpu()
+            by_dtype = {k: dict(mxgrid_cuda.KERNELS[k].launches_by_dtype) for k in (kf, kb)}
+            others = {k: fn.launches for k, fn in mxgrid_cuda.KERNELS.items() if k not in (kf, kb)}
+            say("12 quality", snap=spec.snap_levels, spec_out=spec.n_output_dims,
+                plane_specs=spec.plane_specs, variant=f"{kb} {variant}", steps=f"1+{n_steps}",
+                loss_step1=[round(x, 5) for x in loss1.tolist()],
+                loss_wave=[round(x, 5) for x in loss2.tolist()], wave_s=f"{wave_s:.4f}",
+                host_enqueue_s=f"{enqueue_s:.4f}",
+                obj_iters_per_s=f"{N_OBJECTS * n_steps / wave_s:.2f}",
+                peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.3f}",
+                launches=by_dtype, other_kernels=others)
+            if not (torch.isfinite(loss1[active]).all() and torch.isfinite(loss2[active]).all()
+                    and (loss2[active] < loss1[active]).all()):
+                raise AssertionError(f"quality {kb}: a loss is not finite or did not fall")
+            if not (state.step[objs.active] == n_steps + 1).all():
+                raise AssertionError(f"quality {kb}: an active slot skipped steps")
+            want = {"bfloat16": n_steps + 1}
+            if by_dtype != {kf: want, kb: want} or any(others.values()):
+                raise AssertionError(f"quality {kb}: launches {by_dtype}, others {others}")
+            launches[kb] = by_dtype[kb]["bfloat16"]
+            if spec.snap_levels:
+                psnrs, ious = render_held_out("12 quality", cam, objects, frames, objs, state,
+                                              cfg, spec, gen, dev)
+                k1 = dict(mxgrid_cuda.KERNELS["K1"].launches_by_dtype)
+                say("12 quality", mean_psnr_db=f"{np.mean(psnrs):.3f}",
+                    mean_mask_iou=f"{np.mean(ious):.4f}", views=len(psnrs), k1_by_dtype=k1)
+                if k1.get("float32", 0) < 1:
+                    raise AssertionError(f"quality render: K1 fp32 never launched: {k1}")
+        del state
+        torch.cuda.empty_cache()
+    return launches
+
+
 def timed(label: str, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -1289,6 +1443,7 @@ def main() -> None:
     timed("2 build", phase_build)
     specs = kernel_specs()
     records = timed("3 kernels", phase_kernels, specs, dev)
+    timed("3 kernels", time_quality_backwards, specs, records, dev)
     timed("3 kernels", time_unsnapped_forwards, specs, dev)
     records["K0"] = timed("3 kernels", check_points_gradient, specs, dev)
     timed("4 parity", phase_parity, dev)
@@ -1307,6 +1462,9 @@ def main() -> None:
         timed("10 tcnn", phase_tcnn, dev)
         torch.cuda.empty_cache()
         timed("11 quality", phase_quality)
+        torch.cuda.empty_cache()
+        for kb, n in timed("12 quality", phase_quality_preset, dev).items():
+            records[kb]["quality"]["launches"] = n
     finally:
         shutil.rmtree(root, ignore_errors=True)
     say("total", seconds=f"{time.perf_counter() - t_start:.3f}")

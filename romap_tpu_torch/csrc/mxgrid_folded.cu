@@ -47,15 +47,23 @@
 // tent's own operations, rounded to bf16), reads u_d with ldmatrix and
 // runs mma.sync.m16n8k16 (bf16 in, fp32 out). The fp32 sums stay in
 // registers for the block's whole point range (flagship: 3 x 6 tiles x 4 =
-// 72 registers a thread; `fast`: 128) and are flushed once, one global
-// atomicAdd per non-zero entry: at most floor(SMs / O) blocks an object
-// meet on an entry, and a second pass over per-block partials would move
-// more bytes than these atomics do. 93 % of `hat` is zeros; the tensor
-// cores have nothing else to do here. With planes (kp = 4, rw = 128), the
-// line gradient dL_i = hat_w^T (g_i f_pl) is two more row tiles a warp on
-// the same path (channels padded to 8), and the plane gradient, which does
-// not fit a block (393 KB), is scattered with one 16-byte vector atomicAdd
-// per corner (four a point and pair) into L2. What bounds it now
+// 72 registers a thread; `fast` and `quality`: 128) and are flushed once, one
+// global atomicAdd per non-zero entry: at most floor(SMs / O) blocks an
+// object meet on an entry, and a second pass over per-block partials would
+// move more bytes than these atomics do. 93 % of `hat` is zeros; the tensor
+// cores have nothing else to do here. With planes (rw = 128; kp = 4 at the
+// flagship, padded to the 8 columns of an mma tile, kp = 8 at `quality`),
+// the line gradient dL_i = hat_w^T (g_i f_pl) is two more row tiles a warp
+// on the same path, summed over a tile's points in registers and then into
+// fp32 sums in shared memory, and the plane gradient, which does not fit a
+// block (393 KB fp32 an object at the flagship, 1.57 MB at `quality`), is
+// scattered into L2 with one 16-byte vector atomicAdd per corner and four
+// channels, a thread for each (pair, point, 4 channels). `quality` (<4, 8,
+// true, 8>) keeps its 128 sums a thread in the 168 registers that 384
+// threads have, without spill, because the line sums live in shared memory
+// and the loops over a tile are not unrolled; 0.85 ms at 10 objects x
+// 131072 points against the scalar kernel's 5.4 (NVIDIA H100 80GB HBM3,
+// 700 W, tools/time_encode.py --pairs K1q). What bounds the flagship's
 // (tools/ablate_backward.py, three runs on an NVIDIA H100 80GB HBM3 at 700
 // W, 10 objects x 131072 points, 0.65-0.70 ms): the products 0.14-0.20 ms
 // (55 kFLOP a point: about what mma.sync reaches without wgmma), the
@@ -69,7 +77,8 @@
 //
 // Backward, scalar (`folded_fused_bwd`): fp32 (dtype 0: tests and renders'
 // tiny fp32 step, never the train path) and every bf16 spec the tensor-core
-// tile does not cover. One thread a point, fp32 atomicAdd into a per-block
+// instantiations (flagship, `quality`, CP-only 192 x 48 and 256 x 64) do
+// not cover. One thread a point, fp32 atomicAdd into a per-block
 // shared-memory accumulator (compiled to a compare-and-swap loop,
 // ATOMS.CAST.SPIN), one global atomicAdd per entry at the end. Atomics make
 // the backward sums order-dependent in both variants.
@@ -277,37 +286,48 @@ __global__ void __launch_bounds__(kThreads) folded_fused_bwd(
 constexpr int kTcThreads = 384;  // 12 warps: four an axis (and plane pair)
 constexpr int kTcWarps = kTcThreads / 32;
 
-// Shared-memory bytes of folded_bwd_tc<MT, NT, kPlanes>: two input stages
-// (g, afac, fpl + fli, points), then u, the line operand, t and t_w.
-template <int NT, bool kPlanes>
+// Shared-memory bytes of folded_bwd_tc<MT, NT, kPlanes, KP>: two input
+// stages (g, afac, fpl + fli, points), then u, the line operand, t and t_w,
+// and the line gradient's fp32 sums.
+template <int NT, bool kPlanes, int KP>
 struct TcSmem {
   static constexpr int K = NT * 8;
-  static constexpr int kout = K + (kPlanes ? 3 * kTcKp : 0);
+  static constexpr int kout = K + (kPlanes ? 3 * KP : 0);
   static constexpr int g_bytes = kTile * kout * 2;
   static constexpr int a_bytes = 3 * K * kRow * 2;
-  static constexpr int f_bytes = kPlanes ? 2 * 3 * kTcKp * kRow * 2 : 0;
+  static constexpr int f_bytes = kPlanes ? 2 * 3 * KP * kRow * 2 : 0;
   static constexpr int x_bytes = kTile * 3 * 4;
   static constexpr int stage = g_bytes + a_bytes + f_bytes + x_bytes;
   static constexpr int v_bytes = kPlanes ? 3 * 8 * kRow * 2 : 0;
   static constexpr int t_bytes = 3 * kTile * 4;
-  static constexpr int total = 2 * stage + a_bytes + v_bytes + 2 * t_bytes;
+  static constexpr int l_bytes = kPlanes ? 3 * kTcRw * 8 * 4 : 0;
+  static constexpr int total = 2 * stage + a_bytes + v_bytes + 2 * t_bytes + l_bytes;
 };
 
-template <int MT, int NT, bool kPlanes>
+// K2 (KP plane channels, 4 or 8) and K6 (kPlanes off) on the tensor cores.
+template <int MT, int NT, bool kPlanes, int KP = 4>
 __global__ void __launch_bounds__(kTcThreads, 1) folded_bwd_tc(
     const float* __restrict__ pts, const bf16* __restrict__ afac,
     const bf16* __restrict__ fpl, const bf16* __restrict__ fli,
     const bf16* __restrict__ g, float* __restrict__ dweff,
     float* __restrict__ dplanes, float* __restrict__ dplines, int P, int rf,
     int ru, int rv, int axes, int vec) {
-  using S = TcSmem<NT, kPlanes>;
+  using S = TcSmem<NT, kPlanes, KP>;
   constexpr int K = S::K, kout = S::kout, rfp = MT * 64;
-  constexpr int kpl = 3 * kTcKp;
+  constexpr int kpl = 3 * KP;
+  // The plane work of a tile: one (pair, point, 4-channel chunk) a thread,
+  // on the last kItems threads (KP = 4: threads 192-383, beside t on 0-191;
+  // KP = 8: all 384, so that a thread holds four channels, not eight, beside
+  // its sums).
+  constexpr int kChunks = KP / 4, kItems = 3 * kTile * kChunks;
+  static_assert(!kPlanes || (KP % 4 == 0 && KP <= 8 && kItems <= kTcThreads),
+                "one 4-channel chunk a thread; the line operand has 8 columns");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* u_s = reinterpret_cast<bf16*>(smem_raw + 2 * S::stage);         // [3, K, kRow]
   bf16* v_s = reinterpret_cast<bf16*>(smem_raw + 2 * S::stage + S::a_bytes);  // [3, 8, kRow]
   float* t_s = reinterpret_cast<float*>(smem_raw + 2 * S::stage + S::a_bytes + S::v_bytes);
   float* tw_s = t_s + 3 * kTile;  // [3, 64] each
+  float* l_s = tw_s + 3 * kTile;  // [3, kTcRw, 8]: the line gradient's sums
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int grp = lane >> 2, q = lane & 3;
@@ -327,14 +347,20 @@ __global__ void __launch_bounds__(kTcThreads, 1) folded_bwd_tc(
     for (int n = 0; n < NT; ++n)
 #pragma unroll
       for (int c = 0; c < 4; ++c) acc[m][n][c] = 0.f;
-  float lacc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
 
-  if constexpr (kPlanes) {  // channel rows 4-7 of the line operand stay zero
-    for (int j = tid; j < 3 * 8 * kRow; j += kTcThreads) v_s[j] = __float2bfloat16(0.f);
+  if constexpr (kPlanes) {
+    for (int j = tid; j < 3 * kTcRw * 8; j += kTcThreads) l_s[j] = 0.f;
+    if constexpr (KP < 8) {  // channel rows KP-7 of the line operand stay zero
+      for (int j = tid; j < 3 * 8 * kRow; j += kTcThreads) v_s[j] = __float2bfloat16(0.f);
+    }
+    __syncthreads();  // the flush reads the sums even where a block gets no tile
   }
 
   // Raw inputs of one tile into a stage; points past P arrive as zeros, so
   // that they add nothing (u = 0) and no stale shared memory reaches a sum.
+  // This loop and the others over a tile (u, the line gradient) are not
+  // unrolled: unrolled, their counters and trip counts take the registers
+  // that `quality`'s 128 sums a thread leave (they spilled 28 bytes).
   auto load_tile = [&](int tile, int s) {
     unsigned char* base = smem_raw + s * S::stage;
     bf16* sg = reinterpret_cast<bf16*>(base);
@@ -345,16 +371,19 @@ __global__ void __launch_bounds__(kTcThreads, 1) folded_bwd_tc(
     const int nv = P - p0 < kTile ? P - p0 : kTile;
     if (vec) {  // P % 8 == 0 and 16-byte aligned bases: whole 16-byte chunks
       const unsigned char* gsrc = reinterpret_cast<const unsigned char*>(g_o + (size_t)p0 * kout);
+#pragma unroll 1
       for (int c = tid; c < S::g_bytes / 16; c += kTcThreads) {
         const bool ok = c * 16 < nv * kout * 2;
         cp_async16(reinterpret_cast<unsigned char*>(sg) + c * 16, ok ? gsrc + c * 16 : gsrc, ok);
       }
+#pragma unroll 1
       for (int c = tid; c < 3 * K * 8; c += kTcThreads) {
         const int r = c >> 3, cc = (c & 7) * 8;
         const bool ok = cc < nv;
         cp_async16(sa + r * kRow + cc, afac_o + (size_t)r * P + (ok ? p0 + cc : 0), ok);
       }
       if constexpr (kPlanes) {
+#pragma unroll 1
         for (int c = tid; c < 2 * kpl * 8; c += kTcThreads) {
           const int r = c >> 3, cc = (c & 7) * 8;
           const bool ok = cc < nv;
@@ -363,25 +392,30 @@ __global__ void __launch_bounds__(kTcThreads, 1) folded_bwd_tc(
         }
       }
       const unsigned char* xsrc = reinterpret_cast<const unsigned char*>(pts_o + (size_t)p0 * 3);
+#pragma unroll 1
       for (int c = tid; c < S::x_bytes / 16; c += kTcThreads) {
         const bool ok = c * 16 < nv * 12;
         cp_async16(reinterpret_cast<unsigned char*>(sx) + c * 16, ok ? xsrc + c * 16 : xsrc, ok);
       }
     } else {  // any P, any alignment: element by element
       const bf16 zero = __float2bfloat16(0.f);
+#pragma unroll 1
       for (int e = tid; e < kTile * kout; e += kTcThreads)
         sg[e] = e < nv * kout ? g_o[(size_t)p0 * kout + e] : zero;
+#pragma unroll 1
       for (int e = tid; e < 3 * K * kTile; e += kTcThreads) {
         const int r = e >> 6, pp = e & 63;
         sa[r * kRow + pp] = pp < nv ? afac_o[(size_t)r * P + p0 + pp] : zero;
       }
       if constexpr (kPlanes) {
+#pragma unroll 1
         for (int e = tid; e < 2 * kpl * kTile; e += kTcThreads) {
           const int r = e >> 6, pp = e & 63;
           const bf16* src = r < kpl ? fpl_o + (size_t)r * P : fli_o + (size_t)(r - kpl) * P;
           sf[r * kRow + pp] = pp < nv ? src[p0 + pp] : zero;
         }
       }
+#pragma unroll 1
       for (int e = tid; e < kTile * 3; e += kTcThreads)
         sx[e] = e < nv * 3 ? pts_o[(size_t)p0 * 3 + e] : 0.f;
     }
@@ -407,37 +441,42 @@ __global__ void __launch_bounds__(kTcThreads, 1) folded_bwd_tc(
     if (tid < 3 * kTile) {
       const int dd = tid >> 6, pp = tid & 63;
       t_s[dd * kTile + pp] = __fmul_rn(sx[pp * 3 + dd], (float)(rf - 1));
-    } else if constexpr (kPlanes) {
-      const int i = (tid - 3 * kTile) >> 6, pp = tid & 63;
-      const float x[3] = {sx[pp * 3 + 0], sx[pp * 3 + 1], sx[pp * 3 + 2]};
-      const uint2 graw = *reinterpret_cast<const uint2*>(sg + pp * kout + K + i * kTcKp);
-      const float2 g01 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&graw.x));
-      const float2 g23 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&graw.y));
-      const float gi[4] = {g01.x, g01.y, g23.x, g23.y};
-      float gl[4];
+    }
+    if constexpr (kPlanes) {
+      const int item = tid - (kTcThreads - kItems);  // (pair, chunk, point), point fastest
+      if (item >= 0) {
+        const int pp = item & 63, c0 = ((item >> 6) % kChunks) * 4, i = (item >> 6) / kChunks;
+        const float* x = sx + pp * 3;
+        const uint2 graw = *reinterpret_cast<const uint2*>(sg + pp * kout + K + i * KP + c0);
+        const float2 g01 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&graw.x));
+        const float2 g23 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&graw.y));
+        const float gi[4] = {g01.x, g01.y, g23.x, g23.y};
+        float gl[4];
 #pragma unroll
-      for (int c = 0; c < kTcKp; ++c) {
-        const int r = i * kTcKp + c;
-        const float f_pl = __bfloat162float(sf[r * kRow + pp]);
-        const float f_li = __bfloat162float(sf[(kpl + r) * kRow + pp]);
-        v_s[(i * 8 + c) * kRow + pp] = __float2bfloat16(gi[c] * f_pl);  // dL operand
-        gl[c] = gi[c] * f_li;
-      }
-      tw_s[i * kTile + pp] = __fmul_rn(x[pair_axis(axes, i, 2)], (float)(kTcRw - 1));
-      if (tile * kTile + pp < P) {
-        // dP_i[a, b, :] += hat_u[a] hat_v[b] g_i f_li
-        const Taps tu = tent_taps(x[pair_axis(axes, i, 0)], ru);
-        const Taps tv = tent_taps(x[pair_axis(axes, i, 1)], rv);
-        float* p_i = dplanes + ((size_t)o * 3 + i) * ru * rv * kTcKp;
-        red4_if(p_i + ((size_t)tu.j0 * rv + tv.j0) * kTcKp, tu.w0 * tv.w0, gl);
-        red4_if(p_i + ((size_t)tu.j0 * rv + tv.j1) * kTcKp, tu.w0 * tv.w1, gl);
-        red4_if(p_i + ((size_t)tu.j1 * rv + tv.j0) * kTcKp, tu.w1 * tv.w0, gl);
-        red4_if(p_i + ((size_t)tu.j1 * rv + tv.j1) * kTcKp, tu.w1 * tv.w1, gl);
+        for (int c = 0; c < 4; ++c) {
+          const int r = i * KP + c0 + c;
+          const float f_pl = __bfloat162float(sf[r * kRow + pp]);
+          const float f_li = __bfloat162float(sf[(kpl + r) * kRow + pp]);
+          v_s[(i * 8 + c0 + c) * kRow + pp] = __float2bfloat16(gi[c] * f_pl);  // dL operand
+          gl[c] = gi[c] * f_li;
+        }
+        if (c0 == 0) tw_s[i * kTile + pp] = __fmul_rn(x[pair_axis(axes, i, 2)], (float)(kTcRw - 1));
+        if (tile * kTile + pp < P) {
+          // dP_i[a, b, c0..c0+3] += hat_u[a] hat_v[b] g_i f_li
+          const Taps tu = tent_taps(x[pair_axis(axes, i, 0)], ru);
+          const Taps tv = tent_taps(x[pair_axis(axes, i, 1)], rv);
+          float* p_i = dplanes + ((size_t)o * 3 + i) * ru * rv * KP + c0;
+          red4_if(p_i + ((size_t)tu.j0 * rv + tv.j0) * KP, tu.w0 * tv.w0, gl);
+          red4_if(p_i + ((size_t)tu.j0 * rv + tv.j1) * KP, tu.w0 * tv.w1, gl);
+          red4_if(p_i + ((size_t)tu.j1 * rv + tv.j0) * KP, tu.w1 * tv.w0, gl);
+          red4_if(p_i + ((size_t)tu.j1 * rv + tv.j1) * KP, tu.w1 * tv.w1, gl);
+        }
       }
     }
     // ---- build: u_d[k, p] = g[p, k] A_e[k, p] A_f[k, p], two points a
     // thread; a warp covers 8 channels x 4 point pairs, which keeps its
     // 32-bit reads of afac and writes of u in 32 different banks
+#pragma unroll 1
     for (int ws = warp; ws < K; ws += kTcWarps) {
       const int ch = (ws >> 3) * 8 + (lane & 7);
       const int p2 = ((ws & 7) * 4 + (lane >> 3)) * 2;
@@ -483,8 +522,16 @@ __global__ void __launch_bounds__(kTcThreads, 1) folded_bwd_tc(
           mma16816(acc[m][2 * np + 1], a[m], b[2], b[3]);
         }
       }
-      if constexpr (kPlanes) {
-        // dL_d[rows, 0-3] += hat_w[rows, points] (g_d f_pl)[points, 0-3]
+    }
+    if constexpr (kPlanes) {
+      // dL_d[rows, 0-7] += hat_w[rows, points] (g_d f_pl)[points, 0-7] for the
+      // warp's two line tiles: summed in registers over this tile's points,
+      // then added to the block's sums in shared memory, each lane to its
+      // own entries (the sums of every tile held in registers, beside
+      // `quality`'s 128 sum registers, would spill)
+      float la[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll 1
+      for (int k16 = 0; k16 < kTile; k16 += 16) {
         const float2 w_lo = *reinterpret_cast<const float2*>(tw_s + d * kTile + k16 + 2 * q);
         const float2 w_hi = *reinterpret_cast<const float2*>(tw_s + d * kTile + k16 + 8 + 2 * q);
         const bf16* vrow = v_s + (d * 8 + grp) * kRow + k16 + 2 * q;
@@ -494,8 +541,17 @@ __global__ void __launch_bounds__(kTcThreads, 1) folded_bwd_tc(
         for (int m = 0; m < 2; ++m) {
           uint32_t al[4];
           hat_fragment((float)((warp & 3) * 32 + m * 16 + grp), w_lo, w_hi, al);
-          mma16816(lacc[m], al, b0, b1);
+          mma16816(la[m], al, b0, b1);
         }
+      }
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        // lane: rows grp, grp + 8 of the tile, columns 2q, 2q + 1
+        float* l = l_s + ((size_t)d * kTcRw + (warp & 3) * 32 + m * 16 + grp) * 8 + 2 * q;
+        float2* lo = reinterpret_cast<float2*>(l);
+        float2* hi = reinterpret_cast<float2*>(l + 8 * 8);
+        *lo = make_float2(lo->x + la[m][0], lo->y + la[m][1]);
+        *hi = make_float2(hi->x + la[m][2], hi->y + la[m][3]);
       }
     }
   }
@@ -514,15 +570,15 @@ __global__ void __launch_bounds__(kTcThreads, 1) folded_bwd_tc(
         if (r < rf && v != 0.f) atomicAdd(dw_g + (size_t)r * K + n * 8 + 2 * q + (c & 1), v);
       }
   if constexpr (kPlanes) {
-    float* dl_g = dplines + ((size_t)o * 3 + d) * kTcRw * kTcKp;
-    if (q < 2) {
+    float* dl_g = dplines + ((size_t)o * 3 + d) * kTcRw * KP;
+    if (2 * q < KP) {  // columns 2q, 2q + 1 are channels; past KP, zero pads
 #pragma unroll
       for (int m = 0; m < 2; ++m)
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           const int r = (warp & 3) * 32 + m * 16 + grp + (c >> 1) * 8;
-          const float v = lacc[m][c];
-          if (v != 0.f) atomicAdd(dl_g + (size_t)r * kTcKp + 2 * q + (c & 1), v);
+          const float v = l_s[((size_t)d * kTcRw + r) * 8 + 2 * q + (c & 1)];
+          if (v != 0.f) atomicAdd(dl_g + (size_t)r * KP + 2 * q + (c & 1), v);
         }
     }
   }
@@ -582,19 +638,19 @@ int launch_bwd(const void* pts, const void* afac, const void* fpl,
   return (int)cudaGetLastError();
 }
 
-template <int MT, int NT, bool kPlanes>
+template <int MT, int NT, bool kPlanes, int KP = 4>
 int launch_bwd_tc(const void* pts, const void* afac, const void* fpl,
                   const void* fli, const void* g, void* dweff, void* dplanes,
                   void* dplines, int O, int P, int rf, int ru, int rv, int axes,
                   cudaStream_t stream) {
-  const size_t smem = TcSmem<NT, kPlanes>::total;
+  const size_t smem = TcSmem<NT, kPlanes, KP>::total;
   dim3 grid;
-  cudaError_t err = plan(folded_bwd_tc<MT, NT, kPlanes>, smem, O, P, 1, &grid,
+  cudaError_t err = plan(folded_bwd_tc<MT, NT, kPlanes, KP>, smem, O, P, 1, &grid,
                          kTcThreads, kTile);
   if (err != cudaSuccess) return (int)err;
   const int vec = P % 8 == 0 && aligned16(pts) && aligned16(afac) && aligned16(g) &&
                   aligned16(fpl) && aligned16(fli);
-  folded_bwd_tc<MT, NT, kPlanes><<<grid, kTcThreads, smem, stream>>>(
+  folded_bwd_tc<MT, NT, kPlanes, KP><<<grid, kTcThreads, smem, stream>>>(
       (const float*)pts, (const bf16*)afac, (const bf16*)fpl, (const bf16*)fli,
       (const bf16*)g, (float*)dweff, (float*)dplanes, (float*)dplines, P, rf, ru,
       rv, axes, vec);
@@ -624,8 +680,8 @@ int romap_mx_folded_fwd(int dtype, int variant, const void* pts, const void* wef
 }
 
 // K2. dweff, dplanes and dplines must be zero-filled by the caller. The
-// tensor-core variant takes bf16 at (rfp, K) = (192, 48) with kp = 4 and
-// rw = 128.
+// tensor-core variant takes bf16 at (rfp, K) = (192, 48) with kp = 4 (the
+// flagship) and at (256, 64) with kp = 8 (`quality`), rw = 128 in both.
 int romap_mx_folded_bwd(int dtype, int variant, const void* pts, const void* afac,
                         const void* fpl, const void* fli, const void* g,
                         void* dweff, void* dplanes, void* dplines, int O,
@@ -633,9 +689,12 @@ int romap_mx_folded_bwd(int dtype, int variant, const void* pts, const void* afa
                         int rw, int axes, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (variant == 1) {
-    if (dtype == 1 && rfp == 192 && K == 48 && kp == kTcKp && rw == kTcRw)
-      return launch_bwd_tc<3, 6, true>(pts, afac, fpl, fli, g, dweff, dplanes,
-                                       dplines, O, P, rf, ru, rv, axes, s);
+    if (dtype == 1 && rfp == 192 && K == 48 && kp == 4 && rw == kTcRw)
+      return launch_bwd_tc<3, 6, true, 4>(pts, afac, fpl, fli, g, dweff, dplanes,
+                                          dplines, O, P, rf, ru, rv, axes, s);
+    if (dtype == 1 && rfp == 256 && K == 64 && kp == 8 && rw == kTcRw)
+      return launch_bwd_tc<4, 8, true, 8>(pts, afac, fpl, fli, g, dweff, dplanes,
+                                          dplines, O, P, rf, ru, rv, axes, s);
     return (int)cudaErrorInvalidValue;
   }
   if (variant == 0 && dtype == 0)

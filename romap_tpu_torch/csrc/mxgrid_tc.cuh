@@ -18,7 +18,6 @@ constexpr int kTile = 64;        // points a tile: four k-steps of 16
 constexpr int kRow = 72;         // bf16 elements of a 64-point row in shared
                                  // memory: 128 B + 16 B, so that 8 rows of a
                                  // 16-byte column fall into 8 bank groups
-constexpr int kTcKp = 4;         // plane channels (one 16-byte vector)
 constexpr int kTcRw = 128;       // plane line rows: 8 row tiles
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {

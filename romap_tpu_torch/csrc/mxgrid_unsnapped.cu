@@ -76,14 +76,20 @@
 // a pad row's sum is never flushed), reads u_d with ldmatrix and runs
 // mma.sync.m16n8k16. The fp32 sums stay in registers over the block's whole
 // point range and are flushed once with one global atomicAdd per non-zero
-// entry. With the plane level (K4: kp = 4, rw = 128) block d also owes pair
-// d: the line gradient as one more row tile for each of the last 8 warps
-// (channels padded to 8), the plane gradient as one 16-byte vector
-// atomicAdd a corner. The grid is floor(SMs / 3 O) blocks an object and
-// axis: 120 of 132 SMs at O = 10. What it costs: g and the factors are read
-// by three blocks (1.0 KB a point against 0.43 KB once). Measured on an
-// NVIDIA H100 80GB HBM3 at 700 W, 10 objects x 131072 points
-// (tools/time_encode.py, tools/ablate_backward.py --kernel K4): K4
+// entry. With the plane level (K4: rw = 128, kp = 4 at the flagship,
+// padded to the 8 columns of an mma tile, kp = 8 at `quality`) block d also
+// owes pair d: the line gradient as one more row tile for each of the last
+// 8 warps, the plane gradient as one 16-byte vector atomicAdd a corner and
+// four channels. `quality`'s ladder (580 rows, 39 padded tiles, K = 64)
+// takes 8 warps of 5 tiles (160 sums a thread of 246 registers, no spill;
+// 20 warps of 2 tiles, as K8 at `fast` runs, are held to 96 registers and
+// spilled 296 bytes, and measured 6 % slower): 2.0 ms at 10 objects x
+// 131072 points against the scalar kernel's 28.5 (NVIDIA H100 80GB HBM3,
+// 700 W, tools/time_encode.py --pairs K3q). The grid is floor(SMs / 3 O)
+// blocks an object and axis: 120 of 132 SMs at O = 10. What it costs: g
+// and the factors are read by three blocks (1.0 KB a point against 0.43 KB
+// once). Measured on an NVIDIA H100 80GB HBM3 at 700 W, 10 objects x 131072
+// points (tools/time_encode.py, tools/ablate_backward.py --kernel K4): K4
 // 1.53-1.65 ms (the scalar kernel 11.3-11.4, and 16.5-16.6 at ray-like
 // points, where the tensor-core kernel reads the same 1.53-1.62), K8
 // 1.11-1.21 (scalar 10.0-10.1; 15.5-15.8); of K4's time the mma.sync and
@@ -535,16 +541,16 @@ __device__ __forceinline__ TileRows tile_rows(const Ladder& lad, int tile) {
   return tr;
 }
 
-// Shared-memory bytes of unsnapped_bwd_tc<., ., NT, kPlanes>: two input
+// Shared-memory bytes of unsnapped_bwd_tc<., ., NT, kPlanes, KP>: two input
 // stages (g; afac of the two other axes; pair d's fpl + fli; points), then
 // u_d, the line operand, x_d and t_w.
-template <int NT, bool kPlanes>
+template <int NT, bool kPlanes, int KP>
 struct UtcSmem {
   static constexpr int K = NT * 8;
-  static constexpr int kout = K + (kPlanes ? 3 * kTcKp : 0);
+  static constexpr int kout = K + (kPlanes ? 3 * KP : 0);
   static constexpr int g_bytes = kTile * kout * 2;
   static constexpr int a_bytes = 2 * K * kRow * 2;
-  static constexpr int f_bytes = kPlanes ? 2 * kTcKp * kRow * 2 : 0;
+  static constexpr int f_bytes = kPlanes ? 2 * KP * kRow * 2 : 0;
   static constexpr int x_bytes = kTile * 3 * 4;
   static constexpr int stage = g_bytes + a_bytes + f_bytes + x_bytes;
   static constexpr int u_bytes = K * kRow * 2;
@@ -557,21 +563,24 @@ struct UtcSmem {
 // [padded rows x points] x [points x K] product. kWarps warps own MT
 // consecutive 16-row tiles each (kWarps * MT >= the ladder's padded tiles);
 // the fp32 sums stay in registers over the block's whole point range and are
-// flushed once with global atomics, pad rows skipped. With planes, block d
-// also owes pair d: the line gradient as one more row tile for each of the
-// last 8 warps, the plane gradient as 16-byte vector atomics.
-template <int kWarps, int MT, int NT, bool kPlanes>
+// flushed once with global atomics, pad rows skipped. With planes (KP
+// channels, 4 or 8), block d also owes pair d: the line gradient as one more
+// row tile for each of the last 8 warps, the plane gradient as 16-byte
+// vector atomics, one (point, 4-channel chunk) a thread.
+template <int kWarps, int MT, int NT, bool kPlanes, int KP = 4>
 __global__ void __launch_bounds__(kWarps * 32, 1) unsnapped_bwd_tc(
     const float* __restrict__ pts, const bf16* __restrict__ afac,
     const bf16* __restrict__ fpl, const bf16* __restrict__ fli,
     const bf16* __restrict__ g, float* __restrict__ dlines,
     float* __restrict__ dplanes, float* __restrict__ dplines, Ladder lad,
     int P, int total_res, int ru, int rv, int axes, int vec) {
-  using S = UtcSmem<NT, kPlanes>;
+  using S = UtcSmem<NT, kPlanes, KP>;
   constexpr int K = S::K, kout = S::kout, kThr = kWarps * 32;
-  constexpr int kpl = 3 * kTcKp, kLineTiles = kTcRw / 16;
+  constexpr int kpl = 3 * KP, kLineTiles = kTcRw / 16, kChunks = KP / 4;
   static_assert(!kPlanes || kWarps >= kLineTiles, "one line tile a warp");
-  static_assert(kThr >= 2 * kTile, "threads 0-63 stage x_d, 64-127 pair d");
+  static_assert(!kPlanes || (KP % 4 == 0 && KP <= 8), "4-channel chunks; 8 line columns");
+  static_assert(kThr >= (1 + kChunks) * kTile,
+                "threads 0-63 stage x_d, the next 64 a chunk pair d's plane work");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* u_s = reinterpret_cast<bf16*>(smem_raw + 2 * S::stage);               // [K, kRow]
   bf16* v_s = reinterpret_cast<bf16*>(smem_raw + 2 * S::stage + S::u_bytes);  // [8, kRow]
@@ -586,8 +595,8 @@ __global__ void __launch_bounds__(kWarps * 32, 1) unsnapped_bwd_tc(
   const bf16* afac_o = afac + (size_t)o * 3 * K * P;
   const bf16* g_o = g + (size_t)o * P * kout;
   const float* pts_o = pts + (size_t)o * P * 3;
-  const bf16* fpl_d = kPlanes ? fpl + ((size_t)o * kpl + d * kTcKp) * P : nullptr;
-  const bf16* fli_d = kPlanes ? fli + ((size_t)o * kpl + d * kTcKp) * P : nullptr;
+  const bf16* fpl_d = kPlanes ? fpl + ((size_t)o * kpl + d * KP) * P : nullptr;
+  const bf16* fli_d = kPlanes ? fli + ((size_t)o * kpl + d * KP) * P : nullptr;
 
   TileRows tr[MT];
 #pragma unroll
@@ -602,7 +611,7 @@ __global__ void __launch_bounds__(kWarps * 32, 1) unsnapped_bwd_tc(
       for (int c = 0; c < 4; ++c) acc[m][n][c] = 0.f;
   float lacc[4] = {0.f, 0.f, 0.f, 0.f};
 
-  if constexpr (kPlanes) {  // channel rows 4-7 of the line operand stay zero
+  if constexpr (kPlanes && KP < 8) {  // channel rows KP-7 of the line operand stay zero
     for (int j = tid; j < 8 * kRow; j += kThr) v_s[j] = __float2bfloat16(0.f);
   }
 
@@ -629,10 +638,10 @@ __global__ void __launch_bounds__(kWarps * 32, 1) unsnapped_bwd_tc(
         cp_async16(sa + r * kRow + cc, src + (ok ? p0 + cc : 0), ok);
       }
       if constexpr (kPlanes) {
-        for (int c = tid; c < 2 * kTcKp * 8; c += kThr) {  // pair d's fpl, then fli
+        for (int c = tid; c < 2 * KP * 8; c += kThr) {  // pair d's fpl, then fli
           const int r = c >> 3, cc = (c & 7) * 8;
           const bool ok = cc < nv;
-          const bf16* src = r < kTcKp ? fpl_d + (size_t)r * P : fli_d + (size_t)(r - kTcKp) * P;
+          const bf16* src = r < KP ? fpl_d + (size_t)r * P : fli_d + (size_t)(r - KP) * P;
           cp_async16(sf + r * kRow + cc, src + (ok ? p0 + cc : 0), ok);
         }
       }
@@ -651,9 +660,9 @@ __global__ void __launch_bounds__(kWarps * 32, 1) unsnapped_bwd_tc(
         sa[r * kRow + pp] = pp < nv ? src[p0 + pp] : zero;
       }
       if constexpr (kPlanes) {
-        for (int i = tid; i < 2 * kTcKp * kTile; i += kThr) {
+        for (int i = tid; i < 2 * KP * kTile; i += kThr) {
           const int r = i >> 6, pp = i & 63;
-          const bf16* src = r < kTcKp ? fpl_d + (size_t)r * P : fli_d + (size_t)(r - kTcKp) * P;
+          const bf16* src = r < KP ? fpl_d + (size_t)r * P : fli_d + (size_t)(r - KP) * P;
           sf[r * kRow + pp] = pp < nv ? src[p0 + pp] : zero;
         }
       }
@@ -678,35 +687,36 @@ __global__ void __launch_bounds__(kWarps * 32, 1) unsnapped_bwd_tc(
     const bf16* sf = reinterpret_cast<const bf16*>(base + S::g_bytes + S::a_bytes);
     const float* sx = reinterpret_cast<const float*>(base + S::g_bytes + S::a_bytes + S::f_bytes);
 
-    // ---- build: x_d, then (planes) pair d's line operand and plane scatter
+    // ---- build: x_d, then (planes) pair d's line operand and plane
+    // scatter, one (chunk of 4 channels, point) a thread, point fastest
     if (tid < kTile) {
       xd_s[tid] = sx[tid * 3 + d];
     } else if constexpr (kPlanes) {
-      if (tid < 2 * kTile) {
-        const int pp = tid - kTile;
+      if (tid < (1 + kChunks) * kTile) {
+        const int pp = tid & 63, c0 = kChunks == 1 ? 0 : ((tid >> 6) - 1) * 4;
         const float x[3] = {sx[pp * 3 + 0], sx[pp * 3 + 1], sx[pp * 3 + 2]};
-        const uint2 graw = *reinterpret_cast<const uint2*>(sg + pp * kout + K + d * kTcKp);
+        const uint2 graw = *reinterpret_cast<const uint2*>(sg + pp * kout + K + d * KP + c0);
         const float2 g01 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&graw.x));
         const float2 g23 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&graw.y));
         const float gi[4] = {g01.x, g01.y, g23.x, g23.y};
         float gl[4];
 #pragma unroll
-        for (int c = 0; c < kTcKp; ++c) {
-          const float f_pl = __bfloat162float(sf[c * kRow + pp]);
-          const float f_li = __bfloat162float(sf[(kTcKp + c) * kRow + pp]);
-          v_s[c * kRow + pp] = __float2bfloat16(gi[c] * f_pl);  // dL operand
+        for (int c = 0; c < 4; ++c) {
+          const float f_pl = __bfloat162float(sf[(c0 + c) * kRow + pp]);
+          const float f_li = __bfloat162float(sf[(KP + c0 + c) * kRow + pp]);
+          v_s[(c0 + c) * kRow + pp] = __float2bfloat16(gi[c] * f_pl);  // dL operand
           gl[c] = gi[c] * f_li;
         }
-        tw_s[pp] = __fmul_rn(x[pair_axis(axes, d, 2)], (float)(kTcRw - 1));
+        if (c0 == 0) tw_s[pp] = __fmul_rn(x[pair_axis(axes, d, 2)], (float)(kTcRw - 1));
         if (tile * kTile + pp < P) {
-          // dP_d[a, b, :] += hat_u[a] hat_v[b] g_d f_li
+          // dP_d[a, b, c0..c0+3] += hat_u[a] hat_v[b] g_d f_li
           const Taps tu = tent_taps(x[pair_axis(axes, d, 0)], ru);
           const Taps tv = tent_taps(x[pair_axis(axes, d, 1)], rv);
-          float* p_i = dplanes + ((size_t)o * 3 + d) * ru * rv * kTcKp;
-          red4_if(p_i + ((size_t)tu.j0 * rv + tv.j0) * kTcKp, tu.w0 * tv.w0, gl);
-          red4_if(p_i + ((size_t)tu.j0 * rv + tv.j1) * kTcKp, tu.w0 * tv.w1, gl);
-          red4_if(p_i + ((size_t)tu.j1 * rv + tv.j0) * kTcKp, tu.w1 * tv.w0, gl);
-          red4_if(p_i + ((size_t)tu.j1 * rv + tv.j1) * kTcKp, tu.w1 * tv.w1, gl);
+          float* p_i = dplanes + ((size_t)o * 3 + d) * ru * rv * KP + c0;
+          red4_if(p_i + ((size_t)tu.j0 * rv + tv.j0) * KP, tu.w0 * tv.w0, gl);
+          red4_if(p_i + ((size_t)tu.j0 * rv + tv.j1) * KP, tu.w0 * tv.w1, gl);
+          red4_if(p_i + ((size_t)tu.j1 * rv + tv.j0) * KP, tu.w1 * tv.w0, gl);
+          red4_if(p_i + ((size_t)tu.j1 * rv + tv.j1) * KP, tu.w1 * tv.w1, gl);
         }
       }
     }
@@ -759,7 +769,7 @@ __global__ void __launch_bounds__(kWarps * 32, 1) unsnapped_bwd_tc(
       }
       if constexpr (kPlanes) {
         if (lt < kLineTiles) {
-          // dL_d[rows, 0-3] += hat_w[rows, points] (g_d f_pl)[points, 0-3]
+          // dL_d[rows, 0-7] += hat_w[rows, points] (g_d f_pl)[points, 0-7]
           const float2 w_lo = *reinterpret_cast<const float2*>(tw_s + k16 + 2 * q);
           const float2 w_hi = *reinterpret_cast<const float2*>(tw_s + k16 + 8 + 2 * q);
           const bf16* vrow = v_s + grp * kRow + k16 + 2 * q;
@@ -788,13 +798,13 @@ __global__ void __launch_bounds__(kWarps * 32, 1) unsnapped_bwd_tc(
           atomicAdd(dw_g + (size_t)(tr[m].row + r) * K + n * 8 + 2 * q + (c & 1), v);
       }
   if constexpr (kPlanes) {
-    float* dl_g = dplines + ((size_t)o * 3 + d) * kTcRw * kTcKp;
-    if (lt < kLineTiles && q < 2) {
+    float* dl_g = dplines + ((size_t)o * 3 + d) * kTcRw * KP;
+    if (lt < kLineTiles && 2 * q < KP) {  // columns past KP are zero pads
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int r = lt * 16 + grp + (c >> 1) * 8;
         const float v = lacc[c];
-        if (v != 0.f) atomicAdd(dl_g + (size_t)r * kTcKp + 2 * q + (c & 1), v);
+        if (v != 0.f) atomicAdd(dl_g + (size_t)r * KP + 2 * q + (c & 1), v);
       }
     }
   }
@@ -913,20 +923,20 @@ int launch_bwd(const void* pts, const void* afac, const void* fpl,
   return (int)cudaGetLastError();
 }
 
-template <int kWarps, int MT, int NT, bool kPlanes>
+template <int kWarps, int MT, int NT, bool kPlanes, int KP = 4>
 int launch_bwd_tc(const void* pts, const void* afac, const void* fpl,
                   const void* fli, const void* g, void* dlines, void* dplanes,
                   void* dplines, const Ladder& lad, int O, int P, int total_res,
                   int ru, int rv, int axes, cudaStream_t stream) {
   if (padded_tiles(lad) > kWarps * MT) return (int)cudaErrorInvalidValue;
-  const size_t smem = UtcSmem<NT, kPlanes>::total;
+  const size_t smem = UtcSmem<NT, kPlanes, KP>::total;
   dim3 grid;
-  cudaError_t err = plan(unsnapped_bwd_tc<kWarps, MT, NT, kPlanes>, smem, O, P, 3,
+  cudaError_t err = plan(unsnapped_bwd_tc<kWarps, MT, NT, kPlanes, KP>, smem, O, P, 3,
                          &grid, kWarps * 32, kTile);
   if (err != cudaSuccess) return (int)err;
   const int vec = P % 8 == 0 && aligned16(pts) && aligned16(afac) && aligned16(g) &&
                   aligned16(fpl) && aligned16(fli);
-  unsnapped_bwd_tc<kWarps, MT, NT, kPlanes><<<grid, kWarps * 32, smem, stream>>>(
+  unsnapped_bwd_tc<kWarps, MT, NT, kPlanes, KP><<<grid, kWarps * 32, smem, stream>>>(
       (const float*)pts, (const bf16*)afac, (const bf16*)fpl, (const bf16*)fli,
       (const bf16*)g, (float*)dlines, (float*)dplanes, (float*)dplines, lad, P,
       total_res, ru, rv, axes, vec);
@@ -987,8 +997,9 @@ int romap_mx_cp_product(int dtype, const void* afac, void* out, int O, int P, in
 // `variant` is the caller's choice from the spec and dtype (mxgrid_cuda.py:
 // `unsnapped_variant`: 0 scalar, 1 tensor cores); a combination that is not
 // instantiated returns cudaErrorInvalidValue. The tensor-core variant takes
-// bf16 at K = 48 with kp = 4, rw = 128 and a ladder of at most 32 padded
-// 16-row tiles (the flagship's 465 rows pad to 31).
+// bf16 with rw = 128: at K = 48 with kp = 4 and a ladder of at most 32
+// padded 16-row tiles (the flagship's 465 rows pad to 31), and at K = 64
+// with kp = 8 and at most 40 (`quality`'s 580 rows pad to 39).
 int romap_mx_unsnapped_bwd(int dtype, int variant, const void* pts, const void* afac,
                            const void* fpl, const void* fli, const void* g,
                            void* dlines, void* dplanes, void* dplines,
@@ -1000,10 +1011,14 @@ int romap_mx_unsnapped_bwd(int dtype, int variant, const void* pts, const void* 
   if (bad) return bad;
   cudaStream_t s = (cudaStream_t)stream;
   if (variant == 1) {
-    if (dtype == 1 && K == 48 && kp == kTcKp && rw == kTcRw)
-      return launch_bwd_tc<16, 2, 6, true>(pts, afac, fpl, fli, g, dlines, dplanes,
-                                           dplines, lad, O, P, total_res, ru, rv,
-                                           axes, s);
+    if (dtype == 1 && K == 48 && kp == 4 && rw == kTcRw)
+      return launch_bwd_tc<16, 2, 6, true, 4>(pts, afac, fpl, fli, g, dlines, dplanes,
+                                              dplines, lad, O, P, total_res, ru, rv,
+                                              axes, s);
+    if (dtype == 1 && K == 64 && kp == 8 && rw == kTcRw)
+      return launch_bwd_tc<8, 5, 8, true, 8>(pts, afac, fpl, fli, g, dlines, dplanes,
+                                              dplines, lad, O, P, total_res, ru, rv,
+                                              axes, s);
     return (int)cudaErrorInvalidValue;
   }
   if (variant == 0 && dtype == 0)

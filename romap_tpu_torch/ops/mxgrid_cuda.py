@@ -195,11 +195,11 @@ def kernel_path(spec: MXGridSpec) -> str:
     return "folded" if snap else "unsnapped"
 
 
-# (rfp, K) of the tensor-core backward's instantiations in mxgrid_folded.cu:
-# with the plane level (K2), which must be (line rows, channels) = TC_PLANE,
-# and CP-only (K6)
-TC_SHAPES = {True: ((192, 48),), False: ((192, 48), (256, 64))}
-TC_PLANE = (128, 4)
+# The tensor-core backward's instantiations in mxgrid_folded.cu: (rfp, K,
+# (line rows, channels) of the one plane level) with the plane level (K2:
+# the flagship, `quality`), (rfp, K) CP-only (K6: the flagship's ladder,
+# `fast`)
+TC_SHAPES = {True: ((192, 48, (128, 4)), (256, 64, (128, 8))), False: ((192, 48), (256, 64))}
 # (line rows, channels) of the one plane level the tensor-core K10
 # instantiates in mxgrid_planes.cu: the flagship's and `quality`'s
 PLANES_TC_SHAPES = ((128, 4), (128, 8))
@@ -208,28 +208,33 @@ BACKWARD_VARIANTS = ("scalar", "tensor_core")  # the C side's variant codes
 FORWARD_VARIANTS = ("direct", "staged")
 
 
+def _plane_levels(spec: MXGridSpec, planes: bool) -> tuple:
+    """(line rows, channels) of each plane level the kernel takes."""
+    return tuple((max(ru, rv), kp) for ru, rv, kp in spec.plane_specs) if planes else ()
+
+
 def folded_variant(spec: MXGridSpec, dtype: torch.dtype, planes: bool | None = None) -> str:
     """The variant of the folded backward for this spec and table dtype:
-    "tensor_core" for bf16 at the shapes mxgrid_folded.cu instantiates (rfp
-    a multiple of 64, K a multiple of 8: the flagship's 192 x 48 with its
-    (128, 64, 4) plane level, and CP-only 192 x 48 and `fast`'s 256 x 64),
-    "scalar" for fp32 and every other spec. `planes` says whether the
-    kernel takes the plane level (K2) or not (K6); by default, whether the
-    spec has one. Chosen from the spec and dtype alone; a failed build or
-    launch never changes it."""
+    "tensor_core" for bf16 at the shapes mxgrid_folded.cu instantiates
+    (TC_SHAPES: the flagship's 192 x 48 with its (128, 64, 4) plane level,
+    `quality`'s 256 x 64 with its (128, 128, 8) level, and CP-only 192 x 48
+    and `fast`'s 256 x 64), "scalar" for fp32 and every other spec.
+    `planes` says whether the kernel takes the plane level (K2) or not
+    (K6); by default, whether the spec has one. Chosen from the spec and
+    dtype alone; a failed build or launch never changes it."""
     if planes is None:
         planes = bool(spec.plane_specs)
-    if dtype != torch.bfloat16 or (spec.fold_res[1], spec.features) not in TC_SHAPES[planes]:
-        return "scalar"
-    if planes and [(max(ru, rv), kp) for ru, rv, kp in spec.plane_specs] != [TC_PLANE]:
-        return "scalar"
-    return "tensor_core"
+    shape = (spec.fold_res[1], spec.features, *_plane_levels(spec, planes))
+    return "tensor_core" if dtype == torch.bfloat16 and shape in TC_SHAPES[planes] else "scalar"
 
 
-# (padded 16-row tiles the instantiation has room for, K) of the unsnapped
-# tensor-core backward in mxgrid_unsnapped.cu: with the TC_PLANE level (K4)
-# and CP-only (K8). The flagship ladder pads to 31 tiles, `fast`'s to 39.
-UNSNAPPED_TC_SHAPES = {True: ((32, 48),), False: ((32, 48), (40, 64))}
+# (padded 16-row tiles the instantiation has room for, K, (line rows,
+# channels) of the one plane level) of the unsnapped tensor-core backward in
+# mxgrid_unsnapped.cu: with the plane level (K4: the flagship, `quality`)
+# and CP-only (K8; no level). The flagship ladder pads to 31 tiles, `fast`'s
+# and `quality`'s to 39.
+UNSNAPPED_TC_SHAPES = {True: ((32, 48, (128, 4)), (40, 64, (128, 8))),
+                       False: ((32, 48), (40, 64))}
 
 
 def padded_row_map(spec: MXGridSpec) -> list[int]:
@@ -251,21 +256,19 @@ def padded_tiles(spec: MXGridSpec) -> int:
 def unsnapped_variant(spec: MXGridSpec, dtype: torch.dtype, planes: bool | None = None) -> str:
     """The variant of the unsnapped backward for this spec and table dtype:
     "tensor_core" for bf16 where mxgrid_unsnapped.cu has an instantiation
-    with this K and room for the ladder's padded tiles (the flagship ladder
-    at K = 48, with its (128, 64, 4) plane level or CP-only; `fast`'s at
-    K = 64, CP-only), "scalar" for fp32 and every other spec. `planes` says
-    whether the kernel takes the plane level (K4) or not (K8); by default,
-    whether the spec has one. Chosen from the spec and dtype alone; a failed
-    build or launch never changes it."""
+    with this K and plane level and room for the ladder's padded tiles
+    (UNSNAPPED_TC_SHAPES: the flagship ladder at K = 48 with its (128, 64, 4)
+    plane level or CP-only; `quality`'s at K = 64 with its (128, 128, 8)
+    level; `fast`'s at K = 64, CP-only), "scalar" for fp32 and every other
+    spec. `planes` says whether the kernel takes the plane level (K4) or not
+    (K8); by default, whether the spec has one. Chosen from the spec and
+    dtype alone; a failed build or launch never changes it."""
     if planes is None:
         planes = bool(spec.plane_specs)
-    if dtype != torch.bfloat16 or not any(
-            padded_tiles(spec) <= room and spec.features == k
-            for room, k in UNSNAPPED_TC_SHAPES[planes]):
-        return "scalar"
-    if planes and [(max(ru, rv), kp) for ru, rv, kp in spec.plane_specs] != [TC_PLANE]:
-        return "scalar"
-    return "tensor_core"
+    shape = (spec.features, *_plane_levels(spec, planes))
+    return "tensor_core" if dtype == torch.bfloat16 and any(
+        padded_tiles(spec) <= room and shape == tuple(rest)
+        for room, *rest in UNSNAPPED_TC_SHAPES[planes]) else "scalar"
 
 
 def planes_variant(spec: MXGridSpec, dtype: torch.dtype) -> str:

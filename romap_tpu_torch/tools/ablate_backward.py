@@ -1,6 +1,7 @@
 """What a tensor-core encode backward spends its time on: K2
 (`folded_bwd_tc`, mxgrid_folded.cu) or K4 (`unsnapped_bwd_tc`,
-mxgrid_unsnapped.cu), timed with one part removed at a time; with
+mxgrid_unsnapped.cu), at the flagship spec or (`K2q`, `K4q`) at the
+`quality` preset's, timed with one part removed at a time; with
 `--kernel K3`, the same for the three-axis unsnapped forward
 (`unsnapped_fwd3`, K3 and K7); with `--kernel K9`, for the split path's
 plane kernels K9 and K10 (mxgrid_planes.cu, both timed).
@@ -9,7 +10,8 @@ Copies the package into `build/ablate/<name>/` (gitignored), edits the copy
 of the source that holds the part (the kernel's `.cu`, or `mxgrid_tc.cuh`
 for the helpers both kernels share), and runs `tools/time_encode.py` on
 every copy in one run on one card (K1/K2 at the flagship spec or K3/K4 at
-the flagship spec unsnapped; bf16, --objects x 131072 points). The ablated
+the flagship spec unsnapped, or both at `quality`'s; bf16, --objects x
+131072 points). The ablated
 kernels compute wrong sums; only their times mean anything. The difference
 to `base` is the part's share of the time, as far as the parts do not
 overlap.
@@ -41,7 +43,7 @@ a checkout of either):
   k10_noplane  no plane-gradient atomics
   k10_neither  neither (what is left: loads, operand, barriers, flush)
 
-Usage: python3 -m romap_tpu_torch.tools.ablate_backward [--kernel K2|K4|K3|K9]
+Usage: python3 -m romap_tpu_torch.tools.ablate_backward [--kernel K2|K4|K2q|K4q|K3|K9]
 [--objects 10] [--points-kind uniform|rays] [--root <checkout>] (from the
 repo root; needs a CUDA device and nvcc; `--root` ablates the package of
 another checkout, e.g. the parent unpacked under build/). Each edit asserts
@@ -64,8 +66,10 @@ OUT = PKG.parent / "build" / "ablate"
 HELPERS = "mxgrid_tc.cuh"
 # kernel -> (its source, the pair time_encode.py runs, its line-gradient
 # product, the warp count in its u loop)
-KERNELS = {"K2": ("mxgrid_folded.cu", "K1", "mma16816(lacc[m], al, b0, b1);", "kTcWarps"),
+KERNELS = {"K2": ("mxgrid_folded.cu", "K1", "mma16816(la[m], al, b0, b1);", "kTcWarps"),
            "K4": ("mxgrid_unsnapped.cu", "K3", "mma16816(lacc, al, b0, b1);", "kWarps"),
+           "K2q": ("mxgrid_folded.cu", "K1q", "mma16816(la[m], al, b0, b1);", "kTcWarps"),
+           "K4q": ("mxgrid_unsnapped.cu", "K3q", "mma16816(lacc, al, b0, b1);", "kWarps"),
            "K3": ("mxgrid_unsnapped.cu", "K3,K7", None, None),
            "K9": ("mxgrid_planes.cu", "K9", None, None)}
 COMMON = "mxgrid_common.cuh"

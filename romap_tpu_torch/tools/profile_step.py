@@ -1,8 +1,10 @@
 """Where the time of one train step of romap_tpu_torch goes, on one GPU.
 
 For each encode path of the port (the flagship fused K1/K2, unsnapped
-K3/K4, the CP-only `fast` preset K5/K6, and the split path MX_FUSED=0
-MX_SNAP=0 that the online phase of chip_smoke.py runs, K7-K10), at the
+K3/K4, the CP-only `fast` preset K5/K6, the split path MX_FUSED=0
+MX_SNAP=0 that the online phase of chip_smoke.py runs, K7-K10, and the
+`quality` preset, 256 x 64 with a (128, 128, 8) plane level, folded K1/K2
+and unsnapped K3/K4), at the
 reference batch geometry on the scene of build_synthetic_world(10, 16, 128):
   - step ms and obj-iters/s: host clock around 20 steps ending in a
     synchronize, after 3 warm-up steps; host enqueue ms: the same clock read
@@ -152,6 +154,8 @@ CONFIGS = {  # name -> (encoding, environment)
     "unsnapped K3/K4": (EncodingConfig(), {"MX_SNAP": "0"}),
     "fast K5/K6": (EncodingConfig.preset("fast"), {}),
     "split unsnapped K7-K10": (EncodingConfig(), {"MX_SNAP": "0", "MX_FUSED": "0"}),
+    "quality K1/K2": (EncodingConfig.preset("quality"), {}),
+    "quality unsnapped K3/K4": (EncodingConfig.preset("quality"), {"MX_SNAP": "0"}),
 }
 
 

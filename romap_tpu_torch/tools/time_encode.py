@@ -2,8 +2,9 @@
 
 For each kernel pair asked for (K1/K2 flagship, K3/K4 flagship unsnapped,
 K5/K6 `fast`, K7/K8 flagship unsnapped ladder, K9/K10 the split path's
-flagship plane level (128, 64, 4), `K9q` the same kernels at `quality`'s
-(128, 128, 8)), in bf16 unless --dtype says
+flagship plane level (128, 64, 4); `K1q`, `K3q` and `K9q` the same kernels
+at the `quality` preset: 256 x 64 with the (128, 128, 8) plane level,
+folded, unsnapped and on the split path), in bf16 unless --dtype says
 otherwise: the forward kernel's residuals feed the backward kernel, and each
 is timed with CUDA events around single launches (median and minimum of
 --reps, after a warm-up); `host_us` is the median time a call takes to
@@ -52,7 +53,8 @@ import time
 SLEEP_CYCLES = 2_000_000  # ~1.1 ms at the H100's 1.755 GHz: longer than a call's host work
 PAIRS = {"K1": ("folded", "K1", "K2"), "K3": ("unsnapped", "K3", "K4"),
          "K5": ("folded_cp", "K5", "K6"), "K7": ("unsnapped_cp", "K7", "K8"),
-         "K9": ("unsnapped_split", "K9", "K10"), "K9q": ("quality_split", "K9", "K10")}
+         "K9": ("unsnapped_split", "K9", "K10"), "K1q": ("quality", "K1", "K2"),
+         "K3q": ("quality_unsnapped", "K3", "K4"), "K9q": ("quality_split", "K9", "K10")}
 
 
 def run_roots(args) -> None:
@@ -113,7 +115,7 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--objects", type=int, default=10)
     ap.add_argument("--points", type=int, default=4096 * 32)
-    ap.add_argument("--pairs", default="K1", help="comma list of K1, K3, K5, K7, K9, K9q")
+    ap.add_argument("--pairs", default="K1", help="comma list of K1, K3, K5, K7, K9, K1q, K3q, K9q")
     ap.add_argument("--dtype", default="bfloat16", choices=("bfloat16", "float32"))
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--forward-variant", default="auto",
@@ -157,11 +159,13 @@ def main(argv=None) -> None:
     dtype = getattr(torch, args.dtype)
     o, p, dev = args.objects, args.points, "cuda"
     flagship, fast = EncodingConfig(), EncodingConfig.preset("fast")
+    quality = EncodingConfig.preset("quality")
     unsnap = lambda e: dataclasses.replace(e, mx_snap_levels=False)
     cp_only = lambda e: dataclasses.replace(e, mx_plane_features=0)
     encodings = {"folded": flagship, "unsnapped": unsnap(flagship), "folded_cp": fast,
                  "unsnapped_cp": unsnap(cp_only(flagship)), "unsnapped_split": unsnap(flagship),
-                 "quality_split": unsnap(EncodingConfig.preset("quality"))}
+                 "quality": quality, "quality_unsnapped": unsnap(quality),
+                 "quality_split": unsnap(quality)}
 
     def ms(fn):
         """(median, min) device ms of one call, and the median host us the
@@ -187,7 +191,7 @@ def main(argv=None) -> None:
     results = {}
     for pair in args.pairs.split(","):
         path, kf, kb = PAIRS[pair]
-        tag = pair[len(kf):]  # "q": K9/K10 at `quality`'s plane level
+        tag = pair[len(kf):]  # "q": the pair at the `quality` preset
         spec = nerf.make_field_spec(NerfConfig(encoding=encodings[path]))
         g = torch.Generator().manual_seed(3)
         if args.points_kind == "rays":

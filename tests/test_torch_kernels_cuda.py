@@ -418,15 +418,18 @@ TC_SHAPES = [(1, 1), (1, 63), (10, 65), (2, 4097), (10, 4096)]
 @pytest.mark.parametrize("kind", ["uniform", "cell", "outside"])
 @pytest.mark.parametrize("n_obj,n_pts", TC_SHAPES)
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)])
-def test_k1_k2_flagship_widths(cuda, dtype, tol, n_obj, n_pts, kind):
-    """K1 and K2 at the flagship spec (the staged forward; the tensor-core
-    backward in bf16, the scalar one in fp32) for point counts around
+@pytest.mark.parametrize("preset", ["flagship", "quality"])
+def test_k1_k2_flagship_widths(cuda, preset, dtype, tol, n_obj, n_pts, kind):
+    """K1 and K2 at the flagship spec and at `quality`'s (the staged forward,
+    `quality` in fp32 the direct one; the tensor-core backward in bf16, with
+    4 and 8 plane channels, the scalar one in fp32) for point counts around
     the 64-point tile, one and ten objects: against the plain twins, and K2
     against autograd through K1's twin."""
-    spec = preset_spec("flagship")
+    spec = preset_spec(preset)
     bf16 = dtype == torch.bfloat16
     assert mxgrid_cuda.folded_variant(spec, dtype) == ("tensor_core" if bf16 else "scalar")
-    assert mxgrid_cuda.forward_variant(spec, dtype) == "staged"
+    direct = preset == "quality" and not bf16  # its fp32 table leaves no room for staged rows
+    assert mxgrid_cuda.forward_variant(spec, dtype) == ("direct" if direct else "staged")
     g = torch.Generator().manual_seed(11)
     pts = preset_points(kind, n_obj, n_pts, g).to(cuda)
     tables = mxgrid.init_mxgrid(g, spec, n_obj)
@@ -542,12 +545,14 @@ def unsnapped_case(spec, n_obj, n_pts, kind, cuda, seed):
 
 @pytest.mark.parametrize("kind", ["uniform", "cell", "outside"])
 @pytest.mark.parametrize("n_obj,n_pts", TC_SHAPES)
-def test_k4_tensor_core_flagship_widths(cuda, n_obj, n_pts, kind):
-    """K4 in bf16 at the flagship ladder with its plane level, for point
-    counts around the 64-point tile (4097: the element-wise loader), one, two
-    and ten objects: against the plain twin and against autograd through
-    K3's twin."""
-    spec = unsnapped_preset("flagship")
+@pytest.mark.parametrize("preset", ["flagship", "quality"])
+def test_k4_tensor_core_flagship_widths(cuda, preset, n_obj, n_pts, kind):
+    """K4 in bf16 at the flagship ladder with its (128, 64, 4) plane level
+    and at `quality`'s with its (128, 128, 8) level, for point counts around
+    the 64-point tile (4097: the element-wise loader), one, two and ten
+    objects: against the plain twin and against autograd through K3's
+    twin."""
+    spec = unsnapped_preset(preset)
     assert mxgrid_cuda.unsnapped_variant(spec, torch.bfloat16) == "tensor_core"
     pts, args, res, gout = unsnapped_case(spec, n_obj, n_pts, kind, cuda, seed=21)
     n4 = mxgrid_cuda.unsnapped_fused_backward.launches
@@ -638,15 +643,21 @@ def test_unsnapped_flagship_encode_matches_plain_encode(cuda, monkeypatch, fused
         assert rel_err(a, b) < 1e-2, name
 
 
+def kp16_spec(snap):
+    """`quality`'s 256 x 64 ladder with a (128, 128, 16) plane level
+    (scripts/bench_variants.py's k64_p16): a plane level no tensor-core
+    backward instantiates."""
+    return mxgrid.make_mxspec(n_levels=6, base_resolution=16, max_resolution=256,
+                              features=64, plane_specs=((128, 128, 16),),
+                              plane_axes="balanced", snap_levels=snap)
+
+
 def test_unsnapped_specs_outside_the_instantiations(cuda, monkeypatch):
-    """A bf16 spec the tensor-core tile does not cover (K = 16; the
-    `quality` preset's kp = 8) takes the scalar kernel and agrees with the
+    """A bf16 spec the tensor-core tile does not cover (K = 16; a plane
+    level of 16 channels) takes the scalar kernel and agrees with the
     plain twin; forcing the tensor-core variant on it is refused by the C
     entry, and the wrapper raises."""
-    quality = mxgrid.make_mxspec(n_levels=6, base_resolution=16, max_resolution=256,
-                                 features=64, plane_specs=((128, 128, 8),),
-                                 plane_axes="balanced", snap_levels=False)
-    for spec in (small_spec(snap=False), quality):
+    for spec in (small_spec(snap=False), kp16_spec(snap=False)):
         assert mxgrid_cuda.unsnapped_variant(spec, torch.bfloat16) == "scalar"
         pts, _, res, gout = unsnapped_case(spec, 2, 1000, "uniform", cuda, seed=24)
         got = mxgrid_cuda.unsnapped_fused_backward(pts, *res, gout, spec)
@@ -658,7 +669,7 @@ def test_unsnapped_specs_outside_the_instantiations(cuda, monkeypatch):
         n4 = mxgrid_cuda.unsnapped_fused_backward.launches
         with pytest.raises(RuntimeError, match="CUDA error"):
             mxgrid_cuda.unsnapped_fused_backward(pts, *res, gout, spec)
-        if spec.features != 64:  # `quality`'s ladder and K are K8's `fast` instantiation
+        if spec.features != 64:  # the 256 x 64 ladder is K8's `fast` instantiation
             with pytest.raises(RuntimeError, match="CUDA error"):
                 mxgrid_cuda.unsnapped_cp_backward(
                     pts, res[0], gout[..., : spec.features].contiguous(),
@@ -672,6 +683,46 @@ def test_unsnapped_specs_outside_the_instantiations(cuda, monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA error"):
         mxgrid_cuda.unsnapped_fused_backward(pts, *(t.float() for t in res), gout.float(),
                                              flagship)
+
+
+def test_folded_specs_outside_the_instantiations(cuda, monkeypatch):
+    """The folded twin of the test above: a bf16 spec no tensor-core K2
+    covers (K = 16; a plane level of 16 channels) takes the scalar kernel
+    and agrees with the plain twin; forcing the tensor-core variant on it is
+    refused by the C entry, and the wrapper raises; so is fp32 at an
+    instantiated shape (`quality`'s)."""
+    for spec in (small_spec(), kp16_spec(snap=True)):
+        assert mxgrid_cuda.folded_variant(spec, torch.bfloat16) == "scalar"
+        g = torch.Generator().manual_seed(26)
+        pts = preset_points("uniform", 2, 1000, g).to(cuda)
+        tables = mxgrid.init_mxgrid(g, spec, 2)
+        to = lambda t: t.to(device=cuda, dtype=torch.bfloat16).contiguous()
+        args = [to(mxgrid.fold_lines(tables["lines"], spec)), to(tables["planes"][0]),
+                to(tables["plane_lines"][0])]
+        gout = to(torch.randn((2, 1000, spec.n_output_dims), generator=g))
+        res = mxgrid_cuda.folded_fused_forward_plain(pts, *args, spec)[1:]
+        got = mxgrid_cuda.folded_fused_backward(pts, *res, gout, spec)
+        torch.cuda.synchronize()
+        ref = mxgrid_cuda.folded_fused_backward_plain(pts, *res, gout, spec)
+        for name, a, b in zip(("dW_eff", "dplanes", "dplines"), got, ref):
+            assert rel_err(a, b) < 1e-2, name
+        monkeypatch.setattr(mxgrid_cuda, "folded_variant", lambda *a, **k: "tensor_core")
+        n2 = mxgrid_cuda.folded_fused_backward.launches
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            mxgrid_cuda.folded_fused_backward(pts, *res, gout, spec)
+        assert mxgrid_cuda.folded_fused_backward.launches == n2
+        monkeypatch.undo()
+    quality = preset_spec("quality")
+    g = torch.Generator().manual_seed(27)
+    pts = preset_points("uniform", 1, 64, g).to(cuda)
+    tables = mxgrid.init_mxgrid(g, quality, 1)
+    args = [mxgrid.fold_lines(tables["lines"], quality).to(cuda),
+            tables["planes"][0].to(cuda), tables["plane_lines"][0].to(cuda)]
+    res = mxgrid_cuda.folded_fused_forward_plain(pts, *args, quality)[1:]
+    gout = torch.randn((1, 64, quality.n_output_dims), generator=g).to(cuda)
+    monkeypatch.setattr(mxgrid_cuda, "folded_variant", lambda *a, **k: "tensor_core")
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        mxgrid_cuda.folded_fused_backward(pts, *res, gout, quality)
 
 
 # --------------------------------------------------------------------------

@@ -6,8 +6,8 @@ train wave with held-out renders, the offline runner with the CP-only
 socket server on the split kernels with a pose-refined test render, pose
 refinement of perturbed views against a converged field, a hash-grid
 (`tcnn`) train wave, the flagship-parity quality gate at its full
-budget (3 seeds x 5000 steps), and the `quality` preset's train waves,
-folded and unsnapped.
+budget (3 seeds x 5000 steps), the `quality` preset's train waves,
+folded and unsnapped, and fp32 train waves of the unsnapped and split paths.
 
 Usage: python3 chip_smoke.py     (needs one CUDA device; exits non-zero on
 any failure and prints no result line then)
@@ -34,10 +34,13 @@ Phases, one or more lines each, each closed by its seconds:
                and K10 at the flagship and `quality` plane levels must take
                the tensor cores, `quality`'s K2 and K4 too; the bf16
                unsnapped forwards the three-axis kernel, the fp32 ones
-               channel_split); `quality`'s bf16 K2 and K4 at O=10 beside
-               their bound, the scalar kernel (forced) timed in turns with
-               them and its sums held to theirs; K3/K4,
-               K7/K8 and K9/K10 also in fp32 at O=10, K9 and K10 beside
+               channel_split; the fp32 K4/K8 the tensor cores on operands
+               split into bf16 hi and lo parts, tensor_core_split); K3/K4
+               (flagship and `quality`), K7/K8 and K9/K10 also in fp32 at
+               O=10; `quality`'s bf16 K2 and K4, and the fp32 K4 (flagship,
+               `quality`) and K8 at O=10 beside their bound, the scalar
+               kernel (forced) timed in turns with them and its sums held to
+               theirs; K9 and K10 beside
                their library yardstick (F.grid_sample's plane and line
                calls, and their backward); then K3 and
                K7 in the per-axis design with its product pass (forced) and
@@ -98,6 +101,12 @@ Phases, one or more lines each, each closed by its seconds:
                losses falling on every active slot, launches by dtype, one
                held-out view per object (K1 fp32: PSNR and mask IoU); then
                MX_SNAP=0, 1 + 20 steps (K3/K4, K4 on the tensor cores)
+ 13 fp32      TrainConfig(compute_dtype="float32") at the flagship width on
+               the scene of phase 5, 1 + 20 steps with MX_SNAP=0 (K3/K4) and
+               with MX_FUSED=0 MX_SNAP=0 (K7-K10): losses falling, step ms,
+               host enqueue ms, launches by dtype and, for the backwards, by
+               variant: K4 / K8 once a step as tensor_core_split, never
+               scalar
 then the total seconds, a JSON line with each kernel's record, and as the
 last line {"ok": true, "device": {...}}.
 """
@@ -254,10 +263,11 @@ def phase_build() -> None:
 # tables) and at the flagship unsnapped ladder that phase 9 runs (465 rows x
 # K = 48); K1/K2, K3/K4 and K7/K8 also at their train steps' O=10, in bf16
 # (there the plain twins hold dense [10, 131072, 465] fp32 bases, 2.4 GB an
-# axis); the `quality` preset's K1/K2 and K3/K4 at O=2 and, in bf16, at the
-# O=10 of `[12]`'s train step (580-row ladder x K = 64: 3.0 GB an axis). A
-# kernel's record in the JSON line is its last bf16 check here: its main
-# path's; the `quality` checks go into the record's "quality" entry.
+# axis); the `quality` preset's K1/K2 and K3/K4 at O=2 and at the O=10 of
+# `[12]`'s train step (580-row ladder x K = 64: 3.0 GB an axis; K3/K4 in
+# fp32 too). A kernel's record in the JSON line is its last bf16 check here:
+# its main path's; the `quality` checks go into the record's "quality"
+# entry, K4's and K8's fp32 checks at O=10 into its "fp32" entry.
 BOTH = (torch.bfloat16, torch.float32)
 CHECKS = (
     ("folded", "K1", "K2", KERNEL_O, BOTH),
@@ -271,7 +281,7 @@ CHECKS = (
     ("quality", "K1", "K2", KERNEL_O, BOTH),
     ("quality_unsnapped", "K3", "K4", KERNEL_O, BOTH),
     ("quality", "K1", "K2", N_OBJECTS, (torch.bfloat16,)),
-    ("quality_unsnapped", "K3", "K4", N_OBJECTS, (torch.bfloat16,)),
+    ("quality_unsnapped", "K3", "K4", N_OBJECTS, (torch.float32, torch.bfloat16)),
     ("unsnapped", "K3", "K4", N_OBJECTS, (torch.float32, torch.bfloat16)),
     ("unsnapped_split", "K7", "K8", N_OBJECTS, (torch.float32, torch.bfloat16)),
     ("unsnapped_split", "K9", "K10", N_OBJECTS, (torch.float32, torch.bfloat16)),
@@ -409,7 +419,12 @@ def phase_kernels(specs: dict, dev) -> dict:
                    for path in ("unsnapped_split", "quality_split")})
     if set(chosen.values()) != {"tensor_core"}:
         raise AssertionError(f"bf16 backward variants: {chosen}")
-    records, fp32, quality = {}, {}, {}
+    split = {path: mxgrid_cuda.unsnapped_variant(specs[path], torch.float32, planes)
+             for path, planes in (("unsnapped", True), ("unsnapped_cp", False),
+                                  ("unsnapped_split", False), ("quality_unsnapped", True))}
+    if set(split.values()) != {"tensor_core_split"}:  # fp32 K4/K8 on the tensor cores
+        raise AssertionError(f"fp32 K4/K8 variants: {split}")
+    records, fp32, quality, fp32_bwd = {}, {}, {}, {}
     for path, kf, kb, o, dtypes in CHECKS:
         spec = specs[path]
         fwd, bwd = mxgrid_cuda.KERNELS[kf], mxgrid_cuda.KERNELS[kb]
@@ -482,7 +497,10 @@ def phase_kernels(specs: dict, dev) -> dict:
                     kernel_ms=f"{f_ms:.4f} / {b_ms:.4f}")
                 del lib_out
             if kf in ("K3", "K7") and dtype == torch.float32 and o == N_OBJECTS:
-                fp32[kf] = dict(fp32_variant=f_var["variant"], fp32_ms=f_ms)
+                if path != "quality_unsnapped":
+                    fp32[kf] = dict(fp32_variant=f_var["variant"], fp32_ms=f_ms)
+                fp32_bwd[(path, kb)] = dict(variant=b_var["variant"],
+                                            max_abs_err=max(b_abs, b_abs_p), plain_ms=b_plain_ms)
             if dtype == torch.bfloat16 and path in ("quality", "quality_unsnapped"):
                 rec = quality.setdefault(kb, dict(spec=path, variant=b_var["variant"]))
                 if o == KERNEL_O:
@@ -506,6 +524,8 @@ def phase_kernels(specs: dict, dev) -> dict:
         records[kf].update(extra)
     for kb, rec in quality.items():  # `quality`'s check beside the main path's record
         records[kb]["quality"] = rec
+    for (path, kb), rec in fp32_bwd.items():  # the fp32 K4/K8 beside the bf16 record
+        (records[kb]["quality"] if path == "quality_unsnapped" else records[kb])["fp32"] = rec
     return records
 
 
@@ -582,26 +602,38 @@ def time_unsnapped_forwards(specs: dict, dev) -> None:
                 torch.cuda.empty_cache()
 
 
-def time_quality_backwards(specs: dict, records: dict, dev) -> None:
-    """K2 and K4 at the `quality` preset in bf16 at O=10 x 131072, the train
-    step's shape: the tensor-core kernel (what the spec selects) and the
-    scalar kernel (forced) timed in turns (scalar, tensor_core, tensor_core,
-    scalar) beside the bound; the scalar kernel's sums are held to the
-    tensor-core kernel's as timing context (phase_kernels holds the
-    tensor-core kernel to the plain twin and autograd at this shape). The
-    times go into the record's "quality" entry."""
-    for path, kf, kb, selector in (("quality", "K1", "K2", "folded_variant"),
-                                   ("quality_unsnapped", "K3", "K4", "unsnapped_variant")):
-        spec, dtype = specs[path], torch.bfloat16
+# (path, forward, backward, selector, dtype, the record's entry) of the
+# backwards timed in turns against the scalar kernel at O=10: `quality`'s
+# bf16 K2 and K4, then the fp32 K4 (flagship unsnapped), K8 (the
+# split path's ladder) and `quality`'s K4 on the tensor cores split
+TURNS = (("quality", "K1", "K2", "folded_variant", torch.bfloat16, ("quality",)),
+         ("quality_unsnapped", "K3", "K4", "unsnapped_variant", torch.bfloat16, ("quality",)),
+         ("unsnapped", "K3", "K4", "unsnapped_variant", torch.float32, ("fp32",)),
+         ("unsnapped_split", "K7", "K8", "unsnapped_variant", torch.float32, ("fp32",)),
+         ("quality_unsnapped", "K3", "K4", "unsnapped_variant", torch.float32,
+          ("quality", "fp32")))
+
+
+def time_backwards_in_turns(specs: dict, records: dict, dev) -> None:
+    """Each backward of TURNS at O=10 x 131072, the train step's shape: the
+    variant the spec and dtype select (the tensor cores; fp32 split into
+    bf16 hi and lo parts) and the scalar kernel (forced) timed in turns
+    (scalar, new, new, scalar) beside the bound; the scalar kernel's sums
+    are held to the new kernel's as timing context (phase_kernels holds the
+    new kernel to the plain twin and autograd at this shape). The times go
+    into the record's entry that TURNS names."""
+    for path, kf, kb, selector, dtype, entry in TURNS:
+        spec, dname = specs[path], str(dtype).split(".")[1]
         fwd, bwd = mxgrid_cuda.KERNELS[kf], mxgrid_cuda.KERNELS[kb]
-        new = getattr(mxgrid_cuda, selector)(spec, dtype)
-        if new != "tensor_core":
-            raise AssertionError(f"{kb} {path}: variant {new}")
+        new = getattr(mxgrid_cuda, selector)(spec, dtype, planes=kb != "K8")
+        want = "tensor_core_split" if dtype == torch.float32 else "tensor_core"
+        if new != want:
+            raise AssertionError(f"{kb} {path} {dname}: variant {new}")
         pts, args, gout = kernel_inputs(spec, dtype, dev, seed=3, kf=kf, o=N_OBJECTS)
         res = fwd(pts, *args, spec)[1:]
-        got = bwd(pts, *res, gout, spec)
+        got = pytree.tree_leaves(bwd(pts, *res, gout, spec))
         with forced(selector, "scalar"):
-            scalar = bwd(pts, *res, gout, spec)
+            scalar = pytree.tree_leaves(bwd(pts, *res, gout, spec))
         torch.cuda.synchronize()
         _, rel = errors(got, scalar)
         times = {"scalar": [], new: []}
@@ -609,15 +641,19 @@ def time_quality_backwards(specs: dict, records: dict, dev) -> None:
             with forced(selector, variant):
                 times[variant].append(median_ms(lambda: bwd(pts, *res, gout, spec)))
         b_ms, b_by = bound(kb, spec, dtype, N_OBJECTS)
-        say("3 kernels", kernel=kb, spec=path, shape=f"{N_OBJECTS}x{KERNEL_P}", dtype="bfloat16",
+        say("3 kernels", kernel=kb, spec=path, shape=f"{N_OBJECTS}x{KERNEL_P}", dtype=dname,
             variant=new, scalar_ms=[f"{t:.4f}" for t in times["scalar"]],
             **{f"{new}_ms": [f"{t:.4f}" for t in times[new]]},
             max_rel_err_vs_scalar=f"{rel:.3e}", rel_tol=REL_TOL[dtype],
             bound_ms=f"{b_ms:.4f}", bound_by=b_by)
         if not rel <= REL_TOL[dtype] or not all(torch.isfinite(t).all() for t in got):
-            raise AssertionError(f"{kb} {path} O={N_OBJECTS}: {rel} against the scalar kernel")
-        records[kb]["quality"].update(ms=min(times[new]), scalar_ms=min(times["scalar"]),
-                                      bound_ms=b_ms, bound_by=b_by)
+            raise AssertionError(f"{kb} {path} {dname} O={N_OBJECTS}: {rel} against the scalar "
+                                 f"kernel")
+        rec = records[kb]
+        for key in entry:
+            rec = rec[key]
+        rec.update(ms=min(times[new]), scalar_ms=min(times["scalar"]), bound_ms=b_ms,
+                   bound_by=b_by)
         del pts, args, gout, res, got, scalar
         torch.cuda.empty_cache()
 
@@ -1429,6 +1465,70 @@ def phase_quality_preset(dev) -> dict:
     return launches
 
 
+FP32_WAVE = 20
+# (label, environment, backward): the fp32 train paths whose K4 / K8 run on
+# the tensor cores split
+FP32_PATHS = (("unsnapped", {"MX_SNAP": "0"}, "K4"),
+              ("split", {"MX_SNAP": "0", "MX_FUSED": "0"}, "K8"))
+
+
+def phase_fp32(dev) -> dict:
+    """`TrainConfig(compute_dtype="float32")` at the flagship width through
+    train_objects on the scene of phase 5, 1 + 20 steps on each of
+    FP32_PATHS: the unsnapped ladder (K3/K4) and the split path (K7-K10).
+    The losses must be finite and fall on every active slot; K4 / K8 must
+    launch once a step, in fp32, as "tensor_core_split" and never as the
+    scalar kernel (K10 stays scalar in fp32: its redesign is queued).
+    Returns the K4 and K8 launches."""
+    cfg = NerfConfig(train=TrainConfig(compute_dtype="float32"))
+    _, _, _, store, objs = build_synthetic_world(N_OBJECTS, 16, 128, device=dev)
+    frames = store.arrays()
+    active = objs.active.cpu()
+    launches = {}
+    for label, env, kb in FP32_PATHS:
+        with environ(**env):
+            spec = nerf.make_field_spec(cfg)
+            route = mxgrid_cuda.kernel_path(spec)
+            gen = torch.Generator(device=dev).manual_seed(cfg.seed)
+            state = nerf.init_train_state(gen, N_OBJECTS, cfg, spec, device=dev)
+            mxgrid_cuda.reset_launch_counts()
+            state = nerf.train_objects(state, objs, frames, cfg, spec, 1, generator=gen)
+            loss1 = state.loss.cpu()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state = nerf.train_objects(state, objs, frames, cfg, spec, FP32_WAVE, generator=gen)
+            enqueue_s = time.perf_counter() - t0  # the host alone: the wave's launches queued
+            torch.cuda.synchronize()
+            wave_s = time.perf_counter() - t0
+        loss2 = state.loss.cpu()
+        by_variant = {k: dict(fn.launches_by_variant) for k, fn in mxgrid_cuda.KERNELS.items()
+                      if fn.launches_by_variant}
+        by_dtype = {k: dict(fn.launches_by_dtype) for k, fn in mxgrid_cuda.KERNELS.items()
+                    if fn.launches}
+        say("13 fp32", path=route, dtype="float32", steps=f"1+{FP32_WAVE}",
+            loss_step1=[round(x, 5) for x in loss1.tolist()],
+            loss_wave=[round(x, 5) for x in loss2.tolist()], wave_s=f"{wave_s:.4f}",
+            step_ms=f"{1e3 * wave_s / FP32_WAVE:.4f}",
+            host_enqueue_ms=f"{1e3 * enqueue_s / FP32_WAVE:.4f}",
+            obj_iters_per_s=f"{N_OBJECTS * FP32_WAVE / wave_s:.2f}",
+            launches_by_dtype=by_dtype, backward_launches_by_variant=by_variant)
+        if not (torch.isfinite(loss1[active]).all() and torch.isfinite(loss2[active]).all()
+                and (loss2[active] < loss1[active]).all()):
+            raise AssertionError(f"fp32 {label}: a loss is not finite or did not fall")
+        if not (state.step[objs.active] == FP32_WAVE + 1).all():
+            raise AssertionError(f"fp32 {label}: an active slot skipped steps")
+        want = {"float32 tensor_core_split": FP32_WAVE + 1}
+        if by_variant.get(kb) != want or any(
+                k in by_variant for k in ("K4", "K8") if k != kb):
+            raise AssertionError(f"fp32 {label}: {kb} launches {by_variant} (want {want})")
+        if any(n.get("bfloat16") for n in by_dtype.values()):
+            raise AssertionError(f"fp32 {label}: a bf16 kernel ran: {by_dtype}")
+        launches[kb] = by_variant[kb]["float32 tensor_core_split"]
+        del state
+        torch.cuda.empty_cache()
+    return launches
+
+
 def timed(label: str, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -1443,7 +1543,7 @@ def main() -> None:
     timed("2 build", phase_build)
     specs = kernel_specs()
     records = timed("3 kernels", phase_kernels, specs, dev)
-    timed("3 kernels", time_quality_backwards, specs, records, dev)
+    timed("3 kernels", time_backwards_in_turns, specs, records, dev)
     timed("3 kernels", time_unsnapped_forwards, specs, dev)
     records["K0"] = timed("3 kernels", check_points_gradient, specs, dev)
     timed("4 parity", phase_parity, dev)
@@ -1465,6 +1565,9 @@ def main() -> None:
         torch.cuda.empty_cache()
         for kb, n in timed("12 quality", phase_quality_preset, dev).items():
             records[kb]["quality"]["launches"] = n
+        torch.cuda.empty_cache()
+        for kb, n in timed("13 fp32", phase_fp32, dev).items():
+            records[kb]["fp32"]["launches"] = n
     finally:
         shutil.rmtree(root, ignore_errors=True)
     say("total", seconds=f"{time.perf_counter() - t_start:.3f}")

@@ -1,6 +1,7 @@
 // Device helpers of the tensor-core encode backwards (mxgrid_folded.cu:
 // `folded_bwd_tc`, K2/K6; mxgrid_unsnapped.cu: `unsnapped_bwd_tc`, K4/K8):
-// 16-byte cp.async, the tent-basis A fragment built in registers,
+// 16-byte cp.async, the tent-basis A fragment built in registers (as one
+// bf16 operand, or split into a bf16 hi and lo pair for fp32 inputs),
 // mma.sync.m16n8k16 (bf16 in, fp32 out) and ldmatrix (the 16-byte vector
 // atomic of the plane gradient, `red4_if`, is in mxgrid_common.cuh).
 // Internal to the translation unit that includes it.
@@ -38,6 +39,23 @@ __device__ __forceinline__ uint32_t pack_relu(float lo, float hi) {
   return d;
 }
 
+// {lo, hi} -> bf16x2, round to nearest even (no relu: a split's lo part
+// may be negative).
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  uint32_t d;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(d) : "f"(hi), "f"(lo));
+  return d;
+}
+
+// x = hi + lo + r for two fp32 values: hi = bf16(x), lo = bf16(x - hi)
+// (x - hi is exact in fp32), so |r| <= 2^-16 |x|. {lo, hi} packed as in
+// pack_relu.
+__device__ __forceinline__ void split_bf16x2(float x0, float x1, uint32_t* hi, uint32_t* lo) {
+  const uint32_t h = pack_bf16x2(x0, x1);
+  *hi = h;
+  *lo = pack_bf16x2(x0 - __uint_as_float(h << 16), x1 - __uint_as_float(h & 0xffff0000u));
+}
+
 // A fragment (16 rows x 16 points) of a tent basis: rows j0 and j0 + 8 of
 // this lane, points (2q, 2q+1) from t_lo and (2q+8, 2q+9) from t_hi.
 __device__ __forceinline__ void hat_fragment(float j0, float2 t_lo, float2 t_hi, uint32_t* a) {
@@ -46,6 +64,18 @@ __device__ __forceinline__ void hat_fragment(float j0, float2 t_lo, float2 t_hi,
   a[1] = pack_relu(1.f - fabsf(t_lo.x - j1), 1.f - fabsf(t_lo.y - j1));
   a[2] = pack_relu(1.f - fabsf(t_hi.x - j0), 1.f - fabsf(t_hi.y - j0));
   a[3] = pack_relu(1.f - fabsf(t_hi.x - j1), 1.f - fabsf(t_hi.y - j1));
+}
+
+// hat_fragment for fp32 inputs: the tent in fp32 with the relu applied
+// before the split, then a hi fragment `a` and a lo fragment `al`.
+__device__ __forceinline__ void hat_fragment_split(float j0, float2 t_lo, float2 t_hi,
+                                                   uint32_t* a, uint32_t* al) {
+  const float j1 = j0 + 8.f;
+  const auto tent = [](float t, float j) { return fmaxf(1.f - fabsf(t - j), 0.f); };
+  split_bf16x2(tent(t_lo.x, j0), tent(t_lo.y, j0), a + 0, al + 0);
+  split_bf16x2(tent(t_lo.x, j1), tent(t_lo.y, j1), a + 1, al + 1);
+  split_bf16x2(tent(t_hi.x, j0), tent(t_hi.y, j0), a + 2, al + 2);
+  split_bf16x2(tent(t_hi.x, j1), tent(t_hi.y, j1), a + 3, al + 3);
 }
 
 __device__ __forceinline__ void mma16816(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {

@@ -50,8 +50,9 @@
 // launches `cp_product`, which reads the factors back and forms out[:K] in
 // fp32, rounded once; K7's caller forms the product in the table dtype.
 //
-// Backward, tensor cores (K4, K8 in bf16 at the instantiated shapes;
-// `unsnapped_bwd_tc`, the variant `mxgrid_cuda.unsnapped_variant` names).
+// Backward, tensor cores (K4, K8 in bf16 and fp32 at the instantiated
+// shapes; `unsnapped_bwd_tc`, the variants "tensor_core" and
+// "tensor_core_split" that `mxgrid_cuda.unsnapped_variant` names).
 // The function is dW_d[j, k] = sum_p hatcat_d[j, p] u_d[p, k] with
 // u_d = g A_e A_f and hatcat_d the concatenated multi-level tent basis: per
 // axis a [total_res x points] x [points x K] product, which the Pallas
@@ -85,7 +86,34 @@
 // 20 warps of 2 tiles, as K8 at `fast` runs, are held to 96 registers and
 // spilled 296 bytes, and measured 6 % slower): 2.0 ms at 10 objects x
 // 131072 points against the scalar kernel's 28.5 (NVIDIA H100 80GB HBM3,
-// 700 W, tools/time_encode.py --pairs K3q). The grid is floor(SMs / 3 O)
+// 700 W, tools/time_encode.py --pairs K3q).
+//
+// In fp32 ("tensor_core_split") the same kernel stages fp32 inputs (68-float
+// rows: 256 B + 16), forms `hat` and u in fp32 and splits each into a bf16
+// hi and lo part (lo = bf16(x - hi), so hi + lo is within 2^-16 of x; the
+// relu acts before the split), and sums hat_hi u_hi + hat_hi u_lo +
+// hat_lo u_hi with three mma.sync a fragment (3xTF32 would run m16n8k8 at
+// half the bf16 rate, and ldmatrix.b16 serves no 32-bit operand); u and the
+// line operand take a lo plane beside the hi one. The tensor cores' own fp32
+// accumulation does not round to nearest: with its sums kept over a block's
+// whole range (2048 16-point steps at O = 10) `quality`'s K4 drifted 1.03e-4
+// of the largest entry from the plain twin (1.7e-5 over 372 steps at O = 2),
+// against fp32's tolerance of 1e-4. So the fp32 kernel adds its sums to the
+// gradient every kFlushTiles tiles: 1.3e-5 to 1.5e-5 at O = 10, for 2-3 % of
+// its time (starting each step's products from zero and adding them in
+// fp32 instead cost 12-25 % in registers and spills). The flagship ladder
+// runs 8 warps of 4 tiles (242 registers, no spill); K = 64 (`quality`'s
+// K4, `fast`'s K8) 8 warps of 5 tiles, whose 160 sums and split operands
+// spill 440-490 bytes: every warps x tiles split spills there, holding two
+// tiles' `hat` fragments at a time spilled less and measured no faster, and
+// two channel slices a block (80 sums a thread, no spill, each `hat` built
+// twice) measured 5.49-5.54 ms against 3.85-3.88 at `quality`, O = 10.
+// At 10 objects x 131072 points (NVIDIA H100 80GB HBM3, 700 W,
+// tools/time_encode.py --dtype float32 --backward-variant, in turns): K4
+// 2.77 ms (scalar 11.28), K8 2.18-2.19 (10.09), `quality`'s K4 4.03-4.06
+// (28.87).
+//
+// The grid is floor(SMs / 3 O)
 // blocks an object and axis: 120 of 132 SMs at O = 10. What it costs: g
 // and the factors are read by three blocks (1.0 KB a point against 0.43 KB
 // once). Measured on an NVIDIA H100 80GB HBM3 at 700 W, 10 objects x 131072
@@ -96,8 +124,8 @@
 // `hat` take 0.83-0.92 ms (`hat` alone 0.2-0.25), the loads 0.24-0.33 (L2
 // does not hide all of the repeats), u and the plane atomics ~0.2 each.
 //
-// Backward, scalar (`unsnapped_bwd`): fp32 and every bf16 spec the
-// tensor-core tile does not cover. Block d accumulates dW_d (and the
+// Backward, scalar (`unsnapped_bwd`): every spec the tensor-core tile does
+// not cover. Block d accumulates dW_d (and the
 // plane-line gradient of pair d) in shared memory with fp32 atomicAdd (a
 // compare-and-swap loop, slower still where points share rows) and flushes
 // them with one global atomicAdd per entry; the plane gradient takes global
@@ -499,8 +527,15 @@ __global__ void __launch_bounds__(kThreads) unsnapped_bwd(
 }
 
 // --------------------------------------------------------------------------
-// Backward, tensor cores (bf16)
+// Backward, tensor cores (bf16, and fp32 split into bf16 hi and lo parts)
 // --------------------------------------------------------------------------
+
+// Tiles of 64 points the fp32 tensor-core backward sums in its registers
+// before it adds them to the gradient: the tensor cores' fp32 accumulation
+// does not round to nearest, and its error grows with the number of 16-point
+// steps a sum takes (5e-8 of the largest entry a step at `quality`, against
+// fp32's tolerance of 1e-4): at 64 tiles the kernels read 1.3e-5 to 1.5e-5.
+constexpr int kFlushTiles = 64;
 
 // One 16-row tile of the block's accumulator. Every ladder level is padded
 // to a multiple of 16 rows there (flagship: 16, 32, 48, 80, 128, 192 = 496
@@ -541,49 +576,92 @@ __device__ __forceinline__ TileRows tile_rows(const Ladder& lad, int tile) {
   return tr;
 }
 
-// Shared-memory bytes of unsnapped_bwd_tc<., ., NT, kPlanes, KP>: two input
-// stages (g; afac of the two other axes; pair d's fpl + fli; points), then
-// u_d, the line operand, x_d and t_w.
-template <int NT, bool kPlanes, int KP>
+// Shared-memory bytes of unsnapped_bwd_tc<T, ., ., NT, kPlanes, KP>: two
+// input stages in T (g; afac of the two other axes; pair d's fpl + fli;
+// points), then u_d and the line operand in bf16 (a hi and a lo plane each
+// where T is fp32), x_d and t_w. A staged row of 64 points is padded by 16
+// bytes (72 bf16, 68 fp32), so that 8 rows of a 16-byte column fall into 8
+// bank groups.
+template <typename T, int NT, bool kPlanes, int KP>
 struct UtcSmem {
+  static constexpr int kSplit = sizeof(T) == 4;
   static constexpr int K = NT * 8;
   static constexpr int kout = K + (kPlanes ? 3 * KP : 0);
-  static constexpr int g_bytes = kTile * kout * 2;
-  static constexpr int a_bytes = 2 * K * kRow * 2;
-  static constexpr int f_bytes = kPlanes ? 2 * KP * kRow * 2 : 0;
+  static constexpr int row = kTile + 16 / (int)sizeof(T);  // elements of a staged row
+  static constexpr int g_bytes = kTile * kout * sizeof(T);
+  static constexpr int a_bytes = 2 * K * row * sizeof(T);
+  static constexpr int f_bytes = kPlanes ? 2 * KP * row * sizeof(T) : 0;
   static constexpr int x_bytes = kTile * 3 * 4;
   static constexpr int stage = g_bytes + a_bytes + f_bytes + x_bytes;
-  static constexpr int u_bytes = K * kRow * 2;
-  static constexpr int v_bytes = kPlanes ? 8 * kRow * 2 : 0;
+  static constexpr int u_bytes = (1 + kSplit) * K * kRow * 2;
+  static constexpr int v_bytes = kPlanes ? (1 + kSplit) * 8 * kRow * 2 : 0;
   static constexpr int total = 2 * stage + u_bytes + v_bytes + 2 * kTile * 4;
 };
+
+// Adds a warp's sums to the gradients with global atomics and restarts them
+// from zero: lane holds rows grp, grp + 8 and columns 2q, 2q + 1 of each
+// tile (pad rows skipped) and, where dl_g is set, of its line-gradient tile
+// (dl_g: the lane's first entry there).
+template <int KP, int MT, int NT>
+__device__ __forceinline__ void flush_sums(float (&acc)[MT][NT][4], float (&lacc)[4],
+                                           const TileRows (&tr)[MT], float* dw_g, float* dl_g,
+                                           int grp, int q) {
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int r = grp + (c >> 1) * 8;
+        const float v = acc[m][n][c];
+        if (r < tr[m].n && v != 0.f)
+          atomicAdd(dw_g + (size_t)(tr[m].row + r) * (NT * 8) + n * 8 + 2 * q + (c & 1), v);
+        acc[m][n][c] = 0.f;
+      }
+  if (dl_g) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      if (lacc[c] != 0.f) atomicAdd(dl_g + (c >> 1) * 8 * KP + (c & 1), lacc[c]);
+      lacc[c] = 0.f;
+    }
+  }
+}
 
 // K4 / K8 on the tensor cores. Block (., o, d) owns axis d of object o:
 // dW_d = hatcat_d^T u_d over its points, u_d = g A_e A_f, as a
 // [padded rows x points] x [points x K] product. kWarps warps own MT
 // consecutive 16-row tiles each (kWarps * MT >= the ladder's padded tiles);
 // the fp32 sums stay in registers over the block's whole point range and are
-// flushed once with global atomics, pad rows skipped. With planes (KP
+// flushed once with global atomics, pad rows skipped (in fp32, every
+// kFlushTiles tiles). With planes (KP
 // channels, 4 or 8), block d also owes pair d: the line gradient as one more
 // row tile for each of the last 8 warps, the plane gradient as 16-byte
-// vector atomics, one (point, 4-channel chunk) a thread.
-template <int kWarps, int MT, int NT, bool kPlanes, int KP = 4>
+// vector atomics, one (point, 4-channel chunk) a thread. T = bf16 rounds
+// `hat` and u to bf16 ("tensor_core"); T = float splits each into a bf16 hi
+// and lo part and sums hat_hi u_hi + hat_hi u_lo + hat_lo u_hi
+// ("tensor_core_split"; the dropped lo x lo and the split's remainders are
+// about 2^-16 of a product).
+template <typename T, int kWarps, int MT, int NT, bool kPlanes, int KP = 4>
 __global__ void __launch_bounds__(kWarps * 32, 1) unsnapped_bwd_tc(
-    const float* __restrict__ pts, const bf16* __restrict__ afac,
-    const bf16* __restrict__ fpl, const bf16* __restrict__ fli,
-    const bf16* __restrict__ g, float* __restrict__ dlines,
+    const float* __restrict__ pts, const T* __restrict__ afac,
+    const T* __restrict__ fpl, const T* __restrict__ fli,
+    const T* __restrict__ g, float* __restrict__ dlines,
     float* __restrict__ dplanes, float* __restrict__ dplines, Ladder lad,
     int P, int total_res, int ru, int rv, int axes, int vec) {
-  using S = UtcSmem<NT, kPlanes, KP>;
-  constexpr int K = S::K, kout = S::kout, kThr = kWarps * 32;
+  using S = UtcSmem<T, NT, kPlanes, KP>;
+  constexpr bool kSplit = S::kSplit;
+  constexpr int K = S::K, kout = S::kout, kThr = kWarps * 32, kRowIn = S::row;
   constexpr int kpl = 3 * KP, kLineTiles = kTcRw / 16, kChunks = KP / 4;
+  constexpr int kRowChunks = kTile * sizeof(T) / 16, kPerChunk = 16 / sizeof(T);
   static_assert(!kPlanes || kWarps >= kLineTiles, "one line tile a warp");
   static_assert(!kPlanes || (KP % 4 == 0 && KP <= 8), "4-channel chunks; 8 line columns");
   static_assert(kThr >= (1 + kChunks) * kTile,
                 "threads 0-63 stage x_d, the next 64 a chunk pair d's plane work");
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* u_s = reinterpret_cast<bf16*>(smem_raw + 2 * S::stage);               // [K, kRow]
-  bf16* v_s = reinterpret_cast<bf16*>(smem_raw + 2 * S::stage + S::u_bytes);  // [8, kRow]
+  bf16* u_s = reinterpret_cast<bf16*>(smem_raw + 2 * S::stage);               // [K, kRow] (hi, lo)
+  bf16* v_s = reinterpret_cast<bf16*>(smem_raw + 2 * S::stage + S::u_bytes);  // [8, kRow] (hi, lo)
+  bf16* ul_s = u_s + K * kRow;  // the lo planes (read only where kSplit)
+  bf16* vl_s = v_s + 8 * kRow;
   float* xd_s = reinterpret_cast<float*>(smem_raw + 2 * S::stage + S::u_bytes + S::v_bytes);
   float* tw_s = xd_s + kTile;  // [64] each
 
@@ -592,11 +670,11 @@ __global__ void __launch_bounds__(kWarps * 32, 1) unsnapped_bwd_tc(
   const int o = blockIdx.y, d = blockIdx.z;
   const int e = d == 0 ? 1 : 0, f = d == 2 ? 1 : 2;  // the other two axes
   const int lt = kWarps - 1 - warp;  // this warp's tile of the line gradient
-  const bf16* afac_o = afac + (size_t)o * 3 * K * P;
-  const bf16* g_o = g + (size_t)o * P * kout;
+  const T* afac_o = afac + (size_t)o * 3 * K * P;
+  const T* g_o = g + (size_t)o * P * kout;
   const float* pts_o = pts + (size_t)o * P * 3;
-  const bf16* fpl_d = kPlanes ? fpl + ((size_t)o * kpl + d * KP) * P : nullptr;
-  const bf16* fli_d = kPlanes ? fli + ((size_t)o * kpl + d * KP) * P : nullptr;
+  const T* fpl_d = kPlanes ? fpl + ((size_t)o * kpl + d * KP) * P : nullptr;
+  const T* fli_d = kPlanes ? fli + ((size_t)o * kpl + d * KP) * P : nullptr;
 
   TileRows tr[MT];
 #pragma unroll
@@ -612,37 +690,37 @@ __global__ void __launch_bounds__(kWarps * 32, 1) unsnapped_bwd_tc(
   float lacc[4] = {0.f, 0.f, 0.f, 0.f};
 
   if constexpr (kPlanes && KP < 8) {  // channel rows KP-7 of the line operand stay zero
-    for (int j = tid; j < 8 * kRow; j += kThr) v_s[j] = __float2bfloat16(0.f);
+    for (int j = tid; j < (1 + kSplit) * 8 * kRow; j += kThr) v_s[j] = __float2bfloat16(0.f);
   }
 
   // Raw inputs of one tile into a stage; points past P arrive as zeros, so
   // that they add nothing (u = 0) and no stale shared memory reaches a sum.
   auto load_tile = [&](int tile, int s) {
     unsigned char* base = smem_raw + s * S::stage;
-    bf16* sg = reinterpret_cast<bf16*>(base);
-    bf16* sa = reinterpret_cast<bf16*>(base + S::g_bytes);
-    bf16* sf = reinterpret_cast<bf16*>(base + S::g_bytes + S::a_bytes);
+    T* sg = reinterpret_cast<T*>(base);
+    T* sa = reinterpret_cast<T*>(base + S::g_bytes);
+    T* sf = reinterpret_cast<T*>(base + S::g_bytes + S::a_bytes);
     float* sx = reinterpret_cast<float*>(base + S::g_bytes + S::a_bytes + S::f_bytes);
     const int p0 = tile * kTile;
     const int nv = P - p0 < kTile ? P - p0 : kTile;
     if (vec) {  // P % 8 == 0 and 16-byte aligned bases: whole 16-byte chunks
       const unsigned char* gsrc = reinterpret_cast<const unsigned char*>(g_o + (size_t)p0 * kout);
       for (int c = tid; c < S::g_bytes / 16; c += kThr) {
-        const bool ok = c * 16 < nv * kout * 2;
+        const bool ok = c * 16 < nv * kout * (int)sizeof(T);
         cp_async16(reinterpret_cast<unsigned char*>(sg) + c * 16, ok ? gsrc + c * 16 : gsrc, ok);
       }
-      for (int c = tid; c < 2 * K * 8; c += kThr) {  // rows of A_e, then of A_f
-        const int r = c >> 3, cc = (c & 7) * 8;
+      for (int c = tid; c < 2 * K * kRowChunks; c += kThr) {  // rows of A_e, then of A_f
+        const int r = c / kRowChunks, cc = (c % kRowChunks) * kPerChunk;
         const bool ok = cc < nv;
-        const bf16* src = afac_o + ((size_t)(r < K ? e : f) * K + (r < K ? r : r - K)) * P;
-        cp_async16(sa + r * kRow + cc, src + (ok ? p0 + cc : 0), ok);
+        const T* src = afac_o + ((size_t)(r < K ? e : f) * K + (r < K ? r : r - K)) * P;
+        cp_async16(sa + r * kRowIn + cc, src + (ok ? p0 + cc : 0), ok);
       }
       if constexpr (kPlanes) {
-        for (int c = tid; c < 2 * KP * 8; c += kThr) {  // pair d's fpl, then fli
-          const int r = c >> 3, cc = (c & 7) * 8;
+        for (int c = tid; c < 2 * KP * kRowChunks; c += kThr) {  // pair d's fpl, then fli
+          const int r = c / kRowChunks, cc = (c % kRowChunks) * kPerChunk;
           const bool ok = cc < nv;
-          const bf16* src = r < KP ? fpl_d + (size_t)r * P : fli_d + (size_t)(r - KP) * P;
-          cp_async16(sf + r * kRow + cc, src + (ok ? p0 + cc : 0), ok);
+          const T* src = r < KP ? fpl_d + (size_t)r * P : fli_d + (size_t)(r - KP) * P;
+          cp_async16(sf + r * kRowIn + cc, src + (ok ? p0 + cc : 0), ok);
         }
       }
       const unsigned char* xsrc = reinterpret_cast<const unsigned char*>(pts_o + (size_t)p0 * 3);
@@ -651,19 +729,19 @@ __global__ void __launch_bounds__(kWarps * 32, 1) unsnapped_bwd_tc(
         cp_async16(reinterpret_cast<unsigned char*>(sx) + c * 16, ok ? xsrc + c * 16 : xsrc, ok);
       }
     } else {  // any P, any alignment: element by element
-      const bf16 zero = __float2bfloat16(0.f);
+      const T zero = from_f<T>(0.f);
       for (int i = tid; i < kTile * kout; i += kThr)
         sg[i] = i < nv * kout ? g_o[(size_t)p0 * kout + i] : zero;
       for (int i = tid; i < 2 * K * kTile; i += kThr) {
         const int r = i >> 6, pp = i & 63;
-        const bf16* src = afac_o + ((size_t)(r < K ? e : f) * K + (r < K ? r : r - K)) * P;
-        sa[r * kRow + pp] = pp < nv ? src[p0 + pp] : zero;
+        const T* src = afac_o + ((size_t)(r < K ? e : f) * K + (r < K ? r : r - K)) * P;
+        sa[r * kRowIn + pp] = pp < nv ? src[p0 + pp] : zero;
       }
       if constexpr (kPlanes) {
         for (int i = tid; i < 2 * KP * kTile; i += kThr) {
           const int r = i >> 6, pp = i & 63;
-          const bf16* src = r < KP ? fpl_d + (size_t)r * P : fli_d + (size_t)(r - KP) * P;
-          sf[r * kRow + pp] = pp < nv ? src[p0 + pp] : zero;
+          const T* src = r < KP ? fpl_d + (size_t)r * P : fli_d + (size_t)(r - KP) * P;
+          sf[r * kRowIn + pp] = pp < nv ? src[p0 + pp] : zero;
         }
       }
       for (int i = tid; i < kTile * 3; i += kThr)
@@ -672,8 +750,13 @@ __global__ void __launch_bounds__(kWarps * 32, 1) unsnapped_bwd_tc(
     cp_async_commit();
   };
 
+  float* dw_g = dlines + ((size_t)o * 3 + d) * total_res * K;
+  float* dl_g = kPlanes && lt < kLineTiles && 2 * q < KP  // columns past KP are zero pads
+                    ? dplines + ((size_t)o * 3 + d) * kTcRw * KP + (lt * 16 + grp) * KP + 2 * q
+                    : nullptr;
+
   const int n_tiles = (P + kTile - 1) / kTile;
-  int s = 0;
+  int s = 0, since_flush = 0;
   if ((int)blockIdx.x < n_tiles) load_tile(blockIdx.x, 0);
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, s ^= 1) {
     if (tile + (int)gridDim.x < n_tiles) load_tile(tile + gridDim.x, s ^ 1);
@@ -682,9 +765,9 @@ __global__ void __launch_bounds__(kWarps * 32, 1) unsnapped_bwd_tc(
     __syncthreads();         // ... for every thread; the last tile's products are done
 
     unsigned char* base = smem_raw + s * S::stage;
-    const bf16* sg = reinterpret_cast<const bf16*>(base);
-    const bf16* sa = reinterpret_cast<const bf16*>(base + S::g_bytes);
-    const bf16* sf = reinterpret_cast<const bf16*>(base + S::g_bytes + S::a_bytes);
+    const T* sg = reinterpret_cast<const T*>(base);
+    const T* sa = reinterpret_cast<const T*>(base + S::g_bytes);
+    const T* sf = reinterpret_cast<const T*>(base + S::g_bytes + S::a_bytes);
     const float* sx = reinterpret_cast<const float*>(base + S::g_bytes + S::a_bytes + S::f_bytes);
 
     // ---- build: x_d, then (planes) pair d's line operand and plane
@@ -695,16 +778,18 @@ __global__ void __launch_bounds__(kWarps * 32, 1) unsnapped_bwd_tc(
       if (tid < (1 + kChunks) * kTile) {
         const int pp = tid & 63, c0 = kChunks == 1 ? 0 : ((tid >> 6) - 1) * 4;
         const float x[3] = {sx[pp * 3 + 0], sx[pp * 3 + 1], sx[pp * 3 + 2]};
-        const uint2 graw = *reinterpret_cast<const uint2*>(sg + pp * kout + K + d * KP + c0);
-        const float2 g01 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&graw.x));
-        const float2 g23 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&graw.y));
-        const float gi[4] = {g01.x, g01.y, g23.x, g23.y};
+        float gi[4];
+        load4(sg + pp * kout + K + d * KP + c0, gi);
         float gl[4];
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
-          const float f_pl = __bfloat162float(sf[(c0 + c) * kRow + pp]);
-          const float f_li = __bfloat162float(sf[(KP + c0 + c) * kRow + pp]);
-          v_s[(c0 + c) * kRow + pp] = __float2bfloat16(gi[c] * f_pl);  // dL operand
+          const float f_pl = to_f(sf[(c0 + c) * kRowIn + pp]);
+          const float f_li = to_f(sf[(KP + c0 + c) * kRowIn + pp]);
+          const float v = gi[c] * f_pl;  // the dL operand
+          const bf16 v_hi = __float2bfloat16(v);
+          v_s[(c0 + c) * kRow + pp] = v_hi;
+          if constexpr (kSplit)
+            vl_s[(c0 + c) * kRow + pp] = __float2bfloat16(v - __bfloat162float(v_hi));
           gl[c] = gi[c] * f_li;
         }
         if (c0 == 0) tw_s[pp] = __fmul_rn(x[pair_axis(axes, d, 2)], (float)(kTcRw - 1));
@@ -722,18 +807,27 @@ __global__ void __launch_bounds__(kWarps * 32, 1) unsnapped_bwd_tc(
     }
     // ---- build: u_d[k, p] = g[p, k] A_e[k, p] A_f[k, p], two points a
     // thread; a warp covers 8 channels x 4 point pairs, which keeps its
-    // 32-bit reads of afac and writes of u in 32 different banks
+    // reads of afac and writes of u free of bank conflicts
     for (int ws = warp; ws < K; ws += kWarps) {
       const int ch = (ws >> 3) * 8 + (lane & 7);
       const int p2 = ((ws & 7) * 4 + (lane >> 3)) * 2;
-      const float2 ae = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(sa + ch * kRow + p2));
-      const float2 af = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(sa + (K + ch) * kRow + p2));
-      const float gx = __bfloat162float(sg[p2 * kout + ch]);
-      const float gy = __bfloat162float(sg[(p2 + 1) * kout + ch]);
-      *reinterpret_cast<__nv_bfloat162*>(u_s + ch * kRow + p2) =
-          __floats2bfloat162_rn(gx * ae.x * af.x, gy * ae.y * af.y);
+      float2 ae, af;
+      if constexpr (kSplit) {
+        ae = *reinterpret_cast<const float2*>(sa + ch * kRowIn + p2);
+        af = *reinterpret_cast<const float2*>(sa + (K + ch) * kRowIn + p2);
+      } else {
+        ae = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(sa + ch * kRowIn + p2));
+        af = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(sa + (K + ch) * kRowIn + p2));
+      }
+      const float u0 = to_f(sg[p2 * kout + ch]) * ae.x * af.x;
+      const float u1 = to_f(sg[(p2 + 1) * kout + ch]) * ae.y * af.y;
+      if constexpr (kSplit) {
+        split_bf16x2(u0, u1, reinterpret_cast<uint32_t*>(u_s + ch * kRow + p2),
+                     reinterpret_cast<uint32_t*>(ul_s + ch * kRow + p2));
+      } else {
+        *reinterpret_cast<__nv_bfloat162*>(u_s + ch * kRow + p2) = __floats2bfloat162_rn(u0, u1);
+      }
     }
     __syncthreads();
 
@@ -742,14 +836,16 @@ __global__ void __launch_bounds__(kWarps * 32, 1) unsnapped_bwd_tc(
     for (int k16 = 0; k16 < kTile; k16 += 16) {
       const float2 x_lo = *reinterpret_cast<const float2*>(xd_s + k16 + 2 * q);
       const float2 x_hi = *reinterpret_cast<const float2*>(xd_s + k16 + 8 + 2 * q);
-      uint32_t a[MT][4];
+      uint32_t a[MT][4], al[kSplit ? MT : 1][4];
 #pragma unroll
       for (int m = 0; m < MT; ++m) {
         // t = x (r_l - 1), rounded and never fused, as the dense tent forms it
         const float sc = tr[m].scale;
-        hat_fragment((float)(tr[m].j0 + grp),
-                     make_float2(__fmul_rn(x_lo.x, sc), __fmul_rn(x_lo.y, sc)),
-                     make_float2(__fmul_rn(x_hi.x, sc), __fmul_rn(x_hi.y, sc)), a[m]);
+        const float j0 = (float)(tr[m].j0 + grp);
+        const float2 t_lo = make_float2(__fmul_rn(x_lo.x, sc), __fmul_rn(x_lo.y, sc));
+        const float2 t_hi = make_float2(__fmul_rn(x_hi.x, sc), __fmul_rn(x_hi.y, sc));
+        if constexpr (kSplit) hat_fragment_split(j0, t_lo, t_hi, a[m], al[m]);
+        else hat_fragment(j0, t_lo, t_hi, a[m]);
       }
 #pragma unroll
       for (int np = 0; np < NT / 2; ++np) {
@@ -757,14 +853,20 @@ __global__ void __launch_bounds__(kWarps * 32, 1) unsnapped_bwd_tc(
         // points k16 + (0-7, 8-15, 0-7, 8-15); lane l gives row l % 8 of
         // block l / 8
         const int blk = lane >> 3;
-        const bf16* src = u_s + ((2 * np + (blk >> 1)) * 8 + (lane & 7)) * kRow +
-                          k16 + (blk & 1) * 8;
-        uint32_t b[4];
-        ldmatrix_x4(src, b);
+        const int off = ((2 * np + (blk >> 1)) * 8 + (lane & 7)) * kRow + k16 + (blk & 1) * 8;
+        uint32_t b[4], bl[4];
+        ldmatrix_x4(u_s + off, b);
+        if constexpr (kSplit) ldmatrix_x4(ul_s + off, bl);
 #pragma unroll
         for (int m = 0; m < MT; ++m) {  // no branch: an unused slot multiplies zeros
           mma16816(acc[m][2 * np], a[m], b[0], b[1]);
           mma16816(acc[m][2 * np + 1], a[m], b[2], b[3]);
+          if constexpr (kSplit) {
+            mma16816(acc[m][2 * np], a[m], bl[0], bl[1]);
+            mma16816(acc[m][2 * np + 1], a[m], bl[2], bl[3]);
+            mma16816(acc[m][2 * np], al[m], b[0], b[1]);
+            mma16816(acc[m][2 * np + 1], al[m], b[2], b[3]);
+          }
         }
       }
       if constexpr (kPlanes) {
@@ -772,42 +874,31 @@ __global__ void __launch_bounds__(kWarps * 32, 1) unsnapped_bwd_tc(
           // dL_d[rows, 0-7] += hat_w[rows, points] (g_d f_pl)[points, 0-7]
           const float2 w_lo = *reinterpret_cast<const float2*>(tw_s + k16 + 2 * q);
           const float2 w_hi = *reinterpret_cast<const float2*>(tw_s + k16 + 8 + 2 * q);
-          const bf16* vrow = v_s + grp * kRow + k16 + 2 * q;
-          const uint32_t b0 = *reinterpret_cast<const uint32_t*>(vrow);
-          const uint32_t b1 = *reinterpret_cast<const uint32_t*>(vrow + 8);
-          uint32_t al[4];
-          hat_fragment((float)(lt * 16 + grp), w_lo, w_hi, al);
-          mma16816(lacc, al, b0, b1);
+          const int off = grp * kRow + k16 + 2 * q;
+          const uint32_t b0 = *reinterpret_cast<const uint32_t*>(v_s + off);
+          const uint32_t b1 = *reinterpret_cast<const uint32_t*>(v_s + off + 8);
+          uint32_t aw[4];
+          if constexpr (kSplit) {
+            uint32_t awl[4];
+            hat_fragment_split((float)(lt * 16 + grp), w_lo, w_hi, aw, awl);
+            mma16816(lacc, aw, b0, b1);
+            mma16816(lacc, aw, *reinterpret_cast<const uint32_t*>(vl_s + off),
+                     *reinterpret_cast<const uint32_t*>(vl_s + off + 8));
+            mma16816(lacc, awl, b0, b1);
+          } else {
+            hat_fragment((float)(lt * 16 + grp), w_lo, w_hi, aw);
+            mma16816(lacc, aw, b0, b1);
+          }
         }
       }
     }
-  }
-  cp_async_wait<0>();
-
-  // ---- flush: lane holds rows grp, grp + 8 and columns 2q, 2q + 1 of a tile
-  float* dw_g = dlines + ((size_t)o * 3 + d) * total_res * K;
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int r = grp + (c >> 1) * 8;
-        const float v = acc[m][n][c];
-        if (r < tr[m].n && v != 0.f)
-          atomicAdd(dw_g + (size_t)(tr[m].row + r) * K + n * 8 + 2 * q + (c & 1), v);
-      }
-  if constexpr (kPlanes) {
-    float* dl_g = dplines + ((size_t)o * 3 + d) * kTcRw * KP;
-    if (lt < kLineTiles && 2 * q < KP) {  // columns past KP are zero pads
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int r = lt * 16 + grp + (c >> 1) * 8;
-        const float v = lacc[c];
-        if (v != 0.f) atomicAdd(dl_g + (size_t)r * KP + 2 * q + (c & 1), v);
-      }
+    if (kSplit && ++since_flush == kFlushTiles) {
+      since_flush = 0;
+      flush_sums<KP>(acc, lacc, tr, dw_g, dl_g, grp, q);
     }
   }
+  cp_async_wait<0>();
+  flush_sums<KP>(acc, lacc, tr, dw_g, dl_g, grp, q);
 }
 
 // The per-axis forward (variant "per_axis"): the factors (and plane pair d
@@ -923,23 +1014,22 @@ int launch_bwd(const void* pts, const void* afac, const void* fpl,
   return (int)cudaGetLastError();
 }
 
-template <int kWarps, int MT, int NT, bool kPlanes, int KP = 4>
+template <typename T, int kWarps, int MT, int NT, bool kPlanes, int KP = 4>
 int launch_bwd_tc(const void* pts, const void* afac, const void* fpl,
                   const void* fli, const void* g, void* dlines, void* dplanes,
                   void* dplines, const Ladder& lad, int O, int P, int total_res,
                   int ru, int rv, int axes, cudaStream_t stream) {
   if (padded_tiles(lad) > kWarps * MT) return (int)cudaErrorInvalidValue;
-  const size_t smem = UtcSmem<NT, kPlanes, KP>::total;
+  const size_t smem = UtcSmem<T, NT, kPlanes, KP>::total;
   dim3 grid;
-  cudaError_t err = plan(unsnapped_bwd_tc<kWarps, MT, NT, kPlanes, KP>, smem, O, P, 3,
+  cudaError_t err = plan(unsnapped_bwd_tc<T, kWarps, MT, NT, kPlanes, KP>, smem, O, P, 3,
                          &grid, kWarps * 32, kTile);
   if (err != cudaSuccess) return (int)err;
   const int vec = P % 8 == 0 && aligned16(pts) && aligned16(afac) && aligned16(g) &&
                   aligned16(fpl) && aligned16(fli);
-  unsnapped_bwd_tc<kWarps, MT, NT, kPlanes, KP><<<grid, kWarps * 32, smem, stream>>>(
-      (const float*)pts, (const bf16*)afac, (const bf16*)fpl, (const bf16*)fli,
-      (const bf16*)g, (float*)dlines, (float*)dplanes, (float*)dplines, lad, P,
-      total_res, ru, rv, axes, vec);
+  unsnapped_bwd_tc<T, kWarps, MT, NT, kPlanes, KP><<<grid, kWarps * 32, smem, stream>>>(
+      (const float*)pts, (const T*)afac, (const T*)fpl, (const T*)fli, (const T*)g,
+      (float*)dlines, (float*)dplanes, (float*)dplines, lad, P, total_res, ru, rv, axes, vec);
   return (int)cudaGetLastError();
 }
 
@@ -995,11 +1085,12 @@ int romap_mx_cp_product(int dtype, const void* afac, void* out, int O, int P, in
 
 // K4. dlines, dplanes and dplines must be zero-filled by the caller.
 // `variant` is the caller's choice from the spec and dtype (mxgrid_cuda.py:
-// `unsnapped_variant`: 0 scalar, 1 tensor cores); a combination that is not
-// instantiated returns cudaErrorInvalidValue. The tensor-core variant takes
-// bf16 with rw = 128: at K = 48 with kp = 4 and a ladder of at most 32
-// padded 16-row tiles (the flagship's 465 rows pad to 31), and at K = 64
-// with kp = 8 and at most 40 (`quality`'s 580 rows pad to 39).
+// `unsnapped_variant`: 0 scalar, 1 tensor cores in bf16, 2 tensor cores on
+// fp32 split into bf16 hi and lo parts); a combination that is not
+// instantiated returns cudaErrorInvalidValue. The tensor-core variants take
+// rw = 128: at K = 48 with kp = 4 and a ladder of at most 32 padded 16-row
+// tiles (the flagship's 465 rows pad to 31), and at K = 64 with kp = 8 and
+// at most 40 (`quality`'s 580 rows pad to 39).
 int romap_mx_unsnapped_bwd(int dtype, int variant, const void* pts, const void* afac,
                            const void* fpl, const void* fli, const void* g,
                            void* dlines, void* dplanes, void* dplines,
@@ -1010,17 +1101,23 @@ int romap_mx_unsnapped_bwd(int dtype, int variant, const void* pts, const void* 
   const int bad = make_ladder(res, off, n_levels, &lad);
   if (bad) return bad;
   cudaStream_t s = (cudaStream_t)stream;
+#define ROMAP_ARGS pts, afac, fpl, fli, g, dlines, dplanes, dplines, lad, O, P, total_res, \
+                   ru, rv, axes, s
   if (variant == 1) {
     if (dtype == 1 && K == 48 && kp == 4 && rw == kTcRw)
-      return launch_bwd_tc<16, 2, 6, true, 4>(pts, afac, fpl, fli, g, dlines, dplanes,
-                                              dplines, lad, O, P, total_res, ru, rv,
-                                              axes, s);
+      return launch_bwd_tc<bf16, 16, 2, 6, true, 4>(ROMAP_ARGS);
     if (dtype == 1 && K == 64 && kp == 8 && rw == kTcRw)
-      return launch_bwd_tc<8, 5, 8, true, 8>(pts, afac, fpl, fli, g, dlines, dplanes,
-                                              dplines, lad, O, P, total_res, ru, rv,
-                                              axes, s);
+      return launch_bwd_tc<bf16, 8, 5, 8, true, 8>(ROMAP_ARGS);
     return (int)cudaErrorInvalidValue;
   }
+  if (variant == 2) {
+    if (dtype == 0 && K == 48 && kp == 4 && rw == kTcRw)
+      return launch_bwd_tc<float, 8, 4, 6, true, 4>(ROMAP_ARGS);
+    if (dtype == 0 && K == 64 && kp == 8 && rw == kTcRw)
+      return launch_bwd_tc<float, 8, 5, 8, true, 8>(ROMAP_ARGS);
+    return (int)cudaErrorInvalidValue;
+  }
+#undef ROMAP_ARGS
   if (variant == 0 && dtype == 0)
     return launch_bwd<float, true>(pts, afac, fpl, fli, g, dlines, dplanes,
                                    dplines, lad, O, P, K, total_res, ru, rv,
@@ -1049,9 +1146,10 @@ int romap_mx_unsnapped_cp_fwd(int dtype, int variant, const void* pts, const voi
 }
 
 // K8: dlines [O, 3, total_res, K] f32 (zero-filled by the caller) from afac
-// and the CP cotangent g [O, P, K]. The tensor-core variant takes bf16 at
-// K = 48 with at most 32 padded tiles (the flagship ladder) and at K = 64
-// with at most 40 (the `fast` ladder: 580 rows pad to 624 = 39 tiles).
+// and the CP cotangent g [O, P, K]. The tensor-core variants (1: bf16, 2:
+// fp32 split) take K = 48 with at most 32 padded tiles (the flagship
+// ladder) and K = 64 with at most 40 (the `fast` ladder: 580 rows pad to
+// 624 = 39 tiles).
 int romap_mx_unsnapped_cp_bwd(int dtype, int variant, const void* pts,
                               const void* afac, const void* g, void* dlines,
                               const int* res, const int* off, int n_levels, int O,
@@ -1060,17 +1158,23 @@ int romap_mx_unsnapped_cp_bwd(int dtype, int variant, const void* pts,
   const int bad = make_ladder(res, off, n_levels, &lad);
   if (bad) return bad;
   cudaStream_t s = (cudaStream_t)stream;
+#define ROMAP_ARGS pts, afac, nullptr, nullptr, g, dlines, nullptr, nullptr, lad, O, P, \
+                   total_res, 0, 0, 0, s
   if (variant == 1) {
     if (dtype == 1 && K == 48)
-      return launch_bwd_tc<16, 2, 6, false>(pts, afac, nullptr, nullptr, g, dlines,
-                                            nullptr, nullptr, lad, O, P, total_res,
-                                            0, 0, 0, s);
+      return launch_bwd_tc<bf16, 16, 2, 6, false>(ROMAP_ARGS);
     if (dtype == 1 && K == 64)
-      return launch_bwd_tc<20, 2, 8, false>(pts, afac, nullptr, nullptr, g, dlines,
-                                            nullptr, nullptr, lad, O, P, total_res,
-                                            0, 0, 0, s);
+      return launch_bwd_tc<bf16, 20, 2, 8, false>(ROMAP_ARGS);
     return (int)cudaErrorInvalidValue;
   }
+  if (variant == 2) {
+    if (dtype == 0 && K == 48)
+      return launch_bwd_tc<float, 8, 4, 6, false>(ROMAP_ARGS);
+    if (dtype == 0 && K == 64)
+      return launch_bwd_tc<float, 8, 5, 8, false>(ROMAP_ARGS);
+    return (int)cudaErrorInvalidValue;
+  }
+#undef ROMAP_ARGS
   if (variant == 0 && dtype == 0)
     return launch_bwd<float, false>(pts, afac, nullptr, nullptr, g, dlines,
                                     nullptr, nullptr, lad, O, P, K, total_res,

@@ -27,7 +27,8 @@ tensor never falls back to the plain encode.
 Some kernels have variants, named from the spec and the table dtype alone:
 the backwards K2/K6 (`folded_variant`), K4/K8 (`unsnapped_variant`) and K10
 (`planes_variant`) run on the tensor cores in bf16 at the shapes their
-sources instantiate and as the scalar kernel otherwise; the forward K1/K5
+sources instantiate (K4/K8 in fp32 too, on operands split into bf16 hi and
+lo parts) and as the scalar kernel otherwise; the forward K1/K5
 stages its feature rows in shared memory wherever they fit
 (`forward_variant`); the forward K3/K7
 holds all three axes' ladders in a block wherever they fit, else a slice of
@@ -50,7 +51,9 @@ failure of the build or of a launch is caught.
 
 Each wrapper counts its kernel launches in a plain int attribute
 (`folded_fused_forward.launches`, ...) and, per table dtype, in
-`launches_by_dtype` (e.g. {"bfloat16": 3, "float32": 1}).
+`launches_by_dtype` (e.g. {"bfloat16": 3, "float32": 1}); the backwards
+with variants also per dtype and variant, in `launches_by_variant` (e.g.
+{"float32 tensor_core_split": 21}).
 
 The points get their gradient from K0 (`points_gradient`, csrc/
 mxgrid_points.cu; variant `points_variant`), on every path, where they
@@ -204,7 +207,9 @@ TC_SHAPES = {True: ((192, 48, (128, 4)), (256, 64, (128, 8))), False: ((192, 48)
 # instantiates in mxgrid_planes.cu: the flagship's and `quality`'s
 PLANES_TC_SHAPES = ((128, 4), (128, 8))
 SMEM_PER_BLOCK = 232448  # bytes of dynamic shared memory a block may take on sm_90
-BACKWARD_VARIANTS = ("scalar", "tensor_core")  # the C side's variant codes
+# the C side's variant codes; "tensor_core_split" (K4/K8 alone) takes fp32
+# inputs, each operand split into a bf16 hi and lo part
+BACKWARD_VARIANTS = ("scalar", "tensor_core", "tensor_core_split")
 FORWARD_VARIANTS = ("direct", "staged")
 
 
@@ -230,11 +235,15 @@ def folded_variant(spec: MXGridSpec, dtype: torch.dtype, planes: bool | None = N
 
 # (padded 16-row tiles the instantiation has room for, K, (line rows,
 # channels) of the one plane level) of the unsnapped tensor-core backward in
-# mxgrid_unsnapped.cu: with the plane level (K4: the flagship, `quality`)
-# and CP-only (K8; no level). The flagship ladder pads to 31 tiles, `fast`'s
-# and `quality`'s to 39.
-UNSNAPPED_TC_SHAPES = {True: ((32, 48, (128, 4)), (40, 64, (128, 8))),
-                       False: ((32, 48), (40, 64))}
+# mxgrid_unsnapped.cu, per table dtype: with the plane level (K4: the
+# flagship, `quality`) and CP-only (K8; no level). The flagship ladder pads
+# to 31 tiles, `fast`'s and `quality`'s to 39. bf16 runs "tensor_core",
+# fp32 "tensor_core_split" (UNSNAPPED_TC_VARIANT).
+UNSNAPPED_TC_SHAPES = {
+    torch.bfloat16: {True: ((32, 48, (128, 4)), (40, 64, (128, 8))), False: ((32, 48), (40, 64))},
+    torch.float32: {True: ((32, 48, (128, 4)), (40, 64, (128, 8))), False: ((32, 48), (40, 64))},
+}
+UNSNAPPED_TC_VARIANT = {torch.bfloat16: "tensor_core", torch.float32: "tensor_core_split"}
 
 
 def padded_row_map(spec: MXGridSpec) -> list[int]:
@@ -255,20 +264,22 @@ def padded_tiles(spec: MXGridSpec) -> int:
 
 def unsnapped_variant(spec: MXGridSpec, dtype: torch.dtype, planes: bool | None = None) -> str:
     """The variant of the unsnapped backward for this spec and table dtype:
-    "tensor_core" for bf16 where mxgrid_unsnapped.cu has an instantiation
-    with this K and plane level and room for the ladder's padded tiles
-    (UNSNAPPED_TC_SHAPES: the flagship ladder at K = 48 with its (128, 64, 4)
-    plane level or CP-only; `quality`'s at K = 64 with its (128, 128, 8)
-    level; `fast`'s at K = 64, CP-only), "scalar" for fp32 and every other
-    spec. `planes` says whether the kernel takes the plane level (K4) or not
-    (K8); by default, whether the spec has one. Chosen from the spec and
-    dtype alone; a failed build or launch never changes it."""
+    on the tensor cores where mxgrid_unsnapped.cu has an instantiation for
+    this dtype with this K and plane level and room for the ladder's padded
+    tiles (UNSNAPPED_TC_SHAPES: the flagship ladder at K = 48 with its
+    (128, 64, 4) plane level or CP-only; `quality`'s at K = 64 with its
+    (128, 128, 8) level; `fast`'s at K = 64, CP-only) -- "tensor_core" in
+    bf16, "tensor_core_split" in fp32 (each fp32 operand split into two bf16
+    parts, three products) -- and "scalar" for every other spec. `planes`
+    says whether the kernel takes the plane level (K4) or not (K8); by
+    default, whether the spec has one. Chosen from the spec and dtype alone;
+    a failed build or launch never changes it."""
     if planes is None:
         planes = bool(spec.plane_specs)
     shape = (spec.features, *_plane_levels(spec, planes))
-    return "tensor_core" if dtype == torch.bfloat16 and any(
-        padded_tiles(spec) <= room and shape == tuple(rest)
-        for room, *rest in UNSNAPPED_TC_SHAPES[planes]) else "scalar"
+    table = UNSNAPPED_TC_SHAPES.get(dtype, {}).get(planes, ())
+    fits = any(padded_tiles(spec) <= room and shape == tuple(rest) for room, *rest in table)
+    return UNSNAPPED_TC_VARIANT[dtype] if fits else "scalar"
 
 
 def planes_variant(spec: MXGridSpec, dtype: torch.dtype) -> str:
@@ -420,23 +431,29 @@ def _on_card(points: torch.Tensor, dt: torch.dtype) -> bool:
     return True
 
 
-def _launch(wrapper, what: str, fn_name: str, dt: torch.dtype, dev, *args) -> None:
+def _launch(wrapper, what: str, fn_name: str, dt: torch.dtype, dev, *args,
+            variant: str | None = None) -> None:
     """Call the C entry point on the current stream of `dev`; raise on a
     refused launch (cudaError_t, e.g. 1 when a table does not fit shared
-    memory), else count it."""
+    memory), else count it (by dtype, and by dtype and `variant` where the
+    wrapper names one)."""
     lib = _library()
     with torch.cuda.device(dev):
         code = getattr(lib, fn_name)(_DTYPE_CODE[dt], *args,
                                      torch.cuda.current_stream(dev).cuda_stream)
     if code != 0:
         raise RuntimeError(f"{what}: CUDA error {code} at launch")
+    dname = str(dt).split(".")[1]
     wrapper.launches += 1
-    wrapper.launches_by_dtype[str(dt).split(".")[1]] += 1
+    wrapper.launches_by_dtype[dname] += 1
+    if variant is not None:
+        wrapper.launches_by_variant[f"{dname} {variant}"] += 1
 
 
 def _counted(fn):
     fn.launches = 0
     fn.launches_by_dtype = collections.Counter()
+    fn.launches_by_variant = collections.Counter()
     return fn
 
 
@@ -613,11 +630,11 @@ def folded_fused_backward(points, afac, fpl, fli, g, spec: MXGridSpec):
     dw = torch.zeros((o, 3, rfp, k), **f32)
     dplanes = torch.zeros((o, 3, ru, rv, kp), **f32)
     dplines = torch.zeros((o, 3, rw, kp), **f32)
-    variant = BACKWARD_VARIANTS.index(folded_variant(spec, dt, planes=True))
+    variant = folded_variant(spec, dt, planes=True)
     _launch(folded_fused_backward, "K2 folded_fused_backward", "romap_mx_folded_bwd", dt, dev,
-            variant, points.data_ptr(), afac.data_ptr(), fpl.data_ptr(), fli.data_ptr(),
-            g.data_ptr(), dw.data_ptr(), dplanes.data_ptr(), dplines.data_ptr(),
-            o, p, k, rf, rfp, ru, rv, kp, rw, axes)
+            BACKWARD_VARIANTS.index(variant), points.data_ptr(), afac.data_ptr(),
+            fpl.data_ptr(), fli.data_ptr(), g.data_ptr(), dw.data_ptr(), dplanes.data_ptr(),
+            dplines.data_ptr(), o, p, k, rf, rfp, ru, rv, kp, rw, axes, variant=variant)
     return dw, dplanes, dplines
 
 
@@ -708,12 +725,12 @@ def unsnapped_fused_backward(points, afac, fpl, fli, g, spec: MXGridSpec):
     dlines = torch.zeros((o, 3, total, k), **f32)
     dplanes = torch.zeros((o, 3, ru, rv, kp), **f32)
     dplines = torch.zeros((o, 3, rw, kp), **f32)
-    variant = BACKWARD_VARIANTS.index(unsnapped_variant(spec, dt, planes=True))
+    variant = unsnapped_variant(spec, dt, planes=True)
     _launch(unsnapped_fused_backward, "K4 unsnapped_fused_backward",
-            "romap_mx_unsnapped_bwd", dt, dev, variant, points.data_ptr(), afac.data_ptr(),
-            fpl.data_ptr(), fli.data_ptr(), g.data_ptr(), dlines.data_ptr(),
+            "romap_mx_unsnapped_bwd", dt, dev, BACKWARD_VARIANTS.index(variant), points.data_ptr(),
+            afac.data_ptr(), fpl.data_ptr(), fli.data_ptr(), g.data_ptr(), dlines.data_ptr(),
             dplanes.data_ptr(), dplines.data_ptr(), res, off, n_lvl,
-            o, p, k, total, ru, rv, kp, rw, axes)
+            o, p, k, total, ru, rv, kp, rw, axes, variant=variant)
     return dlines, dplanes, dplines
 
 
@@ -776,10 +793,10 @@ def folded_cp_backward(points, afac, g, spec: MXGridSpec):
     _check("afac", afac, (o, 3, k, p), dt, dev)
     _check("g", g, (o, p, k), dt, dev)
     dw = torch.zeros((o, 3, rfp, k), dtype=torch.float32, device=dev)
-    variant = BACKWARD_VARIANTS.index(folded_variant(spec, dt, planes=False))
+    variant = folded_variant(spec, dt, planes=False)
     _launch(folded_cp_backward, "K6 folded_cp_backward", "romap_mx_folded_cp_bwd", dt, dev,
-            variant, points.data_ptr(), afac.data_ptr(), g.data_ptr(), dw.data_ptr(),
-            o, p, k, rf, rfp)
+            BACKWARD_VARIANTS.index(variant), points.data_ptr(), afac.data_ptr(),
+            g.data_ptr(), dw.data_ptr(), o, p, k, rf, rfp, variant=variant)
     return dw
 
 
@@ -844,11 +861,10 @@ def unsnapped_cp_backward(points, afac, g, spec: MXGridSpec):
     _check("afac", afac, (o, 3, k, p), dt, dev)
     _check("g", g, (o, p, k), dt, dev)
     dlines = torch.zeros((o, 3, total, k), dtype=torch.float32, device=dev)
-    variant = BACKWARD_VARIANTS.index(unsnapped_variant(spec, dt, planes=False))
+    variant = unsnapped_variant(spec, dt, planes=False)
     _launch(unsnapped_cp_backward, "K8 unsnapped_cp_backward", "romap_mx_unsnapped_cp_bwd",
-            dt, dev, variant, points.data_ptr(), afac.data_ptr(), g.data_ptr(),
-            dlines.data_ptr(),
-            res, off, n_lvl, o, p, k, total)
+            dt, dev, BACKWARD_VARIANTS.index(variant), points.data_ptr(), afac.data_ptr(),
+            g.data_ptr(), dlines.data_ptr(), res, off, n_lvl, o, p, k, total, variant=variant)
     return dlines
 
 
@@ -951,10 +967,11 @@ def planes_backward(points, fpl, fli, g, spec: MXGridSpec):
     dplines = tuple(torch.zeros((o, 3, max(ru, rv), kp), **f32)
                     for ru, rv, kp in spec.plane_specs)
     n, pl_ptrs, li_ptrs, ru, rv, kp = _level_args(spec, dplanes, dplines)
-    variant = BACKWARD_VARIANTS.index(planes_variant(spec, dt))
-    _launch(planes_backward, "K10 planes_backward", "romap_mx_planes_bwd", dt, dev, variant,
-            points.data_ptr(), fpl.data_ptr(), fli.data_ptr(), g.data_ptr(), g.stride(1),
-            n, pl_ptrs, li_ptrs, ru, rv, kp, o, p, _axes_code(spec))
+    variant = planes_variant(spec, dt)
+    _launch(planes_backward, "K10 planes_backward", "romap_mx_planes_bwd", dt, dev,
+            BACKWARD_VARIANTS.index(variant), points.data_ptr(), fpl.data_ptr(),
+            fli.data_ptr(), g.data_ptr(), g.stride(1), n, pl_ptrs, li_ptrs, ru, rv, kp, o, p,
+            _axes_code(spec), variant=variant)
     return dplanes, dplines
 
 
@@ -1156,6 +1173,7 @@ def reset_launch_counts() -> None:
     for fn in (*KERNELS.values(), *PRODUCT_PASSES.values()):
         fn.launches = 0
         fn.launches_by_dtype.clear()
+        fn.launches_by_variant.clear()
 
 
 # --------------------------------------------------------------------------

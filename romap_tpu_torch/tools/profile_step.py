@@ -4,7 +4,10 @@ For each encode path of the port (the flagship fused K1/K2, unsnapped
 K3/K4, the CP-only `fast` preset K5/K6, the split path MX_FUSED=0
 MX_SNAP=0 that the online phase of chip_smoke.py runs, K7-K10, and the
 `quality` preset, 256 x 64 with a (128, 128, 8) plane level, folded K1/K2
-and unsnapped K3/K4), at the
+and unsnapped K3/K4; all of them in the dtype "auto" picks, bf16 on the
+card; then in fp32, TrainConfig(compute_dtype="float32"), the flagship
+unsnapped, the split path and `quality` unsnapped, whose K4/K8 run
+"tensor_core_split"), at the
 reference batch geometry on the scene of build_synthetic_world(10, 16, 128):
   - step ms and obj-iters/s: host clock around 20 steps ending in a
     synchronize, after 3 warm-up steps; host enqueue ms: the same clock read
@@ -57,7 +60,7 @@ import time
 import torch
 from torch.utils import _pytree as pytree
 
-from romap_tpu_torch.config import EncodingConfig, NerfConfig
+from romap_tpu_torch.config import EncodingConfig, NerfConfig, TrainConfig
 from romap_tpu_torch.data.world import build_synthetic_world
 from romap_tpu_torch.models import nerf
 from romap_tpu_torch.runtime import pose_refine
@@ -149,21 +152,26 @@ def span_report(prof, steps):
             stack.extend(getattr(e, "cpu_children", []))
     return {name: (ms, sorted(ks.items(), key=lambda kv: -kv[1])[:4])
             for name, (ms, ks) in out.items()}
-CONFIGS = {  # name -> (encoding, environment)
-    "flagship K1/K2": (EncodingConfig(), {}),
-    "unsnapped K3/K4": (EncodingConfig(), {"MX_SNAP": "0"}),
-    "fast K5/K6": (EncodingConfig.preset("fast"), {}),
-    "split unsnapped K7-K10": (EncodingConfig(), {"MX_SNAP": "0", "MX_FUSED": "0"}),
-    "quality K1/K2": (EncodingConfig.preset("quality"), {}),
-    "quality unsnapped K3/K4": (EncodingConfig.preset("quality"), {"MX_SNAP": "0"}),
+CONFIGS = {  # name -> (encoding, environment, TrainConfig.compute_dtype)
+    "flagship K1/K2": (EncodingConfig(), {}, "auto"),
+    "unsnapped K3/K4": (EncodingConfig(), {"MX_SNAP": "0"}, "auto"),
+    "fast K5/K6": (EncodingConfig.preset("fast"), {}, "auto"),
+    "split unsnapped K7-K10": (EncodingConfig(), {"MX_SNAP": "0", "MX_FUSED": "0"}, "auto"),
+    "quality K1/K2": (EncodingConfig.preset("quality"), {}, "auto"),
+    "quality unsnapped K3/K4": (EncodingConfig.preset("quality"), {"MX_SNAP": "0"}, "auto"),
+    "fp32 unsnapped K3/K4": (EncodingConfig(), {"MX_SNAP": "0"}, "float32"),
+    "fp32 split unsnapped K7-K10": (EncodingConfig(), {"MX_SNAP": "0", "MX_FUSED": "0"},
+                                    "float32"),
+    "fp32 quality unsnapped K3/K4": (EncodingConfig.preset("quality"), {"MX_SNAP": "0"},
+                                     "float32"),
 }
 
 
-def profile(name, encoding, env, steps, top, world):
+def profile(name, encoding, env, dtype, steps, top, world):
     os.environ.pop("MX_SNAP", None)
     os.environ.pop("MX_FUSED", None)
     os.environ.update(env)
-    cfg = NerfConfig(encoding=encoding)
+    cfg = NerfConfig(encoding=encoding, train=TrainConfig(compute_dtype=dtype))
     spec = nerf.make_field_spec(cfg)
     _, _, _, store, objs = world
     frames = store.arrays()
@@ -320,8 +328,8 @@ def main(argv=None) -> None:
         print(json.dumps({"device": torch.cuda.get_device_name(0), "refine": results}))
         return
     world = build_synthetic_world(N_OBJECTS, 16, 128, device="cuda")
-    results = [profile(name, enc, env, args.steps, args.top, world)
-               for name, (enc, env) in configs.items()]
+    results = [profile(name, enc, env, dtype, args.steps, args.top, world)
+               for name, (enc, env, dtype) in configs.items()]
     print(json.dumps({"device": torch.cuda.get_device_name(0), "configs": results}))
 
 

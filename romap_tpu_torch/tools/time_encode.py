@@ -18,9 +18,9 @@ so the script also runs against another checkout of the package:
 
 `--forward-variant` and `--backward-variant` force a variant (K1/K5: direct,
 staged; K3/K7: per_axis, three_axis_direct, three_axis_staged, channel_split; K2/K6 and
-K4/K8 and K10: scalar, tensor_core) that the spec and dtype would not pick,
-to time both on one card. K10 takes the plane block of the full encode
-cotangent as a strided view, as the split step passes it (a checkout from
+K4/K8 and K10: scalar, tensor_core; K4/K8 in fp32: scalar, tensor_core_split)
+that the spec and dtype would not pick, to time both on one card. K10 takes
+the plane block of the full encode cotangent as a strided view, as the split step passes it (a checkout from
 before `planes_variant` takes a contiguous block, as its step copied it).
 K3's and K7's times include the product pass their per-axis variant needs.
 `--points-kind rays` draws the points
@@ -124,7 +124,7 @@ def main(argv=None) -> None:
                     help="force K1/K5's (direct, staged) or K3/K7's variant instead of "
                          "mxgrid_cuda.forward_variant / unsnapped_forward_variant")
     ap.add_argument("--backward-variant", default="auto",
-                    choices=("auto", "scalar", "tensor_core"),
+                    choices=("auto", "scalar", "tensor_core", "tensor_core_split"),
                     help="force K2/K6's, K4/K8's and K10's variant instead of the choice "
                          "of mxgrid_cuda.folded_variant / unsnapped_variant / planes_variant")
     ap.add_argument("--points-kind", default="uniform", choices=("uniform", "rays"))

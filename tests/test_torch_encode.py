@@ -8,6 +8,7 @@ those of tests/test_mxgrid_pallas.py: forward rtol 1e-4 / atol 2e-4,
 parameter gradients rtol 1e-3 / atol 1e-3.
 """
 
+import collections
 import dataclasses
 import re
 
@@ -823,9 +824,11 @@ def unsnapped_spec(name):
     ("flagship", torch.bfloat16, None, "tensor_core"),   # K4, MX_SNAP=0
     ("flagship", torch.bfloat16, False, "tensor_core"),  # K8 on the split path
     ("fast", torch.bfloat16, None, "tensor_core"),       # K8, `fast` unsnapped
-    ("flagship", torch.float32, None, "scalar"),         # renders, meshes, tests
-    ("fast", torch.float32, None, "scalar"),
-    ("quality", torch.bfloat16, None, "tensor_core"),    # K4 <8, 5, 8, true, 8>, kp = 8
+    ("flagship", torch.float32, None, "tensor_core_split"),   # fp32 K4: training, renders
+    ("flagship", torch.float32, False, "tensor_core_split"),  # fp32 K8 on the split path
+    ("fast", torch.float32, None, "tensor_core_split"),
+    ("quality", torch.bfloat16, None, "tensor_core"),    # K4 <bf16, 8, 5, 8, true, 8>, kp = 8
+    ("quality", torch.float32, None, "tensor_core_split"),  # K4 <float, 8, 5, 8, true, 8, 2>
     ("tiny", torch.bfloat16, None, "scalar"),
     ("tiny", torch.float32, False, "scalar"),
 ])
@@ -833,12 +836,13 @@ def test_unsnapped_variant_follows_spec_and_dtype(preset, dtype, planes, backwar
     spec = unsnapped_spec(preset)
     assert mxgrid_cuda.unsnapped_variant(spec, dtype, planes) == backward
     assert backward in mxgrid_cuda.BACKWARD_VARIANTS
-    if backward == "tensor_core":  # the tile's needs: K, and room for the padded ladder
+    if backward != "scalar":  # the tile's needs: K, and room for the padded ladder
+        assert backward == mxgrid_cuda.UNSNAPPED_TC_VARIANT[dtype]
         with_planes = bool(spec.plane_specs) if planes is None else planes
         tiles = mxgrid_cuda.padded_tiles(spec)
         assert spec.features % 8 == 0
         assert any(tiles <= room and spec.features == k
-                   for room, k, *_ in mxgrid_cuda.UNSNAPPED_TC_SHAPES[with_planes])
+                   for room, k, *_ in mxgrid_cuda.UNSNAPPED_TC_SHAPES[dtype][with_planes])
         assert len(spec.resolutions) <= mxgrid_cuda.MAX_LEVELS
 
 
@@ -913,18 +917,87 @@ def test_unsnapped_tensor_core_arithmetic_stays_within_half_percent(preset, kind
         assert err <= bound, ("dplines", i, err)
 
 
+def split_bf16(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """fp32 -> (hi, lo) as fp32 values of bf16 numbers: hi = bf16(t),
+    lo = bf16(t - hi), as `split_bf16x2` of mxgrid_tc.cuh forms them."""
+    hi = t.bfloat16().float()
+    return hi, (t - hi).bfloat16().float()
+
+
+def split_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a^T b over the points (dim 1) as the fp32 tensor-core backward forms
+    it: a_hi b_hi + a_hi b_lo + a_lo b_hi, each product of two bf16 numbers
+    exact in fp32, sums in fp32; a_lo b_lo is dropped."""
+    (a_hi, a_lo), (b_hi, b_lo) = split_bf16(a), split_bf16(b)
+    at = a_hi.transpose(1, 2)
+    return torch.matmul(at, b_hi) + torch.matmul(at, b_lo) + torch.matmul(a_lo.transpose(1, 2), b_hi)
+
+
+@pytest.mark.parametrize("kind", ["uniform", "cell", "outside"])
+@pytest.mark.parametrize("preset", ["flagship", "fast", "quality"])
+def test_unsnapped_split_arithmetic_stays_within_fp32_tolerance(preset, kind):
+    """K4's and K8's fp32 tensor-core arithmetic ("tensor_core_split"),
+    emulated at the flagship ladder (K = 48, the (128, 64, 4) plane level),
+    `fast`'s (K = 64, CP only) and `quality`'s (K = 64, the (128, 128, 8)
+    level): the concatenated `hat` basis and u = g A_e A_f (for the line
+    gradient, hat_w and g f_pl), formed in fp32, each split into a bf16 hi
+    and lo part, three products (hi hi, hi lo, lo hi) exact, sums in fp32.
+    Against the fp32 plain twin on the same fp32 residuals and cotangent it
+    stays within 1e-4 of each tensor's largest entry, the kernel's fp32
+    tolerance. Read on the CPU: 1.8e-6 to 9.1e-6 of the largest entry over
+    the nine cases, the plane lines included (the split leaves about 2^-16
+    of a product, unbiased, which the sums average out); with `hat` and u
+    rounded to bf16 alone, as the bf16 kernel does, the same cases read
+    about 1e-3 (the test above)."""
+    spec = unsnapped_spec(preset)
+    assert mxgrid_cuda.unsnapped_variant(spec, torch.float32) == "tensor_core_split"
+    k = spec.features
+    rng = np.random.default_rng(4)
+    n = 3001
+    pts = torch.from_numpy(flagship_points(kind, rng, n))
+    tables = tmx.init_mxgrid(torch.Generator().manual_seed(5), spec, N_OBJ)
+    g = torch.from_numpy(rng.normal(0, 1, (N_OBJ, n, spec.n_output_dims)).astype(np.float32))
+    if spec.plane_specs:
+        _, afac, fpl, fli = mxgrid_cuda.unsnapped_fused_forward_plain(
+            pts, tables["lines"], tables["planes"][0], tables["plane_lines"][0], spec)
+        want_dw, _, want_dl = mxgrid_cuda.unsnapped_fused_backward_plain(
+            pts, afac, fpl, fli, g, spec)
+    else:
+        _, afac = mxgrid_cuda.unsnapped_cp_forward_plain(pts, tables, spec)
+        want_dw = mxgrid_cuda.unsnapped_cp_backward_plain(pts, afac, g, spec)
+    assert afac.dtype == torch.float32
+
+    a = afac.transpose(2, 3)  # [O, 3, P, K]
+    for d, (e, f) in enumerate(((1, 2), (0, 2), (0, 1))):
+        got = split_product(tmx.hat_basis(pts[..., d], spec), g[..., :k] * a[:, e] * a[:, f])
+        err = float((got - want_dw[:, d]).abs().max() / want_dw[:, d].abs().max())
+        assert err <= 1e-4, ("dlines", d, err)
+    for i, (_, _, w) in enumerate(spec.plane_axes if spec.plane_specs else ()):
+        kp = spec.plane_specs[0][2]
+        v = g[..., k + i * kp : k + (i + 1) * kp] * fpl[:, i * kp : (i + 1) * kp].transpose(1, 2)
+        got = split_product(tmx.hat1(pts[..., w], 128), v)
+        err = float((got - want_dl[:, i]).abs().max() / want_dl[:, i].abs().max())
+        assert err <= 1e-4, ("dplines", i, err)
+
+
 # The C entries of the tensor-core backwards, and the Python tables the
-# variant is named from: entry -> (source, the launch of each instantiation)
+# variant is named from: entry -> (source, the launch of each instantiation).
+# The unsnapped entries launch the bf16 ("tensor_core") and fp32
+# ("tensor_core_split") instantiations; each pattern reads the dtype code the
+# entry tests and the type the kernel is instantiated for, then the tile.
 TC_ENTRIES = {
     "romap_mx_folded_bwd": ("mxgrid_folded.cu", r"rfp == (\d+) && K == (\d+) && kp == (\d+) "
                             r"&& rw == kTcRw\)\s*return launch_bwd_tc<(\d+), (\d+), true, (\d+)>"),
     "romap_mx_folded_cp_bwd": ("mxgrid_folded.cu", r"rfp == (\d+) && K == (\d+)\)\s*"
                                r"return launch_bwd_tc<(\d+), (\d+), false>"),
-    "romap_mx_unsnapped_bwd": ("mxgrid_unsnapped.cu", r"K == (\d+) && kp == (\d+) && rw == kTcRw\)"
-                               r"\s*return launch_bwd_tc<(\d+), (\d+), (\d+), true, (\d+)>"),
-    "romap_mx_unsnapped_cp_bwd": ("mxgrid_unsnapped.cu", r"K == (\d+)\)\s*"
-                                  r"return launch_bwd_tc<(\d+), (\d+), (\d+), false>"),
+    "romap_mx_unsnapped_bwd": ("mxgrid_unsnapped.cu", r"dtype == (\d) && K == (\d+) && kp == (\d+) "
+                               r"&& rw == kTcRw\)\s*return launch_bwd_tc<(bf16|float), (\d+), "
+                               r"(\d+), (\d+), true, (\d+)(?:, \d+)?>"),
+    "romap_mx_unsnapped_cp_bwd": ("mxgrid_unsnapped.cu", r"dtype == (\d) && K == (\d+)\)\s*"
+                                  r"return launch_bwd_tc<(bf16|float), (\d+), (\d+), (\d+), "
+                                  r"false(?:, \d+, \d+)?>"),
 }
+DTYPE_OF = {"bf16": torch.bfloat16, "float": torch.float32}
 
 
 @pytest.mark.parametrize("entry", list(TC_ENTRIES))
@@ -934,35 +1007,45 @@ def test_tensor_core_tables_are_the_c_instantiations(entry):
     tensor-core kernel the C entry launches (it refuses every other), and
     each instantiation's tile is its shape: rfp = 64 MT and K = 8 NT
     (folded), padded tiles = warps x MT and K = 8 NT (unsnapped), the plane
-    channels its KP, the line rows kTcRw = 128."""
+    channels its KP, the line rows kTcRw = 128. The unsnapped entries are
+    held per dtype: the dtype code each launch is guarded by (1 bf16, 0
+    fp32) is the type its kernel is instantiated for, and the launches of
+    each dtype are that dtype's table."""
     source, launch = TC_ENTRIES[entry]
     csrc = mxgrid_cuda.CSRC_DIR
     assert re.search(r"constexpr int kTcRw = 128;", (csrc / "mxgrid_tc.cuh").read_text())
     text = (csrc / source).read_text()
     start = text.index(f"int {entry}(")
-    found = [tuple(map(int, m)) for m in re.findall(launch, text[start : text.index("\n}\n", start)])]
+    found = re.findall(launch, text[start : text.index("\n}\n", start)])
     assert found
     planes = not entry.endswith("cp_bwd")
-    shapes = set()
+    shapes = collections.defaultdict(set)
     for m in found:
         if entry == "romap_mx_folded_bwd":
-            rfp, k, kp, mt, nt, tkp = m
+            rfp, k, kp, mt, nt, tkp = map(int, m)
             assert (rfp, k, kp) == (64 * mt, 8 * nt, tkp)
-            shapes.add((rfp, k, (128, kp)))
+            shapes[torch.bfloat16].add((rfp, k, (128, kp)))
         elif entry == "romap_mx_folded_cp_bwd":
-            rfp, k, mt, nt = m
+            rfp, k, mt, nt = map(int, m)
             assert (rfp, k) == (64 * mt, 8 * nt)
-            shapes.add((rfp, k))
+            shapes[torch.bfloat16].add((rfp, k))
         elif entry == "romap_mx_unsnapped_bwd":
-            k, kp, warps, mt, nt, tkp = m
+            code, k, kp, typ, warps, mt, nt, tkp = m
+            k, kp, warps, mt, nt, tkp = map(int, (k, kp, warps, mt, nt, tkp))
+            assert int(code) == mxgrid_cuda._DTYPE_CODE[DTYPE_OF[typ]], m
             assert (k, kp) == (8 * nt, tkp)
-            shapes.add((warps * mt, k, (128, kp)))
+            shapes[DTYPE_OF[typ]].add((warps * mt, k, (128, kp)))
         else:
-            k, warps, mt, nt = m
+            code, k, typ, warps, mt, nt = m
+            k, warps, mt, nt = map(int, (k, warps, mt, nt))
+            assert int(code) == mxgrid_cuda._DTYPE_CODE[DTYPE_OF[typ]], m
             assert k == 8 * nt
-            shapes.add((warps * mt, k))
-    table = (mxgrid_cuda.TC_SHAPES if "folded" in entry else mxgrid_cuda.UNSNAPPED_TC_SHAPES)
-    assert shapes == set(table[planes])
+            shapes[DTYPE_OF[typ]].add((warps * mt, k))
+    if "folded" in entry:
+        assert dict(shapes) == {torch.bfloat16: set(mxgrid_cuda.TC_SHAPES[planes])}
+    else:
+        assert dict(shapes) == {dt: set(table[planes])
+                                for dt, table in mxgrid_cuda.UNSNAPPED_TC_SHAPES.items()}
 
 
 # --------------------------------------------------------------------------

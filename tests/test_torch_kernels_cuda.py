@@ -527,12 +527,12 @@ def unsnapped_preset(name, planes=True):
                               plane_axes="balanced", snap_levels=False)
 
 
-def unsnapped_case(spec, n_obj, n_pts, kind, cuda, seed):
-    """Points, the forward twin's bf16 residuals and a bf16 cotangent."""
+def unsnapped_case(spec, n_obj, n_pts, kind, cuda, seed, dtype=torch.bfloat16):
+    """Points, the forward twin's residuals and a cotangent in `dtype`."""
     g = torch.Generator().manual_seed(seed)
     pts = preset_points(kind, n_obj, n_pts, g).to(cuda)
     tables = mxgrid.init_mxgrid(g, spec, n_obj)
-    to = lambda t: t.to(device=cuda, dtype=torch.bfloat16).contiguous()
+    to = lambda t: t.to(device=cuda, dtype=dtype).contiguous()
     gout = to(torch.randn((n_obj, n_pts, spec.n_output_dims), generator=g))
     if spec.plane_specs:
         args = [to(tables["lines"]), to(tables["planes"][0]), to(tables["plane_lines"][0])]
@@ -586,6 +586,114 @@ def test_k8_tensor_core_matches_plain(cuda, preset, n_obj, n_pts, kind):
     ref = mxgrid_cuda.unsnapped_cp_backward_plain(pts, afac, gout, spec)
     assert got.dtype == torch.float32 and got.shape == ref.shape
     assert torch.isfinite(got).all() and rel_err(got, ref) < 1e-2
+
+
+SPLIT_CASES = [("flagship", True), ("quality", True), ("flagship", False), ("fast", False)]
+
+
+@pytest.mark.parametrize("kind", ["uniform", "cell", "outside"])
+@pytest.mark.parametrize("n_obj,n_pts", TC_SHAPES)
+@pytest.mark.parametrize("preset,planes", SPLIT_CASES)
+def test_k4_k8_split_matches_plain_and_scalar(cuda, monkeypatch, preset, planes, n_obj, n_pts,
+                                              kind):
+    """K4 (the flagship ladder with its (128, 64, 4) plane level, `quality`'s
+    with its (128, 128, 8) level) and K8 (the flagship ladder as the split
+    path runs it, `fast`'s) in fp32 on the tensor cores, operands split into
+    bf16 hi and lo parts ("tensor_core_split"): against the plain twin and
+    against the scalar kernel (forced) at fp32's 1e-4 of each tensor's
+    largest entry."""
+    spec = unsnapped_preset(preset, planes)
+    assert mxgrid_cuda.unsnapped_variant(spec, torch.float32) == "tensor_core_split"
+    pts, _, res, gout = unsnapped_case(spec, n_obj, n_pts, kind, cuda, seed=31,
+                                       dtype=torch.float32)
+    if planes:
+        bwd, plain = mxgrid_cuda.unsnapped_fused_backward, mxgrid_cuda.unsnapped_fused_backward_plain
+    else:
+        bwd, plain = mxgrid_cuda.unsnapped_cp_backward, mxgrid_cuda.unsnapped_cp_backward_plain
+    n = bwd.launches_by_variant["float32 tensor_core_split"]
+    got = bwd(pts, *res, gout, spec)
+    torch.cuda.synchronize()
+    assert bwd.launches_by_variant["float32 tensor_core_split"] == n + 1
+    got = got if planes else (got,)
+    ref = plain(pts, *res, gout, spec)
+    ref = ref if planes else (ref,)
+    monkeypatch.setattr(mxgrid_cuda, "unsnapped_variant", lambda *a, **k: "scalar")
+    scalar = bwd(pts, *res, gout, spec)
+    scalar = scalar if planes else (scalar,)
+    for name, a, b, c in zip(("dlines", "dplanes", "dplines"), got, ref, scalar):
+        assert a.dtype == torch.float32 and a.shape == b.shape
+        assert torch.isfinite(a).all(), name
+        assert rel_err(a, b) < 1e-4, name + " vs plain"
+        assert rel_err(a, c) < 1e-4, name + " vs scalar"
+
+
+@pytest.mark.parametrize("preset,planes", SPLIT_CASES)
+def test_k4_k8_split_at_the_train_step_shape(cuda, preset, planes):
+    """The fp32 K4 / K8 at 10 objects x 131072 points, the train step's
+    shape, where each block walks 32768 points (2048 steps of 16), against
+    the plain twin at 1e-4: the tensor cores' own fp32 accumulation drifts
+    with the steps a sum takes (1.03e-4 of the largest entry when a block
+    kept its sums over its whole range), so the kernel adds its sums to the
+    gradient every kFlushTiles tiles of 64 points."""
+    spec = unsnapped_preset(preset, planes)
+    pts, _, res, gout = unsnapped_case(spec, 10, 131072, "uniform", cuda, seed=34,
+                                       dtype=torch.float32)
+    if planes:
+        got = mxgrid_cuda.unsnapped_fused_backward(pts, *res, gout, spec)
+        ref = mxgrid_cuda.unsnapped_fused_backward_plain(pts, *res, gout, spec)
+    else:
+        got = (mxgrid_cuda.unsnapped_cp_backward(pts, *res, gout, spec),)
+        ref = (mxgrid_cuda.unsnapped_cp_backward_plain(pts, *res, gout, spec),)
+    for name, a, b in zip(("dlines", "dplanes", "dplines"), got, ref):
+        assert rel_err(a, b) < 1e-4, name
+
+
+def test_split_variant_refuses_what_it_does_not_instantiate(cuda, monkeypatch):
+    """"tensor_core_split" forced on bf16 residuals at an instantiated
+    shape, or on fp32 ones at a spec no instantiation covers (K = 16), is
+    refused by the C entry, and the wrapper raises and counts nothing."""
+    monkeypatch.setattr(mxgrid_cuda, "unsnapped_variant", lambda *a, **k: "tensor_core_split")
+    flagship = unsnapped_preset("flagship")
+    for spec, dtype in ((flagship, torch.bfloat16), (small_spec(snap=False), torch.float32)):
+        pts, _, res, gout = unsnapped_case(spec, 1, 64, "uniform", cuda, seed=32, dtype=dtype)
+        n4 = mxgrid_cuda.unsnapped_fused_backward.launches
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            mxgrid_cuda.unsnapped_fused_backward(pts, *res, gout, spec)
+        cp = dataclasses.replace(spec, plane_specs=())
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            mxgrid_cuda.unsnapped_cp_backward(pts, res[0], gout[..., : spec.features].contiguous(),
+                                              cp)
+        assert mxgrid_cuda.unsnapped_fused_backward.launches == n4
+
+
+@pytest.mark.parametrize("fused", ["1", "0"])
+def test_unsnapped_flagship_encode_matches_plain_encode_fp32(cuda, monkeypatch, fused):
+    """`encode` and its backward at the flagship spec unsnapped in fp32, on
+    the fused path (K3, K4 split) and on the split path (MX_FUSED=0: K7 +
+    K9, K8 split + K10), against autograd through the plain
+    `ops.mxgrid.encode` on the same tables: 1e-4 of each tensor's largest
+    entry."""
+    monkeypatch.setenv("MX_FUSED", fused)
+    spec = unsnapped_preset("flagship")
+    g = torch.Generator().manual_seed(33)
+    f = mxgrid.init_mxgrid(g, spec, 2)
+    pts = preset_points("uniform", 2, 5000, g).to(cuda)
+    tgt = torch.randn((2, 5000, spec.n_output_dims), generator=g).to(cuda)
+
+    def run(enc):
+        leaves = [t.to(cuda).requires_grad_(True)
+                  for t in (f["lines"], f["planes"][0], f["plane_lines"][0])]
+        ff = {"lines": leaves[0], "planes": (leaves[1],), "plane_lines": (leaves[2],)}
+        out = enc(ff, pts, spec)
+        return [out] + list(torch.autograd.grad(torch.sum(out * tgt), leaves))
+
+    bwd = (mxgrid_cuda.unsnapped_fused_backward if fused == "1"
+           else mxgrid_cuda.unsnapped_cp_backward)
+    n = bwd.launches_by_variant["float32 tensor_core_split"]
+    got = run(mxgrid_cuda.encode)
+    assert bwd.launches_by_variant["float32 tensor_core_split"] == n + 1
+    for name, a, b in zip(("out", "dlines", "dplanes", "dplines"), got, run(mxgrid.encode)):
+        assert rel_err(a, b) < 1e-4, name
 
 
 def test_k4_tensor_core_takes_unaligned_bases(cuda):

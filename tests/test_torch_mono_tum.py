@@ -10,10 +10,16 @@ process whose pose-refinement budget is cut (`pose_refine.N_STEPS`,
 `N_PIXELS`, `N_SAMPLES`, read at each call, as tests/test_torch_online.py cuts
 them): the full 4 x 300 x 1536 x 32 refinement of one view takes minutes on
 the CPU's plain encode. `mono_tum`'s own knobs keep the evaluation to one
-held-out view without the orbit video. The run must exit 0, leave an object
-directory with a non-empty mesh and test renders, refine the test view's pose
-(the server's `pose refine` line), and `utils/eval_psnr` must score the
-tree with a finite PSNR.
+held-out view without the orbit video, and `ROMAP_MAX_BEHIND=0` blocks
+tracking until the mapping thread has drained every keyframe, so that each
+frame is tracked against the same map however loaded the host is: with the
+default bound of 2 keyframes, a loaded host (six test workers on eight
+cores) sometimes tracked against a map that lacked the last keyframes' points,
+and SLAM gave its object the id 1 instead of 0. The run must exit 0, start
+NeRF 0 for SLAM object 0 and render it, leave an object directory with a
+non-empty mesh and test renders, refine the test view's pose (the server's
+`pose refine` line), and `utils/eval_psnr` must score the tree with a
+finite PSNR.
 """
 
 import math
@@ -63,7 +69,8 @@ def test_mono_tum_drives_the_torch_server(tmp_path):
             time.sleep(0.1)
         run = subprocess.run(
             [MONO_TUM, dataset, sock, str(ITERS), out], capture_output=True, text=True,
-            timeout=300, env=dict(env, ROMAP_EVAL_MAX_VIEWS="1", ROMAP_NO_VIDEO="1"))
+            timeout=300,
+            env=dict(env, ROMAP_EVAL_MAX_VIEWS="1", ROMAP_NO_VIDEO="1", ROMAP_MAX_BEHIND="0"))
     finally:
         server.send_signal(signal.SIGTERM)
         try:

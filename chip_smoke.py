@@ -7,7 +7,8 @@ socket server on the split kernels with a pose-refined test render, pose
 refinement of perturbed views against a converged field, a hash-grid
 (`tcnn`) train wave, the flagship-parity quality gate at its full
 budget (3 seeds x 5000 steps), the `quality` preset's train waves,
-folded and unsnapped, and fp32 train waves of the unsnapped and split paths.
+folded and unsnapped, and fp32 train waves of the unsnapped, split and
+folded paths (the flagship, `fast` and `quality`).
 
 Usage: python3 chip_smoke.py     (needs one CUDA device; exits non-zero on
 any failure and prints no result line then)
@@ -23,9 +24,10 @@ Phases, one or more lines each, each closed by its seconds:
                the `quality` preset (256 x 64, (128, 128, 8)) vs their
                plain versions, and each backward
                vs autograd through its forward's plain version, O=2 x
-               P=131072, bf16 and fp32, then K1/K2, K3/K4 and K7/K8 (and
-               `quality`'s K1/K2 and K3/K4) in bf16 at O=10 x P=131072, the
-               shape their train steps launch them at: max abs / relative error beside the tolerance, the median
+               P=131072, bf16 and fp32, then K1/K2, K3/K4, K5/K6 and K7/K8
+               (and `quality`'s K1/K2 and K3/K4) in fp32 and bf16 at O=10 x
+               P=131072, the shape their train steps launch them at: max
+               abs / relative error beside the tolerance, the median
                kernel and plain times, the bound (the least time the card
                could take: bytes over its memory rate or operations over its
                peak, the larger), the peak memory of the check and, where a
@@ -34,13 +36,13 @@ Phases, one or more lines each, each closed by its seconds:
                and K10 at the flagship and `quality` plane levels must take
                the tensor cores, `quality`'s K2 and K4 too; the bf16
                unsnapped forwards the three-axis kernel, the fp32 ones
-               channel_split; the fp32 K4/K8 the tensor cores on operands
-               split into bf16 hi and lo parts, tensor_core_split); K3/K4
-               (flagship and `quality`), K7/K8 and K9/K10 also in fp32 at
-               O=10; `quality`'s bf16 K2 and K4, and the fp32 K4 (flagship,
-               `quality`) and K8 at O=10 beside their bound, the scalar
-               kernel (forced) timed in turns with them and its sums held to
-               theirs; K9 and K10 beside
+               channel_split; the fp32 K2/K6 and K4/K8 the tensor cores on
+               operands split into bf16 hi and lo parts, tensor_core_split);
+               K9/K10 also in fp32 at O=10; `quality`'s bf16 K2 and K4, and
+               the fp32 K4 (flagship, `quality`), K8, K2 (flagship,
+               `quality`) and K6 (`fast`) at O=10 beside their bound, the
+               scalar kernel (forced) timed in turns with them and its sums
+               held to theirs; K9 and K10 beside
                their library yardstick (F.grid_sample's plane and line
                calls, and their backward); then K3 and
                K7 in the per-axis design with its product pass (forced) and
@@ -101,12 +103,14 @@ Phases, one or more lines each, each closed by its seconds:
                losses falling on every active slot, launches by dtype, one
                held-out view per object (K1 fp32: PSNR and mask IoU); then
                MX_SNAP=0, 1 + 20 steps (K3/K4, K4 on the tensor cores)
- 13 fp32      TrainConfig(compute_dtype="float32") at the flagship width on
-               the scene of phase 5, 1 + 20 steps with MX_SNAP=0 (K3/K4) and
-               with MX_FUSED=0 MX_SNAP=0 (K7-K10): losses falling, step ms,
-               host enqueue ms, launches by dtype and, for the backwards, by
-               variant: K4 / K8 once a step as tensor_core_split, never
-               scalar
+ 13 fp32      TrainConfig(compute_dtype="float32") on the scene of phase
+               5, 1 + 20 steps each, at the presets' full widths: the
+               flagship with MX_SNAP=0 (K3/K4), with MX_FUSED=0 MX_SNAP=0
+               (K7-K10) and folded (K1/K2), `fast` (K5/K6) and `quality`
+               folded (K1/K2): losses falling, step ms, host enqueue ms,
+               launches by dtype and, for the backwards, by variant: the
+               path's K2, K4, K6 or K8 once a step as tensor_core_split,
+               never scalar, and no bf16 kernel
 then the total seconds, a JSON line with each kernel's record, and as the
 last line {"ok": true, "device": {...}}.
 """
@@ -261,26 +265,28 @@ def phase_build() -> None:
 # each pair at the spec its path in chip_smoke runs. K7/K8 run twice: at the
 # `fast` ladder unsnapped (580 rows x K = 64, their largest shared-memory
 # tables) and at the flagship unsnapped ladder that phase 9 runs (465 rows x
-# K = 48); K1/K2, K3/K4 and K7/K8 also at their train steps' O=10, in bf16
-# (there the plain twins hold dense [10, 131072, 465] fp32 bases, 2.4 GB an
-# axis); the `quality` preset's K1/K2 and K3/K4 at O=2 and at the O=10 of
-# `[12]`'s train step (580-row ladder x K = 64: 3.0 GB an axis; K3/K4 in
-# fp32 too). A kernel's record in the JSON line is its last bf16 check here:
-# its main path's; the `quality` checks go into the record's "quality"
-# entry, K4's and K8's fp32 checks at O=10 into its "fp32" entry.
+# K = 48); K1/K2, K3/K4, K5/K6 and K7/K8 also at their train steps' O=10,
+# in fp32 and bf16 (there the plain twins hold dense [10, 131072, 465] fp32
+# bases, 2.4 GB an axis); the `quality` preset's K1/K2 and K3/K4 at O=2 and
+# at the O=10 of `[12]`'s train step (580-row ladder x K = 64: 3.0 GB an
+# axis), both dtypes. A kernel's record in the JSON line is its last bf16
+# check here: its main path's; the `quality` checks go into the record's
+# "quality" entry, the fp32 checks at O=10 into its (or its "quality"
+# entry's) "fp32" entry.
 BOTH = (torch.bfloat16, torch.float32)
 CHECKS = (
     ("folded", "K1", "K2", KERNEL_O, BOTH),
-    ("folded", "K1", "K2", N_OBJECTS, (torch.bfloat16,)),
+    ("folded", "K1", "K2", N_OBJECTS, (torch.float32, torch.bfloat16)),
     ("unsnapped", "K3", "K4", KERNEL_O, BOTH),
     ("folded_cp", "K5", "K6", KERNEL_O, BOTH),
+    ("folded_cp", "K5", "K6", N_OBJECTS, (torch.float32, torch.bfloat16)),
     ("unsnapped_cp", "K7", "K8", KERNEL_O, BOTH),
     ("unsnapped_split", "K7", "K8", KERNEL_O, BOTH),
     ("unsnapped_split", "K9", "K10", KERNEL_O, BOTH),
     ("quality_split", "K9", "K10", KERNEL_O, BOTH),
     ("quality", "K1", "K2", KERNEL_O, BOTH),
     ("quality_unsnapped", "K3", "K4", KERNEL_O, BOTH),
-    ("quality", "K1", "K2", N_OBJECTS, (torch.bfloat16,)),
+    ("quality", "K1", "K2", N_OBJECTS, (torch.float32, torch.bfloat16)),
     ("quality_unsnapped", "K3", "K4", N_OBJECTS, (torch.float32, torch.bfloat16)),
     ("unsnapped", "K3", "K4", N_OBJECTS, (torch.float32, torch.bfloat16)),
     ("unsnapped_split", "K7", "K8", N_OBJECTS, (torch.float32, torch.bfloat16)),
@@ -422,8 +428,10 @@ def phase_kernels(specs: dict, dev) -> dict:
     split = {path: mxgrid_cuda.unsnapped_variant(specs[path], torch.float32, planes)
              for path, planes in (("unsnapped", True), ("unsnapped_cp", False),
                                   ("unsnapped_split", False), ("quality_unsnapped", True))}
-    if set(split.values()) != {"tensor_core_split"}:  # fp32 K4/K8 on the tensor cores
-        raise AssertionError(f"fp32 K4/K8 variants: {split}")
+    split.update({f"{path} folded": mxgrid_cuda.folded_variant(specs[path], torch.float32)
+                  for path in ("folded", "folded_cp", "quality")})
+    if set(split.values()) != {"tensor_core_split"}:  # fp32 K2/K4/K6/K8 on the tensor cores
+        raise AssertionError(f"fp32 K2/K4/K6/K8 variants: {split}")
     records, fp32, quality, fp32_bwd = {}, {}, {}, {}
     for path, kf, kb, o, dtypes in CHECKS:
         spec = specs[path]
@@ -496,8 +504,8 @@ def phase_kernels(specs: dict, dev) -> dict:
                     fwd_max_rel_err_vs_plain=f"{lib_rel:.3e}",
                     kernel_ms=f"{f_ms:.4f} / {b_ms:.4f}")
                 del lib_out
-            if kf in ("K3", "K7") and dtype == torch.float32 and o == N_OBJECTS:
-                if path != "quality_unsnapped":
+            if dtype == torch.float32 and o == N_OBJECTS and kf != "K9":  # the table kernels
+                if not path.startswith("quality"):
                     fp32[kf] = dict(fp32_variant=f_var["variant"], fp32_ms=f_ms)
                 fp32_bwd[(path, kb)] = dict(variant=b_var["variant"],
                                             max_abs_err=max(b_abs, b_abs_p), plain_ms=b_plain_ms)
@@ -524,8 +532,8 @@ def phase_kernels(specs: dict, dev) -> dict:
         records[kf].update(extra)
     for kb, rec in quality.items():  # `quality`'s check beside the main path's record
         records[kb]["quality"] = rec
-    for (path, kb), rec in fp32_bwd.items():  # the fp32 K4/K8 beside the bf16 record
-        (records[kb]["quality"] if path == "quality_unsnapped" else records[kb])["fp32"] = rec
+    for (path, kb), rec in fp32_bwd.items():  # the fp32 backwards beside the bf16 record
+        (records[kb]["quality"] if path.startswith("quality") else records[kb])["fp32"] = rec
     return records
 
 
@@ -604,14 +612,18 @@ def time_unsnapped_forwards(specs: dict, dev) -> None:
 
 # (path, forward, backward, selector, dtype, the record's entry) of the
 # backwards timed in turns against the scalar kernel at O=10: `quality`'s
-# bf16 K2 and K4, then the fp32 K4 (flagship unsnapped), K8 (the
-# split path's ladder) and `quality`'s K4 on the tensor cores split
+# bf16 K2 and K4, then on the tensor cores split the fp32 K4 (flagship
+# unsnapped), K8 (the split path's ladder), `quality`'s K4, K2 (flagship),
+# `quality`'s K2 and K6 (`fast`)
 TURNS = (("quality", "K1", "K2", "folded_variant", torch.bfloat16, ("quality",)),
          ("quality_unsnapped", "K3", "K4", "unsnapped_variant", torch.bfloat16, ("quality",)),
          ("unsnapped", "K3", "K4", "unsnapped_variant", torch.float32, ("fp32",)),
          ("unsnapped_split", "K7", "K8", "unsnapped_variant", torch.float32, ("fp32",)),
          ("quality_unsnapped", "K3", "K4", "unsnapped_variant", torch.float32,
-          ("quality", "fp32")))
+          ("quality", "fp32")),
+         ("folded", "K1", "K2", "folded_variant", torch.float32, ("fp32",)),
+         ("quality", "K1", "K2", "folded_variant", torch.float32, ("quality", "fp32")),
+         ("folded_cp", "K5", "K6", "folded_variant", torch.float32, ("fp32",)))
 
 
 def time_backwards_in_turns(specs: dict, records: dict, dev) -> None:
@@ -625,7 +637,7 @@ def time_backwards_in_turns(specs: dict, records: dict, dev) -> None:
     for path, kf, kb, selector, dtype, entry in TURNS:
         spec, dname = specs[path], str(dtype).split(".")[1]
         fwd, bwd = mxgrid_cuda.KERNELS[kf], mxgrid_cuda.KERNELS[kb]
-        new = getattr(mxgrid_cuda, selector)(spec, dtype, planes=kb != "K8")
+        new = getattr(mxgrid_cuda, selector)(spec, dtype, planes=kb not in ("K6", "K8"))
         want = "tensor_core_split" if dtype == torch.float32 else "tensor_core"
         if new != want:
             raise AssertionError(f"{kb} {path} {dname}: variant {new}")
@@ -1466,26 +1478,34 @@ def phase_quality_preset(dev) -> dict:
 
 
 FP32_WAVE = 20
-# (label, environment, backward): the fp32 train paths whose K4 / K8 run on
-# the tensor cores split
-FP32_PATHS = (("unsnapped", {"MX_SNAP": "0"}, "K4"),
-              ("split", {"MX_SNAP": "0", "MX_FUSED": "0"}, "K8"))
+# (label, encoding, environment, backward, the backward's record entry):
+# the fp32 train paths, each at its preset's full width, whose table
+# backward runs on the tensor cores split: the unsnapped ladder (K3/K4), the
+# split path (K7-K10), the folded flagship (K1/K2), `fast` (K5/K6) and
+# `quality` folded (K1/K2)
+FP32_PATHS = (("unsnapped", EncodingConfig(), {"MX_SNAP": "0"}, "K4", ("fp32",)),
+              ("split", EncodingConfig(), {"MX_SNAP": "0", "MX_FUSED": "0"}, "K8", ("fp32",)),
+              ("folded", EncodingConfig(), {}, "K2", ("fp32",)),
+              ("fast", EncodingConfig.preset("fast"), {}, "K6", ("fp32",)),
+              ("quality", EncodingConfig.preset("quality"), {}, "K2", ("quality", "fp32")))
+TABLE_BACKWARDS = ("K2", "K4", "K6", "K8")
 
 
-def phase_fp32(dev) -> dict:
-    """`TrainConfig(compute_dtype="float32")` at the flagship width through
-    train_objects on the scene of phase 5, 1 + 20 steps on each of
-    FP32_PATHS: the unsnapped ladder (K3/K4) and the split path (K7-K10).
-    The losses must be finite and fall on every active slot; K4 / K8 must
-    launch once a step, in fp32, as "tensor_core_split" and never as the
-    scalar kernel (K10 stays scalar in fp32: its redesign is queued).
-    Returns the K4 and K8 launches."""
-    cfg = NerfConfig(train=TrainConfig(compute_dtype="float32"))
+def phase_fp32(dev) -> list:
+    """`TrainConfig(compute_dtype="float32")` through train_objects on the
+    scene of phase 5, 1 + 20 steps on each of FP32_PATHS, nothing cut. The
+    losses must be finite and fall on every active slot; the path's table
+    backward (K2, K4, K6 or K8) must launch once a step, in fp32, as
+    "tensor_core_split", never as the scalar kernel, and no other table
+    backward and no bf16 kernel may run (K10 stays scalar in fp32: its
+    redesign is queued). Returns (backward, record entry, launches) of each
+    path."""
     _, _, _, store, objs = build_synthetic_world(N_OBJECTS, 16, 128, device=dev)
     frames = store.arrays()
     active = objs.active.cpu()
-    launches = {}
-    for label, env, kb in FP32_PATHS:
+    launches = []
+    for label, encoding, env, kb, entry in FP32_PATHS:
+        cfg = NerfConfig(encoding=encoding, train=TrainConfig(compute_dtype="float32"))
         with environ(**env):
             spec = nerf.make_field_spec(cfg)
             route = mxgrid_cuda.kernel_path(spec)
@@ -1505,7 +1525,7 @@ def phase_fp32(dev) -> dict:
                       if fn.launches_by_variant}
         by_dtype = {k: dict(fn.launches_by_dtype) for k, fn in mxgrid_cuda.KERNELS.items()
                     if fn.launches}
-        say("13 fp32", path=route, dtype="float32", steps=f"1+{FP32_WAVE}",
+        say("13 fp32", path=route, preset=label, dtype="float32", steps=f"1+{FP32_WAVE}",
             loss_step1=[round(x, 5) for x in loss1.tolist()],
             loss_wave=[round(x, 5) for x in loss2.tolist()], wave_s=f"{wave_s:.4f}",
             step_ms=f"{1e3 * wave_s / FP32_WAVE:.4f}",
@@ -1519,11 +1539,11 @@ def phase_fp32(dev) -> dict:
             raise AssertionError(f"fp32 {label}: an active slot skipped steps")
         want = {"float32 tensor_core_split": FP32_WAVE + 1}
         if by_variant.get(kb) != want or any(
-                k in by_variant for k in ("K4", "K8") if k != kb):
+                k in by_variant for k in TABLE_BACKWARDS if k != kb):
             raise AssertionError(f"fp32 {label}: {kb} launches {by_variant} (want {want})")
         if any(n.get("bfloat16") for n in by_dtype.values()):
             raise AssertionError(f"fp32 {label}: a bf16 kernel ran: {by_dtype}")
-        launches[kb] = by_variant[kb]["float32 tensor_core_split"]
+        launches.append((kb, entry, by_variant[kb]["float32 tensor_core_split"]))
         del state
         torch.cuda.empty_cache()
     return launches
@@ -1566,8 +1586,11 @@ def main() -> None:
         for kb, n in timed("12 quality", phase_quality_preset, dev).items():
             records[kb]["quality"]["launches"] = n
         torch.cuda.empty_cache()
-        for kb, n in timed("13 fp32", phase_fp32, dev).items():
-            records[kb]["fp32"]["launches"] = n
+        for kb, entry, n in timed("13 fp32", phase_fp32, dev):
+            rec = records[kb]
+            for key in entry:
+                rec = rec[key]
+            rec["launches"] = n
     finally:
         shutil.rmtree(root, ignore_errors=True)
     say("total", seconds=f"{time.perf_counter() - t_start:.3f}")

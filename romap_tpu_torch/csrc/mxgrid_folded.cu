@@ -34,7 +34,7 @@
 // own row; taken only where the staged rows do not fit beside the table
 // (`fast` in fp32: 199,680 B of table).
 //
-// Backward, tensor cores (K2, K6 in bf16 at the instantiated shapes;
+// Backward, tensor cores (K2, K6 at the instantiated shapes, bf16 and fp32;
 // `folded_bwd_tc`). The function is dW_d[j, k] = sum_p hat_d[j, p] u_d[p, k]
 // with u_d = g A_e A_f: per axis a [rfp x points] x [points x K] product.
 // A block of 12 warps walks its points in tiles of 64. Per tile the raw
@@ -74,14 +74,31 @@
 // faster.
 // Rounding `hat` and `u` to bf16 costs 2^-9 a term, unbiased; the error
 // against the fp32 plain version is reported by chip_smoke.py.
+// fp32 inputs ("tensor_core_split", the fp32 train step of every folded
+// preset: `TrainConfig(compute_dtype="float32")`, the gate's
+// `--compute-dtype float32`) take the same kernel: rows staged in fp32 (68
+// floats), `hat`, u and the line operand formed in fp32 and split into a
+// bf16 hi and lo part (after the relu: a lo part may be negative), three
+// mma.sync a fragment (hi hi, hi lo, lo hi), the sums added to the gradient
+// every kFlushTiles tiles (the tensor cores' fp32 accumulation does not
+// round to nearest; unflushed it drifted to 1.03e-4 of the largest entry in
+// the unsnapped twin at 10 objects). u gains a lo plane, so two fp32 stages
+// do not fit beside it at `quality` (253,184 bytes): that instantiation runs
+// one stage (164,608 bytes) and loads the next tile while the products run.
+// With 128 sums a thread (`fast`, `quality`) the hi and lo `hat` fragments
+// of all four row tiles leave the 168 registers short: those two spill
+// about 300 bytes. Forming one or two row tiles' fragments at a time spilled
+// more (680-700, 316-324 bytes); at 10 objects x 131072 points `fast`'s K6
+// took 2.59 and 1.98 ms so against 1.77, `quality`'s K2 3.14 and 2.29
+// against 2.38 (NVIDIA H100 80GB HBM3, 700 W).
 //
-// Backward, scalar (`folded_fused_bwd`): fp32 (dtype 0: tests and renders'
-// tiny fp32 step, never the train path) and every bf16 spec the tensor-core
+// Backward, scalar (`folded_fused_bwd`): the specs the tensor-core
 // instantiations (flagship, `quality`, CP-only 192 x 48 and 256 x 64) do
-// not cover. One thread a point, fp32 atomicAdd into a per-block
-// shared-memory accumulator (compiled to a compare-and-swap loop,
+// not cover, in both dtypes (the tests' tiny specs, the tiny fp32 train step
+// of chip_smoke's parity phase). One thread a point, fp32 atomicAdd into a
+// per-block shared-memory accumulator (compiled to a compare-and-swap loop,
 // ATOMS.CAST.SPIN), one global atomicAdd per entry at the end. Atomics make
-// the backward sums order-dependent in both variants.
+// the backward sums order-dependent in every variant.
 //
 // Layouts (per object o, leading axis O on every array):
 //   pts    [O, P, 3] f32          weff   [O, 3, rfp, K]   T
@@ -280,41 +297,81 @@ __global__ void __launch_bounds__(kThreads) folded_fused_bwd(
 }
 
 // --------------------------------------------------------------------------
-// Backward, tensor cores (bf16)
+// Backward, tensor cores (bf16, and fp32 split into bf16 hi and lo parts)
 // --------------------------------------------------------------------------
 
 constexpr int kTcThreads = 384;  // 12 warps: four an axis (and plane pair)
 constexpr int kTcWarps = kTcThreads / 32;
 
-// Shared-memory bytes of folded_bwd_tc<MT, NT, kPlanes, KP>: two input
-// stages (g, afac, fpl + fli, points), then u, the line operand, t and t_w,
-// and the line gradient's fp32 sums.
-template <int NT, bool kPlanes, int KP>
+// Shared-memory bytes of folded_bwd_tc<T, MT, NT, kPlanes, KP>: the input
+// stages in T (g, afac, fpl + fli, points), then u and the line operand in
+// bf16 (a hi and a lo plane each where T is fp32), t and t_w, and the line
+// gradient's fp32 sums. A staged row of 64 points is padded by 16 bytes (72
+// bf16, 68 fp32), so that 8 rows of a 16-byte column fall into 8 bank
+// groups. Two stages where they fit a block (the next tile loads while this
+// one is used), else one, whose next tile loads once this one's operands are
+// built: fp32 `quality` would take 2 x 88,576 + 76,032 = 253,184 bytes with
+// two, and takes 164,608 with one.
+template <typename T, int NT, bool kPlanes, int KP>
 struct TcSmem {
+  static constexpr int kSplit = sizeof(T) == 4;
   static constexpr int K = NT * 8;
   static constexpr int kout = K + (kPlanes ? 3 * KP : 0);
-  static constexpr int g_bytes = kTile * kout * 2;
-  static constexpr int a_bytes = 3 * K * kRow * 2;
-  static constexpr int f_bytes = kPlanes ? 2 * 3 * KP * kRow * 2 : 0;
+  static constexpr int row = kTile + 16 / (int)sizeof(T);  // elements of a staged row
+  static constexpr int g_bytes = kTile * kout * sizeof(T);
+  static constexpr int a_bytes = 3 * K * row * sizeof(T);
+  static constexpr int f_bytes = kPlanes ? 2 * 3 * KP * row * sizeof(T) : 0;
   static constexpr int x_bytes = kTile * 3 * 4;
   static constexpr int stage = g_bytes + a_bytes + f_bytes + x_bytes;
-  static constexpr int v_bytes = kPlanes ? 3 * 8 * kRow * 2 : 0;
+  static constexpr int u_bytes = (1 + kSplit) * 3 * K * kRow * 2;
+  static constexpr int v_bytes = kPlanes ? (1 + kSplit) * 3 * 8 * kRow * 2 : 0;
   static constexpr int t_bytes = 3 * kTile * 4;
   static constexpr int l_bytes = kPlanes ? 3 * kTcRw * 8 * 4 : 0;
-  static constexpr int total = 2 * stage + a_bytes + v_bytes + 2 * t_bytes + l_bytes;
+  static constexpr int rest = u_bytes + v_bytes + 2 * t_bytes + l_bytes;
+  static constexpr int stages = 2 * stage + rest <= kSmemPerBlock ? 2 : 1;
+  static constexpr int total = stages * stage + rest;
+  static_assert(total <= kSmemPerBlock, "one stage must fit a block");
 };
 
+// Adds a warp's dW_eff sums to the gradient with global atomics (pad rows
+// past rf skipped) and restarts them from zero: lane holds rows grp, grp + 8
+// and columns 2q, 2q + 1 of each tile.
+template <int MT, int NT>
+__device__ __forceinline__ void flush_dweff(float (&acc)[MT][NT][4], float* dw_g, int row0,
+                                            int rf, int grp, int q) {
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int r = row0 + m * 16 + grp + (c >> 1) * 8;
+        const float v = acc[m][n][c];
+        if (r < rf && v != 0.f) atomicAdd(dw_g + (size_t)r * (NT * 8) + n * 8 + 2 * q + (c & 1), v);
+        acc[m][n][c] = 0.f;
+      }
+}
+
 // K2 (KP plane channels, 4 or 8) and K6 (kPlanes off) on the tensor cores.
-template <int MT, int NT, bool kPlanes, int KP = 4>
+// T = bf16 rounds `hat` and u to bf16 ("tensor_core"); T = float forms them
+// in fp32, splits each into a bf16 hi and lo part and sums hat_hi u_hi +
+// hat_hi u_lo + hat_lo u_hi ("tensor_core_split"; the dropped lo x lo and
+// the split's remainders are about 2^-16 of a product), adding its register
+// sums to the gradient every kFlushTiles tiles.
+template <typename T, int MT, int NT, bool kPlanes, int KP = 4>
 __global__ void __launch_bounds__(kTcThreads, 1) folded_bwd_tc(
-    const float* __restrict__ pts, const bf16* __restrict__ afac,
-    const bf16* __restrict__ fpl, const bf16* __restrict__ fli,
-    const bf16* __restrict__ g, float* __restrict__ dweff,
+    const float* __restrict__ pts, const T* __restrict__ afac,
+    const T* __restrict__ fpl, const T* __restrict__ fli,
+    const T* __restrict__ g, float* __restrict__ dweff,
     float* __restrict__ dplanes, float* __restrict__ dplines, int P, int rf,
     int ru, int rv, int axes, int vec) {
-  using S = TcSmem<NT, kPlanes, KP>;
-  constexpr int K = S::K, kout = S::kout, rfp = MT * 64;
+  using S = TcSmem<T, NT, kPlanes, KP>;
+  constexpr bool kSplit = S::kSplit;
+  constexpr int K = S::K, kout = S::kout, rfp = MT * 64, kRowIn = S::row;
   constexpr int kpl = 3 * KP;
+  // 16-byte chunks of a staged row (8 bf16, 16 fp32) and values a chunk
+  constexpr int kChunkShift = kSplit ? 4 : 3, kPerChunk = 16 / sizeof(T);
+  static_assert(kTile * sizeof(T) / 16 == 1 << kChunkShift, "chunks of a row");
   // The plane work of a tile: one (pair, point, 4-channel chunk) a thread,
   // on the last kItems threads (KP = 4: threads 192-383, beside t on 0-191;
   // KP = 8: all 384, so that a thread holds four channels, not eight, beside
@@ -323,9 +380,12 @@ __global__ void __launch_bounds__(kTcThreads, 1) folded_bwd_tc(
   static_assert(!kPlanes || (KP % 4 == 0 && KP <= 8 && kItems <= kTcThreads),
                 "one 4-channel chunk a thread; the line operand has 8 columns");
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* u_s = reinterpret_cast<bf16*>(smem_raw + 2 * S::stage);         // [3, K, kRow]
-  bf16* v_s = reinterpret_cast<bf16*>(smem_raw + 2 * S::stage + S::a_bytes);  // [3, 8, kRow]
-  float* t_s = reinterpret_cast<float*>(smem_raw + 2 * S::stage + S::a_bytes + S::v_bytes);
+  unsigned char* ops = smem_raw + S::stages * S::stage;
+  bf16* u_s = reinterpret_cast<bf16*>(ops);                // [3, K, kRow] (hi, lo)
+  bf16* v_s = reinterpret_cast<bf16*>(ops + S::u_bytes);   // [3, 8, kRow] (hi, lo)
+  bf16* ul_s = u_s + 3 * K * kRow;  // the lo planes (read only where kSplit)
+  bf16* vl_s = v_s + 3 * 8 * kRow;
+  float* t_s = reinterpret_cast<float*>(ops + S::u_bytes + S::v_bytes);
   float* tw_s = t_s + 3 * kTile;  // [3, 64] each
   float* l_s = tw_s + 3 * kTile;  // [3, kTcRw, 8]: the line gradient's sums
 
@@ -334,11 +394,11 @@ __global__ void __launch_bounds__(kTcThreads, 1) folded_bwd_tc(
   const int d = warp >> 2;                  // this warp's axis and plane pair
   const int row0 = (warp & 3) * MT * 16;    // its first row of dW_eff_d
   const int o = blockIdx.y;
-  const bf16* afac_o = afac + (size_t)o * 3 * K * P;
-  const bf16* g_o = g + (size_t)o * P * kout;
+  const T* afac_o = afac + (size_t)o * 3 * K * P;
+  const T* g_o = g + (size_t)o * P * kout;
   const float* pts_o = pts + (size_t)o * P * 3;
-  const bf16* fpl_o = kPlanes ? fpl + (size_t)o * kpl * P : nullptr;
-  const bf16* fli_o = kPlanes ? fli + (size_t)o * kpl * P : nullptr;
+  const T* fpl_o = kPlanes ? fpl + (size_t)o * kpl * P : nullptr;
+  const T* fli_o = kPlanes ? fli + (size_t)o * kpl * P : nullptr;
 
   float acc[MT][NT][4];
 #pragma unroll
@@ -351,7 +411,8 @@ __global__ void __launch_bounds__(kTcThreads, 1) folded_bwd_tc(
   if constexpr (kPlanes) {
     for (int j = tid; j < 3 * kTcRw * 8; j += kTcThreads) l_s[j] = 0.f;
     if constexpr (KP < 8) {  // channel rows KP-7 of the line operand stay zero
-      for (int j = tid; j < 3 * 8 * kRow; j += kTcThreads) v_s[j] = __float2bfloat16(0.f);
+      for (int j = tid; j < (1 + kSplit) * 3 * 8 * kRow; j += kTcThreads)
+        v_s[j] = __float2bfloat16(0.f);
     }
     __syncthreads();  // the flush reads the sums even where a block gets no tile
   }
@@ -363,32 +424,32 @@ __global__ void __launch_bounds__(kTcThreads, 1) folded_bwd_tc(
   // that `quality`'s 128 sums a thread leave (they spilled 28 bytes).
   auto load_tile = [&](int tile, int s) {
     unsigned char* base = smem_raw + s * S::stage;
-    bf16* sg = reinterpret_cast<bf16*>(base);
-    bf16* sa = reinterpret_cast<bf16*>(base + S::g_bytes);
-    bf16* sf = reinterpret_cast<bf16*>(base + S::g_bytes + S::a_bytes);
+    T* sg = reinterpret_cast<T*>(base);
+    T* sa = reinterpret_cast<T*>(base + S::g_bytes);
+    T* sf = reinterpret_cast<T*>(base + S::g_bytes + S::a_bytes);
     float* sx = reinterpret_cast<float*>(base + S::g_bytes + S::a_bytes + S::f_bytes);
     const int p0 = tile * kTile;
     const int nv = P - p0 < kTile ? P - p0 : kTile;
-    if (vec) {  // P % 8 == 0 and 16-byte aligned bases: whole 16-byte chunks
+    if (vec) {  // rows of 16-byte multiples and 16-byte aligned bases: whole 16-byte chunks
       const unsigned char* gsrc = reinterpret_cast<const unsigned char*>(g_o + (size_t)p0 * kout);
 #pragma unroll 1
       for (int c = tid; c < S::g_bytes / 16; c += kTcThreads) {
-        const bool ok = c * 16 < nv * kout * 2;
+        const bool ok = c * 16 < nv * kout * (int)sizeof(T);
         cp_async16(reinterpret_cast<unsigned char*>(sg) + c * 16, ok ? gsrc + c * 16 : gsrc, ok);
       }
 #pragma unroll 1
-      for (int c = tid; c < 3 * K * 8; c += kTcThreads) {
-        const int r = c >> 3, cc = (c & 7) * 8;
+      for (int c = tid; c < (3 * K) << kChunkShift; c += kTcThreads) {
+        const int r = c >> kChunkShift, cc = (c & ((1 << kChunkShift) - 1)) * kPerChunk;
         const bool ok = cc < nv;
-        cp_async16(sa + r * kRow + cc, afac_o + (size_t)r * P + (ok ? p0 + cc : 0), ok);
+        cp_async16(sa + r * kRowIn + cc, afac_o + (size_t)r * P + (ok ? p0 + cc : 0), ok);
       }
       if constexpr (kPlanes) {
 #pragma unroll 1
-        for (int c = tid; c < 2 * kpl * 8; c += kTcThreads) {
-          const int r = c >> 3, cc = (c & 7) * 8;
+        for (int c = tid; c < (2 * kpl) << kChunkShift; c += kTcThreads) {
+          const int r = c >> kChunkShift, cc = (c & ((1 << kChunkShift) - 1)) * kPerChunk;
           const bool ok = cc < nv;
-          const bf16* src = r < kpl ? fpl_o + (size_t)r * P : fli_o + (size_t)(r - kpl) * P;
-          cp_async16(sf + r * kRow + cc, src + (ok ? p0 + cc : 0), ok);
+          const T* src = r < kpl ? fpl_o + (size_t)r * P : fli_o + (size_t)(r - kpl) * P;
+          cp_async16(sf + r * kRowIn + cc, src + (ok ? p0 + cc : 0), ok);
         }
       }
       const unsigned char* xsrc = reinterpret_cast<const unsigned char*>(pts_o + (size_t)p0 * 3);
@@ -398,21 +459,21 @@ __global__ void __launch_bounds__(kTcThreads, 1) folded_bwd_tc(
         cp_async16(reinterpret_cast<unsigned char*>(sx) + c * 16, ok ? xsrc + c * 16 : xsrc, ok);
       }
     } else {  // any P, any alignment: element by element
-      const bf16 zero = __float2bfloat16(0.f);
+      const T zero = from_f<T>(0.f);
 #pragma unroll 1
       for (int e = tid; e < kTile * kout; e += kTcThreads)
         sg[e] = e < nv * kout ? g_o[(size_t)p0 * kout + e] : zero;
 #pragma unroll 1
       for (int e = tid; e < 3 * K * kTile; e += kTcThreads) {
         const int r = e >> 6, pp = e & 63;
-        sa[r * kRow + pp] = pp < nv ? afac_o[(size_t)r * P + p0 + pp] : zero;
+        sa[r * kRowIn + pp] = pp < nv ? afac_o[(size_t)r * P + p0 + pp] : zero;
       }
       if constexpr (kPlanes) {
 #pragma unroll 1
         for (int e = tid; e < 2 * kpl * kTile; e += kTcThreads) {
           const int r = e >> 6, pp = e & 63;
-          const bf16* src = r < kpl ? fpl_o + (size_t)r * P : fli_o + (size_t)(r - kpl) * P;
-          sf[r * kRow + pp] = pp < nv ? src[p0 + pp] : zero;
+          const T* src = r < kpl ? fpl_o + (size_t)r * P : fli_o + (size_t)(r - kpl) * P;
+          sf[r * kRowIn + pp] = pp < nv ? src[p0 + pp] : zero;
         }
       }
 #pragma unroll 1
@@ -422,19 +483,26 @@ __global__ void __launch_bounds__(kTcThreads, 1) folded_bwd_tc(
     cp_async_commit();
   };
 
+  float* dw_g = dweff + ((size_t)o * 3 + d) * rfp * K;
   const int n_tiles = (P + kTile - 1) / kTile;
-  int s = 0;
+  int s = 0, since_flush = 0;
   if ((int)blockIdx.x < n_tiles) load_tile(blockIdx.x, 0);
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, s ^= 1) {
-    if (tile + (int)gridDim.x < n_tiles) load_tile(tile + gridDim.x, s ^ 1);
-    else cp_async_commit();  // an empty group keeps the count below uniform
-    cp_async_wait<1>();      // this tile's stage has landed
-    __syncthreads();         // ... for every thread; the last tile's products are done
+  // s ^= stages - 1: the two stages take turns; one stage stays stage 0
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, s ^= S::stages - 1) {
+    const bool more = tile + (int)gridDim.x < n_tiles;
+    if constexpr (S::stages == 2) {
+      if (more) load_tile(tile + gridDim.x, s ^ 1);
+      else cp_async_commit();  // an empty group keeps the count below uniform
+      cp_async_wait<1>();      // this tile's stage has landed
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // ... for every thread; the last tile's products are done
 
     unsigned char* base = smem_raw + s * S::stage;
-    const bf16* sg = reinterpret_cast<const bf16*>(base);
-    const bf16* sa = reinterpret_cast<const bf16*>(base + S::g_bytes);
-    const bf16* sf = reinterpret_cast<const bf16*>(base + S::g_bytes + S::a_bytes);
+    const T* sg = reinterpret_cast<const T*>(base);
+    const T* sa = reinterpret_cast<const T*>(base + S::g_bytes);
+    const T* sf = reinterpret_cast<const T*>(base + S::g_bytes + S::a_bytes);
     const float* sx = reinterpret_cast<const float*>(base + S::g_bytes + S::a_bytes + S::f_bytes);
 
     // ---- build: t, then (planes) the line operand and the plane scatter
@@ -447,17 +515,26 @@ __global__ void __launch_bounds__(kTcThreads, 1) folded_bwd_tc(
       if (item >= 0) {
         const int pp = item & 63, c0 = ((item >> 6) % kChunks) * 4, i = (item >> 6) / kChunks;
         const float* x = sx + pp * 3;
-        const uint2 graw = *reinterpret_cast<const uint2*>(sg + pp * kout + K + i * KP + c0);
-        const float2 g01 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&graw.x));
-        const float2 g23 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&graw.y));
-        const float gi[4] = {g01.x, g01.y, g23.x, g23.y};
+        float gi[4];
+        if constexpr (kSplit) {
+          load4(sg + pp * kout + K + i * KP + c0, gi);
+        } else {
+          const uint2 graw = *reinterpret_cast<const uint2*>(sg + pp * kout + K + i * KP + c0);
+          const float2 g01 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&graw.x));
+          const float2 g23 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&graw.y));
+          gi[0] = g01.x, gi[1] = g01.y, gi[2] = g23.x, gi[3] = g23.y;
+        }
         float gl[4];
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           const int r = i * KP + c0 + c;
-          const float f_pl = __bfloat162float(sf[r * kRow + pp]);
-          const float f_li = __bfloat162float(sf[(kpl + r) * kRow + pp]);
-          v_s[(i * 8 + c0 + c) * kRow + pp] = __float2bfloat16(gi[c] * f_pl);  // dL operand
+          const float f_pl = to_f(sf[r * kRowIn + pp]);
+          const float f_li = to_f(sf[(kpl + r) * kRowIn + pp]);
+          const float v = gi[c] * f_pl;  // the dL operand
+          const bf16 v_hi = __float2bfloat16(v);
+          v_s[(i * 8 + c0 + c) * kRow + pp] = v_hi;
+          if constexpr (kSplit)
+            vl_s[(i * 8 + c0 + c) * kRow + pp] = __float2bfloat16(v - __bfloat162float(v_hi));
           gl[c] = gi[c] * f_li;
         }
         if (c0 == 0) tw_s[i * kTile + pp] = __fmul_rn(x[pair_axis(axes, i, 2)], (float)(kTcRw - 1));
@@ -475,51 +552,79 @@ __global__ void __launch_bounds__(kTcThreads, 1) folded_bwd_tc(
     }
     // ---- build: u_d[k, p] = g[p, k] A_e[k, p] A_f[k, p], two points a
     // thread; a warp covers 8 channels x 4 point pairs, which keeps its
-    // 32-bit reads of afac and writes of u in 32 different banks
+    // reads of afac and writes of u free of bank conflicts
 #pragma unroll 1
     for (int ws = warp; ws < K; ws += kTcWarps) {
       const int ch = (ws >> 3) * 8 + (lane & 7);
       const int p2 = ((ws & 7) * 4 + (lane >> 3)) * 2;
-      const float2 a0 = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(sa + (0 * K + ch) * kRow + p2));
-      const float2 a1 = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(sa + (1 * K + ch) * kRow + p2));
-      const float2 a2 = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(sa + (2 * K + ch) * kRow + p2));
-      const float gx = __bfloat162float(sg[p2 * kout + ch]);
-      const float gy = __bfloat162float(sg[(p2 + 1) * kout + ch]);
-      const __nv_bfloat162 u0 = __floats2bfloat162_rn(gx * a1.x * a2.x, gy * a1.y * a2.y);
-      const __nv_bfloat162 u1 = __floats2bfloat162_rn(gx * a0.x * a2.x, gy * a0.y * a2.y);
-      const __nv_bfloat162 u2 = __floats2bfloat162_rn(gx * a0.x * a1.x, gy * a0.y * a1.y);
-      *reinterpret_cast<__nv_bfloat162*>(u_s + (0 * K + ch) * kRow + p2) = u0;
-      *reinterpret_cast<__nv_bfloat162*>(u_s + (1 * K + ch) * kRow + p2) = u1;
-      *reinterpret_cast<__nv_bfloat162*>(u_s + (2 * K + ch) * kRow + p2) = u2;
+      float2 a0, a1, a2;
+      if constexpr (kSplit) {
+        a0 = *reinterpret_cast<const float2*>(sa + (0 * K + ch) * kRowIn + p2);
+        a1 = *reinterpret_cast<const float2*>(sa + (1 * K + ch) * kRowIn + p2);
+        a2 = *reinterpret_cast<const float2*>(sa + (2 * K + ch) * kRowIn + p2);
+      } else {
+        a0 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(sa + (0 * K + ch) * kRowIn + p2));
+        a1 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(sa + (1 * K + ch) * kRowIn + p2));
+        a2 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(sa + (2 * K + ch) * kRowIn + p2));
+      }
+      const float gx = to_f(sg[p2 * kout + ch]);
+      const float gy = to_f(sg[(p2 + 1) * kout + ch]);
+      const float u[3][2] = {{gx * a1.x * a2.x, gy * a1.y * a2.y},
+                             {gx * a0.x * a2.x, gy * a0.y * a2.y},
+                             {gx * a0.x * a1.x, gy * a0.y * a1.y}};
+      if constexpr (kSplit) {
+#pragma unroll
+        for (int dd = 0; dd < 3; ++dd)
+          split_bf16x2(u[dd][0], u[dd][1], reinterpret_cast<uint32_t*>(u_s + (dd * K + ch) * kRow + p2),
+                       reinterpret_cast<uint32_t*>(ul_s + (dd * K + ch) * kRow + p2));
+      } else {
+        __nv_bfloat162 h[3];
+#pragma unroll
+        for (int dd = 0; dd < 3; ++dd) h[dd] = __floats2bfloat162_rn(u[dd][0], u[dd][1]);
+#pragma unroll
+        for (int dd = 0; dd < 3; ++dd)
+          *reinterpret_cast<__nv_bfloat162*>(u_s + (dd * K + ch) * kRow + p2) = h[dd];
+      }
     }
     __syncthreads();
+    // one stage: its inputs are spent, so the next tile loads under the products
+    if constexpr (S::stages == 1) {
+      if (more) load_tile(tile + gridDim.x, 0);
+    }
 
     // ---- products: dW_d[row0.., :] += hat_d[rows, 64 points] u_d[64 points, :]
 #pragma unroll 1
     for (int k16 = 0; k16 < kTile; k16 += 16) {
       const float2 t_lo = *reinterpret_cast<const float2*>(t_s + d * kTile + k16 + 2 * q);
       const float2 t_hi = *reinterpret_cast<const float2*>(t_s + d * kTile + k16 + 8 + 2 * q);
-      uint32_t a[MT][4];
+      uint32_t a[MT][4], al[kSplit ? MT : 1][4];
 #pragma unroll
-      for (int m = 0; m < MT; ++m)
-        hat_fragment((float)(row0 + m * 16 + grp), t_lo, t_hi, a[m]);
+      for (int m = 0; m < MT; ++m) {
+        const float j0 = (float)(row0 + m * 16 + grp);
+        if constexpr (kSplit) hat_fragment_split(j0, t_lo, t_hi, a[m], al[m]);
+        else hat_fragment(j0, t_lo, t_hi, a[m]);
+      }
 #pragma unroll
       for (int np = 0; np < NT / 2; ++np) {
         // four 8 x 8 blocks of u_d: channels 16 np + (0-7, 0-7, 8-15, 8-15),
         // points k16 + (0-7, 8-15, 0-7, 8-15); lane l gives row l % 8 of
         // block l / 8
         const int blk = lane >> 3;
-        const bf16* src = u_s + (d * K + (2 * np + (blk >> 1)) * 8 + (lane & 7)) * kRow +
-                          k16 + (blk & 1) * 8;
-        uint32_t b[4];
-        ldmatrix_x4(src, b);
+        const int off = (d * K + (2 * np + (blk >> 1)) * 8 + (lane & 7)) * kRow + k16 +
+                        (blk & 1) * 8;
+        uint32_t b[4], bl[4];
+        ldmatrix_x4(u_s + off, b);
+        if constexpr (kSplit) ldmatrix_x4(ul_s + off, bl);
 #pragma unroll
         for (int m = 0; m < MT; ++m) {
           mma16816(acc[m][2 * np], a[m], b[0], b[1]);
           mma16816(acc[m][2 * np + 1], a[m], b[2], b[3]);
+          if constexpr (kSplit) {
+            mma16816(acc[m][2 * np], a[m], bl[0], bl[1]);
+            mma16816(acc[m][2 * np + 1], a[m], bl[2], bl[3]);
+            mma16816(acc[m][2 * np], al[m], b[0], b[1]);
+            mma16816(acc[m][2 * np + 1], al[m], b[2], b[3]);
+          }
         }
       }
     }
@@ -534,14 +639,24 @@ __global__ void __launch_bounds__(kTcThreads, 1) folded_bwd_tc(
       for (int k16 = 0; k16 < kTile; k16 += 16) {
         const float2 w_lo = *reinterpret_cast<const float2*>(tw_s + d * kTile + k16 + 2 * q);
         const float2 w_hi = *reinterpret_cast<const float2*>(tw_s + d * kTile + k16 + 8 + 2 * q);
-        const bf16* vrow = v_s + (d * 8 + grp) * kRow + k16 + 2 * q;
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(vrow);
-        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(vrow + 8);
+        const int off = (d * 8 + grp) * kRow + k16 + 2 * q;
+        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(v_s + off);
+        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(v_s + off + 8);
 #pragma unroll
         for (int m = 0; m < 2; ++m) {
-          uint32_t al[4];
-          hat_fragment((float)((warp & 3) * 32 + m * 16 + grp), w_lo, w_hi, al);
-          mma16816(la[m], al, b0, b1);
+          const float j0 = (float)((warp & 3) * 32 + m * 16 + grp);
+          uint32_t aw[4];
+          if constexpr (kSplit) {
+            uint32_t awl[4];
+            hat_fragment_split(j0, w_lo, w_hi, aw, awl);
+            mma16816(la[m], aw, b0, b1);
+            mma16816(la[m], aw, *reinterpret_cast<const uint32_t*>(vl_s + off),
+                     *reinterpret_cast<const uint32_t*>(vl_s + off + 8));
+            mma16816(la[m], awl, b0, b1);
+          } else {
+            hat_fragment(j0, w_lo, w_hi, aw);
+            mma16816(la[m], aw, b0, b1);
+          }
         }
       }
 #pragma unroll
@@ -554,21 +669,15 @@ __global__ void __launch_bounds__(kTcThreads, 1) folded_bwd_tc(
         *hi = make_float2(hi->x + la[m][2], hi->y + la[m][3]);
       }
     }
+    if (kSplit && ++since_flush == kFlushTiles) {
+      since_flush = 0;
+      flush_dweff(acc, dw_g, row0, rf, grp, q);
+    }
   }
   cp_async_wait<0>();
 
-  // ---- flush: lane holds rows grp, grp + 8 and columns 2q, 2q + 1 of a tile
-  float* dw_g = dweff + ((size_t)o * 3 + d) * rfp * K;
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int r = row0 + m * 16 + grp + (c >> 1) * 8;
-        const float v = acc[m][n][c];
-        if (r < rf && v != 0.f) atomicAdd(dw_g + (size_t)r * K + n * 8 + 2 * q + (c & 1), v);
-      }
+  // ---- flush: the sums left in registers, then the line gradient's
+  flush_dweff(acc, dw_g, row0, rf, grp, q);
   if constexpr (kPlanes) {
     float* dl_g = dplines + ((size_t)o * 3 + d) * kTcRw * KP;
     if (2 * q < KP) {  // columns 2q, 2q + 1 are channels; past KP, zero pads
@@ -638,22 +747,23 @@ int launch_bwd(const void* pts, const void* afac, const void* fpl,
   return (int)cudaGetLastError();
 }
 
-template <int MT, int NT, bool kPlanes, int KP = 4>
+template <typename T, int MT, int NT, bool kPlanes, int KP = 4>
 int launch_bwd_tc(const void* pts, const void* afac, const void* fpl,
                   const void* fli, const void* g, void* dweff, void* dplanes,
                   void* dplines, int O, int P, int rf, int ru, int rv, int axes,
                   cudaStream_t stream) {
-  const size_t smem = TcSmem<NT, kPlanes, KP>::total;
+  const size_t smem = TcSmem<T, NT, kPlanes, KP>::total;
   dim3 grid;
-  cudaError_t err = plan(folded_bwd_tc<MT, NT, kPlanes, KP>, smem, O, P, 1, &grid,
+  cudaError_t err = plan(folded_bwd_tc<T, MT, NT, kPlanes, KP>, smem, O, P, 1, &grid,
                          kTcThreads, kTile);
   if (err != cudaSuccess) return (int)err;
-  const int vec = P % 8 == 0 && aligned16(pts) && aligned16(afac) && aligned16(g) &&
-                  aligned16(fpl) && aligned16(fli);
-  folded_bwd_tc<MT, NT, kPlanes, KP><<<grid, kTcThreads, smem, stream>>>(
-      (const float*)pts, (const bf16*)afac, (const bf16*)fpl, (const bf16*)fli,
-      (const bf16*)g, (float*)dweff, (float*)dplanes, (float*)dplines, P, rf, ru,
-      rv, axes, vec);
+  // 16-byte chunks: a row of P values (and 64 points' coordinates) a whole
+  // number of them (bf16: P % 8 == 0, fp32: P % 4 == 0), the bases aligned
+  const int vec = P * (int)sizeof(T) % 16 == 0 && aligned16(pts) && aligned16(afac) &&
+                  aligned16(g) && aligned16(fpl) && aligned16(fli);
+  folded_bwd_tc<T, MT, NT, kPlanes, KP><<<grid, kTcThreads, smem, stream>>>(
+      (const float*)pts, (const T*)afac, (const T*)fpl, (const T*)fli, (const T*)g,
+      (float*)dweff, (float*)dplanes, (float*)dplines, P, rf, ru, rv, axes, vec);
   return (int)cudaGetLastError();
 }
 
@@ -665,8 +775,8 @@ extern "C" {
 // on `stream`; faults during the run surface at the caller's next sync.
 // `variant` is the caller's choice from the spec and dtype (mxgrid_cuda.py:
 // `forward_variant`: 0 direct, 1 staged; `folded_variant`: 0 scalar, 1 tensor
-// cores); a combination that is not instantiated returns
-// cudaErrorInvalidValue.
+// cores in bf16, 2 tensor cores on fp32 split into bf16 hi and lo parts); a
+// combination that is not instantiated returns cudaErrorInvalidValue.
 
 // K1.
 int romap_mx_folded_fwd(int dtype, int variant, const void* pts, const void* weff,
@@ -680,23 +790,31 @@ int romap_mx_folded_fwd(int dtype, int variant, const void* pts, const void* wef
 }
 
 // K2. dweff, dplanes and dplines must be zero-filled by the caller. The
-// tensor-core variant takes bf16 at (rfp, K) = (192, 48) with kp = 4 (the
-// flagship) and at (256, 64) with kp = 8 (`quality`), rw = 128 in both.
+// tensor-core variants (1: bf16, 2: fp32 split into bf16 hi and lo parts)
+// take (rfp, K) = (192, 48) with kp = 4 (the flagship) and (256, 64) with
+// kp = 8 (`quality`), rw = 128 in both.
 int romap_mx_folded_bwd(int dtype, int variant, const void* pts, const void* afac,
                         const void* fpl, const void* fli, const void* g,
                         void* dweff, void* dplanes, void* dplines, int O,
                         int P, int K, int rf, int rfp, int ru, int rv, int kp,
                         int rw, int axes, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+#define ROMAP_ARGS pts, afac, fpl, fli, g, dweff, dplanes, dplines, O, P, rf, ru, rv, axes, s
   if (variant == 1) {
     if (dtype == 1 && rfp == 192 && K == 48 && kp == 4 && rw == kTcRw)
-      return launch_bwd_tc<3, 6, true, 4>(pts, afac, fpl, fli, g, dweff, dplanes,
-                                          dplines, O, P, rf, ru, rv, axes, s);
+      return launch_bwd_tc<bf16, 3, 6, true, 4>(ROMAP_ARGS);
     if (dtype == 1 && rfp == 256 && K == 64 && kp == 8 && rw == kTcRw)
-      return launch_bwd_tc<4, 8, true, 8>(pts, afac, fpl, fli, g, dweff, dplanes,
-                                          dplines, O, P, rf, ru, rv, axes, s);
+      return launch_bwd_tc<bf16, 4, 8, true, 8>(ROMAP_ARGS);
     return (int)cudaErrorInvalidValue;
   }
+  if (variant == 2) {
+    if (dtype == 0 && rfp == 192 && K == 48 && kp == 4 && rw == kTcRw)
+      return launch_bwd_tc<float, 3, 6, true, 4>(ROMAP_ARGS);
+    if (dtype == 0 && rfp == 256 && K == 64 && kp == 8 && rw == kTcRw)
+      return launch_bwd_tc<float, 4, 8, true, 8>(ROMAP_ARGS);
+    return (int)cudaErrorInvalidValue;
+  }
+#undef ROMAP_ARGS
   if (variant == 0 && dtype == 0)
     return launch_bwd<float, true>(pts, afac, fpl, fli, g, dweff, dplanes,
                                    dplines, O, P, K, rf, rfp, ru, rv, kp, rw,
@@ -718,21 +836,28 @@ int romap_mx_folded_cp_fwd(int dtype, int variant, const void* pts, const void* 
 }
 
 // K6: dweff [O, 3, rfp, K] f32 (zero-filled by the caller) from afac and
-// the cotangent g [O, P, K]. The tensor-core variant takes bf16 at
-// (rfp, K) = (192, 48) and (256, 64).
+// the cotangent g [O, P, K]. The tensor-core variants (1: bf16, 2: fp32
+// split) take (rfp, K) = (192, 48) and (256, 64).
 int romap_mx_folded_cp_bwd(int dtype, int variant, const void* pts, const void* afac,
                            const void* g, void* dweff, int O, int P, int K,
                            int rf, int rfp, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+#define ROMAP_ARGS pts, afac, nullptr, nullptr, g, dweff, nullptr, nullptr, O, P, rf, 0, 0, 0, s
   if (variant == 1) {
     if (dtype == 1 && rfp == 192 && K == 48)
-      return launch_bwd_tc<3, 6, false>(pts, afac, nullptr, nullptr, g, dweff,
-                                        nullptr, nullptr, O, P, rf, 0, 0, 0, s);
+      return launch_bwd_tc<bf16, 3, 6, false>(ROMAP_ARGS);
     if (dtype == 1 && rfp == 256 && K == 64)
-      return launch_bwd_tc<4, 8, false>(pts, afac, nullptr, nullptr, g, dweff,
-                                        nullptr, nullptr, O, P, rf, 0, 0, 0, s);
+      return launch_bwd_tc<bf16, 4, 8, false>(ROMAP_ARGS);
     return (int)cudaErrorInvalidValue;
   }
+  if (variant == 2) {
+    if (dtype == 0 && rfp == 192 && K == 48)
+      return launch_bwd_tc<float, 3, 6, false>(ROMAP_ARGS);
+    if (dtype == 0 && rfp == 256 && K == 64)
+      return launch_bwd_tc<float, 4, 8, false>(ROMAP_ARGS);
+    return (int)cudaErrorInvalidValue;
+  }
+#undef ROMAP_ARGS
   if (variant == 0 && dtype == 0)
     return launch_bwd<float, false>(pts, afac, nullptr, nullptr, g, dweff,
                                     nullptr, nullptr, O, P, K, rf, rfp, 0, 0,

@@ -20,6 +20,15 @@ constexpr int kRow = 72;         // bf16 elements of a 64-point row in shared
                                  // memory: 128 B + 16 B, so that 8 rows of a
                                  // 16-byte column fall into 8 bank groups
 constexpr int kTcRw = 128;       // plane line rows: 8 row tiles
+constexpr int kSmemPerBlock = 232448;  // dynamic shared memory a block may take on sm_90
+
+// Tiles of 64 points the fp32 tensor-core backwards (K2/K4/K6/K8 in
+// "tensor_core_split") sum in their registers before they add them to the
+// gradient: the tensor cores' fp32 accumulation does not round to nearest,
+// and its error grows with the number of 16-point steps a sum takes (5e-8
+// of the largest entry a step at `quality`, against fp32's tolerance of
+// 1e-4): at 64 tiles the unsnapped kernels read 1.3e-5 to 1.5e-5.
+constexpr int kFlushTiles = 64;
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
   const uint32_t s = (uint32_t)__cvta_generic_to_shared(smem);

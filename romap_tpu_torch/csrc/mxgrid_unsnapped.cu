@@ -530,12 +530,8 @@ __global__ void __launch_bounds__(kThreads) unsnapped_bwd(
 // Backward, tensor cores (bf16, and fp32 split into bf16 hi and lo parts)
 // --------------------------------------------------------------------------
 
-// Tiles of 64 points the fp32 tensor-core backward sums in its registers
-// before it adds them to the gradient: the tensor cores' fp32 accumulation
-// does not round to nearest, and its error grows with the number of 16-point
-// steps a sum takes (5e-8 of the largest entry a step at `quality`, against
-// fp32's tolerance of 1e-4): at 64 tiles the kernels read 1.3e-5 to 1.5e-5.
-constexpr int kFlushTiles = 64;
+// The fp32 sums are added to the gradient every kFlushTiles tiles
+// (mxgrid_tc.cuh).
 
 // One 16-row tile of the block's accumulator. Every ladder level is padded
 // to a multiple of 16 rows there (flagship: 16, 32, 48, 80, 128, 192 = 496

@@ -27,8 +27,8 @@ tensor never falls back to the plain encode.
 Some kernels have variants, named from the spec and the table dtype alone:
 the backwards K2/K6 (`folded_variant`), K4/K8 (`unsnapped_variant`) and K10
 (`planes_variant`) run on the tensor cores in bf16 at the shapes their
-sources instantiate (K4/K8 in fp32 too, on operands split into bf16 hi and
-lo parts) and as the scalar kernel otherwise; the forward K1/K5
+sources instantiate (K2/K6 and K4/K8 in fp32 too, on operands split into
+bf16 hi and lo parts) and as the scalar kernel otherwise; the forward K1/K5
 stages its feature rows in shared memory wherever they fit
 (`forward_variant`); the forward K3/K7
 holds all three axes' ladders in a block wherever they fit, else a slice of
@@ -198,18 +198,22 @@ def kernel_path(spec: MXGridSpec) -> str:
     return "folded" if snap else "unsnapped"
 
 
-# The tensor-core backward's instantiations in mxgrid_folded.cu: (rfp, K,
-# (line rows, channels) of the one plane level) with the plane level (K2:
-# the flagship, `quality`), (rfp, K) CP-only (K6: the flagship's ladder,
-# `fast`)
-TC_SHAPES = {True: ((192, 48, (128, 4)), (256, 64, (128, 8))), False: ((192, 48), (256, 64))}
+# The tensor-core backward's instantiations in mxgrid_folded.cu, per table
+# dtype: (rfp, K, (line rows, channels) of the one plane level) with the
+# plane level (K2: the flagship, `quality`), (rfp, K) CP-only (K6: the
+# flagship's ladder, `fast`). bf16 runs "tensor_core", fp32
+# "tensor_core_split" (TC_VARIANT).
+_FOLDED_SHAPES = {True: ((192, 48, (128, 4)), (256, 64, (128, 8))), False: ((192, 48), (256, 64))}
+TC_SHAPES = {torch.bfloat16: _FOLDED_SHAPES, torch.float32: _FOLDED_SHAPES}
 # (line rows, channels) of the one plane level the tensor-core K10
 # instantiates in mxgrid_planes.cu: the flagship's and `quality`'s
 PLANES_TC_SHAPES = ((128, 4), (128, 8))
 SMEM_PER_BLOCK = 232448  # bytes of dynamic shared memory a block may take on sm_90
-# the C side's variant codes; "tensor_core_split" (K4/K8 alone) takes fp32
-# inputs, each operand split into a bf16 hi and lo part
+# the C side's variant codes; "tensor_core_split" (K2/K6 and K4/K8 in fp32)
+# takes fp32 inputs, each operand split into a bf16 hi and lo part
 BACKWARD_VARIANTS = ("scalar", "tensor_core", "tensor_core_split")
+# the tensor-core variant of each table dtype (K2/K6, K4/K8)
+TC_VARIANT = {torch.bfloat16: "tensor_core", torch.float32: "tensor_core_split"}
 FORWARD_VARIANTS = ("direct", "staged")
 
 
@@ -219,18 +223,21 @@ def _plane_levels(spec: MXGridSpec, planes: bool) -> tuple:
 
 
 def folded_variant(spec: MXGridSpec, dtype: torch.dtype, planes: bool | None = None) -> str:
-    """The variant of the folded backward for this spec and table dtype:
-    "tensor_core" for bf16 at the shapes mxgrid_folded.cu instantiates
-    (TC_SHAPES: the flagship's 192 x 48 with its (128, 64, 4) plane level,
-    `quality`'s 256 x 64 with its (128, 128, 8) level, and CP-only 192 x 48
-    and `fast`'s 256 x 64), "scalar" for fp32 and every other spec.
-    `planes` says whether the kernel takes the plane level (K2) or not
-    (K6); by default, whether the spec has one. Chosen from the spec and
-    dtype alone; a failed build or launch never changes it."""
+    """The variant of the folded backward for this spec and table dtype: on
+    the tensor cores at the shapes mxgrid_folded.cu instantiates (TC_SHAPES:
+    the flagship's 192 x 48 with its (128, 64, 4) plane level, `quality`'s
+    256 x 64 with its (128, 128, 8) level, and CP-only 192 x 48 and
+    `fast`'s 256 x 64) -- "tensor_core" in bf16, "tensor_core_split" in fp32
+    (each fp32 operand split into two bf16 parts, three products) -- and
+    "scalar" for every other spec. `planes` says whether the kernel takes
+    the plane level (K2) or not (K6); by default, whether the spec has one.
+    Chosen from the spec and dtype alone; a failed build or launch never
+    changes it."""
     if planes is None:
         planes = bool(spec.plane_specs)
     shape = (spec.fold_res[1], spec.features, *_plane_levels(spec, planes))
-    return "tensor_core" if dtype == torch.bfloat16 and shape in TC_SHAPES[planes] else "scalar"
+    fits = shape in TC_SHAPES.get(dtype, {}).get(planes, ())
+    return TC_VARIANT[dtype] if fits else "scalar"
 
 
 # (padded 16-row tiles the instantiation has room for, K, (line rows,
@@ -238,12 +245,11 @@ def folded_variant(spec: MXGridSpec, dtype: torch.dtype, planes: bool | None = N
 # mxgrid_unsnapped.cu, per table dtype: with the plane level (K4: the
 # flagship, `quality`) and CP-only (K8; no level). The flagship ladder pads
 # to 31 tiles, `fast`'s and `quality`'s to 39. bf16 runs "tensor_core",
-# fp32 "tensor_core_split" (UNSNAPPED_TC_VARIANT).
+# fp32 "tensor_core_split" (TC_VARIANT).
 UNSNAPPED_TC_SHAPES = {
     torch.bfloat16: {True: ((32, 48, (128, 4)), (40, 64, (128, 8))), False: ((32, 48), (40, 64))},
     torch.float32: {True: ((32, 48, (128, 4)), (40, 64, (128, 8))), False: ((32, 48), (40, 64))},
 }
-UNSNAPPED_TC_VARIANT = {torch.bfloat16: "tensor_core", torch.float32: "tensor_core_split"}
 
 
 def padded_row_map(spec: MXGridSpec) -> list[int]:
@@ -279,7 +285,7 @@ def unsnapped_variant(spec: MXGridSpec, dtype: torch.dtype, planes: bool | None 
     shape = (spec.features, *_plane_levels(spec, planes))
     table = UNSNAPPED_TC_SHAPES.get(dtype, {}).get(planes, ())
     fits = any(padded_tiles(spec) <= room and shape == tuple(rest) for room, *rest in table)
-    return UNSNAPPED_TC_VARIANT[dtype] if fits else "scalar"
+    return TC_VARIANT[dtype] if fits else "scalar"
 
 
 def planes_variant(spec: MXGridSpec, dtype: torch.dtype) -> str:

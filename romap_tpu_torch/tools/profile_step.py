@@ -7,7 +7,8 @@ MX_SNAP=0 that the online phase of chip_smoke.py runs, K7-K10, and the
 and unsnapped K3/K4; all of them in the dtype "auto" picks, bf16 on the
 card; then in fp32, TrainConfig(compute_dtype="float32"), the flagship
 unsnapped, the split path and `quality` unsnapped, whose K4/K8 run
-"tensor_core_split"), at the
+"tensor_core_split", and the folded flagship, `fast` and `quality`, whose
+K2/K6 do), at the
 reference batch geometry on the scene of build_synthetic_world(10, 16, 128):
   - step ms and obj-iters/s: host clock around 20 steps ending in a
     synchronize, after 3 warm-up steps; host enqueue ms: the same clock read
@@ -164,6 +165,9 @@ CONFIGS = {  # name -> (encoding, environment, TrainConfig.compute_dtype)
                                     "float32"),
     "fp32 quality unsnapped K3/K4": (EncodingConfig.preset("quality"), {"MX_SNAP": "0"},
                                      "float32"),
+    "fp32 flagship K1/K2": (EncodingConfig(), {}, "float32"),
+    "fp32 fast K5/K6": (EncodingConfig.preset("fast"), {}, "float32"),
+    "fp32 quality K1/K2": (EncodingConfig.preset("quality"), {}, "float32"),
 }
 
 

@@ -155,8 +155,9 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--out", default=os.path.join(REPO, "QUALITY_TORCH.json"),
                     help="where the record is written (never QUALITY.json)")
     ap.add_argument("--compute-dtype", default="bfloat16", choices=["bfloat16", "float32"],
-                    help="train dtype; float32 (the fp32 kernels, no tensor-core backward) "
-                    "localises a failure of the bf16 gate")
+                    help="train dtype; float32 (the fp32 kernels: K2 on the tensor cores on "
+                    "operands split into bf16 hi and lo parts) localises a failure of the "
+                    "bf16 gate")
     args = ap.parse_args(argv)
     resolve_device(args.device)
 

@@ -18,7 +18,8 @@ so the script also runs against another checkout of the package:
 
 `--forward-variant` and `--backward-variant` force a variant (K1/K5: direct,
 staged; K3/K7: per_axis, three_axis_direct, three_axis_staged, channel_split; K2/K6 and
-K4/K8 and K10: scalar, tensor_core; K4/K8 in fp32: scalar, tensor_core_split)
+K4/K8 and K10: scalar, tensor_core; K2/K6 and K4/K8 in fp32: scalar,
+tensor_core_split)
 that the spec and dtype would not pick, to time both on one card. K10 takes
 the plane block of the full encode cotangent as a strided view, as the split step passes it (a checkout from
 before `planes_variant` takes a contiguous block, as its step copied it).

@@ -1,10 +1,12 @@
 """Device time of K0 (the points gradient) in each of its variants, in turns.
 
 At one view's refinement points (pose_refine's 4 starts x 1536 pixels x 32
-samples = 196,608 points, one object), on the two paths refinement runs:
-the flagship folded spec (K1's residuals, `[9b]`) and the split path's
-unsnapped ladder with its plane level (K7's and K9's residuals, `[9]`), in
-fp32 (as refinement runs) and bf16. The points are `uniform` in the cube
+samples = 196,608 points, one object), on the paths of --paths: by default
+the two refinement runs, the flagship folded spec (K1's residuals, `[9b]`)
+and the split path's unsnapped ladder with its plane level (K7's and K9's
+residuals, `[9]`); `quality` is the `quality` preset folded (K1's
+residuals); in the dtypes of --dtypes, by default fp32 (as refinement
+runs) and bf16. The points are `uniform` in the cube
 (as chip_smoke's K0 check draws them) or along `rays` (32 consecutive
 samples a ray, as refinement's batches lie: a ray's samples meet on the
 same table rows). Each variant of `mxgrid_cuda.POINTS_VARIANTS` is forced
@@ -13,6 +15,8 @@ twin and timed (median of 7 device times behind a sleep kernel,
 `chip_smoke.median_ms`), beside K0's bound (`chip_smoke.points_work`).
 
   python3 -m romap_tpu_torch.tools.time_points [--kinds uniform,rays]
+  python3 -m romap_tpu_torch.tools.time_points --paths quality --dtypes float32 \
+      --variants per_point     (`quality` in fp32: lanes_over_channels does not fit)
 
 Needs a CUDA device; prints the card's name and power limit first.
 """
@@ -34,8 +38,9 @@ from romap_tpu_torch.ops import mxgrid, mxgrid_cuda  # noqa: E402
 from romap_tpu_torch.tools.time_encode import ray_points  # noqa: E402
 
 
-def k0_args(spec, path, dtype, kind, dev):
-    """K0's arguments from the path's forward kernels at one view's points."""
+def k0_args(spec, dtype, kind, dev):
+    """K0's arguments from the forward kernels of the spec's path (folded: K1;
+    unsnapped: K7 and K9) at one view's points."""
     g = torch.Generator(device="cpu").manual_seed(7)
     if kind == "uniform":
         pts = torch.rand((1, cs.REFINE_P, 3), generator=g) * (1 + 4e-3) - 2e-3
@@ -46,7 +51,7 @@ def k0_args(spec, path, dtype, kind, dev):
     gout = torch.randn((1, cs.REFINE_P, spec.n_output_dims), generator=g).to(dev, dtype)
     table = (mxgrid.fold_lines(f["lines"], spec) if spec.snap_levels else f["lines"]).contiguous()
     planes, plines = tuple(f["planes"]), tuple(f["plane_lines"])
-    if path == "folded":
+    if spec.snap_levels:
         _, afac, fpl, fli = mxgrid_cuda.folded_fused_forward(pts, table, planes[0], plines[0],
                                                              spec)
     else:
@@ -59,17 +64,20 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--kinds", default="uniform,rays")
     ap.add_argument("--variants", default=",".join(mxgrid_cuda.POINTS_VARIANTS))
+    ap.add_argument("--paths", default="folded,unsnapped_split",
+                    help="comma list of folded, unsnapped_split, quality")
+    ap.add_argument("--dtypes", default="float32,bfloat16")
     args = ap.parse_args(argv)
     cs.phase_device()
     specs = cs.kernel_specs()
     order = args.variants.split(",")
     order += order[::-1]
     for kind in args.kinds.split(","):
-        for path in ("folded", "unsnapped_split"):
+        for path in args.paths.split(","):
             spec = specs[path]
-            for dtype in (torch.float32, torch.bfloat16):
+            for dtype in (getattr(torch, d) for d in args.dtypes.split(",")):
                 with cs.environ(MX_FUSED="0" if path.endswith("split") else "1"):
-                    k0 = k0_args(spec, path, dtype, kind, "cuda")
+                    k0 = k0_args(spec, dtype, kind, "cuda")
                     want = mxgrid_cuda.points_gradient_plain(*k0)
                     times, errs = {}, {}
                     for v in order:

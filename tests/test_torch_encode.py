@@ -735,11 +735,13 @@ def preset_spec(name):
 
 @pytest.mark.parametrize("preset,dtype,planes,backward,forward", [
     ("flagship", torch.bfloat16, None, "tensor_core", "staged"),   # K1/K2, the train step
-    ("flagship", torch.float32, None, "scalar", "staged"),         # renders, meshes
+    ("flagship", torch.float32, None, "tensor_core_split", "staged"),  # fp32 training, renders
     ("flagship", torch.bfloat16, False, "tensor_core", "staged"),  # K5/K6 on the split path
+    ("flagship", torch.float32, False, "tensor_core_split", "staged"),  # fp32 K6, split path
     ("fast", torch.bfloat16, None, "tensor_core", "staged"),       # K5/K6
-    ("fast", torch.float32, None, "scalar", "direct"),             # 199,680 B of table
+    ("fast", torch.float32, None, "tensor_core_split", "direct"),  # 199,680 B of table
     ("quality", torch.bfloat16, None, "tensor_core", "staged"),    # K2 <4, 8, true, 8>, kp = 8
+    ("quality", torch.float32, None, "tensor_core_split", "direct"),  # K2 <float, 4, 8, true, 8>
     ("tiny", torch.bfloat16, None, "scalar", "staged"),
     ("tiny", torch.float32, None, "scalar", "staged"),
 ])
@@ -748,7 +750,8 @@ def test_folded_variant_follows_spec_and_dtype(preset, dtype, planes, backward, 
     assert mxgrid_cuda.folded_variant(spec, dtype, planes) == backward
     assert mxgrid_cuda.forward_variant(spec, dtype, planes) == forward
     assert backward in mxgrid_cuda.BACKWARD_VARIANTS and forward in mxgrid_cuda.FORWARD_VARIANTS
-    if backward == "tensor_core":  # the tile's needs
+    if backward != "scalar":  # the tile's needs
+        assert backward == mxgrid_cuda.TC_VARIANT[dtype]
         rfp, k = spec.fold_res[1], spec.features
         assert rfp % 64 == 0 and k % 8 == 0
 
@@ -837,7 +840,7 @@ def test_unsnapped_variant_follows_spec_and_dtype(preset, dtype, planes, backwar
     assert mxgrid_cuda.unsnapped_variant(spec, dtype, planes) == backward
     assert backward in mxgrid_cuda.BACKWARD_VARIANTS
     if backward != "scalar":  # the tile's needs: K, and room for the padded ladder
-        assert backward == mxgrid_cuda.UNSNAPPED_TC_VARIANT[dtype]
+        assert backward == mxgrid_cuda.TC_VARIANT[dtype]
         with_planes = bool(spec.plane_specs) if planes is None else planes
         tiles = mxgrid_cuda.padded_tiles(spec)
         assert spec.features % 8 == 0
@@ -980,16 +983,66 @@ def test_unsnapped_split_arithmetic_stays_within_fp32_tolerance(preset, kind):
         assert err <= 1e-4, ("dplines", i, err)
 
 
+@pytest.mark.parametrize("kind", ["uniform", "cell", "outside"])
+@pytest.mark.parametrize("preset", ["flagship", "fast", "quality"])
+def test_folded_split_arithmetic_stays_within_fp32_tolerance(preset, kind):
+    """K2's and K6's fp32 tensor-core arithmetic ("tensor_core_split"),
+    emulated at the flagship (K2: rf = 192 padded to 192, K = 48, the
+    (128, 64, 4) plane level), `fast` (K6: rf = 256, K = 64, CP only) and
+    `quality` (K2: rf = 256, K = 64, the (128, 128, 8) level): the folded
+    tent padded to rfp and u = g A_e A_f (for the line gradient, hat_w and
+    g f_pl), formed in fp32, each split into a bf16 hi and lo part, three
+    products (hi hi, hi lo, lo hi) exact, sums in fp32. Against the fp32
+    plain twin on the same fp32 residuals and cotangent it stays within 1e-4
+    of each tensor's largest entry, the kernel's fp32 tolerance. Read on the
+    CPU: 2.0e-6 to 9.3e-6 of the largest entry over the nine cases, the
+    plane lines included; with `hat` and u rounded to bf16 alone, as the
+    bf16 kernel does, the same cases' dW_eff read 1.3e-3 to 4.3e-3."""
+    spec = preset_spec(preset)
+    planes = bool(spec.plane_specs)
+    assert mxgrid_cuda.folded_variant(spec, torch.float32) == "tensor_core_split"
+    rf, rfp = spec.fold_res
+    k = spec.features
+    rng = np.random.default_rng(23)
+    n = 3001
+    pts = torch.from_numpy(flagship_points(kind, rng, n))
+    tables = tmx.init_mxgrid(torch.Generator().manual_seed(3), spec, N_OBJ)
+    w_eff = tmx.fold_lines(tables["lines"] if planes else tables, spec)
+    g = torch.from_numpy(rng.normal(0, 1, (N_OBJ, n, spec.n_output_dims)).astype(np.float32))
+    if planes:
+        _, afac, fpl, fli = mxgrid_cuda.folded_fused_forward_plain(
+            pts, w_eff, tables["planes"][0], tables["plane_lines"][0], spec)
+        want_dw, _, want_dl = mxgrid_cuda.folded_fused_backward_plain(pts, afac, fpl, fli, g, spec)
+    else:
+        _, afac = mxgrid_cuda.folded_cp_forward_plain(pts, w_eff, spec)
+        want_dw = mxgrid_cuda.folded_cp_backward_plain(pts, afac, g, spec)
+    assert afac.dtype == torch.float32 and want_dw.shape[2] == rfp
+
+    a = afac.transpose(2, 3)  # [O, 3, P, K]
+    for d, (e, f) in enumerate(((1, 2), (0, 2), (0, 1))):
+        hat = torch.nn.functional.pad(tmx.hat1(pts[..., d], rf), (0, rfp - rf))
+        got = split_product(hat, g[..., :k] * a[:, e] * a[:, f])
+        err = float((got - want_dw[:, d]).abs().max() / want_dw[:, d].abs().max())
+        assert err <= 1e-4, ("dW_eff", d, err)
+    for i, (_, _, w) in enumerate(spec.plane_axes if planes else ()):
+        kp = spec.plane_specs[0][2]
+        v = g[..., k + i * kp : k + (i + 1) * kp] * fpl[:, i * kp : (i + 1) * kp].transpose(1, 2)
+        got = split_product(tmx.hat1(pts[..., w], 128), v)
+        err = float((got - want_dl[:, i]).abs().max() / want_dl[:, i].abs().max())
+        assert err <= 1e-4, ("dplines", i, err)
+
+
 # The C entries of the tensor-core backwards, and the Python tables the
 # variant is named from: entry -> (source, the launch of each instantiation).
-# The unsnapped entries launch the bf16 ("tensor_core") and fp32
+# Every entry launches the bf16 ("tensor_core") and fp32
 # ("tensor_core_split") instantiations; each pattern reads the dtype code the
 # entry tests and the type the kernel is instantiated for, then the tile.
 TC_ENTRIES = {
-    "romap_mx_folded_bwd": ("mxgrid_folded.cu", r"rfp == (\d+) && K == (\d+) && kp == (\d+) "
-                            r"&& rw == kTcRw\)\s*return launch_bwd_tc<(\d+), (\d+), true, (\d+)>"),
-    "romap_mx_folded_cp_bwd": ("mxgrid_folded.cu", r"rfp == (\d+) && K == (\d+)\)\s*"
-                               r"return launch_bwd_tc<(\d+), (\d+), false>"),
+    "romap_mx_folded_bwd": ("mxgrid_folded.cu", r"dtype == (\d) && rfp == (\d+) && K == (\d+) "
+                            r"&& kp == (\d+) && rw == kTcRw\)\s*return launch_bwd_tc<(bf16|float), "
+                            r"(\d+), (\d+), true, (\d+)>"),
+    "romap_mx_folded_cp_bwd": ("mxgrid_folded.cu", r"dtype == (\d) && rfp == (\d+) && K == (\d+)\)"
+                               r"\s*return launch_bwd_tc<(bf16|float), (\d+), (\d+), false>"),
     "romap_mx_unsnapped_bwd": ("mxgrid_unsnapped.cu", r"dtype == (\d) && K == (\d+) && kp == (\d+) "
                                r"&& rw == kTcRw\)\s*return launch_bwd_tc<(bf16|float), (\d+), "
                                r"(\d+), (\d+), true, (\d+)(?:, \d+)?>"),
@@ -1007,10 +1060,10 @@ def test_tensor_core_tables_are_the_c_instantiations(entry):
     tensor-core kernel the C entry launches (it refuses every other), and
     each instantiation's tile is its shape: rfp = 64 MT and K = 8 NT
     (folded), padded tiles = warps x MT and K = 8 NT (unsnapped), the plane
-    channels its KP, the line rows kTcRw = 128. The unsnapped entries are
-    held per dtype: the dtype code each launch is guarded by (1 bf16, 0
-    fp32) is the type its kernel is instantiated for, and the launches of
-    each dtype are that dtype's table."""
+    channels its KP, the line rows kTcRw = 128. Every entry is held per
+    dtype: the dtype code each launch is guarded by (1 bf16, 0 fp32) is the
+    type its kernel is instantiated for, and the launches of each dtype are
+    that dtype's table."""
     source, launch = TC_ENTRIES[entry]
     csrc = mxgrid_cuda.CSRC_DIR
     assert re.search(r"constexpr int kTcRw = 128;", (csrc / "mxgrid_tc.cuh").read_text())
@@ -1022,13 +1075,17 @@ def test_tensor_core_tables_are_the_c_instantiations(entry):
     shapes = collections.defaultdict(set)
     for m in found:
         if entry == "romap_mx_folded_bwd":
-            rfp, k, kp, mt, nt, tkp = map(int, m)
+            code, rfp, k, kp, typ, mt, nt, tkp = m
+            rfp, k, kp, mt, nt, tkp = map(int, (rfp, k, kp, mt, nt, tkp))
+            assert int(code) == mxgrid_cuda._DTYPE_CODE[DTYPE_OF[typ]], m
             assert (rfp, k, kp) == (64 * mt, 8 * nt, tkp)
-            shapes[torch.bfloat16].add((rfp, k, (128, kp)))
+            shapes[DTYPE_OF[typ]].add((rfp, k, (128, kp)))
         elif entry == "romap_mx_folded_cp_bwd":
-            rfp, k, mt, nt = map(int, m)
+            code, rfp, k, typ, mt, nt = m
+            rfp, k, mt, nt = map(int, (rfp, k, mt, nt))
+            assert int(code) == mxgrid_cuda._DTYPE_CODE[DTYPE_OF[typ]], m
             assert (rfp, k) == (64 * mt, 8 * nt)
-            shapes[torch.bfloat16].add((rfp, k))
+            shapes[DTYPE_OF[typ]].add((rfp, k))
         elif entry == "romap_mx_unsnapped_bwd":
             code, k, kp, typ, warps, mt, nt, tkp = m
             k, kp, warps, mt, nt, tkp = map(int, (k, kp, warps, mt, nt, tkp))
@@ -1041,11 +1098,8 @@ def test_tensor_core_tables_are_the_c_instantiations(entry):
             assert int(code) == mxgrid_cuda._DTYPE_CODE[DTYPE_OF[typ]], m
             assert k == 8 * nt
             shapes[DTYPE_OF[typ]].add((warps * mt, k))
-    if "folded" in entry:
-        assert dict(shapes) == {torch.bfloat16: set(mxgrid_cuda.TC_SHAPES[planes])}
-    else:
-        assert dict(shapes) == {dt: set(table[planes])
-                                for dt, table in mxgrid_cuda.UNSNAPPED_TC_SHAPES.items()}
+    tables = mxgrid_cuda.TC_SHAPES if "folded" in entry else mxgrid_cuda.UNSNAPPED_TC_SHAPES
+    assert dict(shapes) == {dt: set(table[planes]) for dt, table in tables.items()}
 
 
 # --------------------------------------------------------------------------

@@ -421,13 +421,13 @@ TC_SHAPES = [(1, 1), (1, 63), (10, 65), (2, 4097), (10, 4096)]
 @pytest.mark.parametrize("preset", ["flagship", "quality"])
 def test_k1_k2_flagship_widths(cuda, preset, dtype, tol, n_obj, n_pts, kind):
     """K1 and K2 at the flagship spec and at `quality`'s (the staged forward,
-    `quality` in fp32 the direct one; the tensor-core backward in bf16, with
-    4 and 8 plane channels, the scalar one in fp32) for point counts around
-    the 64-point tile, one and ten objects: against the plain twins, and K2
-    against autograd through K1's twin."""
+    `quality` in fp32 the direct one; the tensor-core backward with 4 and 8
+    plane channels, in fp32 on operands split into bf16 hi and lo parts) for
+    point counts around the 64-point tile, one and ten objects: against the
+    plain twins, and K2 against autograd through K1's twin."""
     spec = preset_spec(preset)
     bf16 = dtype == torch.bfloat16
-    assert mxgrid_cuda.folded_variant(spec, dtype) == ("tensor_core" if bf16 else "scalar")
+    assert mxgrid_cuda.folded_variant(spec, dtype) == mxgrid_cuda.TC_VARIANT[dtype]
     direct = preset == "quality" and not bf16  # its fp32 table leaves no room for staged rows
     assert mxgrid_cuda.forward_variant(spec, dtype) == ("direct" if direct else "staged")
     g = torch.Generator().manual_seed(11)
@@ -481,6 +481,152 @@ def test_k6_tensor_core_matches_plain(cuda, preset, n_obj, n_pts):
     got_b = mxgrid_cuda.folded_cp_backward(pts, want[1], gout, spec)
     torch.cuda.synchronize()
     assert rel_err(got_b, mxgrid_cuda.folded_cp_backward_plain(pts, want[1], gout, spec)) < tol
+
+
+FOLDED_SPLIT_CASES = [("flagship", True), ("quality", True), ("flagship", False), ("fast", False)]
+
+
+def folded_case(spec, planes, n_obj, n_pts, kind, cuda, seed):
+    """fp32 points, K1's (planes) or K5's residuals from the plain forward
+    twin, and a cotangent of the block the backward reads."""
+    g = torch.Generator().manual_seed(seed)
+    pts = preset_points(kind, n_obj, n_pts, g).to(cuda)
+    tables = mxgrid.init_mxgrid(g, spec, n_obj)
+    w_eff = mxgrid.fold_lines(tables["lines"] if spec.plane_specs else tables, spec).to(cuda)
+    cols = spec.n_output_dims if planes else spec.features
+    gout = torch.randn((n_obj, n_pts, cols), generator=g).to(cuda)
+    if planes:
+        res = mxgrid_cuda.folded_fused_forward_plain(
+            pts, w_eff, tables["planes"][0].to(cuda), tables["plane_lines"][0].to(cuda), spec)[1:]
+    else:
+        res = mxgrid_cuda.folded_cp_forward_plain(pts, w_eff, spec)[1:]
+    return pts, res, gout
+
+
+def folded_backward(planes):
+    """(K2 or K6's wrapper, its plain twin), each returning a tuple."""
+    if planes:
+        return mxgrid_cuda.folded_fused_backward, mxgrid_cuda.folded_fused_backward_plain
+    return (lambda *a: (mxgrid_cuda.folded_cp_backward(*a),),
+            lambda *a: (mxgrid_cuda.folded_cp_backward_plain(*a),))
+
+
+@pytest.mark.parametrize("kind", ["uniform", "cell", "outside"])
+@pytest.mark.parametrize("n_obj,n_pts", TC_SHAPES)
+@pytest.mark.parametrize("preset,planes", FOLDED_SPLIT_CASES)
+def test_k2_k6_split_matches_plain_and_scalar(cuda, monkeypatch, preset, planes, n_obj, n_pts,
+                                              kind):
+    """K2 (the flagship with its (128, 64, 4) plane level, `quality` with
+    its (128, 128, 8) level) and K6 (the flagship's ladder as the split path
+    runs it, `fast`'s) in fp32 on the tensor cores, operands split into bf16
+    hi and lo parts ("tensor_core_split"): against the plain twin and
+    against the scalar kernel (forced) at fp32's 1e-4 of each tensor's
+    largest entry."""
+    spec = preset_spec(preset)
+    assert mxgrid_cuda.folded_variant(spec, torch.float32, planes) == "tensor_core_split"
+    pts, res, gout = folded_case(spec, planes, n_obj, n_pts, kind, cuda, seed=41)
+    bwd, plain = folded_backward(planes)
+    counter = mxgrid_cuda.folded_fused_backward if planes else mxgrid_cuda.folded_cp_backward
+    n = counter.launches_by_variant["float32 tensor_core_split"]
+    got = bwd(pts, *res, gout, spec)
+    torch.cuda.synchronize()
+    assert counter.launches_by_variant["float32 tensor_core_split"] == n + 1
+    ref = plain(pts, *res, gout, spec)
+    monkeypatch.setattr(mxgrid_cuda, "folded_variant", lambda *a, **k: "scalar")
+    scalar = bwd(pts, *res, gout, spec)
+    for name, a, b, c in zip(("dW_eff", "dplanes", "dplines"), got, ref, scalar):
+        assert a.dtype == torch.float32 and a.shape == b.shape
+        assert torch.isfinite(a).all(), name
+        assert rel_err(a, b) < 1e-4, name + " vs plain"
+        assert rel_err(a, c) < 1e-4, name + " vs scalar"
+
+
+@pytest.mark.parametrize("preset,planes", FOLDED_SPLIT_CASES)
+def test_k2_k6_split_at_the_train_step_shape(cuda, preset, planes):
+    """The fp32 K2 / K6 at 10 objects x 131072 points, the train step's
+    shape, where a block walks some 158 tiles of 64 points: against the
+    plain twin at 1e-4 (the sums are added to the gradient every
+    kFlushTiles tiles: the tensor cores' fp32 accumulation drifts with the
+    steps a sum takes)."""
+    spec = preset_spec(preset)
+    pts, res, gout = folded_case(spec, planes, 10, 131072, "uniform", cuda, seed=42)
+    bwd, plain = folded_backward(planes)
+    for name, a, b in zip(("dW_eff", "dplanes", "dplines"), bwd(pts, *res, gout, spec),
+                          plain(pts, *res, gout, spec)):
+        assert rel_err(a, b) < 1e-4, name
+
+
+@pytest.mark.parametrize("n_pts", [4096, 4100])
+def test_k2_split_takes_unaligned_bases(cuda, n_pts):
+    """fp32 inputs at `quality` (one stage) and at the flagship (two): P a
+    multiple of 4 (whole 16-byte fp32 chunks: the vector loader) but every
+    input four bytes off a 16-byte boundary (the element-wise loader), same
+    sums as the vector loader and within 1e-4 of the plain twin."""
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        out = buf[1:].view(t.shape)
+        out.copy_(t)
+        assert out.is_contiguous() and out.data_ptr() % 16 != 0
+        return out
+
+    for preset in ("quality", "flagship"):
+        spec = preset_spec(preset)
+        pts, res, gout = folded_case(spec, True, 2, n_pts, "uniform", cuda, seed=43)
+        want = mxgrid_cuda.folded_fused_backward(pts, *res, gout, spec)
+        got = mxgrid_cuda.folded_fused_backward(shifted(pts), *map(shifted, res), shifted(gout),
+                                                spec)
+        torch.cuda.synchronize()
+        ref = mxgrid_cuda.folded_fused_backward_plain(pts, *res, gout, spec)
+        for name, a, b, c in zip(("dW_eff", "dplanes", "dplines"), got, want, ref):
+            assert rel_err(a, c) < 1e-4, f"{preset} {name} vs plain"
+            assert rel_err(a, b) < 1e-4, f"{preset} {name} vs the vector loader"
+
+
+def test_folded_split_variant_refuses_what_it_does_not_instantiate(cuda, monkeypatch):
+    """"tensor_core_split" forced on bf16 residuals at an instantiated shape,
+    or on fp32 ones at a spec no instantiation covers (K = 16), is refused by
+    the C entries of K2 and K6, and the wrappers raise and count nothing."""
+    monkeypatch.setattr(mxgrid_cuda, "folded_variant", lambda *a, **k: "tensor_core_split")
+    for spec, dtype in ((preset_spec("flagship"), torch.bfloat16), (small_spec(), torch.float32)):
+        pts, res, gout = folded_case(spec, True, 1, 64, "uniform", cuda, seed=44)
+        res, gout = [t.to(dtype) for t in res], gout.to(dtype)
+        n2, n6 = (mxgrid_cuda.folded_fused_backward.launches,
+                  mxgrid_cuda.folded_cp_backward.launches)
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            mxgrid_cuda.folded_fused_backward(pts, *res, gout, spec)
+        cp = dataclasses.replace(spec, plane_specs=())
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            mxgrid_cuda.folded_cp_backward(pts, res[0], gout[..., : spec.features].contiguous(),
+                                           cp)
+        assert (mxgrid_cuda.folded_fused_backward.launches,
+                mxgrid_cuda.folded_cp_backward.launches) == (n2, n6)
+
+
+def test_folded_flagship_encode_matches_plain_encode_fp32(cuda):
+    """`encode` and its backward at the flagship spec in fp32 (fold, K1
+    staged, K2 split, unfold) against autograd through the plain
+    `ops.mxgrid.encode` on the same tables: 1e-4 of each tensor's largest
+    entry."""
+    spec = preset_spec("flagship")
+    g = torch.Generator().manual_seed(45)
+    f = mxgrid.init_mxgrid(g, spec, 2)
+    pts = preset_points("uniform", 2, 5000, g).to(cuda)
+    tgt = torch.randn((2, 5000, spec.n_output_dims), generator=g).to(cuda)
+
+    def run(enc):
+        leaves = [t.to(cuda).requires_grad_(True)
+                  for t in (f["lines"], f["planes"][0], f["plane_lines"][0])]
+        ff = {"lines": leaves[0], "planes": (leaves[1],), "plane_lines": (leaves[2],)}
+        out = enc(ff, pts, spec)
+        return [out] + list(torch.autograd.grad(torch.sum(out * tgt), leaves))
+
+    bwd = mxgrid_cuda.folded_fused_backward
+    n = bwd.launches_by_variant["float32 tensor_core_split"]
+    got = run(mxgrid_cuda.encode)
+    assert bwd.launches_by_variant["float32 tensor_core_split"] == n + 1
+    for name, a, b in zip(("out", "dlines", "dplanes", "dplines"), got, run(mxgrid.encode)):
+        assert rel_err(a, b) < 1e-4, name
 
 
 def test_flagship_encode_matches_plain_encode(cuda):

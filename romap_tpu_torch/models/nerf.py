@@ -36,6 +36,7 @@ from romap_tpu_torch.ops.geometry import (
 from romap_tpu_torch.ops.losses import RayBatch, composite_loss
 from romap_tpu_torch.ops.mlp import apply_mlp, init_mlp
 from romap_tpu_torch.ops.render import density_activation, render_composite, volume_render
+from romap_tpu_torch.utils import tracing
 
 # --------------------------------------------------------------------------
 # Parameters and state
@@ -87,14 +88,18 @@ def field_apply(params, points: torch.Tensor, cfg: NerfConfig, spec, dtype=None)
         dtype = compute_dtype(cfg, points.device)
     table = pytree.tree_map(lambda a: a.to(dtype), params["table"])
     mlp = pytree.tree_map(lambda a: a.to(dtype), params["mlp"])
-    if isinstance(spec, hashgrid.HashGridSpec):
-        feats = hashgrid.encode(table, points, spec)
-    elif points.device.type == "cuda":
-        feats = mxgrid_cuda.encode(table, points, spec)
-    else:
-        feats = mxgrid.encode(table, points, spec)
+    with tracing.span("encode.fwd"):
+        if isinstance(spec, hashgrid.HashGridSpec):
+            feats = hashgrid.encode(table, points, spec)
+        elif points.device.type == "cuda":
+            feats = mxgrid_cuda.encode(table, points, spec)
+        else:
+            feats = mxgrid.encode(table, points, spec)
+    tracing.backward_span(feats, "encode.bwd")
     o = points.shape[0]
-    raw = apply_mlp(mlp, feats.reshape(o, -1, spec.n_output_dims), cfg.network)
+    with tracing.span("mlp.fwd"):
+        raw = apply_mlp(mlp, feats.reshape(o, -1, spec.n_output_dims), cfg.network)
+    tracing.backward_span(raw, "mlp.bwd")
     return raw.reshape(*points.shape[:-1], raw.shape[-1])
 
 
@@ -336,21 +341,32 @@ def generate_batch(frames: FrameArrays, aabb_min, aabb_max, tow, instance_id, bb
 # --------------------------------------------------------------------------
 
 
+# the spans of one train step, under `train.step`; `batch` opens twice, around
+# the draws and around `generate_batch`
+STEP_SPANS = ("batch", "encode.fwd", "mlp.fwd", "loss.fwd", "loss.bwd", "mlp.bwd",
+              "encode.bwd", "optimizer.update")
+
+
 def _object_train_step(state: TrainState, frames: FrameArrays, objects: ObjectsState,
                        cfg: NerfConfig, spec, uniforms, use_depth: bool) -> TrainState:
     """One step for every object slot. Inactive slots and empty batches keep
-    their params, EMA and optimizer state bit for bit."""
-    batch = generate_batch(frames, *objects[:6], cfg, uniforms, use_depth=use_depth)
+    their params, EMA and optimizer state bit for bit. Its spans are
+    `STEP_SPANS`; the backward's open in hooks (`tracing.backward_spans`)."""
+    with tracing.span("batch"):
+        batch = generate_batch(frames, *objects[:6], cfg, uniforms, use_depth=use_depth)
     params = pytree.tree_map(lambda a: a.detach().requires_grad_(True), state.params)
     leaves, treedef = pytree.tree_flatten(params)
-    with torch.enable_grad():
+    with torch.enable_grad(), tracing.backward_spans():
         raw = field_apply(params, batch.points, cfg, spec)
-        loss, aux = composite_loss(raw, batch, cfg.train)
-        # per-object losses touch disjoint parameter rows: the gradient of
-        # their sum is every object's own gradient
-        grads = pytree.tree_unflatten(list(torch.autograd.grad(loss.sum(), leaves)), treedef)
+        with tracing.span("loss.fwd"):
+            loss, aux = composite_loss(raw, batch, cfg.train)
+            # per-object losses touch disjoint parameter rows: the gradient
+            # of their sum is every object's own gradient
+            total = loss.sum()
+        tracing.backward_span(total, "loss.bwd")
+        grads = pytree.tree_unflatten(list(torch.autograd.grad(total, leaves)), treedef)
 
-    with torch.no_grad():
+    with torch.no_grad(), tracing.span("optimizer.update"):
         updates, new_opt = _optimizer_update(grads, state.opt, state.params, cfg)
         lr = learning_rate(cfg, state.step)
         new_params = pytree.tree_map(lambda p, u: p - _per_object(lr, u) * u,
@@ -382,11 +398,29 @@ def train_objects(state: TrainState, objects: ObjectsState, frames: FrameArrays,
     """
     if (generator is None) == (uniforms is None):
         raise ValueError("pass exactly one of generator= or uniforms=")
-    for _ in range(n_iters):
-        u = uniforms() if uniforms is not None else draw_uniforms(
-            generator, objects.capacity, cfg)
-        state = _object_train_step(state, frames, objects, cfg, spec, u, use_depth)
+    for i in range(n_iters):
+        with tracing.span("train.step", step=i):
+            with tracing.span("batch"):
+                u = uniforms() if uniforms is not None else draw_uniforms(
+                    generator, objects.capacity, cfg)
+            state = _object_train_step(state, frames, objects, cfg, spec, u, use_depth)
     return state
+
+
+def count_wave(step_before: torch.Tensor, step_after, n_active: int, n_iters: int,
+               **ids) -> None:
+    """A wave's counters (tracing on), once the runner's barrier has waited
+    for it: `slot_steps_issued` (slots x steps), `slot_steps_trained` (the
+    rise of the state's `step` from `step_before`, the wave's first, to
+    `step_after`, as the barrier read it, summed over slots) and
+    `slots_active` (from the object table the host built), under `ids`. The
+    card is idle here: reading `step_before` waits on nothing."""
+    if not tracing.enabled():
+        return
+    after = torch.as_tensor(step_after).cpu().long()
+    tracing.count("slot_steps_issued", after.numel() * n_iters, **ids)
+    tracing.count("slot_steps_trained", int((after - step_before.cpu()).sum()), **ids)
+    tracing.count("slots_active", n_active, **ids)
 
 
 # --------------------------------------------------------------------------

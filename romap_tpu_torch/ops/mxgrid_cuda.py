@@ -1182,6 +1182,11 @@ def reset_launch_counts() -> None:
         fn.launches_by_variant.clear()
 
 
+def launch_counts() -> dict[str, int]:
+    """{kernel: launches since the last `reset_launch_counts`}."""
+    return {k: fn.launches for k, fn in KERNELS.items()}
+
+
 # --------------------------------------------------------------------------
 # The differentiable encode
 # --------------------------------------------------------------------------

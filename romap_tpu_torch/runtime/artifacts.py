@@ -24,6 +24,7 @@ from romap_tpu_torch.utils.camera import rot_to_quat
 from romap_tpu_torch.models import nerf
 from romap_tpu_torch.ops import marching_cubes as mc
 from romap_tpu_torch.runtime.renderer import orbit_poses, render_view
+from romap_tpu_torch.utils import tracing
 from romap_tpu_torch.utils.mesh_io import save_obj, save_ply
 
 
@@ -57,13 +58,18 @@ def extract_object_mesh(params_one, aabb_min, aabb_max, cfg, spec) -> mc.Mesh:
     normals -> vertex colours at the warped vertices."""
     res = cfg.train.mc_resolution
     box_min, box_max = _np(aabb_min), _np(aabb_max)
-    density = nerf.density_on_grid(params_one, cfg, spec, res)
-    mesh = mc.compute_normals(mc.marching_cubes(density, box_min, box_max, res,
-                                                cfg.train.mc_threshold))
+    with tracing.span("mesh.density"):
+        density = nerf.density_on_grid(params_one, cfg, spec, res)
+    with tracing.span("mesh.march"):
+        mesh = mc.compute_normals(mc.marching_cubes(density, box_min, box_max, res,
+                                                    cfg.train.mc_threshold))
+    tracing.count("mesh.verts", len(mesh.verts))
+    tracing.count("mesh.faces", len(mesh.faces))
     if len(mesh.verts) > 0:
-        warped = (mesh.verts - box_min) / (box_max - box_min)
-        pts = torch.as_tensor(warped, dtype=torch.float32).to(density.device)
-        colors = nerf.colors_at_points(params_one, pts, cfg, spec).cpu().numpy()
+        with tracing.span("mesh.colors"):
+            warped = (mesh.verts - box_min) / (box_max - box_min)
+            pts = torch.as_tensor(warped, dtype=torch.float32).to(density.device)
+            colors = nerf.colors_at_points(params_one, pts, cfg, spec).cpu().numpy()
         mesh = mesh._replace(colors=colors)
     return mesh
 

@@ -60,6 +60,7 @@ from romap_tpu_torch.config import NerfConfig, load_network_config
 from romap_tpu_torch.data.frame_store import FrameStore
 from romap_tpu_torch.models import nerf
 from romap_tpu_torch.runtime import artifacts, pose_refine
+from romap_tpu_torch.utils import tracing
 from romap_tpu_torch.utils.checkpoint import generator_state, save_checkpoint
 from romap_tpu_torch.utils.device import resolve_device
 
@@ -299,12 +300,17 @@ class NerfManagerOnline:
         and logs its seconds."""
         draw = (dict(uniforms=self.uniforms) if self.uniforms is not None
                 else dict(generator=self._gen))
-        t0 = time.perf_counter()
-        state = nerf.train_objects(state, objs, frames, self.cfg, self.spec,
-                                   self.iters_per_wave, self.use_depth, **draw)
-        state.loss.cpu()  # barrier
-        self.wave_seconds.append(time.perf_counter() - t0)
+        wave = len(self.wave_seconds) + 1
+        with tracing.span("train.wave", wave=wave):
+            t0 = time.perf_counter()
+            step_before = state.step
+            state = nerf.train_objects(state, objs, frames, self.cfg, self.spec,
+                                       self.iters_per_wave, self.use_depth, **draw)
+            with tracing.span("train.barrier"):
+                state.loss.cpu()  # barrier
+            self.wave_seconds.append(time.perf_counter() - t0)
         self.wave_slots.append(n_slots)
+        nerf.count_wave(step_before, state.step, n_slots, self.iters_per_wave, wave=wave)
         return state
 
     def pump(self, max_waves: int | None = None) -> int:
@@ -346,8 +352,9 @@ class NerfManagerOnline:
         with self._cond:
             self._wait_idle_locked()
             params = pytree.tree_map(lambda a: a[oi], self.state.ema)
-        mesh = artifacts.extract_object_mesh(
-            params, self._objs["aabb_min"][oi], self._objs["aabb_max"][oi], self.cfg, self.spec)
+        with tracing.span("mesh.object", object=oi):
+            mesh = artifacts.extract_object_mesh(params, self._objs["aabb_min"][oi],
+                                                 self._objs["aabb_max"][oi], self.cfg, self.spec)
         with self._lock:
             self._meshes[oi] = mesh
 

@@ -14,7 +14,7 @@ Two behaviours of the reference runner are not copied:
     evaluated on training views (offline.py:207); here that raises.
 
 Run: python -m romap_tpu_torch.runtime.offline <network_config|-> <dataset>
-<use_gt_depth> [--device cuda] [--waves N --steps-per-wave N ...]
+<use_gt_depth> [--device cuda] [--waves N --steps-per-wave N ...] [--trace PATH]
 """
 
 from __future__ import annotations
@@ -36,7 +36,9 @@ from romap_tpu_torch.data.formats import (
 )
 from romap_tpu_torch.data.frame_store import FrameStore
 from romap_tpu_torch.models import nerf
+from romap_tpu_torch.ops import mxgrid_cuda
 from romap_tpu_torch.runtime import artifacts
+from romap_tpu_torch.utils import tracing
 from romap_tpu_torch.utils.device import resolve_device
 from romap_tpu_torch.utils.mesh_io import save_ply
 
@@ -64,10 +66,16 @@ class OfflineRunner:
                                 depth_scale=1.0,  # scaled at load time below
                                 device=self.device)
         print("Load Images to device ...")
-        for i in range(n):
-            rgb, depth, inst = load_frame_images(self.meta, i, use_depth)
-            self.store.add_frame(i, self.meta.stamps[i], rgb, inst, self.meta.poses[i],
-                                 depth=depth)
+        with tracing.span("frames.load"):
+            n_bytes = 0
+            for i in range(n):
+                rgb, depth, inst = load_frame_images(self.meta, i, use_depth)
+                self.store.add_frame(i, self.meta.stamps[i], rgb, inst, self.meta.poses[i],
+                                     depth=depth)
+                n_bytes += rgb.nbytes + inst.nbytes + (depth.nbytes if use_depth else 0)
+            self.store.arrays()  # the upload
+            tracing.count("frames.loaded", n)
+            tracing.count("frames.bytes", n_bytes)
         print("Load Images to device completed...")
 
         self.objects: list[dict] = []
@@ -122,6 +130,7 @@ class OfflineRunner:
             objs["active"][oi] = nb > 0
         self.objs_state = nerf.ObjectsState(
             **{k: torch.from_numpy(v).to(self.device) for k, v in objs.items()})
+        self.n_active = int(objs["active"].sum())
         self.generator = torch.Generator(device=self.device).manual_seed(self.cfg.seed)
         self.state = nerf.init_train_state(self.generator, cap, self.cfg, self.spec,
                                            device=self.device)
@@ -134,16 +143,21 @@ class OfflineRunner:
         os.makedirs(out_dir, exist_ok=True)
         self.meshes: dict[int, object] = {}
         for wave in range(1, waves + 1):
-            t0 = time.perf_counter()
-            self.state = nerf.train_objects(
-                self.state, self.objs_state, frames, self.cfg, self.spec, steps_per_wave,
-                self.use_depth, generator=self.generator)
-            losses = self.state.loss.cpu().numpy()  # also the sync for the clock
-            steps = self.state.step.cpu().numpy()
-            self.wave_seconds.append(time.perf_counter() - t0)
-            for oi in range(len(self.objects)):
-                print(f"Id: {oi} train_time: {self.wave_seconds[-1] * 1000:.0f} "
-                      f"Step: {int(steps[oi])} loss: {losses[oi]:.6f}")
+            with tracing.span("train.wave", wave=wave):
+                t0 = time.perf_counter()
+                step_before = self.state.step
+                self.state = nerf.train_objects(
+                    self.state, self.objs_state, frames, self.cfg, self.spec, steps_per_wave,
+                    self.use_depth, generator=self.generator)
+                with tracing.span("train.barrier"):
+                    losses = self.state.loss.cpu().numpy()  # also the sync for the clock
+                    steps = self.state.step.cpu().numpy()
+                self.wave_seconds.append(time.perf_counter() - t0)
+            nerf.count_wave(step_before, steps, self.n_active, steps_per_wave, wave=wave)
+            with tracing.span("train.log"):
+                for oi in range(len(self.objects)):
+                    print(f"Id: {oi} train_time: {self.wave_seconds[-1] * 1000:.0f} "
+                          f"Step: {int(steps[oi])} loss: {losses[oi]:.6f}")
             if self.mesh_enabled and wave % mesh_every == 0:
                 self.extract_meshes()
         self.save_meshes(out_dir)
@@ -153,10 +167,12 @@ class OfflineRunner:
         return pytree.tree_map(lambda a: a[oi], self.state.ema)
 
     def extract_meshes(self) -> None:
-        for oi in range(len(self.objects)):
-            self.meshes[oi] = artifacts.extract_object_mesh(
-                self.params_of(oi), self.objs_state.aabb_min[oi],
-                self.objs_state.aabb_max[oi], self.cfg, self.spec)
+        with tracing.span("mesh.round"):
+            for oi in range(len(self.objects)):
+                with tracing.span("mesh.object", object=oi):
+                    self.meshes[oi] = artifacts.extract_object_mesh(
+                        self.params_of(oi), self.objs_state.aabb_min[oi],
+                        self.objs_state.aabb_max[oi], self.cfg, self.spec)
 
     def save_meshes(self, out_dir: str) -> None:
         if not self.mesh_enabled:
@@ -219,7 +235,13 @@ def main(argv: list[str] | None = None) -> OfflineRunner:
     ap.add_argument("--holdout", type=int, default=None,
                     help="exclude every Nth per-object view from training and evaluate "
                     "on exactly those views (default: train on all views)")
+    ap.add_argument("--trace", metavar="PATH",
+                    help="record the run's spans and counters (utils/tracing.py) and write "
+                    "them to PATH as Chrome trace JSON with their per-name summary")
     args = ap.parse_args(argv)
+    if args.trace:
+        tracing.enable()
+        mxgrid_cuda.reset_launch_counts()
 
     cfg = (NerfConfig() if args.network_config == "-"
            else load_network_config(args.network_config))
@@ -241,6 +263,9 @@ def main(argv: list[str] | None = None) -> OfflineRunner:
     runner.train(waves=args.waves, steps_per_wave=args.steps_per_wave, out_dir=args.out)
     if not args.no_artifacts:
         runner.render_test_artifacts(args.out, video=not args.no_video)
+    if args.trace:
+        tracing.disable()
+        tracing.write_chrome_trace(args.trace, tracing.drain(), mxgrid_cuda.launch_counts())
     return runner
 
 

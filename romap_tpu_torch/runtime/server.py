@@ -41,7 +41,7 @@ reference server's device-tunnel watchdog and its joint BA are not ported
 (ROADMAP M11).
 
 Run: python -m romap_tpu_torch.runtime.server --socket <path>
-[--device cuda|cpu] [--small] [--config <json>]
+[--device cuda|cpu] [--small] [--config <json>] [--trace PATH]
 """
 
 from __future__ import annotations
@@ -54,7 +54,9 @@ import struct
 import numpy as np
 
 from romap_tpu_torch.config import EncodingConfig, NerfConfig, TrainConfig, load_network_config
+from romap_tpu_torch.ops import mxgrid_cuda
 from romap_tpu_torch.runtime.manager import NerfManagerOnline
+from romap_tpu_torch.utils import tracing
 from romap_tpu_torch.utils.device import resolve_device
 
 OPS = {
@@ -274,9 +276,16 @@ def main(argv: list[str] | None = None) -> RuntimeServer:
                     help="shutdown joint BA iterations: only 0, joint BA is not ported")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="torch device of the runtime (default: the card)")
+    ap.add_argument("--trace", metavar="PATH",
+                    help="record the session's spans and counters (utils/tracing.py: "
+                    "waves, meshes) and write them to PATH as Chrome trace JSON with "
+                    "their summary at SHUTDOWN")
     args = ap.parse_args(argv)
     if args.joint_ba:
         ap.error("--joint-ba: joint photometric BA is not ported (ROADMAP M11); use 0")
+    if args.trace:
+        tracing.enable()
+        mxgrid_cuda.reset_launch_counts()
     cfg = None
     if args.config:
         cfg = load_network_config(args.config)
@@ -285,6 +294,9 @@ def main(argv: list[str] | None = None) -> RuntimeServer:
     srv = RuntimeServer(cfg, final_waves=args.final_waves,
                         final_retrain=not args.no_final_retrain, device=args.device)
     srv.serve(args.socket)
+    if args.trace:
+        tracing.disable()
+        tracing.write_chrome_trace(args.trace, tracing.drain(), mxgrid_cuda.launch_counts())
     return srv
 
 

@@ -22,15 +22,14 @@ reference batch geometry on the scene of build_synthetic_world(10, 16, 128):
     window), and `idle_share_unprofiled_step`, 1 - busy / the unprofiled
     step ms;
   - the kernels by device time, largest first;
-  - the device time under each part of the step, and its largest kernels:
-    batch generation, encode forward, MLP forward, render + loss, render +
-    loss backward, MLP backward, encode backward (with the unfold), and the
-    optimizer. The parts are `torch.profiler.record_function` spans that
-    this script wraps around the step's own functions while it runs (the
-    library carries none); the backward spans open and close in tensor
-    hooks, on the autograd thread that launches those kernels. The spans'
-    own device-side ranges are left out of the busy time and the kernel
-    list.
+  - the device time under each part of the step, its host time, and its
+    largest kernels: the program's own spans (`utils/tracing.py`,
+    `nerf.STEP_SPANS`: batch, encode.fwd, mlp.fwd, loss.fwd, loss.bwd,
+    mlp.bwd, encode.bwd with the unfold, optimizer.update), turned on over
+    the profiled steps, where each also enters `record_function`; the
+    backward spans open and close in tensor hooks, on the autograd thread
+    that launches those kernels. The spans' own device-side ranges are left
+    out of the busy time and the kernel list.
 
 With `--refine`, one step of photometric pose refinement instead
 (`pose_refine.make_view_loss`'s loss of one view's 4 starts x 1536 pixels x
@@ -65,83 +64,18 @@ from romap_tpu_torch.config import EncodingConfig, NerfConfig, TrainConfig
 from romap_tpu_torch.data.world import build_synthetic_world
 from romap_tpu_torch.models import nerf
 from romap_tpu_torch.runtime import pose_refine
+from romap_tpu_torch.utils import tracing
 
 N_OBJECTS = 10
-SPANS = ("batch generation", "encode forward", "MLP forward", "render + loss",
-         "render + loss backward", "MLP backward", "encode backward", "optimizer")
-
-
-class Spans:
-    """record_function spans around the parts of `nerf._object_train_step`,
-    installed by wrapping the functions it calls; `restore()` undoes it."""
-
-    def __init__(self):
-        self.saved = {name: getattr(nerf, name) for name in
-                      ("generate_batch", "apply_mlp", "composite_loss", "_optimizer_update")}
-        self.saved_encode = nerf.mxgrid_cuda.encode
-        self.open = None  # the backward span now open on the autograd thread
-        nerf.generate_batch = self.spanned("batch generation", self.saved["generate_batch"])
-        nerf._optimizer_update = self.optimizer
-        nerf.composite_loss = self.composite_loss
-        nerf.apply_mlp = self.apply_mlp
-        nerf.mxgrid_cuda.encode = self.encode
-
-    def restore(self):
-        for name, fn in self.saved.items():
-            setattr(nerf, name, fn)
-        nerf.mxgrid_cuda.encode = self.saved_encode
-
-    @staticmethod
-    def spanned(name, fn):
-        def wrapper(*args, **kwargs):
-            with torch.profiler.record_function(name):
-                return fn(*args, **kwargs)
-        return wrapper
-
-    def switch(self, name):
-        """Close the open backward span and open `name` (None: none)."""
-        if self.open is not None:
-            self.open.__exit__(None, None, None)
-        self.open = torch.profiler.record_function(name) if name else None
-        if self.open is not None:
-            self.open.__enter__()
-
-    def hook(self, tensor, name):
-        """When the backward pass has `tensor`'s gradient: the span `name`."""
-        if tensor.requires_grad:
-            tensor.register_hook(lambda grad: self.switch(name))
-
-    def apply_mlp(self, mlp, feats, network):
-        with torch.profiler.record_function("MLP forward"):
-            raw = self.saved["apply_mlp"](mlp, feats, network)
-        self.hook(raw, "MLP backward")       # the loss's backward ends here
-        self.hook(feats, "encode backward")  # ... and the MLP's here
-        return raw
-
-    def encode(self, factors, points, spec):
-        with torch.profiler.record_function("encode forward"):
-            out = self.saved_encode(factors, points, spec)
-        # the tables' gradients leave the encode's backward node together
-        self.hook(factors["lines"] if isinstance(factors, dict) else factors, None)
-        return out
-
-    def composite_loss(self, raw, batch, train):
-        with torch.profiler.record_function("render + loss"):
-            loss, aux = self.saved["composite_loss"](raw, batch, train)
-        self.hook(loss, "render + loss backward")
-        return loss, aux
-
-    def optimizer(self, *args, **kwargs):
-        with torch.profiler.record_function("optimizer"):
-            return self.saved["_optimizer_update"](*args, **kwargs)
 
 
 def span_report(prof, steps):
     """{span: (device ms a step, [(kernel, ms a step), ...])} from the
-    profiler's event tree: the kernels launched by a span and its children."""
+    profiler's event tree: the kernels launched under each of the step's
+    spans (`nerf.STEP_SPANS`) and their children."""
     out = {}
     for evt in prof.events():
-        if evt.name not in SPANS:
+        if evt.name not in nerf.STEP_SPANS:
             continue
         ms, kernels = out.setdefault(evt.name, [0.0, {}])
         stack = [evt]
@@ -153,6 +87,8 @@ def span_report(prof, steps):
             stack.extend(getattr(e, "cpu_children", []))
     return {name: (ms, sorted(ks.items(), key=lambda kv: -kv[1])[:4])
             for name, (ms, ks) in out.items()}
+
+
 CONFIGS = {  # name -> (encoding, environment, TrainConfig.compute_dtype)
     "flagship K1/K2": (EncodingConfig(), {}, "auto"),
     "unsnapped K3/K4": (EncodingConfig(), {"MX_SNAP": "0"}, "auto"),
@@ -191,7 +127,7 @@ def profile(name, encoding, env, dtype, steps, top, world):
     step_ms = 1e3 * (time.perf_counter() - t0) / steps
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    spans = Spans()
+    tracing.enable()
     try:
         with torch.profiler.profile(activities=acts) as prof:
             t0 = time.perf_counter()
@@ -199,9 +135,12 @@ def profile(name, encoding, env, dtype, steps, top, world):
             torch.cuda.synchronize()
             wall_ms = 1e3 * (time.perf_counter() - t0)
     finally:
-        spans.restore()
+        tracing.disable()
+    drained = tracing.drain()
+    span_names = {r["name"] for r in drained["spans"]}
+    host = tracing.summary(drained)["spans"]
     kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA and e.key not in SPANS]
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.key not in span_names]
     dev_us = lambda e: getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
     busy_ms = sum(dev_us(e) for e in kernels) / 1e3
     kernels.sort(key=dev_us, reverse=True)
@@ -221,12 +160,14 @@ def profile(name, encoding, env, dtype, steps, top, world):
     for t in out["top"]:
         print(f"  {t['ms_per_step']:9.4f} ms  x{t['calls_per_step']:.1f}  {t['kernel']}", flush=True)
     report = span_report(prof, 5)
-    out["spans"] = {name: dict(device_ms_per_step=ms, top=[dict(kernel=k[:90], ms_per_step=v)
-                                                           for k, v in top])
+    host_ms = lambda name: 1e3 * host.get(f"train.step/{name}", dict(total_s=0.0))["total_s"] / 5
+    out["spans"] = {name: dict(device_ms_per_step=ms, host_ms_per_step=host_ms(name),
+                               top=[dict(kernel=k[:90], ms_per_step=v) for k, v in top])
                     for name, (ms, top) in report.items()}
-    for name in SPANS:
+    for name in nerf.STEP_SPANS:
         ms, top_kernels = report.get(name, (0.0, []))
-        print(f"  span {name!r}: device_ms_per_step={ms:.4f}", flush=True)
+        print(f"  span {name!r}: device_ms_per_step={ms:.4f} "
+              f"host_ms_per_step={host_ms(name):.4f}", flush=True)
         for k, v in top_kernels:
             print(f"      {v:9.4f} ms  {k[:90]}", flush=True)
     return out

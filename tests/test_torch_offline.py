@@ -10,6 +10,7 @@ the port with `romap_tpu_torch.utils.jax_bridge`.
 """
 
 import dataclasses
+import json
 import os
 import subprocess
 import sys
@@ -31,12 +32,14 @@ from romap_tpu.runtime import renderer as jrenderer
 from romap_tpu.runtime.offline import OfflineRunner as JRunner
 from romap_tpu.utils import mesh_io as jmesh_io
 from romap_tpu_torch.models import nerf as tnerf
+from romap_tpu_torch.ops import mxgrid_cuda
 from romap_tpu_torch.ops import geometry as tgeo
 from romap_tpu_torch.ops import marching_cubes as tmc
 from romap_tpu_torch.runtime import artifacts as tartifacts
+from romap_tpu_torch.runtime import offline as toffline
 from romap_tpu_torch.runtime import renderer as trenderer
 from romap_tpu_torch.runtime.offline import OfflineRunner as TRunner
-from romap_tpu_torch.utils import jax_bridge
+from romap_tpu_torch.utils import jax_bridge, tracing
 from romap_tpu_torch.utils import mesh_io as tmesh_io
 
 torch.set_num_threads(2)
@@ -305,3 +308,31 @@ def test_offline_cli_runs_with_jax_blocked(dataset_dir, tmp_path):
     for oi in range(2):
         assert (out / f"{oi}.ply").exists() and (out / str(oi) / "obj.ply").exists()
         assert len(os.listdir(out / str(oi) / "test_img")) >= 1
+
+
+def test_offline_cli_writes_its_trace(dataset_dir, tmp_path):
+    """`--trace PATH`: the run's spans, counters, the MX-grid kernels'
+    launches and the summary as Chrome trace JSON; tracing is off again
+    after the run."""
+    trace = tmp_path / "trace.json"
+    toffline.main(["-", dataset_dir, "1", "--device", "cpu", "--waves", "1",
+                   "--steps-per-wave", "2", "--rays", "64", "--samples", "4", "--mc-res", "9",
+                   "--mx-features", "8", "--mx-max-res", "32", "--no-video",
+                   "--out", str(tmp_path / "out"), "--trace", str(trace)])
+    assert not tracing.enabled()
+    with open(trace) as f:
+        t = json.load(f)
+    spans = [e for e in t["traceEvents"] if e["ph"] == "X"]
+    assert {"frames.load", "train.wave", "train.step", "encode.bwd", "mesh.round",
+            "mesh.object"} <= {e["name"] for e in spans}
+    assert all(e["dur"] >= 0 for e in spans)
+    summary = t["summary"]["spans"]
+    assert summary["train.wave/train.step"]["count"] == 2
+    # the step's encodes and the meshes' are summarised apart
+    assert summary["train.step/encode.fwd"]["count"] == 2
+    assert summary["mesh.density/encode.fwd"]["count"] == sum(
+        e["name"] == "mesh.density" for e in spans) >= 2
+    assert t["summary"]["counters"]["slot_steps_issued"]["total"] == 2 * 2
+    assert {c["name"] for c in t["counters"]} >= {"slot_steps_trained", "frames.loaded",
+                                                   "mesh.verts"}
+    assert t["launches"] == {k: 0 for k in mxgrid_cuda.KERNELS}  # the CPU launches none

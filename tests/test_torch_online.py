@@ -10,6 +10,7 @@ every call. The trace covers the >10-bbox gate, a create past capacity
 (valid and stale) and `wait_threads_end` with the final retrain.
 """
 
+import json
 import os
 import shutil
 import signal
@@ -37,7 +38,7 @@ from romap_tpu_torch.runtime import pose_refine
 from romap_tpu_torch.runtime import server as tserver
 from romap_tpu_torch.runtime.manager import NerfManagerOnline as TManager
 from romap_tpu_torch.runtime.replay import replay
-from romap_tpu_torch.utils import checkpoint, jax_bridge
+from romap_tpu_torch.utils import checkpoint, jax_bridge, tracing
 from tests.test_torch_native_build import BUILD_ERROR
 
 torch.set_num_threads(2)
@@ -397,6 +398,52 @@ def test_server_replies_match_jax(tmp_path, monkeypatch, capsys):
     assert client.call(tserver.OPS["SHUTDOWN"]) == (0, b"")
     th.join(timeout=30)
     assert not th.is_alive() and not os.path.exists(sock)
+
+
+def test_server_trace_records_waves_and_meshes(tmp_path):
+    """`--trace PATH`: at SHUTDOWN the server writes the session's spans and
+    counters. Each manager wave has its `train.wave` and `train.barrier` and
+    its counters (2 slots x 3 steps issued, object 0's 3 trained: object 1
+    has too few bboxes), each mesh its `mesh.object` with the object's id."""
+    sock, path = str(tmp_path / "s.sock"), str(tmp_path / "trace.json")
+    th = threading.Thread(target=tserver.main, daemon=True, args=(
+        ["--socket", sock, "--small", "--device", "cpu", "--trace", path],))
+    th.start()
+    ops = tserver.OPS
+    msgs, _ = session_payloads()
+    msgs = msgs[: [op for op, _ in msgs].index(ops["GET_FRAME_IDX"])]
+    row = next(p for op, p in msgs if op == ops["UPDATE_BBOX"])[12:]  # object 0's
+    msgs += [(ops["UPDATE_BBOX"], struct.pack("<iii", 0, 1, 10) + row * 10),  # 11 > 10 rows
+             (ops["PUMP"], struct.pack("<i", -1)), (ops["WAIT_END"], b""),
+             (ops["SHUTDOWN"], b"")]
+    try:
+        wait_for(sock, th.is_alive, 30)
+        client = Client(sock, timeout=120)
+        for op, payload in msgs:
+            status, reply = client.call(op, payload)
+            assert status == 0, reply
+        th.join(timeout=60)
+        assert not th.is_alive()
+    finally:
+        tracing.disable()
+        tracing.drain()
+    with open(path) as f:
+        t = json.load(f)
+    spans = [e for e in t["traceEvents"] if e["ph"] == "X"]
+    waves = [e["args"]["wave"] for e in spans if e["name"] == "train.wave"]
+    assert len(waves) >= 3 and waves == list(range(1, len(waves) + 1))
+    assert [e["args"]["wave"] for e in spans if e["name"] == "train.barrier"] == waves
+    per_wave = {}
+    for c in t["counters"]:
+        if "wave" in c["ids"]:
+            per_wave.setdefault(c["ids"]["wave"], {})[c["name"]] = c["n"]
+    assert per_wave == {w: dict(slot_steps_issued=2 * 3, slot_steps_trained=3, slots_active=1)
+                        for w in waves}
+    meshes = [e for e in spans if e["name"] == "mesh.object"]
+    assert meshes and all(e["args"]["object"] == 0 for e in meshes)
+    verts = [c for c in t["counters"] if c["name"] == "mesh.verts"]
+    assert len(verts) == len(meshes) and all(c["ids"]["object"] == 0 for c in verts)
+    assert t["summary"]["spans"]["mesh.object/mesh.density"]["count"] == len(meshes)
 
 
 def test_server_rejects_joint_ba_and_a_missing_card(tmp_path, monkeypatch):

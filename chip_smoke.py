@@ -53,7 +53,10 @@ Phases, one or more lines each, each closed by its seconds:
                (1 x 4 x 1536 x 32) on the folded and split paths, bf16 and
                fp32, against its plain twin and (fp32) autograd over the
                points through the plain encode, lanes_over_channels and the
-               first design (per_point, forced) timed in turns
+               first design (per_point, forced) timed in turns; then the
+               hash grid's H1 and H2 (`tcnn`, room4's O=4 x 131,072, bf16
+               and fp32) and H0 (1 x 196,608) against their twins, with
+               their times, the twins' and the bound (`hash_work`)
   4 parity     one tiny train step, fp32, kernels on the card vs the plain
                path on the CPU, from the same state and uniforms
   5 train      build_synthetic_world(10, 16, 128) + NerfConfig(): init, 1
@@ -87,8 +90,11 @@ Phases, one or more lines each, each closed by its seconds:
                pixels x 32 samples through K1 and K0: losses, pose errors
                before and after, seconds, launches
  10 tcnn      EncodingConfig.preset("tcnn") (hash grid) on the scene of
-               phase 5: 1 + 20 steps of train_objects, obj-iters/s, the
-               losses falling, peak memory
+               phase 5: 1 + 20 steps of train_objects through H1/H2,
+               obj-iters/s, the losses falling, peak memory, H1/H2's
+               launches (once a step each, no other kernel); then the same
+               seed's 1 + 20 steps through the plain twins on the card: their
+               losses beside the kernels', within TCNN_LOSS_RTOL
  11 quality   romap_tpu_torch.tools.quality_gate (scripts/quality_gate.py's
                gate): the bf16 flagship trained 5000 steps (K1/K2) on
                build_synthetic_world(1, 24, 192, seed) for seeds 0-2, the
@@ -146,11 +152,12 @@ from romap_tpu_torch.data import synthetic  # noqa: E402
 from romap_tpu_torch.data.formats import write_dataset  # noqa: E402
 from romap_tpu_torch.data.world import build_synthetic_world  # noqa: E402
 from romap_tpu_torch.models import nerf  # noqa: E402
-from romap_tpu_torch.ops import mxgrid, mxgrid_cuda  # noqa: E402
+from romap_tpu_torch.ops import hashgrid_cuda, mxgrid, mxgrid_cuda  # noqa: E402
 from romap_tpu_torch.ops.geometry import camera_rays, ray_aabb_intersect  # noqa: E402
 from romap_tpu_torch.runtime import offline, pose_refine, server  # noqa: E402
 from romap_tpu_torch.runtime.offline import OfflineRunner  # noqa: E402
 from romap_tpu_torch.tools import quality_gate  # noqa: E402
+from portbench.frozen.work import hash_work  # noqa: E402
 
 N_OBJECTS, WAVE = 10, 50
 KERNEL_O, KERNEL_P = 2, 4096 * 32
@@ -764,6 +771,77 @@ def check_points_gradient(specs: dict, dev) -> dict:
     return record
 
 
+# H0-H2 (csrc/hashgrid.cu) against their twins, relative to each tensor's
+# largest entry: H1 in fp32 differs only in the order of its 8-term sum;
+# in bf16 both round the same fp32 blend once, one bf16 step (2^-8); H2's
+# atomics add in a run-dependent order (hundreds of terms a coarse row),
+# then one cast; H0 sums the same fp32 products in another order.
+HASH_TOL = {"H1": {torch.float32: 1e-5, torch.bfloat16: 1e-2},
+            "H2": {torch.float32: 1e-4, torch.bfloat16: 1e-2},
+            "H0": {torch.float32: 1e-4, torch.bfloat16: 1e-4}}
+HASH_O = 4  # room4's slots (portbench's tcnn.offline.room4), 4096 x 32 points each
+
+
+def ray_points(o: int, p: int, g: torch.Generator) -> torch.Tensor:
+    """[O, P, 3]: 32 ordered samples on each of P / 32 chords of the unit
+    cube, the order of a train step's points (rays x samples)."""
+    a, b = (torch.rand((o, p // 32, 1, 3), generator=g) for _ in range(2))
+    return (a + torch.linspace(0, 1, 32)[None, None, :, None] * (b - a)).reshape(o, p, 3)
+
+
+def check_hash_grid(dev) -> dict:
+    """H1 and H2 with the `tcnn` spec at room4's shape, O=4 x 131,072
+    points along rays, bf16 (the train step) and fp32 (renders and meshes),
+    then H0 at one view's refinement points (1 x 196,608, fp32 and bf16),
+    also along rays: the largest
+    error against the plain twin beside its tolerance, the median device
+    time of the wrapper (H2's: the buffer's zeroing, the kernel and the
+    cast), of the twin, and the bound (`hash_work`, the benchmark's frozen
+    count of bytes and operations for `encode_fwd_roofline` /
+    `encode_bwd_roofline`). Returns {kernel: {dtype: record}}."""
+    spec = nerf.make_field_spec(NerfConfig(encoding=EncodingConfig.preset("tcnn")))
+    records = {"H0": {}, "H1": {}, "H2": {}}
+    shapes = ((HASH_O, KERNEL_P, ("H1", "H2")), (1, REFINE_P, ("H0",)))
+    for o, p, names in shapes:
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype).split(".")[1]
+            g = torch.Generator(device="cpu").manual_seed(5)
+            pts = ray_points(o, p, g).to(dev)
+            table = torch.randn((o, spec.total_params, spec.n_features), generator=g)
+            table = table.to(dev, dtype)
+            gout = torch.randn((o, p, spec.n_output_dims), generator=g).to(dev, dtype)
+            calls = {"H1": ("forward", (pts, table)), "H2": ("backward", (pts, gout)),
+                     "H0": (None, (pts, table, gout))}
+            for name in names:
+                direction, args = calls[name]
+                fn = hashgrid_cuda.KERNELS[name]
+                plain = getattr(hashgrid_cuda, fn.__name__ + "_plain")
+                got, want = fn(*args, spec), plain(*args, spec)
+                torch.cuda.synchronize()
+                abs_err, rel_err = errors([got], [want])
+                tol = HASH_TOL[name][dtype]
+                ms = median_ms(lambda: fn(*args, spec))
+                plain_ms = median_ms(lambda: plain(*args, spec), 3)
+                rec = dict(shape=f"{o}x{p}", max_abs_err=abs_err, max_rel_err=rel_err,
+                           rel_tol=tol, ms=ms, plain_ms=plain_ms)
+                if direction:
+                    nbytes, ops = hash_work(direction, spec.n_levels, spec.n_features,
+                                            spec.total_params, dname, o, p)
+                    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_FP32_PER_S
+                    rec.update(bound_ms=1e3 * max(t_bytes, t_ops),
+                               bound_by="bytes" if t_bytes >= t_ops else "operations")
+                records[name][dname] = rec
+                say("3 kernels", kernel=name, spec="tcnn", dtype=dname,
+                    **{k: (f"{v:.3e}" if "err" in k or k == "rel_tol" else f"{v:.4f}")
+                       if isinstance(v, float) else v for k, v in rec.items()})
+                if not rel_err <= tol or not torch.isfinite(got).all():
+                    raise AssertionError(f"{name} {dname}: relative error {rel_err} above {tol}")
+                del got, want
+            del pts, table, gout, args
+            torch.cuda.empty_cache()
+    return records
+
+
 def phase_parity(dev) -> None:
     """One fp32 step of a tiny config: kernels on the card vs the plain
     encode on the CPU, same initial state and uniforms."""
@@ -1343,38 +1421,84 @@ def phase_refine(dev) -> dict:
     return {"seconds": secs}
 
 
+# phase 10: the kernels' losses against the twins' from the same seed, 21
+# bf16 steps. The two differ by the order of fp32 sums before each bf16
+# rounding (one bf16 step, 2^-8, in some features and gradient entries);
+# Adam (eps 1e-15) moves an entry by about the full rate whatever its
+# gradient's size, so an entry whose gradient is at rounding level can move
+# the other way: the losses part slowly, not by rounding alone (7.6e-5 at
+# step 21 on an H100).
+TCNN_LOSS_RTOL = 2e-3
+
+
+@contextlib.contextmanager
+def hash_twins():
+    """The hash grid's wrappers replaced by their plain twins, on any
+    device, for the block (`hashgrid_cuda._Encode` looks them up by name)."""
+    saved = {name: getattr(hashgrid_cuda, name)
+             for name in ("forward", "table_gradient", "points_gradient")}
+    for name in saved:
+        setattr(hashgrid_cuda, name, getattr(hashgrid_cuda, name + "_plain"))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(hashgrid_cuda, name, fn)
+
+
 def phase_tcnn(dev) -> float:
-    """EncodingConfig.preset("tcnn") (the hash grid: gather and index_add_,
-    no kernel of this repo) through train_objects on the card: the scene of
-    phase 5, 10 objects x 4096 x 32, 1 + 20 steps."""
+    """EncodingConfig.preset("tcnn") (the hash grid: H1 forward, H2 the
+    table's gradient) through train_objects on the card: the scene of phase
+    5, 10 objects x 4096 x 32, 1 + 20 steps, H1/H2 once a step and no other
+    kernel; then the same seed's 1 + 20 steps through the plain twins on
+    the card, whose losses must agree within TCNN_LOSS_RTOL."""
     cfg = NerfConfig(encoding=EncodingConfig.preset("tcnn"))
     spec = nerf.make_field_spec(cfg)
-    torch.cuda.reset_peak_memory_stats()
     _, _, _, store, objs = build_synthetic_world(N_OBJECTS, 16, 128, device=dev)
     frames = store.arrays()
-    gen = torch.Generator(device=dev).manual_seed(cfg.seed)
-    state = nerf.init_train_state(gen, N_OBJECTS, cfg, spec, device=dev)
-    mxgrid_cuda.reset_launch_counts()
-    state = nerf.train_objects(state, objs, frames, cfg, spec, 1, generator=gen)
-    loss1 = state.loss.cpu()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    state = nerf.train_objects(state, objs, frames, cfg, spec, 20, generator=gen)
-    torch.cuda.synchronize()
-    wave_s = time.perf_counter() - t0
-    loss2 = state.loss.cpu()
     active = objs.active.cpu()
+
+    def run():
+        gen = torch.Generator(device=dev).manual_seed(cfg.seed)
+        state = nerf.init_train_state(gen, N_OBJECTS, cfg, spec, device=dev)
+        state = nerf.train_objects(state, objs, frames, cfg, spec, 1, generator=gen)
+        loss1 = state.loss.cpu()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = nerf.train_objects(state, objs, frames, cfg, spec, 20, generator=gen)
+        torch.cuda.synchronize()
+        return loss1, state.loss.cpu(), time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats()
+    mxgrid_cuda.reset_launch_counts()
+    loss1, loss2, wave_s = run()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    launches = {k: n for k, n in mxgrid_cuda.launch_counts().items() if n}
+    by_dtype = {k: dict(hashgrid_cuda.KERNELS[k].launches_by_dtype)
+                for k in launches if k in hashgrid_cuda.KERNELS}
+    mxgrid_cuda.reset_launch_counts()
+    with hash_twins():
+        plain1, plain2, plain_s = run()
+    plain_launches = {k: n for k, n in mxgrid_cuda.launch_counts().items() if n}
+    gap = max(float(((a - b).abs() / b.abs())[active].max())
+              for a, b in ((loss1, plain1), (loss2, plain2)))
     rate = N_OBJECTS * 20 / wave_s
-    launches = {k: fn.launches for k, fn in mxgrid_cuda.KERNELS.items()}
     say("10 tcnn", levels=spec.n_levels, table_rows=spec.total_params, features=spec.n_features,
         loss_step1=[round(x, 5) for x in loss1.tolist()],
         loss_step21=[round(x, 5) for x in loss2.tolist()], wave_s=f"{wave_s:.4f}",
-        obj_iters_per_s=f"{rate:.2f}",
-        peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.3f}", kernels=launches)
+        obj_iters_per_s=f"{rate:.2f}", peak_mem_gib=f"{peak_gib:.3f}", kernels=launches,
+        by_dtype=by_dtype)
+    say("10 tcnn", twins="plain", loss_step1=[round(x, 5) for x in plain1.tolist()],
+        loss_step21=[round(x, 5) for x in plain2.tolist()], wave_s=f"{plain_s:.4f}",
+        obj_iters_per_s=f"{N_OBJECTS * 20 / plain_s:.2f}", kernels=plain_launches,
+        max_rel_loss_gap=f"{gap:.3e}", rel_tol=TCNN_LOSS_RTOL)
     if not (torch.isfinite(loss2[active]).all() and (loss2[active] < loss1[active]).all()):
         raise AssertionError("tcnn: a loss is not finite or did not fall")
-    if any(launches.values()):
-        raise AssertionError(f"tcnn: an MX-grid kernel ran: {launches}")
+    if launches != {"H1": 21, "H2": 21} or plain_launches:
+        raise AssertionError(f"tcnn: launches {launches}, with the twins {plain_launches} "
+                             "(want H1 and H2 once a step, and none with the twins)")
+    if not gap <= TCNN_LOSS_RTOL:
+        raise AssertionError(f"tcnn: the kernels' losses part from the twins' by {gap}")
     return rate
 
 
@@ -1566,6 +1690,7 @@ def main() -> None:
     timed("3 kernels", time_backwards_in_turns, specs, records, dev)
     timed("3 kernels", time_unsnapped_forwards, specs, dev)
     records["K0"] = timed("3 kernels", check_points_gradient, specs, dev)
+    hash_records = timed("3 kernels", check_hash_grid, dev)
     timed("4 parity", phase_parity, dev)
     launches, _ = timed("5-6 train+render", phase_train_and_render, dev)
     root = tempfile.mkdtemp(prefix="romap_chip_smoke_")
@@ -1599,6 +1724,9 @@ def main() -> None:
              replaces=REPLACES[k], launches=launches[k], **records[k])
         for k, fn in mxgrid_cuda.KERNELS.items()
     ]
+    kernels += [dict(name=f"{k} {fn.__name__}", route="cuda", source=CSRC + "hashgrid.cu",
+                     replaces="romap_tpu/ops/hashgrid.py:108", by_dtype=hash_records[k])
+                for k, fn in hashgrid_cuda.KERNELS.items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                               "count": torch.cuda.device_count()}}))

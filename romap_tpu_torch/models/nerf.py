@@ -76,11 +76,14 @@ def compute_dtype(cfg: NerfConfig, device: torch.device) -> torch.dtype:
 def field_apply(params, points: torch.Tensor, cfg: NerfConfig, spec, dtype=None):
     """points [O, ..., 3] in [0,1]^3 -> raw (rgb logits, log-sigma) [O, ..., 4].
 
-    A hash-grid spec takes `hashgrid.encode` (gather and index_add_) on any
-    device. For an MX-grid spec the device picks the encode: a CUDA tensor
-    goes through the kernels the spec selects (`mxgrid_cuda.encode`, K1-K10,
-    and K0 for the points' gradient in pose refinement; a spec none of them
-    covers raises), a CPU tensor through the plain `mxgrid.encode`. `dtype`
+    A hash-grid spec takes `hashgrid.encode` on any device, which picks by
+    the points' device: the kernels H1 (forward), H2 (the table's gradient)
+    and H0 (the points') for a CUDA tensor, their plain twins for a CPU one
+    (`ops/hashgrid_cuda.py`). For an MX-grid spec the device picks the
+    encode: a CUDA tensor goes through the kernels the spec selects
+    (`mxgrid_cuda.encode`, K1-K10, and K0 for the points' gradient in pose
+    refinement; a spec none of them covers raises), a CPU tensor through the
+    plain `mxgrid.encode`. `dtype`
     overrides the compute dtype; the render, mesh and refinement paths pass
     float32.
     """

@@ -1,6 +1,6 @@
 """Multiresolution hash-grid encoding (instant-ngp / tiny-cuda-nn HashGrid
-semantics), plain PyTorch (counterpart of romap_tpu/ops/hashgrid.py:39-174,
-its gather path).
+semantics): the spec, the table's init, the corner arithmetic and `encode`
+(counterpart of romap_tpu/ops/hashgrid.py:39-174, its gather path).
 
 Per level l: scale_l = 2^(l log2 b) Nmin - 1, resolution ceil(scale_l) + 1,
 pos = x scale_l + 0.5, cell = floor(pos), frac = pos - cell; the level
@@ -10,14 +10,15 @@ cx ^ (cy 2654435761) ^ (cz 805459861), both in uint32 arithmetic, then
 modulo the level size; the 8 corners are blended trilinearly. All levels
 live in one [total_params, F] table per object.
 
-The reference's uint32 arithmetic is done in int64 and masked to 32 bits;
-a product by a 32-bit prime is split into its high and low 16 bits so that
-no int64 product overflows. The lookup is one `index_select` of the flat
-[O x total_params, F] table, so autograd's backward is `index_add_`, the
-counterpart of XLA's scatter-add transpose; the points get their gradient
-through the trilinear weights. This was never a Pallas kernel: a CUDA
-tensor runs the same code on the card. The reference's `impl="sorted"`
-(a workaround for the TPU's serialised scatter-adds) is not ported.
+Here the reference's uint32 arithmetic is done in int64 and masked to 32
+bits; a product by a 32-bit prime is split into its high and low 16 bits so
+that no int64 product overflows (`corner_rows`). `encode` is one autograd
+node whose forward, table gradient and points gradient are picked by the
+points' device (`ops/hashgrid_cuda.py`): a CUDA tensor launches the
+kernels H1, H2 and H0 (csrc/hashgrid.cu) or raises, a CPU tensor takes
+their plain PyTorch twins, built on `corner_rows`. The reference's
+`impl="sorted"` (a workaround for the TPU's serialised scatter-adds) is not
+ported.
 """
 
 from __future__ import annotations
@@ -88,7 +89,7 @@ def init_table(generator: torch.Generator, spec: HashGridSpec, n_objects: int,
 
 
 # the 8 corner offsets of a cell: corner c has bit d set along axis d
-_CORNERS = [[(c >> d) & 1 for d in range(3)] for c in range(8)]
+CORNERS = [[(c >> d) & 1 for d in range(3)] for c in range(8)]
 
 
 def _times_prime(c: torch.Tensor, prime: int) -> torch.Tensor:
@@ -97,10 +98,12 @@ def _times_prime(c: torch.Tensor, prime: int) -> torch.Tensor:
     return ((((c * hi) & 0xFFFF) << 16) + c * lo) & _MASK32
 
 
-def _corner_rows(p: torch.Tensor, spec: HashGridSpec):
+def corner_rows(p: torch.Tensor, spec: HashGridSpec):
     """Points [N, 3] -> (rows [N, L, 8] int64 into the level-concatenated
-    table, trilinear weights [N, L, 8] fp32)."""
-    corners = torch.tensor(_CORNERS, dtype=torch.int64, device=p.device)  # [8, 3]
+    table, per-axis weights [N, L, 8, 3] fp32: frac_d where corner c has bit
+    d set, else 1 - frac_d; the trilinear weight is their product in the
+    order (x y) z, `trilinear`)."""
+    corners = torch.tensor(CORNERS, dtype=torch.int64, device=p.device)  # [8, 3]
     bits = corners.bool()
     rows, weights = [], []
     for scale, res, size, offset in zip(spec.scales, spec.resolutions, spec.sizes,
@@ -115,13 +118,18 @@ def _corner_rows(p: torch.Tensor, spec: HashGridSpec):
         else:
             idx = cx ^ _times_prime(cy, _PRIME_Y) ^ _times_prime(cz, _PRIME_Z)
         rows.append(idx % size + offset)
-        cw = torch.where(bits, frac[:, None, :], 1.0 - frac[:, None, :])  # [N, 8, 3]
-        weights.append(cw[..., 0] * cw[..., 1] * cw[..., 2])
+        weights.append(torch.where(bits, frac[:, None, :], 1.0 - frac[:, None, :]))
     return torch.stack(rows, dim=1), torch.stack(weights, dim=1)
 
 
+def trilinear(cw: torch.Tensor) -> torch.Tensor:
+    """Per-axis weights [..., 3] -> the corners' trilinear weights [...]."""
+    return cw[..., 0] * cw[..., 1] * cw[..., 2]
+
+
 def encode(table: torch.Tensor, x: torch.Tensor, spec: HashGridSpec) -> torch.Tensor:
-    """Encode points with the multiresolution hash grid.
+    """Encode points with the multiresolution hash grid: H1 forward, H2 / H0
+    backward on the card, their twins on the CPU (`hashgrid_cuda.encode`).
 
     Args:
       table: [O, total_params, F] (all levels concatenated), per object.
@@ -129,15 +137,6 @@ def encode(table: torch.Tensor, x: torch.Tensor, spec: HashGridSpec) -> torch.Te
     Returns:
       [O, ..., L*F] features (level-major) in the table's dtype.
     """
-    o, batch_shape = x.shape[0], x.shape[1:-1]
-    p = x.reshape(o, -1, 3)
-    n = p.shape[1]
-    rows, w = _corner_rows(p.reshape(-1, 3), spec)  # [O*N, L, 8]
-    rows = rows.reshape(o, n, -1) + (torch.arange(o, device=x.device) * spec.total_params
-                                     ).reshape(o, 1, 1)
-    flat = table.reshape(o * spec.total_params, spec.n_features)
-    feats = flat.index_select(0, rows.reshape(-1)).reshape(
-        o, n, spec.n_levels, 8, spec.n_features)
-    w = w.reshape(o, n, spec.n_levels, 8, 1).to(table.dtype)
-    out = torch.sum(feats * w, dim=3)  # [O, N, L, F]
-    return out.reshape(o, *batch_shape, spec.n_output_dims)
+    from romap_tpu_torch.ops import hashgrid_cuda  # it imports this module
+
+    return hashgrid_cuda.encode(table, x, spec)

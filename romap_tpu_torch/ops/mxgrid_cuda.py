@@ -149,7 +149,7 @@ def build_library() -> Path:
 def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build_library()))
     ptr, i32, ints = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
-    ptrs = ctypes.POINTER(ctypes.c_void_p)
+    ptrs, floats = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_float)
     argtypes = {
         "romap_mx_folded_fwd": [i32] * 2 + [ptr] * 8 + [i32] * 10 + [ptr],
         "romap_mx_folded_bwd": [i32] * 2 + [ptr] * 8 + [i32] * 10 + [ptr],
@@ -166,6 +166,10 @@ def _library() -> ctypes.CDLL:
                                 + [i32] * 3 + [ptr]),
         "romap_mx_points_grad": ([i32] * 2 + [ptr] * 2 + [ints] * 2 + [i32] * 2 + [ptr, i32]
                                  + [ptrs] * 2 + [ints] * 3 + [ptr] * 4 + [i32] * 4 + [ptr]),
+        # the hash grid's H1, H2, H0 (csrc/hashgrid.cu; ops/hashgrid_cuda.py)
+        "romap_hash_fwd": [i32] + [ptr] * 3 + [floats, ints] + [i32] * 5 + [ptr],
+        "romap_hash_bwd": [i32] + [ptr] * 3 + [floats, ints] + [i32] * 5 + [ptr],
+        "romap_hash_points_grad": [i32] + [ptr] * 4 + [floats, ints] + [i32] * 5 + [ptr],
     }
     for name, types in argtypes.items():
         fn = getattr(lib, name)
@@ -1175,16 +1179,25 @@ KERNELS = {
 PRODUCT_PASSES = {"cp_product_pass": cp_product_pass, "cp_product": cp_product}
 
 
+def _all_kernels() -> dict:
+    """K0-K10 and the hash grid's H0-H2 (`hashgrid_cuda`, which imports this
+    module, hence imported here)."""
+    from romap_tpu_torch.ops import hashgrid_cuda
+
+    return {**KERNELS, **hashgrid_cuda.KERNELS}
+
+
 def reset_launch_counts() -> None:
-    for fn in (*KERNELS.values(), *PRODUCT_PASSES.values()):
+    for fn in (*_all_kernels().values(), *PRODUCT_PASSES.values()):
         fn.launches = 0
         fn.launches_by_dtype.clear()
         fn.launches_by_variant.clear()
 
 
 def launch_counts() -> dict[str, int]:
-    """{kernel: launches since the last `reset_launch_counts`}."""
-    return {k: fn.launches for k, fn in KERNELS.items()}
+    """{kernel: launches since the last `reset_launch_counts`}: K0-K10, then
+    the hash grid's H0-H2."""
+    return {k: fn.launches for k, fn in _all_kernels().items()}
 
 
 # --------------------------------------------------------------------------

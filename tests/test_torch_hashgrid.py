@@ -21,6 +21,7 @@ from romap_tpu_torch import config as tcfg
 from romap_tpu_torch.data.world import build_synthetic_world as tworld
 from romap_tpu_torch.models import nerf as tnerf
 from romap_tpu_torch.ops import hashgrid as thash
+from romap_tpu_torch.ops import hashgrid_cuda, mxgrid_cuda
 from romap_tpu_torch.utils import checkpoint, jax_bridge
 from tests.oracles import hashgrid_encode_ref
 from tests.test_torch_train import close_share, replay
@@ -160,3 +161,113 @@ def test_hash_grid_train_step_equals_jax(tmp_path, n_iters):
                                           tnerf.init_train_state(torch.Generator(), cap, tc,
                                                                  tspec))
     torch.testing.assert_close(back.params["table"], ts.params["table"], rtol=0, atol=0)
+
+
+# --------------------------------------------------------------------------
+# The kernels' wrappers and twins on the CPU (ops/hashgrid_cuda.py)
+# --------------------------------------------------------------------------
+
+
+def test_cpu_encode_takes_the_twins_and_never_loads_the_library(monkeypatch):
+    """`hashgrid.encode` on CPU tensors: the forward and both gradients come
+    from the plain twins; nothing builds or loads the kernel library, and
+    no H0-H2 launch is counted."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CPU tensor reached the kernel library")
+
+    monkeypatch.setattr(mxgrid_cuda, "build_library", refuse)
+    monkeypatch.setattr(mxgrid_cuda, "_library", refuse)
+    _, spec = specs(**SMALL)
+    rng = np.random.default_rng(7)
+    table = torch.tensor(rng.normal(size=(2, spec.total_params, spec.n_features)),
+                         dtype=torch.float32, requires_grad=True)
+    x = torch.tensor(rng.uniform(-0.2, 1.2, size=(2, 6, 5, 3)), dtype=torch.float32,
+                     requires_grad=True)
+    before = {k: fn.launches for k, fn in hashgrid_cuda.KERNELS.items()}
+    out = thash.encode(table, x, spec)
+    gt, gx = torch.autograd.grad(torch.sum(out**2), (table, x))
+    assert {k: fn.launches for k, fn in hashgrid_cuda.KERNELS.items()} == before
+    assert out.shape == (2, 6, 5, spec.n_output_dims) and gx.shape == x.shape
+    pts = x.detach().reshape(2, -1, 3)
+    want = hashgrid_cuda.forward_plain(pts, table.detach(), spec)
+    torch.testing.assert_close(out.detach().reshape(2, 30, -1), want, rtol=0, atol=0)
+    g = 2 * want
+    torch.testing.assert_close(gt, hashgrid_cuda.table_gradient_plain(pts, g, spec),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(gx.reshape(2, 30, 3), hashgrid_cuda.points_gradient_plain(
+        pts, table.detach(), g, spec), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("enc", [{}, SMALL], ids=["reference", "small"])
+def test_level_constants_equal_the_specs(enc):
+    """The per-level constants the wrapper packs for the kernels: scales as
+    fp32 (as the twin and JAX multiply by them), resolutions, sizes,
+    offsets and the dense flags, against the port's spec and JAX's; and the
+    host arrays the C entry points take."""
+    jspec, tspec = specs(**enc)
+    lc = hashgrid_cuda.level_constants(tspec)
+    for spec in (tspec, jspec):
+        assert lc.scales == tuple(float(np.float32(s)) for s in spec.scales)
+        assert lc.resolutions == tuple(spec.resolutions)
+        assert lc.sizes == tuple(spec.sizes)
+        assert lc.offsets == tuple(spec.offsets)
+        assert lc.dense == tuple(r**3 <= n for r, n in zip(spec.resolutions, spec.sizes))
+    assert any(lc.dense) and not all(lc.dense)  # both kinds of level
+    scales, ints, n, f = hashgrid_cuda._level_args(tspec)
+    assert (n, f) == (tspec.n_levels, tspec.n_features)
+    np.testing.assert_array_equal(np.asarray(list(scales), np.float32),
+                                  np.asarray(jspec.scales, np.float32))
+    assert list(ints) == [*lc.resolutions, *lc.sizes, *lc.offsets, *map(int, lc.dense)]
+
+
+def test_launch_counts_list_the_hash_grid_kernels():
+    """`mxgrid_cuda.launch_counts()` (what the CLIs write into `--trace`)
+    lists H0-H2 after K0-K10, and `reset_launch_counts()` zeroes them."""
+    hashgrid_cuda.forward.launches = 3
+    assert list(mxgrid_cuda.launch_counts()) == [*mxgrid_cuda.KERNELS, "H0", "H1", "H2"]
+    assert mxgrid_cuda.launch_counts()["H1"] == 3
+    mxgrid_cuda.reset_launch_counts()
+    assert not any(mxgrid_cuda.launch_counts().values())
+
+
+@pytest.mark.parametrize("enc", [SMALL, {}], ids=["small", "reference"])
+def test_twin_gradients_equal_autograd_of_the_twin_forward(enc):
+    """The arithmetic H2 and H0 repeat, in their twins (an index_add_ into
+    an fp32 buffer; the explicit derivative of the trilinear weights times
+    the level's scale), against autograd through H1's twin, fp32, points in
+    the cube and up to 0.3 past it: within 1e-5 of the largest entry (the
+    same products, summed in another order)."""
+    _, spec = specs(**enc)
+    rng = np.random.default_rng(11)
+    table = torch.tensor(rng.normal(size=(2, spec.total_params, spec.n_features)),
+                         dtype=torch.float32)
+    x = torch.tensor(rng.uniform(-0.3, 1.3, size=(2, 300, 3)), dtype=torch.float32)
+    g = torch.tensor(rng.normal(size=(2, 300, spec.n_output_dims)), dtype=torch.float32)
+    t, p = table.clone().requires_grad_(True), x.clone().requires_grad_(True)
+    want_t, want_x = torch.autograd.grad(
+        torch.sum(hashgrid_cuda.forward_plain(p, t, spec) * g), (t, p))
+    got_t = hashgrid_cuda.table_gradient_plain(x, g, spec)
+    got_x = hashgrid_cuda.points_gradient_plain(x, table, g, spec)
+    for got, want in ((got_t, want_t), (got_x, want_x)):
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+def test_bf16_twins_round_once():
+    """H1's and H2's twins in bf16 blend and sum in fp32 and round once at
+    the end, as the kernels do: equal, bit for bit, to the fp32 twins on
+    the same bf16 table and cotangent, rounded to bf16."""
+    _, spec = specs(**SMALL)
+    rng = np.random.default_rng(13)
+    table = torch.tensor(rng.normal(size=(2, spec.total_params, spec.n_features)),
+                         dtype=torch.bfloat16)
+    x = torch.tensor(rng.uniform(0, 1, size=(2, 200, 3)), dtype=torch.float32)
+    g = torch.tensor(rng.normal(size=(2, 200, spec.n_output_dims)), dtype=torch.bfloat16)
+    out = hashgrid_cuda.forward_plain(x, table, spec)
+    assert out.dtype == torch.bfloat16
+    torch.testing.assert_close(
+        out, hashgrid_cuda.forward_plain(x, table.float(), spec).bfloat16(), rtol=0, atol=0)
+    dt = hashgrid_cuda.table_gradient_plain(x, g, spec)
+    assert dt.dtype == torch.bfloat16
+    torch.testing.assert_close(
+        dt, hashgrid_cuda.table_gradient_plain(x, g.float(), spec).bfloat16(), rtol=0, atol=0)

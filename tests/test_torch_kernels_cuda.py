@@ -1,5 +1,5 @@
-"""K0-K10 (romap_tpu_torch/csrc) against their plain PyTorch twins on
-the card. Every test needs a CUDA device and skips without one (decided
+"""K0-K10 and the hash grid's H0-H2 (romap_tpu_torch/csrc) against their
+plain PyTorch twins on the card. Every test needs a CUDA device and skips without one (decided
 inside the fixture, at run time). Run them on a GPU machine with
 `python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q`
 (the repo conftest imports jax, which a GPU machine need not have).
@@ -17,7 +17,8 @@ import numpy as np
 import pytest
 import torch
 
-from romap_tpu_torch.ops import mxgrid, mxgrid_cuda
+from romap_tpu_torch.config import EncodingConfig
+from romap_tpu_torch.ops import hashgrid, hashgrid_cuda, mxgrid, mxgrid_cuda
 
 
 @pytest.fixture
@@ -1326,3 +1327,173 @@ def test_fp32_unsnapped_forward_at_preset_widths(cuda, path, n_obj, n_pts):
     for a, b in zip(got, plain(pts, *args, spec)):
         assert a.shape == b.shape and torch.isfinite(a).all()
         assert rel_err(a, b) < 1e-4
+
+
+# --------------------------------------------------------------------------
+# H0-H2: the hash grid (csrc/hashgrid.cu)
+# --------------------------------------------------------------------------
+# Tolerances, relative to each tensor's largest entry: H1 in fp32 differs
+# from its twin only in the order of its 8-term fp32 sum (and an FMA), 1e-5;
+# in bf16 both round the same fp32 blend once at the store, so a stored
+# value may differ by one bf16 step (2^-8 relative), 1e-2. H2 sums with
+# atomics in an order that changes from run to run, against the twin's
+# index_add_ (hundreds of terms a coarse row), 1e-4 in fp32 and one bf16
+# step after its one cast, 1e-2. H0 sums the same fp32 products (of the
+# same bf16 inputs in bf16) in another order, 1e-4.
+
+HASH_SMALL = dict(kind="hashgrid", n_levels=4, n_features_per_level=2, log2_hashmap_size=9,
+                  base_resolution=4, desired_resolution=64.0)
+HASH_TOL = {"H1": {torch.float32: 1e-5, torch.bfloat16: 1e-2},
+            "H2": {torch.float32: 1e-4, torch.bfloat16: 1e-2},
+            "H0": {torch.float32: 1e-4, torch.bfloat16: 1e-4}}
+
+
+def hash_spec(name):
+    """`small`: 4 levels of 2 features, the first dense (4^3 = 64 rows), the
+    others (resolutions 11, 26, 64) hashed into 512 rows; `small_f<n>`: the
+    same with n features a level (the other counts the kernels take);
+    `tcnn`: RO-MAP's 16 x 2, three dense levels, then 2^16 rows a level."""
+    if name == "tcnn":
+        return hashgrid.make_spec(EncodingConfig.preset("tcnn"))
+    f = int(name.split("_f")[1]) if "_f" in name else 2
+    return hashgrid.make_spec(EncodingConfig(**dict(HASH_SMALL, n_features_per_level=f)))
+
+
+def hash_points(n_obj, n_pts, kind, g):
+    """`uniform`: in the cube and 2e-3 past it; `faces`: one coordinate of
+    each point exactly 0 or 1 (and the cube's corners); `outside`: up to
+    0.3 past the cube, where cells are negative (the uint32 wrap); `rays`:
+    32 ordered samples a chord of the cube, as a train step draws them (runs
+    of neighbouring points in one coarse cell)."""
+    if kind == "outside":
+        return torch.rand((n_obj, n_pts, 3), generator=g) * 1.6 - 0.3
+    if kind == "rays":
+        n_rays = -(-n_pts // 32)
+        a, b = (torch.rand((n_obj, n_rays, 1, 3), generator=g) for _ in range(2))
+        t = torch.linspace(0, 1, 32)[None, None, :, None]
+        return (a + t * (b - a)).reshape(n_obj, -1, 3)[:, :n_pts].contiguous()
+    pts = torch.rand((n_obj, n_pts, 3), generator=g) * (1 + 4e-3) - 2e-3
+    if kind == "faces":
+        axis = torch.randint(0, 3, (n_obj, n_pts), generator=g)
+        side = torch.randint(0, 2, (n_obj, n_pts), generator=g).float()
+        pts.scatter_(2, axis[..., None], side[..., None])
+        pts[:, :8] = torch.tensor(hashgrid.CORNERS, dtype=torch.float32)[: min(8, n_pts)]
+    return pts
+
+
+def hash_case(spec, n_obj, n_pts, kind, dtype, cuda, seed):
+    """Points, a table N(0, 1) and a cotangent N(0, 1) on the card."""
+    g = torch.Generator().manual_seed(seed)
+    pts = hash_points(n_obj, n_pts, kind, g).to(cuda)
+    table = torch.randn((n_obj, spec.total_params, spec.n_features), generator=g)
+    gout = torch.randn((n_obj, n_pts, spec.n_output_dims), generator=g)
+    return pts, table.to(cuda, dtype), gout.to(cuda, dtype)
+
+
+HASH_CASES = [("small", 3, 4097), ("small", 2, 45), ("small", 1, 1), ("small_f1", 2, 4097),
+              ("small_f4", 2, 4097), ("small_f8", 2, 4097), ("tcnn", 4, 131072)]
+
+
+@pytest.mark.parametrize("kind", ["uniform", "faces", "outside", "rays"])
+@pytest.mark.parametrize("name,n_obj,n_pts", HASH_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_hash_kernels_match_plain(cuda, dtype, name, n_obj, n_pts, kind):
+    """H1, H2 and H0 each against its plain twin from the same inputs, one
+    launch each: a small spec with dense and hashed levels and the tcnn spec
+    at room4's O=4 x 131,072, points in the cube, on its faces and outside
+    it."""
+    spec = hash_spec(name)
+    pts, table, gout = hash_case(spec, n_obj, n_pts, kind, dtype, cuda, seed=53)
+    mxgrid_cuda.reset_launch_counts()
+    got = {"H1": hashgrid_cuda.forward(pts, table, spec),
+           "H2": hashgrid_cuda.table_gradient(pts, gout, spec),
+           "H0": hashgrid_cuda.points_gradient(pts, table, gout, spec)}
+    torch.cuda.synchronize()
+    assert {k: n for k, n in mxgrid_cuda.launch_counts().items() if n} == {
+        "H0": 1, "H1": 1, "H2": 1}
+    want = {"H1": hashgrid_cuda.forward_plain(pts, table, spec),
+            "H2": hashgrid_cuda.table_gradient_plain(pts, gout, spec),
+            "H0": hashgrid_cuda.points_gradient_plain(pts, table, gout, spec)}
+    for k in got:
+        a, b = got[k], want[k]
+        assert a.dtype == b.dtype and a.shape == b.shape and torch.isfinite(a).all(), k
+        assert rel_err(a, b) < HASH_TOL[k][dtype], k
+
+
+@pytest.mark.parametrize("name", ["small", "tcnn"])
+def test_hash_encode_autograd_matches_plain(cuda, name):
+    """`hashgrid.encode` on the card (H1, then H2 and H0 in its backward)
+    against autograd through H1's twin (index_select's backward and the
+    derivative of the trilinear weights), fp32: the values within 1e-5,
+    the table's and the points' gradients within 1e-4; and the table's
+    gradient against a central difference along a random direction, which
+    is exact but for rounding (the encode is linear in the table). The
+    points are uniform: none lies on a cell's face, where the weights'
+    derivative jumps."""
+    spec = hash_spec(name)
+    pts, table, gout = hash_case(spec, 2, 3000, "uniform", torch.float32, cuda, seed=59)
+
+    def run(enc):
+        t, p = table.clone().requires_grad_(True), pts.clone().requires_grad_(True)
+        out = enc(t, p)
+        return [out, *torch.autograd.grad(torch.sum(out * gout), (t, p))]
+
+    mxgrid_cuda.reset_launch_counts()
+    got = run(lambda t, p: hashgrid.encode(t, p, spec))
+    torch.cuda.synchronize()
+    assert {k: n for k, n in mxgrid_cuda.launch_counts().items() if n} == {
+        "H0": 1, "H1": 1, "H2": 1}
+    want = run(lambda t, p: hashgrid_cuda.forward_plain(p, t, spec))
+    for a, b, tol in zip(got, want, (1e-5, 1e-4, 1e-4)):
+        assert a.shape == b.shape and rel_err(a, b) < tol
+    d = torch.randn(table.shape, generator=torch.Generator().manual_seed(61)).to(cuda)
+    f = lambda t: float(torch.sum(hashgrid.encode(t, pts, spec).double() * gout.double()))
+    fd = f(table + 0.5 * d) - f(table - 0.5 * d)
+    terms = got[1].double() * d.double()
+    assert abs(fd - float(terms.sum())) < 1e-4 * float(terms.abs().sum())
+
+
+def test_hash_encode_backward_runs_the_gradients_asked_for(cuda):
+    """A table that needs a gradient runs H2 only; points that need one
+    (pose refinement: the table frozen) run H0 only."""
+    spec = hash_spec("small")
+    pts, table, gout = hash_case(spec, 1, 500, "uniform", torch.float32, cuda, seed=67)
+    for leaf in ("table", "points"):
+        t = table.clone().requires_grad_(leaf == "table")
+        p = pts.clone().requires_grad_(leaf == "points")
+        mxgrid_cuda.reset_launch_counts()
+        out = hashgrid.encode(t, p, spec)
+        torch.autograd.grad(torch.sum(out * gout), t if leaf == "table" else p)
+        launched = {k: n for k, n in mxgrid_cuda.launch_counts().items() if n}
+        assert launched == {"H1": 1, "H2" if leaf == "table" else "H0": 1}, leaf
+
+
+def test_hash_wrappers_refuse_bad_inputs(cuda):
+    """A CUDA tensor launches the kernel or raises: a table on another
+    device, a dtype the kernels do not take, a wrong shape, a non-contiguous
+    or misaligned table, points not fp32, a spec of 3 features a level."""
+    spec = hash_spec("small")
+    pts, table, gout = hash_case(spec, 2, 100, "uniform", torch.float32, cuda, seed=71)
+    o, t, f = table.shape
+    mxgrid_cuda.reset_launch_counts()
+    with pytest.raises(ValueError, match="on cpu"):
+        hashgrid_cuda.forward(pts, table.cpu(), spec)
+    with pytest.raises(ValueError, match="not supported"):
+        hashgrid_cuda.forward(pts, table.half(), spec)
+    with pytest.raises(ValueError, match="shape"):
+        hashgrid_cuda.forward(pts, table[:, :-8].contiguous(), spec)
+    with pytest.raises(ValueError, match="contiguous"):
+        hashgrid_cuda.forward(pts, table.transpose(1, 2).contiguous().transpose(1, 2), spec)
+    with pytest.raises(ValueError, match="aligned"):
+        hashgrid_cuda.forward(pts, torch.zeros(o * t * f + 1, device=cuda)[1:].view(o, t, f),
+                              spec)
+    with pytest.raises(ValueError, match="dtype"):
+        hashgrid_cuda.forward(pts.double(), table, spec)
+    with pytest.raises(ValueError, match="shape"):
+        hashgrid_cuda.table_gradient(pts, gout[..., :-2].contiguous(), spec)
+    with pytest.raises(ValueError, match="dtype"):
+        hashgrid_cuda.points_gradient(pts, table, gout.bfloat16(), spec)
+    spec3 = hashgrid.make_spec(EncodingConfig(**dict(HASH_SMALL, n_features_per_level=3)))
+    with pytest.raises(NotImplementedError, match="features"):
+        hashgrid_cuda.forward(pts, torch.zeros((o, spec3.total_params, 3), device=cuda), spec3)
+    assert not any(mxgrid_cuda.launch_counts().values())

@@ -30,7 +30,7 @@ def readings(workload, seeds, control=False, fault=None, device="cuda", override
     from portbench import check, run
     from portbench.counts import compute_dtype
     from portbench.faults import FAULTS
-    from portbench.reference import nerf as ref
+    from portbench.reference.precision import Precision
 
     c = run.load(workload, overrides)
     dev = torch.device(device)
@@ -51,7 +51,7 @@ def readings(workload, seeds, control=False, fault=None, device="cuda", override
         row = dict(seed=seed, program=nums, correct=correct,
                    program_steps=_per_step(prog, refr, facts["active"]))
         if control:
-            q = ref.Precision(check.CONTROL[getattr(torch, compute_dtype(c["config"], dev))])
+            q = Precision(check.CONTROL[getattr(torch, compute_dtype(c["config"], dev))])
             ctl = check.reference(c["config"], seed, facts["n_slots"], len(prog["losses"]),
                                   facts["frames"], facts["objects"], dev, q)
             row["control"] = check.compare(ctl, refr, facts["active"])

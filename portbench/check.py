@@ -34,7 +34,8 @@ share of first updates that flip sign is what separates one precision
 from the next (PERF.md, the limits).
 
 The control puts the reference in the program's place, computed in the
-precision below the configuration's (`CONTROL`).
+precision below the configuration's (`CONTROL`). The reference is the
+field module that the configuration file names (`registry.reference`).
 """
 
 from __future__ import annotations
@@ -42,7 +43,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from portbench.reference import nerf as ref
+from portbench import registry
+from portbench.reference.precision import FP32, Precision
 
 # the precision below each stated compute precision
 CONTROL = {torch.bfloat16: torch.float8_e4m3fn, torch.float16: torch.float8_e4m3fn,
@@ -68,11 +70,11 @@ def draw_seed(seed: int) -> int:
 
 
 def reference(cfg: dict, seed: int, n_slots: int, n_steps: int, frames: dict,
-              objects: list[dict], device, q: ref.Precision = ref.FP32) -> dict:
+              objects: list[dict], device, q: Precision = FP32) -> dict:
     """`follow` on the run's inputs, made again from the seed: the weights
-    (`reference.nerf.init_weights`) and each step's draws."""
+    (the field's `init_weights`) and each step's draws."""
     g = torch.Generator(device=device).manual_seed(weight_seed(seed))
-    weights = ref.init_weights(g, cfg, n_slots)
+    weights = registry.reference(cfg).init_weights(g, cfg, n_slots)
     gen = torch.Generator(device=device).manual_seed(draw_seed(seed))
     return follow(cfg, frames, objects, weights, draws(gen, n_slots, cfg["train"], n_steps), q)
 
@@ -86,10 +88,12 @@ def draws(gen: torch.Generator, n_slots: int, train: dict, steps: int):
 
 
 def follow(cfg: dict, frames: dict, objects: list[dict], weights: dict, steps_draws,
-           q: ref.Precision = ref.FP32) -> dict:
+           q: Precision = FP32) -> dict:
     """The reference's readings, shaped as the program's: losses [steps][O]
     (NaN where a slot is not followed), grad_norm, change_norm and
-    ema_change_norm {leaf: [O]}, over the active objects."""
+    ema_change_norm {leaf: [O]}, over the active objects, through the
+    configuration's field (its `fresh_state` and `step`)."""
+    ref = registry.reference(cfg)
     n_slots = next(iter(weights.values())).shape[0]
     steps = len(steps_draws)
     losses = np.full((steps, n_slots), np.nan)

@@ -9,7 +9,10 @@ or None where the run has nothing for it to read. `ctx` is built by
   host_issue_s            host seconds to issue one step, device idle at its
                           start, over unprofiled steps after the window
   profile                 `trace.read` of the profiled steps (busy_s,
-                          launches, span_s, ...), profiled_steps of them
+                          launches, span_s, ...), profiled_steps of them;
+                          span_s is keyed by the program's own span names
+                          (`trace.STEP_SPANS`), and empty where the program
+                          has no tracing
   work                    `counts.of`: the encode's least seconds a step,
                           model FLOPs of an object step, the bf16 peak
   peak_window_bytes       the card's peak allocation over the window

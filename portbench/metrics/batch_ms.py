@@ -1,8 +1,8 @@
-"""batch generation: device milliseconds a step under the harness's `batch generation`
-span(s), from the profile."""
+"""batch generation: device milliseconds a step under the program's `batch`
+spans (the draws and the batch), from the profile."""
 
 
 def read(ctx):
     p = ctx.get("profile")
-    s = p["span_s"].get("batch generation") if p else None
+    s = p["span_s"].get("batch") if p else None
     return 1e3 * s / ctx["profiled_steps"] if s else None

@@ -1,8 +1,8 @@
-"""MLP: device milliseconds a step under the MLP's forward and backward
-spans, from the profile."""
+"""MLP: device milliseconds a step under the program's `mlp.fwd` and
+`mlp.bwd` spans, from the profile."""
 
 
 def read(ctx):
     p = ctx.get("profile")
-    s = sum(p["span_s"].get(k, 0.0) for k in ("MLP forward", "MLP backward")) if p else 0.0
+    s = sum(p["span_s"].get(k, 0.0) for k in ("mlp.fwd", "mlp.bwd")) if p else 0.0
     return 1e3 * s / ctx["profiled_steps"] if s else None

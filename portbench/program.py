@@ -10,11 +10,11 @@ One entry point, named by a traffic file's `entry`:
            OfflineNeRF schedule)
 
 Set-up makes the program's own training state, writes the benchmark's
-weights into it (`reference.nerf.init_weights`, from the seed, on the
-card), gives it a random stream seeded by the benchmark, and drives it
-through three steps of the window's own call (`nerf.train_objects` as the
-runner calls it) whose outputs are read for the comparison with the
-reference. The same object then runs the window.
+weights into it (the configuration's field's `init_weights`, from the
+seed, on the card), gives it a random stream seeded by the benchmark, and
+drives it through three steps of the window's own call
+(`nerf.train_objects` as the runner calls it) whose outputs are read for
+the comparison with the reference. The same object then runs the window.
 
 The window's boundaries are read from the program's own barriers: the
 harness wraps `nerf.train_objects` (a wave, then the runner's `.cpu()`)
@@ -43,9 +43,8 @@ from romap_tpu_torch.models import nerf
 from romap_tpu_torch.runtime import artifacts
 from romap_tpu_torch.runtime.offline import OfflineRunner
 
-from portbench import check, scene
+from portbench import check, registry, scene
 from portbench.frozen import world
-from portbench.reference import nerf as ref
 from portbench.window import Window
 
 CHECKED_STEPS = 3
@@ -66,8 +65,20 @@ def nerf_config(cfg: dict) -> NerfConfig:
                       train=fields(TrainConfig, cfg["train"]))
 
 
+def _paths(tree: dict, prefix: str = ""):
+    """(path joined with ".", tensor) of each tensor in a tree of dicts."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _paths(v, f"{prefix}{k}.")
+        else:
+            yield f"{prefix}{k}", v
+
+
 def leaves(params, kind: str) -> dict:
-    """{reference leaf name: the program's tensor} of a params tree."""
+    """{reference leaf name: the program's tensor} of a params tree: the
+    encoding's `table`, or `lines`, `planes{i}` and `plane_lines{i}`; then
+    each tensor under `params["mlp"]` by its path below it (`w0`,
+    `rgb.w2`)."""
     t = params["table"]
     out = {}
     if isinstance(t, dict):
@@ -78,7 +89,7 @@ def leaves(params, kind: str) -> dict:
             out[f"plane_lines{i}"] = p
     else:
         out["table" if kind == "hashgrid" else "lines"] = t
-    out.update(params["mlp"])
+    out.update(_paths(params["mlp"]))
     return out
 
 
@@ -156,7 +167,7 @@ class Cell:
     # the checked steps' weights and draws; `check.reference` makes them again
     def weights(self, n_slots: int) -> dict:
         g = torch.Generator(device=self.device).manual_seed(check.weight_seed(self.seed))
-        return ref.init_weights(g, self.cfg, n_slots)
+        return registry.reference(self.cfg).init_weights(g, self.cfg, n_slots)
 
     def draw_generator(self) -> torch.Generator:
         return torch.Generator(device=self.device).manual_seed(check.draw_seed(self.seed))

@@ -1,9 +1,11 @@
 """Finding a cell's parts by name: its entry in `BENCHMARK.json`, its
 configuration file, its traffic file (`portbench/traffic/<traffic>.json`),
-its limits (`portbench/limits/<workload>.json`) and the reader of each
-per-layer metric (`portbench/metrics/<metric>.py`, a `read(ctx)` that
-returns a number or None). A later cell, mix or metric is new files and
-new entries; nothing here names one.
+its limits (`portbench/limits/<workload>.json`), the plain reference of
+its configuration's field (`portbench/reference/<reference>.py`, named by
+the configuration file's `"reference"`) and the reader of each per-layer
+metric (`portbench/metrics/<metric>.py`, a `read(ctx)` that returns a
+number or None). A later cell, mix, field or metric is new files and new
+entries; nothing here names one.
 """
 
 from __future__ import annotations
@@ -51,3 +53,16 @@ def cell(name: str, root: str = ROOT) -> dict:
 def reader(metric: str):
     """The `read(ctx)` of `portbench/metrics/<metric>.py`."""
     return importlib.import_module(f"portbench.metrics.{metric}").read
+
+
+def reference(cfg: dict):
+    """The field module (`portbench/reference/__init__.py`'s contract) that
+    a configuration file names under `"reference"`."""
+    from portbench.reference import FIELD
+
+    name = cfg["reference"]
+    mod = importlib.import_module(f"portbench.reference.{name}")
+    missing = [f for f in FIELD if not hasattr(mod, f)]
+    if missing:
+        raise ValueError(f"portbench.reference.{name} is not a field: it lacks {missing}")
+    return mod

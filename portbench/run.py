@@ -14,7 +14,9 @@ then compares the checked steps with the plain reference
             over the window's whole units, setup_s from the process's start
             to the window's); with --trace 1 its per-layer metrics, read by
             `portbench/metrics/<name>.py` from the window, ten unprofiled
-            steps (host issue) and five profiled ones
+            steps (host issue) and five profiled ones, over which alone the
+            program's own tracing (`romap_tpu_torch.utils.tracing`) is on, so
+            that the device trace carries the program's spans
   device    platform, card name, count, peak memory (with --trace 1 also
             busy_s and window_s of the profiled steps)
   breakdown (--trace 1) the device operations and idle gaps that took most
@@ -118,6 +120,15 @@ def load(workload: str, overrides: dict | None = None) -> dict:
     return c
 
 
+def program_tracing():
+    """The program's tracing module, or None where the program has none."""
+    try:
+        from romap_tpu_torch.utils import tracing
+    except ImportError:
+        return None
+    return tracing
+
+
 def program_cell(c: dict, seed: int, dev):
     """The program, set up as the cell states (`program.ENTRIES`); `setup()`
     runs its three checked steps."""
@@ -156,8 +167,8 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, device: str 
 
     import torch
 
-    from portbench import check, counts, registry, trace as tracing
-    from portbench.frozen.spans import SPANS, Spans
+    from portbench import check, counts, registry
+    from portbench.trace import STEP_SPANS, read as read_trace
     from romap_tpu_torch.models import nerf
 
     log = log or (lambda *a: print(*a, file=sys.stderr, flush=True))
@@ -188,23 +199,26 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, device: str 
                 step(1)
                 issue.append(time.perf_counter() - t0)
             sync()
-            spans = Spans(nerf)
+            spans = program_tracing()
             acts = [torch.profiler.ProfilerActivity.CPU]
             if cuda:
                 acts.append(torch.profiler.ProfilerActivity.CUDA)
-            try:
-                with torch.profiler.profile(activities=acts) as prof:
+            with torch.profiler.profile(activities=acts) as prof:
+                if spans is not None:
+                    spans.enable()
+                try:
                     t0 = time.perf_counter()
                     step(PROFILED_STEPS)
-                    spans.close()
                     sync()
                     wall = time.perf_counter() - t0
-            finally:
-                spans.restore()
+                finally:
+                    if spans is not None:
+                        spans.disable()
+                        spans.drain()
             path = os.path.join(tempfile.gettempdir(), f"portbench-trace-{os.getpid()}.json")
             prof.export_chrome_trace(path)
             try:
-                extra["profile"] = tracing.read(path, SPANS)
+                extra["profile"] = read_trace(path, STEP_SPANS)
             finally:
                 os.unlink(path)
             extra.update(host_issue_s=issue, profiled_wall_s=wall)

@@ -1,7 +1,7 @@
 """The benchmark's scenes, rendered on the card from the seed.
 
 The frozen writer (`portbench/frozen/world.py`) renders a 640 x 480 frame
-in NumPy in 0.6 s with 4 spheres: 48 s of set-up for room4's 80 frames.
+in NumPy in 0.6 s with 4 spheres: 48 s of set-up for 80 frames.
 This module renders the same frames (room walls, spheres, instance masks,
 2D boxes) with the same arithmetic in float64 torch on the card, a chunk of
 frames at a time; `tests/test_portbench_scene.py` holds it to the frozen

@@ -16,8 +16,8 @@ TINY_CONFIG = {"encoding": dict(mx_levels=2, mx_max_resolution=32, mx_features=8
                                 mx_plane_res=[16, 8], mx_plane_features=2, n_levels=4,
                                 log2_hashmap_size=10),
                "train": dict(rays_per_batch=64, samples_per_ray=8, mc_resolution=17)}
-TINY_TRAFFIC = {"offline": {"scene": dict(res=48, frames=12), "steps_per_wave": 2}}
-WORKLOAD = "tcnn.offline.room4"
+TINY_TRAFFIC = {"offline": {"scene": dict(res=48, frames=12, objects=4), "steps_per_wave": 2}}
+WORKLOAD = "tcnn.offline.room10"
 # the configuration files the tests run the cell's traffic with: the cell's
 # own (the hash grid), and the MX-grid of `configs/flagship.json` (K1/K2's
 # path), which no cell runs yet

@@ -53,8 +53,8 @@ def test_mlp_flops_of_the_flagship():
 
 
 @pytest.mark.parametrize("reader, key, span", [
-    (encode_fwd_roofline, "encode_fwd_s", "encode forward"),
-    (encode_bwd_roofline, "encode_bwd_s", "encode backward")])
+    (encode_fwd_roofline, "encode_fwd_s", "encode.fwd"),
+    (encode_bwd_roofline, "encode_bwd_s", "encode.bwd")])
 def test_roofline_share_is_least_over_measured(reader, key, span):
     ctx = dict(work={key: 0.002}, profiled_steps=5, profile=dict(span_s={span: 0.05}))
     assert reader.read(ctx) == pytest.approx(100 * 0.002 / 0.01)

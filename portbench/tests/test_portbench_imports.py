@@ -8,7 +8,7 @@ import os
 import subprocess
 import sys
 
-from conftest import ROOT
+from conftest import ROOT, WORKLOAD
 
 FORBIDDEN = {"jax", "jaxlib", "flax", "romap_tpu"}
 
@@ -24,8 +24,8 @@ def _loaded_after(code: str) -> set[str]:
 def test_a_run_loads_no_jax():
     code = ("import sys; sys.path.insert(0, 'portbench/tests')\n"
             "from conftest import tiny\nfrom portbench import run\n"
-            "run.run_cell('tcnn.offline.room4', 7, 0.3, True, device='cpu', "
-            "overrides=tiny('tcnn.offline.room4', 'float32'))")
+            f"run.run_cell({WORKLOAD!r}, 7, 0.3, True, device='cpu', "
+            f"overrides=tiny({WORKLOAD!r}, 'float32'))")
     loaded = _loaded_after(code)
     assert not loaded & FORBIDDEN
     assert "romap_tpu_torch" in loaded  # the whole-name comparison still sees the port
@@ -42,5 +42,7 @@ def test_reference_imports_nothing_of_the_program():
                 names = [node.module or ""]
             for n in names:
                 assert n.split(".")[0] not in FORBIDDEN | {"romap_tpu_torch"}, (path, n)
-    loaded = _loaded_after("import portbench.reference.nerf, portbench.reference.dataset")
+    modules = sorted(os.path.basename(p)[:-3] for p in
+                     glob.glob(os.path.join(ROOT, "portbench", "reference", "*.py")))
+    loaded = _loaded_after("; ".join(f"import portbench.reference.{m}" for m in modules))
     assert not loaded & (FORBIDDEN | {"romap_tpu_torch"})

@@ -37,7 +37,7 @@ def test_no_card_no_result():
     import torch
     if torch.cuda.is_available():
         pytest.skip("a card is present")
-    p = subprocess.run([sys.executable, "-m", "portbench.run", "--workload", "tcnn.offline.room4",
+    p = subprocess.run([sys.executable, "-m", "portbench.run", "--workload", WORKLOAD,
                         "--seed", "1", "--seconds", "1", "--trace", "0"], cwd=ROOT,
                        capture_output=True, text=True, timeout=300)
     assert p.returncode != 0 and p.stdout.strip() == ""
@@ -50,7 +50,7 @@ def test_no_result_without_the_program(tmp_path):
     shutil.copytree(os.path.join(ROOT, "portbench"), tmp_path / "portbench",
                     ignore=shutil.ignore_patterns("__pycache__"))
     env = dict(os.environ, PYTHONPATH="")
-    p = subprocess.run([sys.executable, "-m", "portbench.run", "--workload", "tcnn.offline.room4",
+    p = subprocess.run([sys.executable, "-m", "portbench.run", "--workload", WORKLOAD,
                         "--seed", "1", "--seconds", "1", "--trace", "0"], cwd=tmp_path,
                        capture_output=True, text=True, timeout=300, env=env)
     assert p.returncode != 0 and p.stdout.strip() == ""
@@ -58,7 +58,7 @@ def test_no_result_without_the_program(tmp_path):
 
 @pytest.mark.card
 def test_one_run_on_the_card(card):
-    p = subprocess.run([sys.executable, "-m", "portbench.run", "--workload", "tcnn.offline.room4",
+    p = subprocess.run([sys.executable, "-m", "portbench.run", "--workload", WORKLOAD,
                         "--seed", "12345678901", "--seconds", "5", "--trace", "0"], cwd=ROOT,
                        capture_output=True, text=True, timeout=600)
     assert p.returncode == 0, p.stderr[-2000:]

@@ -3,8 +3,10 @@
 The profiler's Chrome trace is read as data: device operations (kernels,
 copies, sets) with their start and length on the card's clock, the CUDA
 runtime calls that launched them (joined by their correlation id), the
-host operations and the harness's spans (`record_function`, see
-`frozen/spans.py`) on the launching thread. From them:
+host operations and the program's own spans on the launching thread (its
+tracing enters `record_function(name)` for each span while the profiler
+runs; the backward pass's spans open and close in tensor hooks on
+autograd's thread, which launches those kernels). From them:
 
   busy_s      the union of the device operations' intervals
   launches    how many kernels ran
@@ -23,6 +25,11 @@ import bisect
 import collections
 import json
 
+# the spans of one train step, as the program names them
+# (`romap_tpu_torch/models/nerf.py::STEP_SPANS`; written here, not imported):
+# `batch` opens twice a step, around the draws and around the batch
+STEP_SPANS = ("batch", "encode.fwd", "mlp.fwd", "loss.fwd", "loss.bwd", "mlp.bwd",
+              "encode.bwd", "optimizer.update")
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
 

@@ -150,7 +150,18 @@ class EncodingConfig:
 
 @dataclasses.dataclass(frozen=True)
 class NetworkConfig:
-    """Tiny MLP head, ref base.json:30-38 (FullyFusedMLP, bias-free)."""
+    """Tiny MLP head, ref base.json:30-38 (FullyFusedMLP, bias-free).
+
+    `sh_degree` 0 (the default) is RO-MAP's field: one head of
+    `n_hidden_layers` x `n_neurons` to `output_dims` (4: rgb + sigma)
+    outputs, no view direction. `sh_degree` 4 is instant-ngp's NeRF
+    (configs/nerf/base.json): the head becomes the density network, to
+    `output_dims` (16 there) outputs, output 0 the log-density, and a
+    colour network of `rgb_n_hidden_layers` x `rgb_n_neurons` to 3 takes
+    those outputs beside the 16 spherical harmonics of the ray's direction
+    (`ops/sh.py`; `ops/mlp.view_dependent`). The `rgb_*` fields are unused
+    at degree 0.
+    """
 
     n_neurons: int = 64
     n_hidden_layers: int = 1
@@ -158,7 +169,15 @@ class NetworkConfig:
     # Logistic, mDensityActivation = Exponential.
     rgb_activation: str = "logistic"
     density_activation: str = "exponential"
-    output_dims: int = 4  # rgb + sigma
+    output_dims: int = 4  # rgb + sigma; the density network's width at sh_degree 4
+    # the view branch (instant-ngp's dir_encoding and rgb_network)
+    sh_degree: int = 0  # 0: no direction input; 4: 16 SH functions
+    rgb_n_neurons: int = 64
+    rgb_n_hidden_layers: int = 2
+
+    def __post_init__(self):
+        if self.sh_degree not in (0, 4):
+            raise ValueError(f"sh_degree {self.sh_degree}: 0 (no direction) or 4")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -206,11 +225,35 @@ class NerfConfig:
     seed: int = 1337  # ref nerf_model.h m_seed = 1337
 
 
+def _sh_degree(dir_encoding: dict) -> int:
+    """The SphericalHarmonics degree of an instant-ngp `dir_encoding`: the
+    node itself or a child of its Composite's `nested` list; 0 if none."""
+    for node in [dir_encoding] + list(dir_encoding.get("nested", [])):
+        if str(node.get("otype", "")).lower() == "sphericalharmonics":
+            return int(node.get("degree", 4))
+    return 0
+
+
+def _view_branch(cfg: dict) -> dict:
+    """NetworkConfig's view-branch fields from instant-ngp's `dir_encoding`
+    and `rgb_network` (configs/nerf/base.json); none where the JSON has no
+    `dir_encoding` (RO-MAP's schema)."""
+    degree = _sh_degree(cfg.get("dir_encoding", {}))
+    if degree == 0:
+        return {}
+    rgb = cfg.get("rgb_network", {})
+    return dict(sh_degree=degree, output_dims=16, rgb_n_neurons=int(rgb.get("n_neurons", 64)),
+                rgb_n_hidden_layers=int(rgb.get("n_hidden_layers", 2)))
+
+
 def load_network_config(path: str) -> NerfConfig:
     """Parse a reference-format network JSON (ref nerf_model.cu:1272-1284).
 
-    Accepts the exact schema of Core/configs/base.json; unknown keys are
-    ignored; the loss otype is ignored (forced L2, matching the reference).
+    Accepts the exact schema of Core/configs/base.json, and instant-ngp's
+    configs/nerf/base.json, whose `dir_encoding` (SphericalHarmonics, alone
+    or in a Composite) and `rgb_network` give the view branch; unknown keys
+    are ignored; the loss otype is ignored (forced L2, matching the
+    reference).
     """
     with open(path) as f:
         cfg: dict[str, Any] = json.load(f)
@@ -227,6 +270,7 @@ def load_network_config(path: str) -> NerfConfig:
     network = NetworkConfig(
         n_neurons=int(net.get("n_neurons", 64)),
         n_hidden_layers=int(net.get("n_hidden_layers", 1)),
+        **_view_branch(cfg),
     )
 
     # optimizer chain: Ema{ ExponentialDecay{ Adam } } (base.json:5-22)

@@ -7,6 +7,8 @@ leading object axis O. One `train_objects` step trains every slot at once:
   generate_batch   R rays x S samples per object from per-frame bboxes,
                    occlusion and AABB gates, stable compaction + rollover
   field_apply      MX-grid encode (kernels K0-K10 on the card) or hash grid, + MLP
+                   (RO-MAP's head, or instant-ngp's density and colour networks
+                   over the rays' directions)
   composite_loss   volume render + RGB, depth, mask and background-sigma terms
   optimizer        zero_nans -> L2 1e-6 -> Adam(.9, .99, 1e-15) -> exp-decay
                    rate -> EMA .95, masked per slot
@@ -34,8 +36,9 @@ from romap_tpu_torch.ops.geometry import (
     warp_point,
 )
 from romap_tpu_torch.ops.losses import RayBatch, composite_loss
-from romap_tpu_torch.ops.mlp import apply_mlp, init_mlp
+from romap_tpu_torch.ops.mlp import apply_mlp, apply_rgb, init_mlp, view_dependent
 from romap_tpu_torch.ops.render import density_activation, render_composite, volume_render
+from romap_tpu_torch.ops.sh import sh_encode
 from romap_tpu_torch.utils import tracing
 
 # --------------------------------------------------------------------------
@@ -73,22 +76,14 @@ def compute_dtype(cfg: NerfConfig, device: torch.device) -> torch.dtype:
     return torch.bfloat16 if cd == "bfloat16" else torch.float32
 
 
-def field_apply(params, points: torch.Tensor, cfg: NerfConfig, spec, dtype=None):
-    """points [O, ..., 3] in [0,1]^3 -> raw (rgb logits, log-sigma) [O, ..., 4].
+def params_device(params) -> torch.device:
+    """The device of a params tree (any of its leaves)."""
+    return pytree.tree_leaves(params)[0].device
 
-    A hash-grid spec takes `hashgrid.encode` on any device, which picks by
-    the points' device: the kernels H1 (forward), H2 (the table's gradient)
-    and H0 (the points') for a CUDA tensor, their plain twins for a CPU one
-    (`ops/hashgrid_cuda.py`). For an MX-grid spec the device picks the
-    encode: a CUDA tensor goes through the kernels the spec selects
-    (`mxgrid_cuda.encode`, K1-K10, and K0 for the points' gradient in pose
-    refinement; a spec none of them covers raises), a CPU tensor through the
-    plain `mxgrid.encode`. `dtype`
-    overrides the compute dtype; the render, mesh and refinement paths pass
-    float32.
-    """
-    if dtype is None:
-        dtype = compute_dtype(cfg, points.device)
+
+def _features(params, points: torch.Tensor, spec, dtype):
+    """The encode of `field_apply`: features [O, N, C] of points [O, ..., 3]
+    in `dtype`, and the network's weights cast to it."""
     table = pytree.tree_map(lambda a: a.to(dtype), params["table"])
     mlp = pytree.tree_map(lambda a: a.to(dtype), params["mlp"])
     with tracing.span("encode.fwd"):
@@ -99,11 +94,72 @@ def field_apply(params, points: torch.Tensor, cfg: NerfConfig, spec, dtype=None)
         else:
             feats = mxgrid.encode(table, points, spec)
     tracing.backward_span(feats, "encode.bwd")
-    o = points.shape[0]
+    return feats.reshape(points.shape[0], -1, spec.n_output_dims), mlp
+
+
+def _view_head(mlp, feats: torch.Tensor, dirs: torch.Tensor, cfg: NerfConfig):
+    """instant-ngp's two networks: the density network on the features,
+    the 16 SH values of each ray's direction (once a ray, broadcast over its
+    samples), the colour network on both. Returns raw [O, N, 4] in fp32:
+    rgb logits, then the density network's output 0 (log-density)."""
+    o, n = feats.shape[:2]
+    net = cfg.network
+    tracing.count("field.view_points", o * n)
+    with tracing.span("mlp.density"):
+        geo = apply_mlp(mlp["density"], feats, net)
+    with tracing.span("dir.encode"):
+        sh = sh_encode(dirs.reshape(o, -1, 3).float()).to(feats.dtype)
+        sh = sh[:, :, None, :].expand(-1, -1, n // sh.shape[1], -1).reshape(o, n, -1)
+    with tracing.span("mlp.rgb"):
+        rgb = apply_rgb(mlp["rgb"], torch.cat([geo.to(feats.dtype), sh], dim=-1), net)
+    return torch.cat([rgb, geo[..., :1]], dim=-1)
+
+
+def field_apply(params, points: torch.Tensor, dirs: torch.Tensor | None, cfg: NerfConfig,
+                spec, dtype=None):
+    """points [O, ..., S, 3] in [0,1]^3 on rays of unit directions dirs
+    [O, ..., 3] (object frame, before the box warp; one a ray, the samples
+    axis S left out) -> raw (rgb logits, log-sigma) [O, ..., S, 4].
+
+    RO-MAP's head takes no direction (`dirs` unused, may be None);
+    instant-ngp's (`ops/mlp.view_dependent`) needs it.
+
+    A hash-grid spec takes `hashgrid.encode` on any device, which picks by
+    the points' device: the kernels H1 (forward), H2 (the table's gradient)
+    and H0 (the points') for a CUDA tensor, their plain twins for a CPU one
+    (`ops/hashgrid_cuda.py`). For an MX-grid spec the device picks the
+    encode: a CUDA tensor goes through the kernels the spec selects
+    (`mxgrid_cuda.encode`, K1-K10, and K0 for the points' gradient in pose
+    refinement; a spec none of them covers raises), a CPU tensor through the
+    plain `mxgrid.encode`. `dtype`
+    overrides the compute dtype; the render, mesh and refinement paths pass
+    float32. Hidden activations run in the compute dtype; each network's
+    last product accumulates to fp32.
+    """
+    if dtype is None:
+        dtype = compute_dtype(cfg, points.device)
+    feats, mlp = _features(params, points, spec, dtype)
     with tracing.span("mlp.fwd"):
-        raw = apply_mlp(mlp, feats.reshape(o, -1, spec.n_output_dims), cfg.network)
+        if view_dependent(cfg.network):
+            if dirs is None:
+                raise ValueError("a view-dependent field needs the rays' directions")
+            raw = _view_head(mlp, feats, dirs, cfg)
+        else:
+            raw = apply_mlp(mlp, feats, cfg.network)
     tracing.backward_span(raw, "mlp.bwd")
     return raw.reshape(*points.shape[:-1], raw.shape[-1])
+
+
+def _log_density(params, points: torch.Tensor, cfg: NerfConfig, spec):
+    """The log-density [O, ...] (fp32) of points [O, ..., 3], with no
+    direction: RO-MAP's head's output 3 (`field_apply`), or instant-ngp's
+    density network alone."""
+    if not view_dependent(cfg.network):
+        return field_apply(params, points, None, cfg, spec, dtype=torch.float32)[..., 3]
+    feats, mlp = _features(params, points, spec, torch.float32)
+    with tracing.span("mlp.fwd"):
+        raw = apply_mlp(mlp["density"], feats, cfg.network)[..., 0]
+    return raw.reshape(points.shape[:-1])
 
 
 class ObjectsState(NamedTuple):
@@ -162,8 +218,9 @@ class TrainState(NamedTuple):
 def init_train_state(generator: torch.Generator, capacity: int, cfg: NerfConfig,
                      spec, device="cpu") -> TrainState:
     """Fresh state for `capacity` slots: params {"table": MX-grid factors or
-    the hash table, "mlp": {"w0", "w1"}} drawn from `generator`, EMA =
-    params, zero Adam moments, step 0."""
+    the hash table, "mlp": {"w0", "w1"}, or {"density": {"w0", "w1"}, "rgb":
+    {"w0", "w1", "w2"}} for instant-ngp's field (`init_mlp`)} drawn from
+    `generator`, EMA = params, zero Adam moments, step 0."""
     if isinstance(spec, hashgrid.HashGridSpec):
         table = hashgrid.init_table(generator, spec, capacity, device=device)
     else:
@@ -279,7 +336,8 @@ def generate_batch(frames: FrameArrays, aabb_min, aabb_max, tow, instance_id, bb
       bboxes [O, B, 5]; n_bbox [O]: the object table's columns.
       uniforms: (u_xy [O,R,2], u_color [O,R,3], u_jitter [O,R,S]) in [0,1).
     Returns:
-      RayBatch with leading [O, R]; `valid` [O].
+      RayBatch with leading [O, R]; `valid` [O]; `dirs` the rays' unit
+      directions in the object frame.
     """
     u_xy, colors, jitter = uniforms
     o_n = aabb_min.shape[0]
@@ -335,7 +393,7 @@ def generate_batch(frames: FrameArrays, aabb_min, aabb_max, tow, instance_id, bb
     return RayBatch(
         points=pts, t=t, rgb_target=payload[..., 9:12],
         depth_target=payload[..., 12], is_object=payload[..., 13] > 0.5,
-        bg_color=payload[..., 14:17], valid=n_valid > 0,
+        bg_color=payload[..., 14:17], valid=n_valid > 0, dirs=d,
     )
 
 
@@ -360,7 +418,7 @@ def _object_train_step(state: TrainState, frames: FrameArrays, objects: ObjectsS
     params = pytree.tree_map(lambda a: a.detach().requires_grad_(True), state.params)
     leaves, treedef = pytree.tree_flatten(params)
     with torch.enable_grad(), tracing.backward_spans():
-        raw = field_apply(params, batch.points, cfg, spec)
+        raw = field_apply(params, batch.points, batch.dirs, cfg, spec)
         with tracing.span("loss.fwd"):
             loss, aux = composite_loss(raw, batch, cfg.train)
             # per-object losses touch disjoint parameter rows: the gradient
@@ -441,7 +499,7 @@ def render_rays(params, o, d, d_norm, tmin, tmax, in_bbox, jitter, aabb_min,
     t = stratified_distances(tmin, tmax, jitter, n_samples)
     pts = warp_point(o[:, None, :] + t[..., None] * d[:, None, :], aabb_min, aabb_max)
     one = pytree.tree_map(lambda a: a[None], params)
-    raw = field_apply(one, pts[None], cfg, spec, dtype=torch.float32)[0]
+    raw = field_apply(one, pts[None], d[None], cfg, spec, dtype=torch.float32)[0]
     bg = torch.full((3,), background, dtype=torch.float32, device=raw.device)
     out = volume_render(raw, t, bg)
     return render_composite(out, d_norm, in_bbox, background)
@@ -453,19 +511,31 @@ def density_on_grid(params, cfg: NerfConfig, spec, res: int) -> torch.Tensor:
     axis) on a uniform res^3 grid over the unit cube, flat index
     x + y res + z res^2, through the clipped activation of the render path
     (romap_tpu/models/nerf.py:589-603)."""
-    dev = params["mlp"]["w0"].device
+    dev = params_device(params)
     lin = torch.arange(res, dtype=torch.float32, device=dev) / (res - 1)
     z, y, x = torch.meshgrid(lin, lin, lin, indexing="ij")
     pts = torch.stack([x, y, z], dim=-1).reshape(1, -1, 3)
     one = pytree.tree_map(lambda a: a[None], params)
-    raw = field_apply(one, pts, cfg, spec, dtype=torch.float32)[0]
-    return density_activation(raw[..., 3].float())
+    log_sigma = _log_density(one, pts, cfg, spec)[0]
+    return density_activation(log_sigma.float())
 
 
 @torch.no_grad()
-def colors_at_points(params, pts: torch.Tensor, cfg: NerfConfig, spec) -> torch.Tensor:
+def colors_at_points(params, pts: torch.Tensor, cfg: NerfConfig, spec,
+                     normals=None) -> torch.Tensor:
     """Logistic RGB [N, 3] (fp32) of ONE object at warped points [N, 3]:
-    the mesh vertex colours (romap_tpu/models/nerf.py:606-611)."""
+    the mesh vertex colours (romap_tpu/models/nerf.py:606-611). A
+    view-dependent field is looked at head-on: each point's direction is
+    its outward unit normal negated, `normals` [N, 3] (array or tensor) in
+    the object frame (a zero normal leaves only the direction-free SH
+    term); RO-MAP's head does not read them."""
     one = pytree.tree_map(lambda a: a[None], params)
-    raw = field_apply(one, pts.float()[None], cfg, spec, dtype=torch.float32)[0]
+    if not view_dependent(cfg.network):
+        raw = field_apply(one, pts.float()[None], None, cfg, spec, dtype=torch.float32)[0]
+    else:
+        if normals is None:
+            raise ValueError("a view-dependent field's colours need the points' normals")
+        dirs = -torch.as_tensor(normals, dtype=torch.float32, device=pts.device)
+        raw = field_apply(one, pts.float()[None, :, None], dirs[None], cfg, spec,
+                          dtype=torch.float32)[0, :, 0]
     return torch.sigmoid(raw[..., :3])

@@ -30,6 +30,7 @@ class RayBatch(NamedTuple):
     is_object: torch.Tensor  # [..., R] bool
     bg_color: torch.Tensor  # [..., R, 3]
     valid: torch.Tensor  # [...] bool: any ray survived the gates
+    dirs: torch.Tensor | None = None  # [..., R, 3] unit, object frame, before the warp
 
 
 def composite_loss(raw: torch.Tensor, batch: RayBatch, cfg: TrainConfig):

@@ -69,7 +69,8 @@ def extract_object_mesh(params_one, aabb_min, aabb_max, cfg, spec) -> mc.Mesh:
         with tracing.span("mesh.colors"):
             warped = (mesh.verts - box_min) / (box_max - box_min)
             pts = torch.as_tensor(warped, dtype=torch.float32).to(density.device)
-            colors = nerf.colors_at_points(params_one, pts, cfg, spec).cpu().numpy()
+            colors = nerf.colors_at_points(params_one, pts, cfg, spec,
+                                           mesh.normals).cpu().numpy()
         mesh = mesh._replace(colors=colors)
     return mesh
 

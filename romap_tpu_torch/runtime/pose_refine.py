@@ -7,7 +7,8 @@ SE(3) pose is optimized by Adam on the photometric and silhouette loss
 against the trained, frozen field, from several starts at once; the best
 pose seen for each view wins, and it is kept only where it beats the start.
 
-The points carry a gradient here. On the card `field_apply` runs the
+The points carry a gradient here, and so do the rays' directions, which a
+view-dependent field takes. On the card `field_apply` runs the
 forward kernels of the spec's path and K0 (`mxgrid_cuda.points_gradient`)
 for the points' gradient; on the CPU the plain encode (`ops/mxgrid.encode`).
 
@@ -26,7 +27,7 @@ import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
-from romap_tpu_torch.models.nerf import field_apply
+from romap_tpu_torch.models.nerf import field_apply, params_device
 from romap_tpu_torch.ops.geometry import (
     camera_rays,
     ray_aabb_intersect,
@@ -132,7 +133,7 @@ def make_view_loss(params_one, intrinsics, twc0, tow, aabb_min, aabb_max, xy, rg
                                      n_samples)
             pts = warp_point(o[..., None, :] + t[..., None] * d[..., None, :],
                              aabb_min, aabb_max)
-            raw = field_apply(one, pts[None], cfg, spec, dtype=torch.float32)[0]
+            raw = field_apply(one, pts[None], d[None], cfg, spec, dtype=torch.float32)[0]
             out = volume_render(raw, t, bg)
             opacity = torch.where(hit, out.mask, torch.zeros_like(out.mask))
             rgb_pred = torch.where(hit[..., None], out.rgb, bg)
@@ -231,7 +232,7 @@ def refine_view_poses_host(params_one, intrinsics, twcs, tow, aabb_min, aabb_max
     if noise is None:
         noise = torch.randn((n, n_starts, 6),
                             generator=torch.Generator().manual_seed(JITTER_SEED))
-    dev = params_one["mlp"]["w0"].device
+    dev = params_device(params_one)
     on = lambda a: torch.tensor(np.asarray(a), device=dev)
     f32 = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)
     twc, loss0, loss_f = refine_poses(

@@ -37,7 +37,7 @@ def render_view(params_one, intrinsics, twc, tow, aabb_min, aabb_max,
     Returns numpy (rgb [h,w,3], z-depth [h,w], mask [h,w]), all f32: 64
     samples, fp32, gray background, mask > 0.5 gate.
     """
-    dev = params_one["mlp"]["w0"].device
+    dev = nerf.params_device(params_one)
     x0, y0, h, w = (int(v) for v in box_xyhw)
     n, s = h * w, cfg.train.render_samples_per_ray
     if jitter is None:

@@ -61,7 +61,7 @@ def held_out_psnr(params, cam, objects, frames, objs, cfg: NerfConfig, spec,
     axis), rendered in fp32 with RENDER_SAMPLES samples a ray; `jitter`
     [bbox pixels, RENDER_SAMPLES] defaults to uniforms from a generator
     seeded JITTER_SEED on the params' device."""
-    dev = params["mlp"]["w0"].device
+    dev = nerf.params_device(params)
     test = frames[len(frames) // 2]
     x0, y0, h, w = test["bboxes"][objects[0].instance_id]
     ys, xs = np.mgrid[y0 : y0 + h, x0 : x0 + w]

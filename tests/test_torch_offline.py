@@ -41,6 +41,7 @@ from romap_tpu_torch.runtime import renderer as trenderer
 from romap_tpu_torch.runtime.offline import OfflineRunner as TRunner
 from romap_tpu_torch.utils import jax_bridge, tracing
 from romap_tpu_torch.utils import mesh_io as tmesh_io
+from tests.test_torch_train import port_config
 
 torch.set_num_threads(2)
 
@@ -92,7 +93,7 @@ def test_mx_snap_override_matches_jax(monkeypatch, value, snap):
         monkeypatch.setenv("MX_SNAP", value)
     cfg = NerfConfig(encoding=EncodingConfig(mx_snap_levels=snap))
     want = jnerf.make_field_spec(cfg)
-    got = tnerf.make_field_spec(cfg)
+    got = tnerf.make_field_spec(port_config(cfg))
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
     assert got.snap_levels == (snap if value is None else value == "1")
 
@@ -113,16 +114,17 @@ def test_geometry_helpers_match_jax():
 def test_density_grid_and_colors_match_jax(cp_only):
     cfg = tiny_cfg(cp_only)
     jspec, js, ts = jax_params(cfg, seed=1)
-    tspec = tnerf.make_field_spec(cfg)
+    tcfg = port_config(cfg)
+    tspec = tnerf.make_field_spec(tcfg)
     for oi in range(2):
         want = np.asarray(jnerf.density_on_grid(one(js.ema, oi, "jax"), cfg, jspec, 9))
-        got = tnerf.density_on_grid(one(ts.ema, oi, "torch"), cfg, tspec, 9)
+        got = tnerf.density_on_grid(one(ts.ema, oi, "torch"), tcfg, tspec, 9)
         assert got.dtype == torch.float32 and got.shape == (9**3,)
         np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-6)
         pts = np.random.default_rng(oi).uniform(0, 1, (40, 3)).astype(np.float32)
         want = np.asarray(jnerf.colors_at_points(one(js.ema, oi, "jax"), jnp.asarray(pts),
                                                  cfg, jspec))
-        got = tnerf.colors_at_points(one(ts.ema, oi, "torch"), torch.from_numpy(pts), cfg, tspec)
+        got = tnerf.colors_at_points(one(ts.ema, oi, "torch"), torch.from_numpy(pts), tcfg, tspec)
         np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
 
 
@@ -177,7 +179,8 @@ def test_render_view_matches_jax(monkeypatch):
     ray chunking does not change a pixel."""
     cfg = tiny_cfg()
     jspec, js, ts = jax_params(cfg, seed=2)
-    tspec = tnerf.make_field_spec(cfg)
+    tcfg = port_config(cfg)
+    tspec = tnerf.make_field_spec(tcfg)
     intr = np.array([57.6, 57.6, 32.0, 32.0], np.float32)
     twc = np.eye(4, dtype=np.float32)
     twc[:3, 3] = (0.1, -0.05, -3.0)
@@ -189,14 +192,14 @@ def test_render_view_matches_jax(monkeypatch):
                                  jspec, key=key)
     jitter = torch.from_numpy(np.array(jax.random.uniform(
         key, (jrenderer._bucket(30 * 40), cfg.train.render_samples_per_ray))))[: 30 * 40]
-    got = trenderer.render_view(one(ts.ema, 0, "torch"), intr, twc, tow, lo, hi, box, cfg,
+    got = trenderer.render_view(one(ts.ema, 0, "torch"), intr, twc, tow, lo, hi, box, tcfg,
                                 tspec, jitter=jitter)
     assert want[2].mean() > 0.05  # some pixels are on the object
     for name, a, b in zip(("rgb", "depth", "mask"), got, want):
         assert a.shape == b.shape and a.dtype == np.float32
         np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-4, err_msg=name)
     monkeypatch.setattr(trenderer, "RAY_CHUNK", 77)
-    chunked = trenderer.render_view(one(ts.ema, 0, "torch"), intr, twc, tow, lo, hi, box, cfg,
+    chunked = trenderer.render_view(one(ts.ema, 0, "torch"), intr, twc, tow, lo, hi, box, tcfg,
                                     tspec, jitter=jitter)
     for a, b in zip(chunked, got):
         np.testing.assert_array_equal(a, b)
@@ -215,7 +218,7 @@ def test_offline_runner_matches_jax(dataset_dir, tmp_path, monkeypatch, cp_only)
     pixels."""
     cfg = tiny_cfg(cp_only)
     jr = JRunner(dataset_dir, cfg, use_depth=True)
-    tr = TRunner(dataset_dir, cfg, use_depth=True, device="cpu")
+    tr = TRunner(dataset_dir, port_config(cfg), use_depth=True, device="cpu")
     assert jr.create_nerfs_from_dir() == tr.create_nerfs_from_dir() == 2
     for r, lib in ((jr, "j"), (tr, "t")):
         r.train(waves=1, steps_per_wave=3, mesh_every=1, out_dir=str(tmp_path / f"{lib}_out"))
@@ -256,7 +259,7 @@ def test_offline_runner_matches_jax(dataset_dir, tmp_path, monkeypatch, cp_only)
 def test_rebuilt_object_table_keeps_one_copy_of_held_out_views(dataset_dir, tmp_path):
     """Divergence from romap_tpu (offline.py:123): rebuilding the table
     does not append the held-out views a second time."""
-    r = TRunner(dataset_dir, tiny_cfg(), use_depth=True, holdout=4, device="cpu")
+    r = TRunner(dataset_dir, port_config(tiny_cfg()), use_depth=True, holdout=4, device="cpu")
     r.create_nerfs_from_dir()
     r._build_object_table()
     first = [len(o["holdout_views"]) for o in r.objects]
@@ -276,7 +279,7 @@ def test_empty_held_out_set_raises(dataset_dir, tmp_path):
     lines = open(src).read().splitlines()
     obj = tmp_path / "0.txt"
     obj.write_text("\n".join(lines[:2] + ["999.0000 1 1 4 4"] + lines[2:]) + "\n")
-    r = TRunner(dataset_dir, tiny_cfg(), use_depth=True, holdout=100, device="cpu")
+    r = TRunner(dataset_dir, port_config(tiny_cfg()), use_depth=True, holdout=100, device="cpu")
     r.create_nerf(str(obj))
     r.train(waves=1, steps_per_wave=1, out_dir=str(tmp_path / "out"))
     assert r.objects[0]["holdout_views"] == []

@@ -13,6 +13,7 @@ from romap_tpu.ops import geometry as jgeo
 from romap_tpu.ops import losses as jloss
 from romap_tpu.ops import mlp as jmlp
 from romap_tpu.ops import render as jren
+from romap_tpu_torch.config import NetworkConfig as TNetworkConfig
 from romap_tpu_torch.ops import geometry as tgeo
 from romap_tpu_torch.ops import losses as tloss
 from romap_tpu_torch.ops import mlp as tmlp
@@ -113,7 +114,7 @@ def test_mlp_matches_jax():
     x = rng.normal(size=(3, 50, 20)).astype(np.float32)
     want = jax.vmap(lambda a, b, xx: jmlp.apply_mlp({"w0": a, "w1": b}, xx, net))(w0, w1, x)
     params = {"w0": t_(w0, True), "w1": t_(w1, True)}
-    got = tmlp.apply_mlp(params, t_(x), net)
+    got = tmlp.apply_mlp(params, t_(x), TNetworkConfig())
     check(got, want)
     jg = jax.grad(lambda p: jnp.sum(jnp.tanh(jax.vmap(
         lambda a, b, xx: jmlp.apply_mlp({"w0": a, "w1": b}, xx, net))(p["w0"], p["w1"], x))))(
@@ -123,7 +124,7 @@ def test_mlp_matches_jax():
     check(tg[1], jg["w1"], rtol=1e-4, atol=1e-5)
     # init: He-uniform bounds and shapes as the JAX init
     g = torch.Generator().manual_seed(0)
-    p = tmlp.init_mlp(g, 60, net, n_objects=2)
+    p = tmlp.init_mlp(g, 60, TNetworkConfig(), n_objects=2)
     assert p["w0"].shape == (2, 60, 64) and p["w1"].shape == (2, 64, 4)
     assert p["w0"].abs().max() <= (6 / 60) ** 0.5 and p["w1"].abs().max() <= (6 / 64) ** 0.5
 

@@ -27,6 +27,7 @@ from romap_tpu_torch import config as tcfg
 from romap_tpu_torch.data import formats as tformats
 from romap_tpu_torch.data import synthetic as tsyn
 from romap_tpu_torch.data import world as tworld
+from romap_tpu_torch.ops import mlp as tmlp
 from romap_tpu_torch.runtime import pose_refine as tpr
 from romap_tpu_torch.utils import camera as tcam
 from romap_tpu_torch.utils import eval_psnr as teval
@@ -43,6 +44,22 @@ REFERENCE_JSON = {  # the schema of the reference's Core/configs/base.json
 }
 
 
+# the port's own NetworkConfig fields, instant-ngp's view branch, that the
+# JAX config does not have; at these values the head is RO-MAP's (one
+# 64 x 1 head, 4 outputs, no direction)
+VIEW_BRANCH_DEFAULTS = dict(sh_degree=0, rgb_n_neurons=64, rgb_n_hidden_layers=2)
+
+
+def _jax_fields(got, want) -> dict:
+    """The port's config as a dict of the fields the JAX config has; the
+    port's own fields must sit at the defaults that mean RO-MAP's head."""
+    d = dataclasses.asdict(got)
+    theirs = dataclasses.asdict(want)["network"]
+    own = {k: d["network"].pop(k) for k in set(d["network"]) - set(theirs)}
+    assert own == VIEW_BRANCH_DEFAULTS and not tmlp.view_dependent(got.network)
+    return d
+
+
 @pytest.mark.parametrize("preset", [None, "flagship", "fast", "quality", "tcnn"])
 def test_config_equals_jax(preset):
     if preset is None:
@@ -50,7 +67,7 @@ def test_config_equals_jax(preset):
     else:
         got = tcfg.NerfConfig(encoding=tcfg.EncodingConfig.preset(preset))
         want = jcfg.NerfConfig(encoding=jcfg.EncodingConfig.preset(preset))
-    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert _jax_fields(got, want) == dataclasses.asdict(want)
     assert got.encoding.plane_specs == want.encoding.plane_specs
     assert got.encoding.n_output_dims == want.encoding.n_output_dims
     assert got.encoding.per_level_scale == want.encoding.per_level_scale
@@ -60,7 +77,7 @@ def test_load_network_config_equals_jax(tmp_path):
     path = tmp_path / "base.json"
     path.write_text(json.dumps(REFERENCE_JSON))
     got, want = tcfg.load_network_config(str(path)), jcfg.load_network_config(str(path))
-    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert _jax_fields(got, want) == dataclasses.asdict(want)
     assert got.optimizer.decay_start == 1000 and got.network.n_hidden_layers == 2
     with pytest.raises(ValueError):
         tcfg.EncodingConfig.preset("no such preset")

@@ -13,7 +13,7 @@ import time
 import pytest
 import torch
 
-from romap_tpu_torch.config import EncodingConfig, NerfConfig, TrainConfig
+from romap_tpu_torch.config import EncodingConfig, NerfConfig, NetworkConfig, TrainConfig
 from romap_tpu_torch.data.formats import write_dataset
 from romap_tpu_torch.data.synthetic import Camera, make_scene, make_sequence
 from romap_tpu_torch.data.world import build_synthetic_world
@@ -113,6 +113,43 @@ def test_each_train_step_holds_its_layers(world, kind):
         order = [s["name"] for s in sorted(kids, key=lambda s: s["start_ns"])]
         assert order == ["batch", "batch", "encode.fwd", "mlp.fwd", "loss.fwd", "loss.bwd",
                          "mlp.bwd", "encode.bwd", "optimizer.update"]
+
+
+def test_view_dependent_field_nests_its_networks_in_mlp_fwd(world):
+    """instant-ngp's field: `mlp.density`, `dir.encode` and `mlp.rgb` open
+    in that order inside `mlp.fwd`; the backward chain keeps its one
+    `mlp.bwd` and no new name; `field.view_points` counts O x R x S points
+    through the colour network a step."""
+    frames, objs = world
+    cfg = NerfConfig(encoding=EncodingConfig(**ENCODINGS["hashgrid"]),
+                     network=NetworkConfig(sh_degree=4),
+                     train=TrainConfig(rays_per_batch=64, samples_per_ray=4))
+    spec = nerf.make_field_spec(cfg)
+    g = torch.Generator().manual_seed(0)
+    state = nerf.init_train_state(g, objs.capacity, cfg, spec)
+    tracing.enable()
+    nerf.train_objects(state, objs, frames, cfg, spec, 2, generator=g)
+    d = tracing.drain()
+    spans = d["spans"]
+    steps = [s for s in spans if s["name"] == "train.step"]
+    assert len(steps) == 2
+    for st in steps:
+        kids = [s for s in spans if s["parent"] == st["id"]]
+        assert sorted(s["name"] for s in kids) == sorted(nerf.STEP_SPANS + ("batch",))
+        (fwd,) = [s for s in kids if s["name"] == "mlp.fwd"]
+        inner = sorted((s for s in spans if s["parent"] == fwd["id"]),
+                       key=lambda s: s["start_ns"])
+        assert [s["name"] for s in inner] == ["mlp.density", "dir.encode", "mlp.rgb"]
+        for s in inner:
+            assert fwd["start_ns"] <= s["start_ns"] <= s["end_ns"] <= fwd["end_ns"]
+        assert [s["name"] for s in kids].count("mlp.bwd") == 1
+    inner_names = {"mlp.density", "dir.encode", "mlp.rgb"}
+    assert {s["name"] for s in spans} == set(nerf.STEP_SPANS) | {"train.step"} | inner_names
+    assert sum(s["name"] in inner_names for s in spans) == 3 * len(steps)  # none elsewhere
+    points = [c for c in d["counters"] if c["name"] == "field.view_points"]
+    r, s_ = cfg.train.rays_per_batch, cfg.train.samples_per_ray
+    assert [(c["ids"]["step"], c["n"]) for c in points] == [(i, objs.capacity * r * s_)
+                                                           for i in range(2)]
 
 
 def test_spans_lie_on_the_profilers_timeline(world, tmp_path):

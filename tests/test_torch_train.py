@@ -8,6 +8,7 @@ port replays the draws JAX makes from its per-object keys. JAX runs its
 CPU path (XLA encode); the port its plain encode.
 """
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -23,6 +24,7 @@ from romap_tpu.config import EncodingConfig, NerfConfig, TrainConfig
 from romap_tpu.data.world import build_synthetic_world as jworld
 from romap_tpu.models import nerf as jnerf
 from romap_tpu.ops import losses as jloss
+from romap_tpu_torch import config as tconfig
 from romap_tpu_torch.data.world import build_synthetic_world as tworld
 from romap_tpu_torch.models import nerf as tnerf
 from romap_tpu_torch.ops import losses as tloss
@@ -41,6 +43,16 @@ def tiny_cfg():
                                 mx_impl="xla"),
         train=TrainConfig(rays_per_batch=64, samples_per_ray=4),
     )
+
+
+def port_config(cfg):
+    """The port's NerfConfig with the fields of a JAX one; the port's own
+    fields (instant-ngp's view branch) keep their defaults, RO-MAP's head."""
+    part = lambda cls, c: cls(**dataclasses.asdict(c))
+    return tconfig.NerfConfig(encoding=part(tconfig.EncodingConfig, cfg.encoding),
+                              network=part(tconfig.NetworkConfig, cfg.network),
+                              optimizer=part(tconfig.OptimizerConfig, cfg.optimizer),
+                              train=part(tconfig.TrainConfig, cfg.train), seed=cfg.seed)
 
 
 @pytest.fixture(scope="module")
@@ -89,7 +101,7 @@ def test_generate_batch_matches_jax(worlds):
     want = jax.jit(jax.vmap(
         lambda kb, *ob: jnerf.generate_batch(kb, jframes, *ob, cfg, use_depth=False)))(
         k_batch, *tuple(jobjs)[:6])
-    got = tnerf.generate_batch(tframes, *tobjs[:6], cfg,
+    got = tnerf.generate_batch(tframes, *tobjs[:6], port_config(cfg),
                                tuple(torch.from_numpy(np.array(a)) for a in u),
                                use_depth=False)
     # the background colours are distinct uniforms per ray, so equal
@@ -111,14 +123,15 @@ def test_loss_and_gradients_match_jax(worlds):
     """One batch through field + loss: loss, logged loss and every
     parameter gradient (rtol 1e-4, atol 1e-4 x the leaf's largest entry)."""
     cfg, (jframes, jobjs), (tframes, tobjs) = worlds
+    tcfg = port_config(cfg)
     spec, js = jax_state(cfg, seed=1)
-    tspec = tnerf.make_field_spec(cfg)
+    tspec = tnerf.make_field_spec(tcfg)
     ts = jax_bridge.train_state_from_jax(js)
     _, u = jax_uniforms(js.key, cfg)
-    batch = tnerf.generate_batch(tframes, *tobjs[:6], cfg,
+    batch = tnerf.generate_batch(tframes, *tobjs[:6], tcfg,
                                  tuple(torch.from_numpy(np.array(a)) for a in u),
                                  use_depth=False)
-    jb = jloss.RayBatch(*[jnp.asarray(x.numpy()) for x in batch])
+    jb = jloss.RayBatch(*[jnp.asarray(getattr(batch, f).numpy()) for f in jloss.RayBatch._fields])
 
     def jloss_fn(p, b):
         raw = jnerf.field_apply(p, b.points, cfg, spec)
@@ -127,8 +140,8 @@ def test_loss_and_gradients_match_jax(worlds):
     (jl, jaux), jg = jax.jit(jax.vmap(jax.value_and_grad(jloss_fn, has_aux=True)))(
         js.params, jb)
     params = jax.tree.map(lambda a: a.requires_grad_(True), ts.params)
-    raw = tnerf.field_apply(params, batch.points, cfg, tspec)
-    tl, taux = tloss.composite_loss(raw, batch, cfg.train)
+    raw = tnerf.field_apply(params, batch.points, batch.dirs, tcfg, tspec)
+    tl, taux = tloss.composite_loss(raw, batch, tcfg.train)
     leaves = jax.tree.leaves(params)
     tg = torch.autograd.grad(tl.sum(), leaves)
     np.testing.assert_allclose(tl.detach().numpy(), np.asarray(jl), rtol=1e-5, atol=1e-6)
@@ -175,10 +188,11 @@ def test_train_objects_matches_jax(worlds, n_iters):
     tolerance (>= 99.9%), the moments' gradients by the test above.
     """
     cfg, (jframes, jobjs), (tframes, tobjs) = worlds
+    tcfg = port_config(cfg)
     spec, js = jax_state(cfg, seed=3)
-    tspec = tnerf.make_field_spec(cfg)
+    tspec = tnerf.make_field_spec(tcfg)
     ts = jax_bridge.train_state_from_jax(js)
-    ts = tnerf.train_objects(ts, tobjs, tframes, cfg, tspec, n_iters,
+    ts = tnerf.train_objects(ts, tobjs, tframes, tcfg, tspec, n_iters,
                              uniforms=replay(js.key, cfg))
     jout = jax.device_get(jnerf.train_objects(jax.tree.map(jnp.asarray, js), jobjs,
                                               jframes, cfg, spec, n_iters))
@@ -199,7 +213,8 @@ def test_train_objects_matches_jax(worlds, n_iters):
 
 
 def test_inactive_slot_and_empty_batch_keep_state(worlds):
-    cfg, _, (tframes, tobjs) = worlds
+    jcfg, _, (tframes, tobjs) = worlds
+    cfg = port_config(jcfg)
     spec = tnerf.make_field_spec(cfg)
     far = tobjs.aabb_min.clone()
     far[1] += 1e4  # slot 1 is active, but every ray misses its box

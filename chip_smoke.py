@@ -58,7 +58,11 @@ Phases, one or more lines each, each closed by its seconds:
                and fp32) and H0 (1 x 196,608) against their twins, with
                their times, the twins' and the bound (`hash_work`); H1 and
                H2 again with the `ngp` spec (2^19 rows a level) at
-               ngp.offline.room10's O=10 x 131,072
+               ngp.offline.room10's O=10 x 131,072; then the optimizer's
+               update A1 on the `tcnn` and `ngp` trees at O=10 against the
+               eager chain (its plain twin) on the card, bit for bit, with
+               the times of both and A1's bound (36 B an element over the
+               card's memory rate)
   4 parity     one tiny train step, fp32, kernels on the card vs the plain
                path on the CPU, from the same state and uniforms
   5 train      build_synthetic_world(10, 16, 128) + NerfConfig(): init, 1
@@ -157,7 +161,7 @@ from romap_tpu_torch.data import synthetic  # noqa: E402
 from romap_tpu_torch.data.formats import write_dataset  # noqa: E402
 from romap_tpu_torch.data.world import build_synthetic_world  # noqa: E402
 from romap_tpu_torch.models import nerf  # noqa: E402
-from romap_tpu_torch.ops import hashgrid_cuda, mxgrid, mxgrid_cuda  # noqa: E402
+from romap_tpu_torch.ops import hashgrid_cuda, mxgrid, mxgrid_cuda, optimizer_cuda  # noqa: E402
 from romap_tpu_torch.ops.geometry import camera_rays, ray_aabb_intersect  # noqa: E402
 from romap_tpu_torch.runtime import offline, pose_refine, server  # noqa: E402
 from romap_tpu_torch.runtime.offline import OfflineRunner  # noqa: E402
@@ -857,6 +861,57 @@ def check_hash_grid(dev) -> dict:
     return records
 
 
+def check_optimizer(dev) -> dict:
+    """A1 (`optimizer_cuda.update`: the optimizer's whole update in one pass
+    over each leaf) with the `tcnn` and `ngp` trees at O=10, every slot
+    active, a NaN planted in slot 0's table gradient: its outputs against
+    the eager chain's (`update_plain` on the card) bit for bit, the median
+    device time of each (A1's: the wrapper, with its [O] vectors and the
+    zeroed flags), A1's launches a call and its bound (an element reads g,
+    p, mu, nu and e and writes p, mu, nu and e: 36 B of fp32 over
+    PEAK_BYTES_PER_S). Returns {field: record}."""
+    records = {}
+    for field, cfg in (("tcnn", NerfConfig(encoding=EncodingConfig.preset("tcnn"))),
+                       ("ngp", NGP_CONFIG)):
+        spec = nerf.make_field_spec(cfg)
+        g = torch.Generator(device=dev).manual_seed(7)
+        state = nerf.init_train_state(g, N_OBJECTS, cfg, spec, device=dev)
+        rnd = lambda a, scale: scale * torch.randn(a.shape, generator=g, device=dev)
+        state = state._replace(
+            ema=pytree.tree_map(lambda a: a + rnd(a, 1e-2), state.params),
+            opt=state.opt._replace(mu=pytree.tree_map(lambda a: rnd(a, 1e-3), state.params),
+                                   nu=pytree.tree_map(lambda a: rnd(a, 1e-3) ** 2,
+                                                      state.params)))
+        grads = pytree.tree_map(lambda a: rnd(a, 1e-3), state.params)
+        grads["table"][0, -1, 0] = float("nan")
+        ok = torch.ones(N_OBJECTS, dtype=torch.bool, device=dev)
+        mxgrid_cuda.reset_launch_counts()
+        got = optimizer_cuda.update(grads, state, ok, cfg)
+        torch.cuda.synchronize()
+        launches = optimizer_cuda.update.launches
+        want = optimizer_cuda.update_plain(grads, state, ok, cfg)
+        pairs = list(zip(pytree.tree_leaves(got), pytree.tree_leaves(want)))
+        unequal = sum(not torch.equal(a.view(torch.int32) if a.is_floating_point() else a,
+                                      b.view(torch.int32) if b.is_floating_point() else b)
+                      for a, b in pairs)
+        n = sum(a.numel() for a in pytree.tree_leaves(state.params))
+        ms = median_ms(lambda: optimizer_cuda.update(grads, state, ok, cfg))
+        plain_ms = median_ms(lambda: optimizer_cuda.update_plain(grads, state, ok, cfg), 3)
+        rec = dict(objects=N_OBJECTS, leaves=len(pytree.tree_leaves(state.params)), params=n,
+                   launches=launches, unequal_leaves=unequal, ms=ms, plain_ms=plain_ms,
+                   bound_ms=1e3 * 36 * n / PEAK_BYTES_PER_S, bound_by="bytes",
+                   found_nan=got[2].found_nan["table"].tolist())
+        records[field] = rec
+        say("3 kernels", kernel="A1", spec=field,
+            **{k: f"{v:.4f}" if isinstance(v, float) else v for k, v in rec.items()})
+        if unequal or launches != 1 or rec["found_nan"] != [True] + [False] * (N_OBJECTS - 1):
+            raise AssertionError(f"A1 {field}: {unequal} leaves differ from the eager chain's, "
+                                 f"{launches} launches, found_nan {rec['found_nan']}")
+        del state, grads, got, want, pairs
+        torch.cuda.empty_cache()
+    return records
+
+
 def phase_parity(dev) -> None:
     """One fp32 step of a tiny config: kernels on the card vs the plain
     encode on the CPU, same initial state and uniforms."""
@@ -1467,9 +1522,10 @@ def hash_twins():
 def phase_hash_field(dev, field: str, cfg: NerfConfig) -> float:
     """A hash-grid field (H1 forward, H2 the table's gradient) through
     train_objects on the card: the scene of phase 5, 10 objects x 4096 x 32,
-    1 + 20 steps, H1/H2 once a step and no other kernel; then the same
-    seed's 1 + 20 steps through the plain twins on the card, whose losses
-    must agree within LOSS_RTOL. `field` names the phase: `tcnn`
+    1 + 20 steps, H1/H2 and the optimizer's A1 once a step and no other
+    kernel; then the same seed's 1 + 20 steps through the encode's plain
+    twins on the card (A1 still updates), whose losses must agree within
+    LOSS_RTOL. `field` names the phase: `tcnn`
     (RO-MAP's) or `ngp` (instant-ngp's two networks over a 2^19 table)."""
     phase = f"10 {field}"
     spec = nerf.make_field_spec(cfg)
@@ -1513,9 +1569,9 @@ def phase_hash_field(dev, field: str, cfg: NerfConfig) -> float:
         max_rel_loss_gap=f"{gap:.3e}", rel_tol=LOSS_RTOL[field])
     if not (torch.isfinite(loss2[active]).all() and (loss2[active] < loss1[active]).all()):
         raise AssertionError(f"{field}: a loss is not finite or did not fall")
-    if launches != {"H1": 21, "H2": 21} or plain_launches:
+    if launches != {"H1": 21, "H2": 21, "A1": 21} or plain_launches != {"A1": 21}:
         raise AssertionError(f"{field}: launches {launches}, with the twins {plain_launches} "
-                             "(want H1 and H2 once a step, and none with the twins)")
+                             "(want H1, H2 and A1 once a step, and A1 alone with the twins)")
     if not gap <= LOSS_RTOL[field]:
         raise AssertionError(f"{field}: the kernels' losses part from the twins' by {gap}")
     return rate
@@ -1710,6 +1766,7 @@ def main() -> None:
     timed("3 kernels", time_unsnapped_forwards, specs, dev)
     records["K0"] = timed("3 kernels", check_points_gradient, specs, dev)
     hash_records = timed("3 kernels", check_hash_grid, dev)
+    optimizer_records = timed("3 kernels", check_optimizer, dev)
     timed("4 parity", phase_parity, dev)
     launches, _ = timed("5-6 train+render", phase_train_and_render, dev)
     root = tempfile.mkdtemp(prefix="romap_chip_smoke_")
@@ -1750,6 +1807,9 @@ def main() -> None:
                      replaces="romap_tpu/ops/hashgrid.py:108", by_dtype=hash_records["tcnn"][k],
                      **({"ngp": hash_records["ngp"][k]} if k in hash_records["ngp"] else {}))
                 for k, fn in hashgrid_cuda.KERNELS.items()]
+    kernels.append(dict(name="A1 update", route="cuda", source=CSRC + "optimizer.cu",
+                        replaces="none: the optax chain of romap_tpu/models/nerf.py",
+                        by_field=optimizer_records))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                               "count": torch.cuda.device_count()}}))

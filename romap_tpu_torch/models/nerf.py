@@ -11,7 +11,8 @@ leading object axis O. One `train_objects` step trains every slot at once:
                    over the rays' directions)
   composite_loss   volume render + RGB, depth, mask and background-sigma terms
   optimizer        zero_nans -> L2 1e-6 -> Adam(.9, .99, 1e-15) -> exp-decay
-                   rate -> EMA .95, masked per slot
+                   rate -> EMA .95, masked per slot (kernel A1 on the card,
+                   `ops/optimizer_cuda.py`)
 
 Where JAX vmaps over objects this module writes the object axis out, and
 where JAX draws from per-object keys it takes uniforms from a
@@ -28,7 +29,7 @@ from torch.utils import _pytree as pytree
 
 from romap_tpu_torch.config import NerfConfig
 from romap_tpu_torch.data.frame_store import FrameArrays
-from romap_tpu_torch.ops import hashgrid, mxgrid, mxgrid_cuda
+from romap_tpu_torch.ops import hashgrid, mxgrid, mxgrid_cuda, optimizer_cuda
 from romap_tpu_torch.ops.geometry import (
     camera_rays,
     ray_aabb_intersect,
@@ -264,49 +265,6 @@ def reinit_slot(state: TrainState, generator: torch.Generator, idx: int, cfg: Ne
     return pytree.tree_map(put, state, fresh)
 
 
-def learning_rate(cfg: NerfConfig, step: torch.Tensor) -> torch.Tensor:
-    """ExponentialDecay around Adam: lr * base^n, n = max(0, (step - start)
-    // interval + 1), per object."""
-    o = cfg.optimizer
-    n = torch.clamp(torch.div(step - o.decay_start, o.decay_interval,
-                              rounding_mode="floor") + 1, min=0)
-    return o.learning_rate * torch.pow(o.decay_base, n.float())
-
-
-def _per_object(v: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
-    """[O] -> [O, 1, ..., 1] broadcastable against `like`."""
-    return v.reshape((-1,) + (1,) * (like.ndim - 1))
-
-
-def _optimizer_update(grads, opt: AdamState, params, cfg: NerfConfig):
-    """optax chain(zero_nans, add_decayed_weights, scale_by_adam), leafwise:
-    returns (updates, new AdamState)."""
-    o = cfg.optimizer
-    b1, b2 = o.beta1, o.beta2
-    count = opt.count + 1
-    c1 = 1 - torch.pow(b1, count.float())
-    c2 = 1 - torch.pow(b2, count.float())
-    flat_g, treedef = pytree.tree_flatten(grads)
-    flat_p = pytree.tree_leaves(params)
-    flat_mu = pytree.tree_leaves(opt.mu)
-    flat_nu = pytree.tree_leaves(opt.nu)
-    found, ups, mus, nus = [], [], [], []
-    for g, p, mu, nu in zip(flat_g, flat_p, flat_mu, flat_nu):
-        nan = torch.isnan(g)
-        found.append(nan.reshape(nan.shape[0], -1).any(dim=1))
-        g = torch.where(nan, torch.zeros_like(g), g)
-        g = g + o.l2_reg * p
-        mu = (1 - b1) * g + b1 * mu
-        nu = (1 - b2) * g**2 + b2 * nu
-        mu_hat = mu / _per_object(c1, mu)
-        nu_hat = nu / _per_object(c2, nu)
-        ups.append(mu_hat / (torch.sqrt(nu_hat) + o.epsilon))
-        mus.append(mu)
-        nus.append(nu)
-    unflat = lambda xs: pytree.tree_unflatten(xs, treedef)
-    return unflat(ups), AdamState(unflat(found), count, unflat(mus), unflat(nus))
-
-
 # --------------------------------------------------------------------------
 # Batch generation (ref GenerateRays nerf_model.cu:369-446)
 # --------------------------------------------------------------------------
@@ -428,20 +386,12 @@ def _object_train_step(state: TrainState, frames: FrameArrays, objects: ObjectsS
         grads = pytree.tree_unflatten(list(torch.autograd.grad(total, leaves)), treedef)
 
     with torch.no_grad(), tracing.span("optimizer.update"):
-        updates, new_opt = _optimizer_update(grads, state.opt, state.params, cfg)
-        lr = learning_rate(cfg, state.step)
-        new_params = pytree.tree_map(lambda p, u: p - _per_object(lr, u) * u,
-                                     state.params, updates)
-        decay = cfg.optimizer.ema_decay
-        new_ema = pytree.tree_map(lambda e, p: decay * e + (1.0 - decay) * p,
-                                  state.ema, new_params)
         ok = objects.active & batch.valid
-        keep = lambda old, new: pytree.tree_map(
-            lambda a, b: torch.where(_per_object(ok, b), b, a), old, new)
+        # A1 takes rows; an MX-grid's lines come back from the unfold's einsum transposed
+        grads = pytree.tree_map(torch.Tensor.contiguous, grads)
+        params, ema, opt = optimizer_cuda.update(grads, state, ok, cfg)
         return TrainState(
-            params=keep(state.params, new_params),
-            ema=keep(state.ema, new_ema),
-            opt=keep(state.opt, new_opt),
+            params=params, ema=ema, opt=opt,
             step=torch.where(ok, state.step + 1, state.step),
             loss=torch.where(ok, aux["logged_loss"].detach(),
                              torch.zeros_like(state.loss)),

@@ -170,6 +170,9 @@ def _library() -> ctypes.CDLL:
         "romap_hash_fwd": [i32] + [ptr] * 3 + [floats, ints] + [i32] * 5 + [ptr],
         "romap_hash_bwd": [i32] + [ptr] * 3 + [floats, ints] + [i32] * 5 + [ptr],
         "romap_hash_points_grad": [i32] + [ptr] * 4 + [floats, ints] + [i32] * 5 + [ptr],
+        # the optimizer's update A1 (csrc/optimizer.cu; ops/optimizer_cuda.py)
+        "romap_adam_ema": ([i32] * 2 + [ptrs, ctypes.POINTER(ctypes.c_int64), floats]
+                           + [ptr] * 5 + [i32, ptr]),
     }
     for name, types in argtypes.items():
         fn = getattr(lib, name)
@@ -1180,11 +1183,11 @@ PRODUCT_PASSES = {"cp_product_pass": cp_product_pass, "cp_product": cp_product}
 
 
 def _all_kernels() -> dict:
-    """K0-K10 and the hash grid's H0-H2 (`hashgrid_cuda`, which imports this
-    module, hence imported here)."""
-    from romap_tpu_torch.ops import hashgrid_cuda
+    """K0-K10, the hash grid's H0-H2 and the optimizer's A1 (`hashgrid_cuda`
+    and `optimizer_cuda` import this module, hence imported here)."""
+    from romap_tpu_torch.ops import hashgrid_cuda, optimizer_cuda
 
-    return {**KERNELS, **hashgrid_cuda.KERNELS}
+    return {**KERNELS, **hashgrid_cuda.KERNELS, **optimizer_cuda.KERNELS}
 
 
 def reset_launch_counts() -> None:
@@ -1196,7 +1199,7 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> dict[str, int]:
     """{kernel: launches since the last `reset_launch_counts`}: K0-K10, then
-    the hash grid's H0-H2."""
+    the hash grid's H0-H2, then the optimizer's A1."""
     return {k: fn.launches for k, fn in _all_kernels().items()}
 
 

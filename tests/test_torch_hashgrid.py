@@ -222,9 +222,10 @@ def test_level_constants_equal_the_specs(enc):
 
 def test_launch_counts_list_the_hash_grid_kernels():
     """`mxgrid_cuda.launch_counts()` (what the CLIs write into `--trace`)
-    lists H0-H2 after K0-K10, and `reset_launch_counts()` zeroes them."""
+    lists H0-H2 after K0-K10, then the optimizer's A1, and
+    `reset_launch_counts()` zeroes them."""
     hashgrid_cuda.forward.launches = 3
-    assert list(mxgrid_cuda.launch_counts()) == [*mxgrid_cuda.KERNELS, "H0", "H1", "H2"]
+    assert list(mxgrid_cuda.launch_counts()) == [*mxgrid_cuda.KERNELS, "H0", "H1", "H2", "A1"]
     assert mxgrid_cuda.launch_counts()["H1"] == 3
     mxgrid_cuda.reset_launch_counts()
     assert not any(mxgrid_cuda.launch_counts().values())

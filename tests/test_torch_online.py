@@ -404,7 +404,8 @@ def test_server_trace_records_waves_and_meshes(tmp_path):
     """`--trace PATH`: at SHUTDOWN the server writes the session's spans and
     counters. Each manager wave has its `train.wave` and `train.barrier` and
     its counters (2 slots x 3 steps issued, object 0's 3 trained: object 1
-    has too few bboxes), each mesh its `mesh.object` with the object's id."""
+    has too few bboxes; the optimizer's `optimizer.fused_params`, the same
+    tree each wave), each mesh its `mesh.object` with the object's id."""
     sock, path = str(tmp_path / "s.sock"), str(tmp_path / "trace.json")
     th = threading.Thread(target=tserver.main, daemon=True, args=(
         ["--socket", sock, "--small", "--device", "cpu", "--trace", path],))
@@ -437,6 +438,8 @@ def test_server_trace_records_waves_and_meshes(tmp_path):
     for c in t["counters"]:
         if "wave" in c["ids"]:
             per_wave.setdefault(c["ids"]["wave"], {})[c["name"]] = c["n"]
+    fused = {per_wave[w].pop("optimizer.fused_params") for w in waves}
+    assert len(fused) == 1 and fused.pop() > 0  # every step's update counts its tree
     assert per_wave == {w: dict(slot_steps_issued=2 * 3, slot_steps_trained=3, slots_active=1)
                         for w in waves}
     meshes = [e for e in spans if e["name"] == "mesh.object"]

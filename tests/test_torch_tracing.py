@@ -12,6 +12,7 @@ import time
 
 import pytest
 import torch
+from torch.utils import _pytree as pytree
 
 from romap_tpu_torch.config import EncodingConfig, NerfConfig, NetworkConfig, TrainConfig
 from romap_tpu_torch.data.formats import write_dataset
@@ -207,8 +208,10 @@ def test_offline_runner_counts_waves_meshes_and_frames(dataset_dir, tmp_path):
     for c in d["counters"]:
         if "wave" in c["ids"]:
             per_wave.setdefault(c["ids"]["wave"], {})[c["name"]] = c["n"]
-    assert per_wave == {w: dict(slot_steps_issued=3 * 2, slot_steps_trained=2 * 2,
-                                slots_active=2) for w in (1, 2)}
+    n_params = sum(a.numel() for a in pytree.tree_leaves(r.state.params))
+    assert per_wave == {w: {"slot_steps_issued": 3 * 2, "slot_steps_trained": 2 * 2,
+                            "slots_active": 2, "optimizer.fused_params": n_params}
+                        for w in (1, 2)}
 
     spans = d["spans"]
     names = [s["name"] for s in spans]

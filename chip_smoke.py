@@ -161,7 +161,8 @@ from romap_tpu_torch.data import synthetic  # noqa: E402
 from romap_tpu_torch.data.formats import write_dataset  # noqa: E402
 from romap_tpu_torch.data.world import build_synthetic_world  # noqa: E402
 from romap_tpu_torch.models import nerf  # noqa: E402
-from romap_tpu_torch.ops import hashgrid_cuda, mxgrid, mxgrid_cuda, optimizer_cuda  # noqa: E402
+from romap_tpu_torch.ops import (  # noqa: E402
+    cuda_lib, hashgrid_cuda, mxgrid, mxgrid_cuda, optimizer_cuda)
 from romap_tpu_torch.ops.geometry import camera_rays, ray_aabb_intersect  # noqa: E402
 from romap_tpu_torch.runtime import offline, pose_refine, server  # noqa: E402
 from romap_tpu_torch.runtime.offline import OfflineRunner  # noqa: E402
@@ -267,8 +268,8 @@ def phase_device() -> tuple[str, str]:
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    lib = mxgrid_cuda.build_library()
-    mxgrid_cuda._library()
+    lib = cuda_lib.build_library()
+    cuda_lib.library()
     dt = time.perf_counter() - t0
     log = lib.with_suffix(".so.log").read_text() if lib.with_suffix(".so.log").exists() else ""
     for line in log.splitlines():
@@ -595,7 +596,7 @@ def time_unsnapped_forwards(specs: dict, dev) -> None:
                 pts, args, _ = kernel_inputs(spec, dtype, dev, seed=3, kf=kf, o=o, p=p)
                 extra = {}
                 if dtype == torch.float32:
-                    mxgrid_cuda.reset_launch_counts()
+                    cuda_lib.reset_launch_counts()
                     got = fwd(pts, *args, spec)
                     passes = sum(fn.launches for fn in mxgrid_cuda.PRODUCT_PASSES.values())
                     plain = getattr(mxgrid_cuda, fwd.__name__ + "_plain")
@@ -885,7 +886,7 @@ def check_optimizer(dev) -> dict:
         grads = pytree.tree_map(lambda a: rnd(a, 1e-3), state.params)
         grads["table"][0, -1, 0] = float("nan")
         ok = torch.ones(N_OBJECTS, dtype=torch.bool, device=dev)
-        mxgrid_cuda.reset_launch_counts()
+        cuda_lib.reset_launch_counts()
         got = optimizer_cuda.update(grads, state, ok, cfg)
         torch.cuda.synchronize()
         launches = optimizer_cuda.update.launches
@@ -975,7 +976,7 @@ def phase_train_and_render(dev) -> tuple[dict, float]:
     say("5 train", setup_s=f"{time.perf_counter() - t0:.3f}", spec_out=spec.n_output_dims,
         dtype=str(nerf.compute_dtype(cfg, torch.device(dev))).split(".")[1])
 
-    mxgrid_cuda.reset_launch_counts()
+    cuda_lib.reset_launch_counts()
     state = nerf.train_objects(state, objs, frames, cfg, spec, 1, generator=gen)
     loss1 = state.loss.cpu()
     torch.cuda.synchronize()
@@ -1125,7 +1126,7 @@ def phase_offline(dev, root: str, frames) -> dict:
         setup_s=f"{time.perf_counter() - t0:.3f}")
 
     out = os.path.join(root, "out_fast")
-    mxgrid_cuda.reset_launch_counts()
+    cuda_lib.reset_launch_counts()
     t0 = time.perf_counter()
     runner.train(waves=2, steps_per_wave=25, mesh_every=2, out_dir=out)
     t_train = time.perf_counter() - t0
@@ -1162,7 +1163,7 @@ def phase_unsnapped_cli(dev, root: str) -> dict:
     flagship spec unsnapped (K3/K4), 1 wave x 20 steps, no video."""
     out = os.path.join(root, "out_unsnapped")
     with environ(MX_SNAP="0"):
-        mxgrid_cuda.reset_launch_counts()
+        cuda_lib.reset_launch_counts()
         t0 = time.perf_counter()
         runner = offline.main(["-", root, "1", "--device", dev, "--waves", "1",
                                "--steps-per-wave", "20", "--no-video", "--out", out])
@@ -1320,7 +1321,7 @@ def phase_online(root: str) -> dict:
     sock, out = os.path.join(root, "online.sock"), os.path.join(root, "out_online")
     box = {}
     with environ(MX_FUSED="0", MX_SNAP="0"):
-        mxgrid_cuda.reset_launch_counts()
+        cuda_lib.reset_launch_counts()
         t0 = time.perf_counter()
         th = threading.Thread(target=lambda: box.update(srv=server.main(["--socket", sock])),
                               daemon=True)
@@ -1454,7 +1455,7 @@ def phase_refine(dev) -> dict:
         twcs_true.append(twc)
         twcs_pert.append(twc @ pert)
     host = lambda a: a.cpu().numpy()
-    mxgrid_cuda.reset_launch_counts()
+    cuda_lib.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     refined, stats = pose_refine.refine_view_poses_host(
@@ -1545,16 +1546,16 @@ def phase_hash_field(dev, field: str, cfg: NerfConfig) -> float:
         return loss1, state.loss.cpu(), time.perf_counter() - t0
 
     torch.cuda.reset_peak_memory_stats()
-    mxgrid_cuda.reset_launch_counts()
+    cuda_lib.reset_launch_counts()
     loss1, loss2, wave_s = run()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    launches = {k: n for k, n in mxgrid_cuda.launch_counts().items() if n}
+    launches = {k: n for k, n in cuda_lib.launch_counts().items() if n}
     by_dtype = {k: dict(hashgrid_cuda.KERNELS[k].launches_by_dtype)
                 for k in launches if k in hashgrid_cuda.KERNELS}
-    mxgrid_cuda.reset_launch_counts()
+    cuda_lib.reset_launch_counts()
     with hash_twins():
         plain1, plain2, plain_s = run()
-    plain_launches = {k: n for k, n in mxgrid_cuda.launch_counts().items() if n}
+    plain_launches = {k: n for k, n in cuda_lib.launch_counts().items() if n}
     gap = max(float(((a - b).abs() / b.abs())[active].max())
               for a, b in ((loss1, plain1), (loss2, plain2)))
     rate = N_OBJECTS * 20 / wave_s
@@ -1584,7 +1585,7 @@ def phase_quality() -> None:
     3-seed mean within 0.5 dB of the hash-grid anchors' mean. The record goes
     to build/, not into the tree; a failed gate fails the script."""
     out = os.path.join(ROOT, "build", "quality_torch.json")
-    mxgrid_cuda.reset_launch_counts()
+    cuda_lib.reset_launch_counts()
     rc = quality_gate.main(["--out", out])
     torch.cuda.synchronize()
     launches = {k: fn.launches for k, fn in mxgrid_cuda.KERNELS.items() if fn.launches}
@@ -1634,7 +1635,7 @@ def phase_quality_preset(dev) -> dict:
             gen = torch.Generator(device=dev).manual_seed(cfg.seed)
             state = nerf.init_train_state(gen, N_OBJECTS, cfg, spec, device=dev)
             torch.cuda.reset_peak_memory_stats()
-            mxgrid_cuda.reset_launch_counts()
+            cuda_lib.reset_launch_counts()
             state = nerf.train_objects(state, objs, frames, cfg, spec, 1, generator=gen)
             loss1 = state.loss.cpu()
             torch.cuda.synchronize()
@@ -1710,7 +1711,7 @@ def phase_fp32(dev) -> list:
             route = mxgrid_cuda.kernel_path(spec)
             gen = torch.Generator(device=dev).manual_seed(cfg.seed)
             state = nerf.init_train_state(gen, N_OBJECTS, cfg, spec, device=dev)
-            mxgrid_cuda.reset_launch_counts()
+            cuda_lib.reset_launch_counts()
             state = nerf.train_objects(state, objs, frames, cfg, spec, 1, generator=gen)
             loss1 = state.loss.cpu()
             torch.cuda.synchronize()

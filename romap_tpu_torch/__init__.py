@@ -11,8 +11,9 @@ in their imports. Its entry points (offline runner, online manager, socket
 server) run on the card unless the caller asks for the CPU.
 
 Layout:
-  ops/      — MX-grid encode (plain + CUDA kernels), geometry, MLP, render,
-              loss, marching cubes
+  ops/      — MX-grid and hash-grid encodes and the optimizer's update
+              (plain + CUDA kernels; `cuda_lib` is the CUDA runtime),
+              geometry, MLP, render, loss, marching cubes
   csrc/     — the hand-written CUDA kernels (built at first CUDA use)
   models/   — the batched multi-object train step, ray render, density grid,
               slot re-initialization

@@ -29,7 +29,7 @@ from torch.utils import _pytree as pytree
 
 from romap_tpu_torch.config import NerfConfig
 from romap_tpu_torch.data.frame_store import FrameArrays
-from romap_tpu_torch.ops import hashgrid, mxgrid, mxgrid_cuda, optimizer_cuda
+from romap_tpu_torch.ops import hashgrid, hashgrid_cuda, mxgrid, mxgrid_cuda, optimizer_cuda
 from romap_tpu_torch.ops.geometry import (
     camera_rays,
     ray_aabb_intersect,
@@ -89,7 +89,7 @@ def _features(params, points: torch.Tensor, spec, dtype):
     mlp = pytree.tree_map(lambda a: a.to(dtype), params["mlp"])
     with tracing.span("encode.fwd"):
         if isinstance(spec, hashgrid.HashGridSpec):
-            feats = hashgrid.encode(table, points, spec)
+            feats = hashgrid_cuda.encode(table, points, spec)
         elif points.device.type == "cuda":
             feats = mxgrid_cuda.encode(table, points, spec)
         else:
@@ -125,10 +125,10 @@ def field_apply(params, points: torch.Tensor, dirs: torch.Tensor | None, cfg: Ne
     RO-MAP's head takes no direction (`dirs` unused, may be None);
     instant-ngp's (`ops/mlp.view_dependent`) needs it.
 
-    A hash-grid spec takes `hashgrid.encode` on any device, which picks by
-    the points' device: the kernels H1 (forward), H2 (the table's gradient)
-    and H0 (the points') for a CUDA tensor, their plain twins for a CPU one
-    (`ops/hashgrid_cuda.py`). For an MX-grid spec the device picks the
+    A hash-grid spec takes `hashgrid_cuda.encode` (`hashgrid.encode`) on any
+    device, which picks by the points' device: the kernels H1 (forward), H2
+    (the table's gradient) and H0 (the points') for a CUDA tensor, their
+    plain twins for a CPU one. For an MX-grid spec the device picks the
     encode: a CUDA tensor goes through the kernels the spec selects
     (`mxgrid_cuda.encode`, K1-K10, and K0 for the points' gradient in pose
     refinement; a spec none of them covers raises), a CPU tensor through the

@@ -14,15 +14,12 @@ gradient), and the backward recomputes the corners' rows and weights.
 Every kernel has a plain PyTorch twin of the same signature in this module
 (`forward_plain`, ...), built on `hashgrid.corner_rows`. A wrapper picks by
 device alone: a CPU tensor goes to the twin, a CUDA tensor launches the
-kernel or raises (wrong device, dtype, shape, alignment or contiguity; a
-spec of more than `MAX_LEVELS` levels or of a feature count not in
-`FEATURES`). No failure of the build or of a launch is caught. The sources
-are built with K0-K10's (`mxgrid_cuda.build_library`, at the first CUDA
-call, never at import).
-
-Each wrapper counts its launches in a plain int attribute
-(`forward.launches`, ...) and per table dtype in `launches_by_dtype`;
-`mxgrid_cuda.launch_counts()` reports them as H0-H2 beside K0-K10.
+kernel or raises (wrong device, dtype, shape or contiguity; a table or
+cotangent not aligned to a row of F values, which the kernels move as one
+access; a spec of more than `MAX_LEVELS` levels or of a feature count not in
+`FEATURES`). No failure of the build or of a launch is caught. This module
+declares hashgrid.cu's C entries (`ARGTYPES`); `cuda_lib` builds, loads,
+launches and counts them (`launch_counts()`: H0-H2 after K0-K10).
 """
 
 from __future__ import annotations
@@ -34,11 +31,21 @@ import functools
 import numpy as np
 import torch
 
-from romap_tpu_torch.ops import hashgrid, mxgrid_cuda
+from romap_tpu_torch.ops import cuda_lib, hashgrid
 from romap_tpu_torch.ops.hashgrid import HashGridSpec
 
 MAX_LEVELS = 32  # kMaxHashLevels of csrc/hashgrid.cu
 FEATURES = (1, 2, 4, 8)  # features a level: tiny-cuda-nn's HashGrid takes these
+
+_ptr, _i32 = ctypes.c_void_p, ctypes.c_int
+_floats, _ints = ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int)
+# the C entries of csrc/hashgrid.cu: H1, H2, H0 (dtype code first, stream last)
+ARGTYPES = {
+    "romap_hash_fwd": [_i32] + [_ptr] * 3 + [_floats, _ints] + [_i32] * 5 + [_ptr],
+    "romap_hash_bwd": [_i32] + [_ptr] * 3 + [_floats, _ints] + [_i32] * 5 + [_ptr],
+    "romap_hash_points_grad": [_i32] + [_ptr] * 4 + [_floats, _ints] + [_i32] * 5 + [_ptr],
+}
+cuda_lib.declare(ARGTYPES)
 
 LevelConstants = collections.namedtuple(
     "LevelConstants", ["scales", "resolutions", "sizes", "offsets", "dense"])
@@ -71,16 +78,6 @@ def _level_args(spec: HashGridSpec) -> tuple:
     ints = (*lc.resolutions, *lc.sizes, *lc.offsets, *map(int, lc.dense))
     return (ctypes.c_float * n)(*lc.scales), (ctypes.c_int * (4 * n))(*ints), n, \
         spec.n_features
-
-
-def _check_rows(name: str, t: torch.Tensor, shape: tuple, dtype, device,
-                spec: HashGridSpec) -> None:
-    """`mxgrid_cuda._check`, and a row of F values aligned to its size (the
-    kernels load and store one as one access)."""
-    mxgrid_cuda._check(name, t, shape, dtype, device)
-    if t.data_ptr() % (t.element_size() * spec.n_features):
-        raise ValueError(f"{name}: data pointer {t.data_ptr():#x} is not aligned to a row "
-                         f"of {spec.n_features} values")
 
 
 def _acc_dtype(dt: torch.dtype) -> torch.dtype:
@@ -156,60 +153,65 @@ def points_gradient_plain(points, table, g, spec: HashGridSpec) -> torch.Tensor:
 # --------------------------------------------------------------------------
 
 
-@mxgrid_cuda._counted
+@cuda_lib.counted
 def forward(points, table, spec: HashGridSpec) -> torch.Tensor:
     """H1 (its twin for CPU tensors)."""
     dt, dev = table.dtype, points.device
-    if not mxgrid_cuda._on_card(points, dt):
+    if not cuda_lib.on_card(points, dt):
         return forward_plain(points, table, spec)
     levels = _level_args(spec)
     o, n = points.shape[:2]
-    mxgrid_cuda._check("points", points, (o, n, 3), torch.float32, dev)
-    _check_rows("table", table, (o, spec.total_params, spec.n_features), dt, dev, spec)
+    cuda_lib.check("points", points, (o, n, 3), torch.float32, dev)
+    cuda_lib.check("table", table, (o, spec.total_params, spec.n_features), dt, dev,
+                   align=spec.n_features * table.element_size())
     out = torch.empty((o, n, spec.n_output_dims), dtype=dt, device=dev)
-    mxgrid_cuda._launch(forward, "H1 hash forward", "romap_hash_fwd", dt, dev,
-                        points.data_ptr(), table.data_ptr(), out.data_ptr(),
-                        *levels, o, n, spec.total_params)
+    cuda_lib.launch(forward, "H1 hash forward", "romap_hash_fwd", dt, dev,
+                    points.data_ptr(), table.data_ptr(), out.data_ptr(),
+                    *levels, o, n, spec.total_params)
     return out
 
 
-@mxgrid_cuda._counted
+@cuda_lib.counted
 def table_gradient(points, g, spec: HashGridSpec) -> torch.Tensor:
     """H2 (its twin for CPU tensors): [O, T, F] in g's dtype."""
     dt, dev = g.dtype, points.device
-    if not mxgrid_cuda._on_card(points, dt):
+    if not cuda_lib.on_card(points, dt):
         return table_gradient_plain(points, g, spec)
     levels = _level_args(spec)
     o, n = points.shape[:2]
-    mxgrid_cuda._check("points", points, (o, n, 3), torch.float32, dev)
-    _check_rows("g", g, (o, n, spec.n_output_dims), dt, dev, spec)
+    cuda_lib.check("points", points, (o, n, 3), torch.float32, dev)
+    cuda_lib.check("g", g, (o, n, spec.n_output_dims), dt, dev,
+                   align=spec.n_features * g.element_size())
     buf = torch.zeros((o, spec.total_params, spec.n_features), dtype=torch.float32,
                       device=dev)
-    mxgrid_cuda._launch(table_gradient, "H2 hash table gradient", "romap_hash_bwd", dt, dev,
-                        points.data_ptr(), g.data_ptr(), buf.data_ptr(), *levels, o, n,
-                        spec.total_params)
+    cuda_lib.launch(table_gradient, "H2 hash table gradient", "romap_hash_bwd", dt, dev,
+                    points.data_ptr(), g.data_ptr(), buf.data_ptr(), *levels, o, n,
+                    spec.total_params)
     return buf.to(dt)
 
 
-@mxgrid_cuda._counted
+@cuda_lib.counted
 def points_gradient(points, table, g, spec: HashGridSpec) -> torch.Tensor:
     """H0 (its twin for CPU tensors): [O, N, 3] fp32."""
     dt, dev = table.dtype, points.device
-    if not mxgrid_cuda._on_card(points, dt):
+    if not cuda_lib.on_card(points, dt):
         return points_gradient_plain(points, table, g, spec)
     levels = _level_args(spec)
     o, n = points.shape[:2]
-    mxgrid_cuda._check("points", points, (o, n, 3), torch.float32, dev)
-    _check_rows("table", table, (o, spec.total_params, spec.n_features), dt, dev, spec)
-    _check_rows("g", g, (o, n, spec.n_output_dims), dt, dev, spec)
+    cuda_lib.check("points", points, (o, n, 3), torch.float32, dev)
+    cuda_lib.check("table", table, (o, spec.total_params, spec.n_features), dt, dev,
+                   align=spec.n_features * table.element_size())
+    cuda_lib.check("g", g, (o, n, spec.n_output_dims), dt, dev,
+                   align=spec.n_features * g.element_size())
     dpts = torch.empty((o, n, 3), dtype=torch.float32, device=dev)
-    mxgrid_cuda._launch(points_gradient, "H0 hash points gradient", "romap_hash_points_grad",
-                        dt, dev, points.data_ptr(), table.data_ptr(), g.data_ptr(),
-                        dpts.data_ptr(), *levels, o, n, spec.total_params)
+    cuda_lib.launch(points_gradient, "H0 hash points gradient", "romap_hash_points_grad",
+                    dt, dev, points.data_ptr(), table.data_ptr(), g.data_ptr(),
+                    dpts.data_ptr(), *levels, o, n, spec.total_params)
     return dpts
 
 
-KERNELS = {"H0": points_gradient, "H1": forward, "H2": table_gradient}
+KERNELS = cuda_lib.register({"H0": points_gradient, "H1": forward, "H2": table_gradient},
+                           rank=1)
 
 
 # --------------------------------------------------------------------------

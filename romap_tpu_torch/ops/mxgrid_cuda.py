@@ -37,23 +37,15 @@ the product as a second pass (`unsnapped_forward_variant`; `cp_product_pass`
 after K3, `cp_product` after K7). The C entry refuses a
 combination it does not have, and the wrapper raises.
 
-The CUDA sources are `romap_tpu_torch/csrc/*.cu`; they are built with nvcc
-into one shared library with a plain C interface at the first CUDA call
-(never at import) and loaded with ctypes. The build lands in
-`build/romap_tpu_torch/` beside the package, keyed on a hash of the sources
-and flags.
+The sources are `csrc/mxgrid_*.cu`: this module declares their C entries
+(`ARGTYPES`); `cuda_lib` builds, loads, launches and counts them
+(`launch_counts()` lists K0-K10 first).
 
 Every kernel has a plain PyTorch twin of the same signature in this module.
 A wrapper picks by device alone: a CPU tensor goes to the twin (the CPU
 tests), a CUDA tensor launches the kernel or raises. No config value (the
 reference's `mx_impl`) routes a CUDA tensor to a plain version, and no
 failure of the build or of a launch is caught.
-
-Each wrapper counts its kernel launches in a plain int attribute
-(`folded_fused_forward.launches`, ...) and, per table dtype, in
-`launches_by_dtype` (e.g. {"bfloat16": 3, "float32": 1}); the backwards
-with variants also per dtype and variant, in `launches_by_variant` (e.g.
-{"float32 tensor_core_split": 21}).
 
 The points get their gradient from K0 (`points_gradient`, csrc/
 mxgrid_points.cu; variant `points_variant`), on every path, where they
@@ -63,17 +55,12 @@ require one (pose refinement): the Pallas VJP gives them none (mxgrid_pallas.py:
 
 from __future__ import annotations
 
-import collections
 import ctypes
-import functools
-import hashlib
 import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 
+from romap_tpu_torch.ops import cuda_lib
 from romap_tpu_torch.ops.mxgrid import (
     MXGridSpec,
     fold_lines,
@@ -82,103 +69,30 @@ from romap_tpu_torch.ops.mxgrid import (
     unfold_dlines,
 )
 
-_PKG = Path(__file__).resolve().parent.parent
-CSRC_DIR = _PKG / "csrc"
-BUILD_DIR = _PKG.parent / "build" / "romap_tpu_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_LEVELS = 8  # kMaxLevels of mxgrid_common.cuh
 MAX_PLANE_LEVELS = 4  # kMaxPlaneLevels of mxgrid_common.cuh
 
-
-def _find_nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    for home in (os.environ.get("CUDA_HOME"), CUDA_HOME):
-        if home and os.path.exists(os.path.join(home, "bin", "nvcc")):
-            return os.path.join(home, "bin", "nvcc")
-    raise RuntimeError("nvcc not found (PATH, CUDA_HOME): cannot build the "
-                       "romap_tpu_torch CUDA kernels")
-
-
-def _compile(src: Path, obj: Path) -> subprocess.Popen:
-    flags = [f for f in NVCC_FLAGS if f != "-shared"]
-    return subprocess.Popen([_find_nvcc(), *flags, "-c", "-o", str(obj), str(src)],
-                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-
-
-def build_library() -> Path:
-    """Compile csrc/*.cu into one shared library (once per source hash) and
-    return its path. Each source compiles in its own nvcc process, all
-    started together; nvcc's output (the ptxas register and shared-memory
-    report) is kept beside the library as `<lib>.so.log`."""
-    sources = sorted(CSRC_DIR.glob("*.cu"))
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(CSRC_DIR.glob("*.cu*")):
-        digest.update(src.name.encode() + src.read_bytes())
-    lib = BUILD_DIR / f"libromap_kernels_{digest.hexdigest()[:16]}.so"
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tag = f"{digest.hexdigest()[:16]}.{os.getpid()}"
-    objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources]
-    procs = [_compile(src, obj) for src, obj in zip(sources, objs)]
-    logs = [p.communicate()[0] for p in procs]
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    if all(p.returncode == 0 for p in procs):
-        link = subprocess.run([_find_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)],
-                              capture_output=True, text=True)
-        logs.append(link.stdout + link.stderr)
-        failed = link.returncode
-    else:
-        failed = next(p.returncode for p in procs if p.returncode != 0)
-    lib.with_suffix(".so.log").write_text("".join(logs))
-    for obj in objs:
-        obj.unlink(missing_ok=True)
-    if failed:
-        raise RuntimeError(f"nvcc failed ({failed}):\n" + "".join(logs))
-    os.replace(tmp, lib)  # atomic: another process never sees a partial file
-    return lib
-
-
-@functools.cache
-def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build_library()))
-    ptr, i32, ints = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
-    ptrs, floats = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_float)
-    argtypes = {
-        "romap_mx_folded_fwd": [i32] * 2 + [ptr] * 8 + [i32] * 10 + [ptr],
-        "romap_mx_folded_bwd": [i32] * 2 + [ptr] * 8 + [i32] * 10 + [ptr],
-        "romap_mx_folded_cp_fwd": [i32] * 2 + [ptr] * 4 + [i32] * 5 + [ptr],
-        "romap_mx_folded_cp_bwd": [i32] * 2 + [ptr] * 4 + [i32] * 5 + [ptr],
-        "romap_mx_unsnapped_fwd": [i32] * 2 + [ptr] * 8 + [ints] * 2 + [i32] * 11 + [ptr],
-        "romap_mx_cp_product": [i32] + [ptr] * 2 + [i32] * 4 + [ptr],
-        "romap_mx_unsnapped_bwd": [i32] * 2 + [ptr] * 8 + [ints] * 2 + [i32] * 10 + [ptr],
-        "romap_mx_unsnapped_cp_fwd": [i32] * 2 + [ptr] * 4 + [ints] * 2 + [i32] * 6 + [ptr],
-        "romap_mx_unsnapped_cp_bwd": [i32] * 2 + [ptr] * 4 + [ints] * 2 + [i32] * 5 + [ptr],
-        "romap_mx_planes_fwd": ([i32, ptr, i32, ptrs, ptrs] + [ints] * 3 + [ptr] * 3
-                                + [i32] * 3 + [ptr]),
-        "romap_mx_planes_bwd": ([i32] * 2 + [ptr] * 4 + [i32] * 2 + [ptrs] * 2 + [ints] * 3
-                                + [i32] * 3 + [ptr]),
-        "romap_mx_points_grad": ([i32] * 2 + [ptr] * 2 + [ints] * 2 + [i32] * 2 + [ptr, i32]
-                                 + [ptrs] * 2 + [ints] * 3 + [ptr] * 4 + [i32] * 4 + [ptr]),
-        # the hash grid's H1, H2, H0 (csrc/hashgrid.cu; ops/hashgrid_cuda.py)
-        "romap_hash_fwd": [i32] + [ptr] * 3 + [floats, ints] + [i32] * 5 + [ptr],
-        "romap_hash_bwd": [i32] + [ptr] * 3 + [floats, ints] + [i32] * 5 + [ptr],
-        "romap_hash_points_grad": [i32] + [ptr] * 4 + [floats, ints] + [i32] * 5 + [ptr],
-        # the optimizer's update A1 (csrc/optimizer.cu; ops/optimizer_cuda.py)
-        "romap_adam_ema": ([i32] * 2 + [ptrs, ctypes.POINTER(ctypes.c_int64), floats]
-                           + [ptr] * 5 + [i32, ptr]),
-    }
-    for name, types in argtypes.items():
-        fn = getattr(lib, name)
-        fn.argtypes = types
-        fn.restype = i32
-    return lib
+_ptr, _i32, _ints = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
+_ptrs = ctypes.POINTER(ctypes.c_void_p)
+# the C entries of csrc/mxgrid_*.cu (dtype code first, stream last)
+ARGTYPES = {
+    "romap_mx_folded_fwd": [_i32] * 2 + [_ptr] * 8 + [_i32] * 10 + [_ptr],
+    "romap_mx_folded_bwd": [_i32] * 2 + [_ptr] * 8 + [_i32] * 10 + [_ptr],
+    "romap_mx_folded_cp_fwd": [_i32] * 2 + [_ptr] * 4 + [_i32] * 5 + [_ptr],
+    "romap_mx_folded_cp_bwd": [_i32] * 2 + [_ptr] * 4 + [_i32] * 5 + [_ptr],
+    "romap_mx_unsnapped_fwd": [_i32] * 2 + [_ptr] * 8 + [_ints] * 2 + [_i32] * 11 + [_ptr],
+    "romap_mx_cp_product": [_i32] + [_ptr] * 2 + [_i32] * 4 + [_ptr],
+    "romap_mx_unsnapped_bwd": [_i32] * 2 + [_ptr] * 8 + [_ints] * 2 + [_i32] * 10 + [_ptr],
+    "romap_mx_unsnapped_cp_fwd": [_i32] * 2 + [_ptr] * 4 + [_ints] * 2 + [_i32] * 6 + [_ptr],
+    "romap_mx_unsnapped_cp_bwd": [_i32] * 2 + [_ptr] * 4 + [_ints] * 2 + [_i32] * 5 + [_ptr],
+    "romap_mx_planes_fwd": ([_i32, _ptr, _i32, _ptrs, _ptrs] + [_ints] * 3 + [_ptr] * 3
+                            + [_i32] * 3 + [_ptr]),
+    "romap_mx_planes_bwd": ([_i32] * 2 + [_ptr] * 4 + [_i32] * 2 + [_ptrs] * 2 + [_ints] * 3
+                            + [_i32] * 3 + [_ptr]),
+    "romap_mx_points_grad": ([_i32] * 2 + [_ptr] * 2 + [_ints] * 2 + [_i32] * 2 + [_ptr, _i32]
+                             + [_ptrs] * 2 + [_ints] * 3 + [_ptr] * 4 + [_i32] * 4 + [_ptr]),
+}
+cuda_lib.declare(ARGTYPES)
 
 
 def kernel_path(spec: MXGridSpec) -> str:
@@ -205,13 +119,11 @@ def kernel_path(spec: MXGridSpec) -> str:
     return "folded" if snap else "unsnapped"
 
 
-# The tensor-core backward's instantiations in mxgrid_folded.cu, per table
-# dtype: (rfp, K, (line rows, channels) of the one plane level) with the
-# plane level (K2: the flagship, `quality`), (rfp, K) CP-only (K6: the
-# flagship's ladder, `fast`). bf16 runs "tensor_core", fp32
-# "tensor_core_split" (TC_VARIANT).
-_FOLDED_SHAPES = {True: ((192, 48, (128, 4)), (256, 64, (128, 8))), False: ((192, 48), (256, 64))}
-TC_SHAPES = {torch.bfloat16: _FOLDED_SHAPES, torch.float32: _FOLDED_SHAPES}
+# The tensor-core backward's instantiations in mxgrid_folded.cu, the same
+# for each table dtype of TC_VARIANT: (rfp, K, (line rows, channels) of the
+# one plane level) with the plane level (K2: the flagship, `quality`),
+# (rfp, K) CP-only (K6: the flagship's ladder, `fast`).
+TC_SHAPES = {True: ((192, 48, (128, 4)), (256, 64, (128, 8))), False: ((192, 48), (256, 64))}
 # (line rows, channels) of the one plane level the tensor-core K10
 # instantiates in mxgrid_planes.cu: the flagship's and `quality`'s
 PLANES_TC_SHAPES = ((128, 4), (128, 8))
@@ -230,33 +142,28 @@ def _plane_levels(spec: MXGridSpec, planes: bool) -> tuple:
 
 
 def folded_variant(spec: MXGridSpec, dtype: torch.dtype, planes: bool | None = None) -> str:
-    """The variant of the folded backward for this spec and table dtype: on
-    the tensor cores at the shapes mxgrid_folded.cu instantiates (TC_SHAPES:
-    the flagship's 192 x 48 with its (128, 64, 4) plane level, `quality`'s
-    256 x 64 with its (128, 128, 8) level, and CP-only 192 x 48 and
-    `fast`'s 256 x 64) -- "tensor_core" in bf16, "tensor_core_split" in fp32
-    (each fp32 operand split into two bf16 parts, three products) -- and
-    "scalar" for every other spec. `planes` says whether the kernel takes
-    the plane level (K2) or not (K6); by default, whether the spec has one.
-    Chosen from the spec and dtype alone; a failed build or launch never
-    changes it."""
+    """The variant of the folded backward for this spec and table dtype: the
+    dtype's tensor-core variant (TC_VARIANT; fp32 splits each operand into
+    two bf16 parts, three products) at the shapes mxgrid_folded.cu
+    instantiates (TC_SHAPES), "scalar" for every other spec. `planes` says
+    whether the kernel takes the plane level (K2) or not (K6); by default,
+    whether the spec has one. Chosen from the spec and dtype alone; a failed
+    build or launch never changes it."""
     if planes is None:
         planes = bool(spec.plane_specs)
     shape = (spec.fold_res[1], spec.features, *_plane_levels(spec, planes))
-    fits = shape in TC_SHAPES.get(dtype, {}).get(planes, ())
+    fits = dtype in TC_VARIANT and shape in TC_SHAPES[planes]
     return TC_VARIANT[dtype] if fits else "scalar"
 
 
 # (padded 16-row tiles the instantiation has room for, K, (line rows,
 # channels) of the one plane level) of the unsnapped tensor-core backward in
-# mxgrid_unsnapped.cu, per table dtype: with the plane level (K4: the
-# flagship, `quality`) and CP-only (K8; no level). The flagship ladder pads
-# to 31 tiles, `fast`'s and `quality`'s to 39. bf16 runs "tensor_core",
-# fp32 "tensor_core_split" (TC_VARIANT).
-UNSNAPPED_TC_SHAPES = {
-    torch.bfloat16: {True: ((32, 48, (128, 4)), (40, 64, (128, 8))), False: ((32, 48), (40, 64))},
-    torch.float32: {True: ((32, 48, (128, 4)), (40, 64, (128, 8))), False: ((32, 48), (40, 64))},
-}
+# mxgrid_unsnapped.cu, the same for each table dtype of TC_VARIANT: with the
+# plane level (K4: the flagship ladder at K = 48, `quality`'s at K = 64) and
+# CP-only (K8: the flagship's, `fast`'s at K = 64). The flagship ladder pads
+# to 31 tiles, `fast`'s and `quality`'s to 39.
+UNSNAPPED_TC_SHAPES = {True: ((32, 48, (128, 4)), (40, 64, (128, 8))),
+                       False: ((32, 48), (40, 64))}
 
 
 def padded_row_map(spec: MXGridSpec) -> list[int]:
@@ -277,21 +184,17 @@ def padded_tiles(spec: MXGridSpec) -> int:
 
 def unsnapped_variant(spec: MXGridSpec, dtype: torch.dtype, planes: bool | None = None) -> str:
     """The variant of the unsnapped backward for this spec and table dtype:
-    on the tensor cores where mxgrid_unsnapped.cu has an instantiation for
-    this dtype with this K and plane level and room for the ladder's padded
-    tiles (UNSNAPPED_TC_SHAPES: the flagship ladder at K = 48 with its
-    (128, 64, 4) plane level or CP-only; `quality`'s at K = 64 with its
-    (128, 128, 8) level; `fast`'s at K = 64, CP-only) -- "tensor_core" in
-    bf16, "tensor_core_split" in fp32 (each fp32 operand split into two bf16
-    parts, three products) -- and "scalar" for every other spec. `planes`
-    says whether the kernel takes the plane level (K4) or not (K8); by
-    default, whether the spec has one. Chosen from the spec and dtype alone;
-    a failed build or launch never changes it."""
+    the dtype's tensor-core variant (TC_VARIANT) where mxgrid_unsnapped.cu
+    has an instantiation with this K and plane level and room for the
+    ladder's padded tiles (UNSNAPPED_TC_SHAPES), "scalar" for every other
+    spec. `planes` says whether the kernel takes the plane level (K4) or not
+    (K8); by default, whether the spec has one. Chosen from the spec and
+    dtype alone; a failed build or launch never changes it."""
     if planes is None:
         planes = bool(spec.plane_specs)
     shape = (spec.features, *_plane_levels(spec, planes))
-    table = UNSNAPPED_TC_SHAPES.get(dtype, {}).get(planes, ())
-    fits = any(padded_tiles(spec) <= room and shape == tuple(rest) for room, *rest in table)
+    fits = dtype in TC_VARIANT and any(padded_tiles(spec) <= room and shape == tuple(rest)
+                                       for room, *rest in UNSNAPPED_TC_SHAPES[planes])
     return TC_VARIANT[dtype] if fits else "scalar"
 
 
@@ -413,61 +316,11 @@ def _plane_dims(spec: MXGridSpec) -> tuple[int, int, int, int, int]:
     return ru, rv, kp, max(ru, rv), _axes_code(spec)
 
 
-def _check(name: str, t: torch.Tensor, shape: tuple, dtype, device,
-           rows: bool = False) -> None:
-    """Device, dtype and shape of `t`, and contiguity; with `rows`, a
-    [O, P, n] tensor may also be a view of wider rows (unit stride in the
-    last axis, the points one row stride apart), as the plane block of a
-    cotangent is."""
-    if t.device != device:
-        raise ValueError(f"{name}: on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if rows:
-        p, n = t.shape[1:]
-        if t.stride(2) != 1 or t.stride(1) < n or t.stride(0) != p * t.stride(1):
-            raise ValueError(f"{name}: strides {t.stride()} are not rows of one stride")
-    elif not t.is_contiguous():
-        raise ValueError(f"{name}: must be contiguous")
-
-
-def _on_card(points: torch.Tensor, dt: torch.dtype) -> bool:
-    """True for a CUDA tensor (launch), False for a CPU one (plain twin)."""
-    if points.device.type == "cpu":
-        return False
-    if points.device.type != "cuda":
-        raise ValueError(f"unsupported device {points.device}")
-    if dt not in _DTYPE_CODE:
-        raise ValueError(f"table dtype {dt} not supported (float32, bfloat16)")
-    return True
-
-
-def _launch(wrapper, what: str, fn_name: str, dt: torch.dtype, dev, *args,
-            variant: str | None = None) -> None:
-    """Call the C entry point on the current stream of `dev`; raise on a
-    refused launch (cudaError_t, e.g. 1 when a table does not fit shared
-    memory), else count it (by dtype, and by dtype and `variant` where the
-    wrapper names one)."""
-    lib = _library()
-    with torch.cuda.device(dev):
-        code = getattr(lib, fn_name)(_DTYPE_CODE[dt], *args,
-                                     torch.cuda.current_stream(dev).cuda_stream)
-    if code != 0:
-        raise RuntimeError(f"{what}: CUDA error {code} at launch")
-    dname = str(dt).split(".")[1]
-    wrapper.launches += 1
-    wrapper.launches_by_dtype[dname] += 1
-    if variant is not None:
-        wrapper.launches_by_variant[f"{dname} {variant}"] += 1
-
-
-def _counted(fn):
-    fn.launches = 0
-    fn.launches_by_dtype = collections.Counter()
-    fn.launches_by_variant = collections.Counter()
-    return fn
+def _points(points: torch.Tensor) -> tuple[int, int, torch.device]:
+    """(O, P, device) of the points [O, P, 3] f32 a kernel takes, checked."""
+    o, p = points.shape[:2]
+    cuda_lib.check("points", points, (o, p, 3), torch.float32, points.device)
+    return o, p, points.device
 
 
 def _ladder(spec: MXGridSpec):
@@ -584,30 +437,29 @@ def folded_fused_forward_plain(points, w_eff, planes, plines, spec: MXGridSpec):
     return _fused_forward_plain(points, w_eff, planes, plines, spec, _folded_basis(spec))
 
 
-@_counted
+@cuda_lib.counted
 def folded_fused_forward(points, w_eff, planes, plines, spec: MXGridSpec):
     """K1 on a CUDA tensor, its plain twin on a CPU tensor (same contract as
     `folded_fused_forward_plain`)."""
     dt = w_eff.dtype
-    if not _on_card(points, dt):
+    if not cuda_lib.on_card(points, dt):
         return folded_fused_forward_plain(points, w_eff, planes, plines, spec)
     k, (rf, rfp) = spec.features, spec.fold_res
     ru, rv, kp, rw, axes = _plane_dims(spec)
-    dev = points.device
-    o, p = points.shape[:2]
-    _check("points", points, (o, p, 3), torch.float32, dev)
-    _check("w_eff", w_eff, (o, 3, rfp, k), dt, dev)
-    _check("planes", planes, (o, 3, ru, rv, kp), dt, dev)
-    _check("plines", plines, (o, 3, rw, kp), dt, dev)
+    o, p, dev = _points(points)
+    cuda_lib.check("w_eff", w_eff, (o, 3, rfp, k), dt, dev)
+    cuda_lib.check("planes", planes, (o, 3, ru, rv, kp), dt, dev)
+    cuda_lib.check("plines", plines, (o, 3, rw, kp), dt, dev)
     out = torch.empty((o, p, k + 3 * kp), dtype=dt, device=dev)
     afac = torch.empty((o, 3, k, p), dtype=dt, device=dev)
     fpl = torch.empty((o, 3 * kp, p), dtype=dt, device=dev)
     fli = torch.empty_like(fpl)
     variant = FORWARD_VARIANTS.index(forward_variant(spec, dt, planes=True))
-    _launch(folded_fused_forward, "K1 folded_fused_forward", "romap_mx_folded_fwd", dt, dev,
-            variant, points.data_ptr(), w_eff.data_ptr(), planes.data_ptr(), plines.data_ptr(),
-            out.data_ptr(), afac.data_ptr(), fpl.data_ptr(), fli.data_ptr(),
-            o, p, k, rf, rfp, ru, rv, kp, rw, axes)
+    cuda_lib.launch(
+        folded_fused_forward, "K1 folded_fused_forward", "romap_mx_folded_fwd", dt, dev,
+        variant, points.data_ptr(), w_eff.data_ptr(), planes.data_ptr(), plines.data_ptr(),
+        out.data_ptr(), afac.data_ptr(), fpl.data_ptr(), fli.data_ptr(),
+        o, p, k, rf, rfp, ru, rv, kp, rw, axes)
     return out, afac, fpl, fli
 
 
@@ -623,31 +475,30 @@ def folded_fused_backward_plain(points, afac, fpl, fli, g, spec: MXGridSpec):
     return dw, dplanes[0], dplines[0]
 
 
-@_counted
+@cuda_lib.counted
 def folded_fused_backward(points, afac, fpl, fli, g, spec: MXGridSpec):
     """K2 on a CUDA tensor, its plain twin on a CPU tensor (same contract as
     `folded_fused_backward_plain`)."""
     dt = afac.dtype
-    if not _on_card(points, dt):
+    if not cuda_lib.on_card(points, dt):
         return folded_fused_backward_plain(points, afac, fpl, fli, g, spec)
     k, (rf, rfp) = spec.features, spec.fold_res
     ru, rv, kp, rw, axes = _plane_dims(spec)
-    dev = points.device
-    o, p = points.shape[:2]
-    _check("points", points, (o, p, 3), torch.float32, dev)
-    _check("afac", afac, (o, 3, k, p), dt, dev)
-    _check("fpl", fpl, (o, 3 * kp, p), dt, dev)
-    _check("fli", fli, (o, 3 * kp, p), dt, dev)
-    _check("g", g, (o, p, k + 3 * kp), dt, dev)
+    o, p, dev = _points(points)
+    cuda_lib.check("afac", afac, (o, 3, k, p), dt, dev)
+    cuda_lib.check("fpl", fpl, (o, 3 * kp, p), dt, dev)
+    cuda_lib.check("fli", fli, (o, 3 * kp, p), dt, dev)
+    cuda_lib.check("g", g, (o, p, k + 3 * kp), dt, dev)
     f32 = dict(dtype=torch.float32, device=dev)
     dw = torch.zeros((o, 3, rfp, k), **f32)
     dplanes = torch.zeros((o, 3, ru, rv, kp), **f32)
     dplines = torch.zeros((o, 3, rw, kp), **f32)
     variant = folded_variant(spec, dt, planes=True)
-    _launch(folded_fused_backward, "K2 folded_fused_backward", "romap_mx_folded_bwd", dt, dev,
-            BACKWARD_VARIANTS.index(variant), points.data_ptr(), afac.data_ptr(),
-            fpl.data_ptr(), fli.data_ptr(), g.data_ptr(), dw.data_ptr(), dplanes.data_ptr(),
-            dplines.data_ptr(), o, p, k, rf, rfp, ru, rv, kp, rw, axes, variant=variant)
+    cuda_lib.launch(
+        folded_fused_backward, "K2 folded_fused_backward", "romap_mx_folded_bwd", dt, dev,
+        BACKWARD_VARIANTS.index(variant), points.data_ptr(), afac.data_ptr(),
+        fpl.data_ptr(), fli.data_ptr(), g.data_ptr(), dw.data_ptr(), dplanes.data_ptr(),
+        dplines.data_ptr(), o, p, k, rf, rfp, ru, rv, kp, rw, axes, variant=variant)
     return dw, dplanes, dplines
 
 
@@ -662,51 +513,51 @@ def unsnapped_fused_forward_plain(points, lines, planes, plines, spec: MXGridSpe
     return _fused_forward_plain(points, lines, planes, plines, spec, _ladder_basis(spec))
 
 
-@_counted
+@cuda_lib.counted
 def unsnapped_fused_forward(points, lines, planes, plines, spec: MXGridSpec):
     """K3 on a CUDA tensor, its plain twin on a CPU tensor (same contract as
     `unsnapped_fused_forward_plain`)."""
     dt = lines.dtype
-    if not _on_card(points, dt):
+    if not cuda_lib.on_card(points, dt):
         return unsnapped_fused_forward_plain(points, lines, planes, plines, spec)
     k, total = spec.features, spec.total_res
     ru, rv, kp, rw, axes = _plane_dims(spec)
     res, off, n_lvl = _ladder(spec)
-    dev = points.device
-    o, p = points.shape[:2]
-    _check("points", points, (o, p, 3), torch.float32, dev)
-    _check("lines", lines, (o, 3, total, k), dt, dev)
-    _check("planes", planes, (o, 3, ru, rv, kp), dt, dev)
-    _check("plines", plines, (o, 3, rw, kp), dt, dev)
+    o, p, dev = _points(points)
+    cuda_lib.check("lines", lines, (o, 3, total, k), dt, dev)
+    cuda_lib.check("planes", planes, (o, 3, ru, rv, kp), dt, dev)
+    cuda_lib.check("plines", plines, (o, 3, rw, kp), dt, dev)
     out = torch.empty((o, p, k + 3 * kp), dtype=dt, device=dev)
     afac = torch.empty((o, 3, k, p), dtype=dt, device=dev)
     fpl = torch.empty((o, 3 * kp, p), dtype=dt, device=dev)
     fli = torch.empty_like(fpl)
     variant = unsnapped_forward_variant(spec, dt, planes=True)
-    _launch(unsnapped_fused_forward, "K3 unsnapped_fused_forward", "romap_mx_unsnapped_fwd",
-            dt, dev, UNSNAPPED_FORWARD_VARIANTS.index(variant), points.data_ptr(),
-            lines.data_ptr(), planes.data_ptr(), plines.data_ptr(), out.data_ptr(),
-            afac.data_ptr(), fpl.data_ptr(), fli.data_ptr(), res, off, n_lvl, o, p, k, total,
-            ru, rv, kp, rw, axes, _split_width(spec, dt, variant))
+    cuda_lib.launch(
+        unsnapped_fused_forward, "K3 unsnapped_fused_forward", "romap_mx_unsnapped_fwd",
+        dt, dev, UNSNAPPED_FORWARD_VARIANTS.index(variant), points.data_ptr(),
+        lines.data_ptr(), planes.data_ptr(), plines.data_ptr(), out.data_ptr(),
+        afac.data_ptr(), fpl.data_ptr(), fli.data_ptr(), res, off, n_lvl, o, p, k, total,
+        ru, rv, kp, rw, axes, _split_width(spec, dt, variant))
     if variant == "per_axis":
         cp_product_pass(afac, out)
     return out, afac, fpl, fli
 
 
-@_counted
+@cuda_lib.counted
 def cp_product_pass(afac: torch.Tensor, out: torch.Tensor) -> None:
     """K3's second pass after its per-axis variant (the `cp_product` kernel
     of mxgrid_unsnapped.cu): out[..., :K] = A_0 A_1 A_2 from the factors
     afac [O, 3, K, P], in fp32, rounded once. CUDA tensors only: the plain
     twin forms the product inside `unsnapped_fused_forward_plain`."""
     dt, dev = afac.dtype, afac.device
-    if not _on_card(afac, dt):
+    if not cuda_lib.on_card(afac, dt):
         raise ValueError("cp_product_pass launches a kernel: CUDA tensors only")
     o, _, k, p = afac.shape
-    _check("afac", afac, (o, 3, k, p), dt, dev)
-    _check("out", out, (o, p, out.shape[-1]), dt, dev)
-    _launch(cp_product_pass, "cp_product_pass", "romap_mx_cp_product", dt, dev,
-            afac.data_ptr(), out.data_ptr(), o, p, k, out.shape[-1])
+    cuda_lib.check("afac", afac, (o, 3, k, p), dt, dev)
+    cuda_lib.check("out", out, (o, p, out.shape[-1]), dt, dev)
+    cuda_lib.launch(
+        cp_product_pass, "cp_product_pass", "romap_mx_cp_product", dt, dev,
+        afac.data_ptr(), out.data_ptr(), o, p, k, out.shape[-1])
 
 
 def unsnapped_fused_backward_plain(points, afac, fpl, fli, g, spec: MXGridSpec):
@@ -717,33 +568,32 @@ def unsnapped_fused_backward_plain(points, afac, fpl, fli, g, spec: MXGridSpec):
     return dlines, dplanes[0], dplines[0]
 
 
-@_counted
+@cuda_lib.counted
 def unsnapped_fused_backward(points, afac, fpl, fli, g, spec: MXGridSpec):
     """K4 on a CUDA tensor, its plain twin on a CPU tensor (same contract as
     `unsnapped_fused_backward_plain`)."""
     dt = afac.dtype
-    if not _on_card(points, dt):
+    if not cuda_lib.on_card(points, dt):
         return unsnapped_fused_backward_plain(points, afac, fpl, fli, g, spec)
     k, total = spec.features, spec.total_res
     ru, rv, kp, rw, axes = _plane_dims(spec)
     res, off, n_lvl = _ladder(spec)
-    dev = points.device
-    o, p = points.shape[:2]
-    _check("points", points, (o, p, 3), torch.float32, dev)
-    _check("afac", afac, (o, 3, k, p), dt, dev)
-    _check("fpl", fpl, (o, 3 * kp, p), dt, dev)
-    _check("fli", fli, (o, 3 * kp, p), dt, dev)
-    _check("g", g, (o, p, k + 3 * kp), dt, dev)
+    o, p, dev = _points(points)
+    cuda_lib.check("afac", afac, (o, 3, k, p), dt, dev)
+    cuda_lib.check("fpl", fpl, (o, 3 * kp, p), dt, dev)
+    cuda_lib.check("fli", fli, (o, 3 * kp, p), dt, dev)
+    cuda_lib.check("g", g, (o, p, k + 3 * kp), dt, dev)
     f32 = dict(dtype=torch.float32, device=dev)
     dlines = torch.zeros((o, 3, total, k), **f32)
     dplanes = torch.zeros((o, 3, ru, rv, kp), **f32)
     dplines = torch.zeros((o, 3, rw, kp), **f32)
     variant = unsnapped_variant(spec, dt, planes=True)
-    _launch(unsnapped_fused_backward, "K4 unsnapped_fused_backward",
-            "romap_mx_unsnapped_bwd", dt, dev, BACKWARD_VARIANTS.index(variant), points.data_ptr(),
-            afac.data_ptr(), fpl.data_ptr(), fli.data_ptr(), g.data_ptr(), dlines.data_ptr(),
-            dplanes.data_ptr(), dplines.data_ptr(), res, off, n_lvl,
-            o, p, k, total, ru, rv, kp, rw, axes, variant=variant)
+    cuda_lib.launch(
+        unsnapped_fused_backward, "K4 unsnapped_fused_backward",
+        "romap_mx_unsnapped_bwd", dt, dev, BACKWARD_VARIANTS.index(variant), points.data_ptr(),
+        afac.data_ptr(), fpl.data_ptr(), fli.data_ptr(), g.data_ptr(), dlines.data_ptr(),
+        dplanes.data_ptr(), dplines.data_ptr(), res, off, n_lvl,
+        o, p, k, total, ru, rv, kp, rw, axes, variant=variant)
     return dlines, dplanes, dplines
 
 
@@ -765,24 +615,23 @@ def folded_cp_forward_plain(points, w_eff, spec: MXGridSpec):
     return a[:, 0] * a[:, 1] * a[:, 2], a.transpose(2, 3).contiguous()
 
 
-@_counted
+@cuda_lib.counted
 def folded_cp_forward(points, w_eff, spec: MXGridSpec):
     """K5 on a CUDA tensor, its plain twin on a CPU tensor (same contract as
     `folded_cp_forward_plain`)."""
     dt = w_eff.dtype
-    if not _on_card(points, dt):
+    if not cuda_lib.on_card(points, dt):
         return folded_cp_forward_plain(points, w_eff, spec)
     k, (rf, rfp) = spec.features, spec.fold_res
-    dev = points.device
-    o, p = points.shape[:2]
-    _check("points", points, (o, p, 3), torch.float32, dev)
-    _check("w_eff", w_eff, (o, 3, rfp, k), dt, dev)
+    o, p, dev = _points(points)
+    cuda_lib.check("w_eff", w_eff, (o, 3, rfp, k), dt, dev)
     out = torch.empty((o, p, k), dtype=dt, device=dev)
     afac = torch.empty((o, 3, k, p), dtype=dt, device=dev)
     variant = FORWARD_VARIANTS.index(forward_variant(spec, dt, planes=False))
-    _launch(folded_cp_forward, "K5 folded_cp_forward", "romap_mx_folded_cp_fwd", dt, dev,
-            variant, points.data_ptr(), w_eff.data_ptr(), out.data_ptr(), afac.data_ptr(),
-            o, p, k, rf, rfp)
+    cuda_lib.launch(
+        folded_cp_forward, "K5 folded_cp_forward", "romap_mx_folded_cp_fwd", dt, dev,
+        variant, points.data_ptr(), w_eff.data_ptr(), out.data_ptr(), afac.data_ptr(),
+        o, p, k, rf, rfp)
     return out, afac
 
 
@@ -792,24 +641,23 @@ def folded_cp_backward_plain(points, afac, g, spec: MXGridSpec):
     return _cp_grad_plain(points, afac, g, _folded_basis(spec))
 
 
-@_counted
+@cuda_lib.counted
 def folded_cp_backward(points, afac, g, spec: MXGridSpec):
     """K6 on a CUDA tensor, its plain twin on a CPU tensor (same contract as
     `folded_cp_backward_plain`)."""
     dt = afac.dtype
-    if not _on_card(points, dt):
+    if not cuda_lib.on_card(points, dt):
         return folded_cp_backward_plain(points, afac, g, spec)
     k, (rf, rfp) = spec.features, spec.fold_res
-    dev = points.device
-    o, p = points.shape[:2]
-    _check("points", points, (o, p, 3), torch.float32, dev)
-    _check("afac", afac, (o, 3, k, p), dt, dev)
-    _check("g", g, (o, p, k), dt, dev)
+    o, p, dev = _points(points)
+    cuda_lib.check("afac", afac, (o, 3, k, p), dt, dev)
+    cuda_lib.check("g", g, (o, p, k), dt, dev)
     dw = torch.zeros((o, 3, rfp, k), dtype=torch.float32, device=dev)
     variant = folded_variant(spec, dt, planes=False)
-    _launch(folded_cp_backward, "K6 folded_cp_backward", "romap_mx_folded_cp_bwd", dt, dev,
-            BACKWARD_VARIANTS.index(variant), points.data_ptr(), afac.data_ptr(),
-            g.data_ptr(), dw.data_ptr(), o, p, k, rf, rfp, variant=variant)
+    cuda_lib.launch(
+        folded_cp_backward, "K6 folded_cp_backward", "romap_mx_folded_cp_bwd", dt, dev,
+        BACKWARD_VARIANTS.index(variant), points.data_ptr(), afac.data_ptr(),
+        g.data_ptr(), dw.data_ptr(), o, p, k, rf, rfp, variant=variant)
     return dw
 
 
@@ -828,26 +676,25 @@ def unsnapped_cp_forward_plain(points, lines, spec: MXGridSpec):
     return a[:, 0] * a[:, 1] * a[:, 2], a.transpose(2, 3).contiguous()
 
 
-@_counted
+@cuda_lib.counted
 def unsnapped_cp_forward(points, lines, spec: MXGridSpec):
     """K7 on a CUDA tensor, its plain twin on a CPU tensor (same contract as
     `unsnapped_cp_forward_plain`)."""
     dt = lines.dtype
-    if not _on_card(points, dt):
+    if not cuda_lib.on_card(points, dt):
         return unsnapped_cp_forward_plain(points, lines, spec)
     k, total = spec.features, spec.total_res
     res, off, n_lvl = _ladder(spec)
-    dev = points.device
-    o, p = points.shape[:2]
-    _check("points", points, (o, p, 3), torch.float32, dev)
-    _check("lines", lines, (o, 3, total, k), dt, dev)
+    o, p, dev = _points(points)
+    cuda_lib.check("lines", lines, (o, 3, total, k), dt, dev)
     out = torch.empty((o, p, k), dtype=dt, device=dev)
     afac = torch.empty((o, 3, k, p), dtype=dt, device=dev)
     variant = unsnapped_forward_variant(spec, dt, planes=False)
-    _launch(unsnapped_cp_forward, "K7 unsnapped_cp_forward", "romap_mx_unsnapped_cp_fwd",
-            dt, dev, UNSNAPPED_FORWARD_VARIANTS.index(variant), points.data_ptr(),
-            lines.data_ptr(), out.data_ptr(), afac.data_ptr(), res, off, n_lvl, o, p, k,
-            total, _split_width(spec, dt, variant))
+    cuda_lib.launch(
+        unsnapped_cp_forward, "K7 unsnapped_cp_forward", "romap_mx_unsnapped_cp_fwd",
+        dt, dev, UNSNAPPED_FORWARD_VARIANTS.index(variant), points.data_ptr(),
+        lines.data_ptr(), out.data_ptr(), afac.data_ptr(), res, off, n_lvl, o, p, k,
+        total, _split_width(spec, dt, variant))
     if variant == "per_axis":
         out = cp_product(afac)
     return out, afac
@@ -859,25 +706,24 @@ def unsnapped_cp_backward_plain(points, afac, g, spec: MXGridSpec):
     return _cp_grad_plain(points, afac, g, _ladder_basis(spec))
 
 
-@_counted
+@cuda_lib.counted
 def unsnapped_cp_backward(points, afac, g, spec: MXGridSpec):
     """K8 on a CUDA tensor, its plain twin on a CPU tensor (same contract as
     `unsnapped_cp_backward_plain`)."""
     dt = afac.dtype
-    if not _on_card(points, dt):
+    if not cuda_lib.on_card(points, dt):
         return unsnapped_cp_backward_plain(points, afac, g, spec)
     k, total = spec.features, spec.total_res
     res, off, n_lvl = _ladder(spec)
-    dev = points.device
-    o, p = points.shape[:2]
-    _check("points", points, (o, p, 3), torch.float32, dev)
-    _check("afac", afac, (o, 3, k, p), dt, dev)
-    _check("g", g, (o, p, k), dt, dev)
+    o, p, dev = _points(points)
+    cuda_lib.check("afac", afac, (o, 3, k, p), dt, dev)
+    cuda_lib.check("g", g, (o, p, k), dt, dev)
     dlines = torch.zeros((o, 3, total, k), dtype=torch.float32, device=dev)
     variant = unsnapped_variant(spec, dt, planes=False)
-    _launch(unsnapped_cp_backward, "K8 unsnapped_cp_backward", "romap_mx_unsnapped_cp_bwd",
-            dt, dev, BACKWARD_VARIANTS.index(variant), points.data_ptr(), afac.data_ptr(),
-            g.data_ptr(), dlines.data_ptr(), res, off, n_lvl, o, p, k, total, variant=variant)
+    cuda_lib.launch(
+        unsnapped_cp_backward, "K8 unsnapped_cp_backward", "romap_mx_unsnapped_cp_bwd",
+        dt, dev, BACKWARD_VARIANTS.index(variant), points.data_ptr(), afac.data_ptr(),
+        g.data_ptr(), dlines.data_ptr(), res, off, n_lvl, o, p, k, total, variant=variant)
     return dlines
 
 
@@ -903,8 +749,8 @@ def _check_levels(planes, plines, spec, o, dt, dev) -> None:
         raise ValueError(f"{len(planes)} planes / {len(plines)} plane lines for "
                          f"{len(spec.plane_specs)} plane levels")
     for lvl, ((ru, rv, kp), pl, li) in enumerate(zip(spec.plane_specs, planes, plines)):
-        _check(f"planes[{lvl}]", pl, (o, 3, ru, rv, kp), dt, dev)
-        _check(f"plines[{lvl}]", li, (o, 3, max(ru, rv), kp), dt, dev)
+        cuda_lib.check(f"planes[{lvl}]", pl, (o, 3, ru, rv, kp), dt, dev)
+        cuda_lib.check(f"plines[{lvl}]", li, (o, 3, max(ru, rv), kp), dt, dev)
 
 
 def planes_forward_plain(points, planes, plines, spec: MXGridSpec):
@@ -927,25 +773,24 @@ def planes_forward_plain(points, planes, plines, spec: MXGridSpec):
     return out, fpl, fli
 
 
-@_counted
+@cuda_lib.counted
 def planes_forward(points, planes, plines, spec: MXGridSpec):
     """K9 on a CUDA tensor, its plain twin on a CPU tensor (same contract as
     `planes_forward_plain`)."""
     dt = planes[0].dtype
-    if not _on_card(points, dt):
+    if not cuda_lib.on_card(points, dt):
         return planes_forward_plain(points, planes, plines, spec)
-    dev = points.device
-    o, p = points.shape[:2]
-    _check("points", points, (o, p, 3), torch.float32, dev)
+    o, p, dev = _points(points)
     _check_levels(planes, plines, spec, o, dt, dev)
     args = _level_args(spec, planes, plines)
     kpl = spec.plane_out_dims
     out = torch.empty((o, p, kpl), dtype=dt, device=dev)
     fpl = torch.empty((o, kpl, p), dtype=dt, device=dev)
     fli = torch.empty_like(fpl)
-    _launch(planes_forward, "K9 planes_forward", "romap_mx_planes_fwd", dt, dev,
-            points.data_ptr(), *args, out.data_ptr(), fpl.data_ptr(), fli.data_ptr(), o, p,
-            _axes_code(spec))
+    cuda_lib.launch(
+        planes_forward, "K9 planes_forward", "romap_mx_planes_fwd", dt, dev,
+        points.data_ptr(), *args, out.data_ptr(), fpl.data_ptr(), fli.data_ptr(), o, p,
+        _axes_code(spec))
     return out, fpl, fli
 
 
@@ -959,36 +804,35 @@ def planes_backward_plain(points, fpl, fli, g, spec: MXGridSpec):
     return tuple(dplanes), tuple(dplines)
 
 
-@_counted
+@cuda_lib.counted
 def planes_backward(points, fpl, fli, g, spec: MXGridSpec):
     """K10 on a CUDA tensor, its plain twin on a CPU tensor (same contract as
     `planes_backward_plain`). The card reads g in place: its rows may be
     wider than 3 sum(kp) (the split step passes `g[..., K:]` of the full
     cotangent). Variant: `planes_variant`."""
     dt = fpl.dtype
-    if not _on_card(points, dt):
+    if not cuda_lib.on_card(points, dt):
         return planes_backward_plain(points, fpl, fli, g, spec)
-    dev = points.device
-    o, p = points.shape[:2]
+    o, p, dev = _points(points)
     kpl = spec.plane_out_dims
-    _check("points", points, (o, p, 3), torch.float32, dev)
-    _check("fpl", fpl, (o, kpl, p), dt, dev)
-    _check("fli", fli, (o, kpl, p), dt, dev)
-    _check("g", g, (o, p, kpl), dt, dev, rows=True)
+    cuda_lib.check("fpl", fpl, (o, kpl, p), dt, dev)
+    cuda_lib.check("fli", fli, (o, kpl, p), dt, dev)
+    cuda_lib.check("g", g, (o, p, kpl), dt, dev, rows=True)
     f32 = dict(dtype=torch.float32, device=dev)
     dplanes = tuple(torch.zeros((o, 3, ru, rv, kp), **f32) for ru, rv, kp in spec.plane_specs)
     dplines = tuple(torch.zeros((o, 3, max(ru, rv), kp), **f32)
                     for ru, rv, kp in spec.plane_specs)
     n, pl_ptrs, li_ptrs, ru, rv, kp = _level_args(spec, dplanes, dplines)
     variant = planes_variant(spec, dt)
-    _launch(planes_backward, "K10 planes_backward", "romap_mx_planes_bwd", dt, dev,
-            BACKWARD_VARIANTS.index(variant), points.data_ptr(), fpl.data_ptr(),
-            fli.data_ptr(), g.data_ptr(), g.stride(1), n, pl_ptrs, li_ptrs, ru, rv, kp, o, p,
-            _axes_code(spec), variant=variant)
+    cuda_lib.launch(
+        planes_backward, "K10 planes_backward", "romap_mx_planes_bwd", dt, dev,
+        BACKWARD_VARIANTS.index(variant), points.data_ptr(), fpl.data_ptr(),
+        fli.data_ptr(), g.data_ptr(), g.stride(1), n, pl_ptrs, li_ptrs, ru, rv, kp, o, p,
+        _axes_code(spec), variant=variant)
     return dplanes, dplines
 
 
-@_counted
+@cuda_lib.counted
 def cp_product(afac: torch.Tensor) -> torch.Tensor:
     """CP features [O, P, K] from the factors [O, 3, K, P]: (A_0 A_1) A_2 in
     the table dtype, rounded after each factor, as the reference forms them
@@ -1076,9 +920,9 @@ def points_variant(spec: MXGridSpec, dtype: torch.dtype) -> str:
     (64-point tiles staged by double-buffered cp.async, u_d = g A_e A_f
     formed once a point, then 8 lanes a point over channel quads, each table
     row and plane corner read as vectors) wherever K is a multiple of 4 and
-    its shared memory (`points_smem`) fits a block (every shipped preset),
-    else "per_point" (one point a thread, the first design). Chosen from the
-    spec and dtype alone."""
+    its shared memory (`points_smem`) fits a block (every shipped preset but
+    fp32 `quality`: 237,568 B), else "per_point" (one point a thread, the
+    first design). Chosen from the spec and dtype alone."""
     if spec.features % 4 == 0 and points_smem(spec, dtype) <= SMEM_PER_BLOCK:
         return "lanes_over_channels"
     return "per_point"
@@ -1128,13 +972,13 @@ def points_gradient_plain(points, table, afac, planes, plines, fpl, fli, g,
     return dx
 
 
-@_counted
+@cuda_lib.counted
 def points_gradient(points, table, afac, planes, plines, fpl, fli, g,
                     spec: MXGridSpec) -> torch.Tensor:
     """K0 on a CUDA tensor, its plain twin on a CPU tensor (same contract as
     `points_gradient_plain`)."""
     dt = afac.dtype
-    if not _on_card(points, dt):
+    if not cuda_lib.on_card(points, dt):
         return points_gradient_plain(points, table, afac, planes, plines, fpl, fli, g, spec)
     k, n_pl = spec.features, len(spec.plane_specs)
     if spec.snap_levels:
@@ -1143,17 +987,15 @@ def points_gradient(points, table, afac, planes, plines, fpl, fli, g,
     else:
         res, off, n_lvl = _ladder(spec)
         rows = spec.total_res
-    dev = points.device
-    o, p = points.shape[:2]
+    o, p, dev = _points(points)
     kpl = spec.plane_out_dims
-    _check("points", points, (o, p, 3), torch.float32, dev)
-    _check("table", table, (o, 3, rows, k), dt, dev)
-    _check("afac", afac, (o, 3, k, p), dt, dev)
-    _check("g", g, (o, p, k + kpl), dt, dev)
+    cuda_lib.check("table", table, (o, 3, rows, k), dt, dev)
+    cuda_lib.check("afac", afac, (o, 3, k, p), dt, dev)
+    cuda_lib.check("g", g, (o, p, k + kpl), dt, dev)
     if n_pl:
         _check_levels(planes, plines, spec, o, dt, dev)
-        _check("fpl", fpl, (o, kpl, p), dt, dev)
-        _check("fli", fli, (o, kpl, p), dt, dev)
+        cuda_lib.check("fpl", fpl, (o, kpl, p), dt, dev)
+        cuda_lib.check("fli", fli, (o, kpl, p), dt, dev)
         n, pl_ptrs, li_ptrs, ru, rv, kp = _level_args(spec, planes, plines)
         fpl_ptr, fli_ptr = fpl.data_ptr(), fli.data_ptr()
     else:
@@ -1161,46 +1003,27 @@ def points_gradient(points, table, afac, planes, plines, fpl, fli, g,
         fpl_ptr = fli_ptr = None
     dpts = torch.empty((o, p, 3), dtype=torch.float32, device=dev)
     variant = POINTS_VARIANTS.index(points_variant(spec, dt))
-    _launch(points_gradient, "K0 points_gradient", "romap_mx_points_grad", dt, dev,
-            variant, points.data_ptr(), table.data_ptr(), res, off, n_lvl, rows, afac.data_ptr(),
-            n, pl_ptrs, li_ptrs, ru, rv, kp, fpl_ptr, fli_ptr, g.data_ptr(),
-            dpts.data_ptr(), o, p, k, _axes_code(spec))
+    cuda_lib.launch(
+        points_gradient, "K0 points_gradient", "romap_mx_points_grad", dt, dev,
+        variant, points.data_ptr(), table.data_ptr(), res, off, n_lvl, rows, afac.data_ptr(),
+        n, pl_ptrs, li_ptrs, ru, rv, kp, fpl_ptr, fli_ptr, g.data_ptr(),
+        dpts.data_ptr(), o, p, k, _axes_code(spec))
     return dpts
 
 
-KERNELS = {
+KERNELS = cuda_lib.register({
     "K0": points_gradient,
     "K1": folded_fused_forward, "K2": folded_fused_backward,
     "K3": unsnapped_fused_forward, "K4": unsnapped_fused_backward,
     "K5": folded_cp_forward, "K6": folded_cp_backward,
     "K7": unsnapped_cp_forward, "K8": unsnapped_cp_backward,
     "K9": planes_forward, "K10": planes_backward,
-}
+}, rank=0)
 
 
 # the product passes the per-axis unsnapped forwards need after K3 / K7
+# (counted and reset with the kernels, not listed in `launch_counts`)
 PRODUCT_PASSES = {"cp_product_pass": cp_product_pass, "cp_product": cp_product}
-
-
-def _all_kernels() -> dict:
-    """K0-K10, the hash grid's H0-H2 and the optimizer's A1 (`hashgrid_cuda`
-    and `optimizer_cuda` import this module, hence imported here)."""
-    from romap_tpu_torch.ops import hashgrid_cuda, optimizer_cuda
-
-    return {**KERNELS, **hashgrid_cuda.KERNELS, **optimizer_cuda.KERNELS}
-
-
-def reset_launch_counts() -> None:
-    for fn in (*_all_kernels().values(), *PRODUCT_PASSES.values()):
-        fn.launches = 0
-        fn.launches_by_dtype.clear()
-        fn.launches_by_variant.clear()
-
-
-def launch_counts() -> dict[str, int]:
-    """{kernel: launches since the last `reset_launch_counts`}: K0-K10, then
-    the hash grid's H0-H2, then the optimizer's A1."""
-    return {k: fn.launches for k, fn in _all_kernels().items()}
 
 
 # --------------------------------------------------------------------------

@@ -17,7 +17,7 @@ reads them from the device. A1's arithmetic rounds where the twin's does,
 so the two agree bit for bit.
 
 The update returns fresh tensors: the old state is not changed. A1's
-launches are counted on `update.launches` (`mxgrid_cuda.launch_counts()`
+launches are counted on `update.launches` (`cuda_lib.launch_counts()`
 reports them as A1), and every call counts the elements it updated under
 `optimizer.fused_params` (tracing on).
 """
@@ -31,10 +31,16 @@ import torch
 from torch.utils import _pytree as pytree
 
 from romap_tpu_torch.config import NerfConfig
-from romap_tpu_torch.ops import mxgrid_cuda
+from romap_tpu_torch.ops import cuda_lib
 from romap_tpu_torch.utils import tracing
 
 MAX_LEAVES = 16  # kMaxLeaves of csrc/optimizer.cu
+
+_ptr, _i32, _ptrs = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_void_p)
+_int64s, _floats = ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_float)
+# the C entry of csrc/optimizer.cu: A1 (dtype code first, stream last)
+ARGTYPES = {"romap_adam_ema": [_i32] * 2 + [_ptrs, _int64s, _floats] + [_ptr] * 5 + [_i32, _ptr]}
+cuda_lib.declare(ARGTYPES)
 
 
 def learning_rate(cfg: NerfConfig, step: torch.Tensor) -> torch.Tensor:
@@ -117,15 +123,7 @@ def _consts(cfg: NerfConfig):
     return (ctypes.c_float * 8)(*(float(np.float32(v)) for v in vals))
 
 
-def _check_leaf(name: str, t: torch.Tensor, like: torch.Tensor) -> None:
-    """`mxgrid_cuda._check` against the param's shape, and a 16-byte
-    aligned start (A1 moves four values an access)."""
-    mxgrid_cuda._check(name, t, like.shape, torch.float32, like.device)
-    if t.data_ptr() % 16:
-        raise ValueError(f"{name}: data pointer {t.data_ptr():#x} is not 16-byte aligned")
-
-
-@mxgrid_cuda._counted
+@cuda_lib.counted
 def update(grads, state, ok: torch.Tensor, cfg: NerfConfig):
     """(params, ema, opt) after one optimizer step, as `update_plain`: A1 for
     CUDA tensors, the twin for CPU ones. `state` is a TrainState; `grads` a
@@ -133,7 +131,7 @@ def update(grads, state, ok: torch.Tensor, cfg: NerfConfig):
     flat_p, treedef = pytree.tree_flatten(state.params)
     tracing.count("optimizer.fused_params", sum(p.numel() for p in flat_p))
     dev = state.step.device
-    if not mxgrid_cuda._on_card(state.step, torch.float32):
+    if not cuda_lib.on_card(state.step, torch.float32):
         return update_plain(grads, state, ok, cfg)
     o = cfg.optimizer
     count = state.opt.count + 1
@@ -141,7 +139,7 @@ def update(grads, state, ok: torch.Tensor, cfg: NerfConfig):
     c2 = 1 - torch.pow(o.beta2, count.float())
     lr = learning_rate(cfg, state.step)
     n_obj = state.step.shape[0]
-    mxgrid_cuda._check("ok", ok, (n_obj,), torch.bool, dev)
+    cuda_lib.check("ok", ok, (n_obj,), torch.bool, dev)
     ins = {"g": pytree.tree_leaves(grads), "p": flat_p, "mu": pytree.tree_leaves(state.opt.mu),
            "nu": pytree.tree_leaves(state.opt.nu), "ema": pytree.tree_leaves(state.ema)}
     found_old = pytree.tree_leaves(state.opt.found_nan)
@@ -149,9 +147,9 @@ def update(grads, state, ok: torch.Tensor, cfg: NerfConfig):
         raise ValueError("grads, params, moments, EMA and found_nan differ in their leaves")
     for name, leaves in ins.items():
         for i, (t, p) in enumerate(zip(leaves, flat_p)):
-            _check_leaf(f"{name}[{i}]", t, p)
+            cuda_lib.check(f"{name}[{i}]", t, p.shape, torch.float32, p.device, align=16)
     for i, f in enumerate(found_old):
-        mxgrid_cuda._check(f"found_nan[{i}]", f, (n_obj,), torch.bool, dev)
+        cuda_lib.check(f"found_nan[{i}]", f, (n_obj,), torch.bool, dev)
     outs = [[torch.empty_like(p) for p in flat_p] for _ in range(4)]  # p, mu, nu, ema
     found = [torch.empty_like(f) for f in found_old]
     starts = range(0, len(flat_p), MAX_LEAVES)
@@ -164,7 +162,7 @@ def update(grads, state, ok: torch.Tensor, cfg: NerfConfig):
                 for t in (*(v[i] for v in ins.values()), *(v[i] for v in outs), found_old[i],
                           found[i])]
         rows = [flat_p[i].numel() // max(n_obj, 1) for i in leaves]
-        mxgrid_cuda._launch(
+        cuda_lib.launch(
             KERNELS["A1"], "A1 optimizer update", "romap_adam_ema", torch.float32, dev, len(leaves),
             (ctypes.c_void_p * len(ptrs))(*ptrs), (ctypes.c_int64 * len(rows))(*rows), consts,
             c1.data_ptr(), c2.data_ptr(), lr.data_ptr(), ok.data_ptr(), part.data_ptr(), n_obj)
@@ -175,4 +173,4 @@ def update(grads, state, ok: torch.Tensor, cfg: NerfConfig):
     return params, ema, opt
 
 
-KERNELS = {"A1": update}
+KERNELS = cuda_lib.register({"A1": update}, rank=2)

@@ -36,7 +36,7 @@ from romap_tpu_torch.data.formats import (
 )
 from romap_tpu_torch.data.frame_store import FrameStore
 from romap_tpu_torch.models import nerf
-from romap_tpu_torch.ops import mxgrid_cuda
+from romap_tpu_torch.ops import cuda_lib
 from romap_tpu_torch.runtime import artifacts
 from romap_tpu_torch.utils import tracing
 from romap_tpu_torch.utils.device import resolve_device
@@ -241,7 +241,7 @@ def main(argv: list[str] | None = None) -> OfflineRunner:
     args = ap.parse_args(argv)
     if args.trace:
         tracing.enable()
-        mxgrid_cuda.reset_launch_counts()
+        cuda_lib.reset_launch_counts()
 
     cfg = (NerfConfig() if args.network_config == "-"
            else load_network_config(args.network_config))
@@ -265,7 +265,7 @@ def main(argv: list[str] | None = None) -> OfflineRunner:
         runner.render_test_artifacts(args.out, video=not args.no_video)
     if args.trace:
         tracing.disable()
-        tracing.write_chrome_trace(args.trace, tracing.drain(), mxgrid_cuda.launch_counts())
+        tracing.write_chrome_trace(args.trace, tracing.drain(), cuda_lib.launch_counts())
     return runner
 
 

@@ -9,8 +9,8 @@ pose seen for each view wins, and it is kept only where it beats the start.
 
 The points carry a gradient here, and so do the rays' directions, which a
 view-dependent field takes. On the card `field_apply` runs the
-forward kernels of the spec's path and K0 (`mxgrid_cuda.points_gradient`)
-for the points' gradient; on the CPU the plain encode (`ops/mxgrid.encode`).
+forward kernels of the spec's path and, for the points' gradient, K0 (an
+MX-grid) or H0 (a hash grid); on the CPU the plain encodes.
 
 Differences from the reference, none of which changes a result:
 - the start jitters are an argument (`noise`), drawn by the host wrapper

@@ -54,7 +54,7 @@ import struct
 import numpy as np
 
 from romap_tpu_torch.config import EncodingConfig, NerfConfig, TrainConfig, load_network_config
-from romap_tpu_torch.ops import mxgrid_cuda
+from romap_tpu_torch.ops import cuda_lib
 from romap_tpu_torch.runtime.manager import NerfManagerOnline
 from romap_tpu_torch.utils import tracing
 from romap_tpu_torch.utils.device import resolve_device
@@ -285,7 +285,7 @@ def main(argv: list[str] | None = None) -> RuntimeServer:
         ap.error("--joint-ba: joint photometric BA is not ported (ROADMAP M11); use 0")
     if args.trace:
         tracing.enable()
-        mxgrid_cuda.reset_launch_counts()
+        cuda_lib.reset_launch_counts()
     cfg = None
     if args.config:
         cfg = load_network_config(args.config)
@@ -296,7 +296,7 @@ def main(argv: list[str] | None = None) -> RuntimeServer:
     srv.serve(args.socket)
     if args.trace:
         tracing.disable()
-        tracing.write_chrome_trace(args.trace, tracing.drain(), mxgrid_cuda.launch_counts())
+        tracing.write_chrome_trace(args.trace, tracing.drain(), cuda_lib.launch_counts())
     return srv
 
 

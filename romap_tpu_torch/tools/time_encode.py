@@ -232,7 +232,9 @@ def main(argv=None) -> None:
                dtype=args.dtype, points_kind=args.points_kind, root=os.getcwd(),
                ms={k: dict(median=v[0], min=v[1], host_us=v[2]) for k, v in results.items()})
     if args.sass:
-        out["sass_atomics"] = sass_atomics(mxgrid_cuda.build_library())
+        from romap_tpu_torch.ops import cuda_lib
+
+        out["sass_atomics"] = sass_atomics(cuda_lib.build_library())
         for fn, ops in out["sass_atomics"].items():
             print(f"[sass] {fn[:100]} {ops}", flush=True)
     print(json.dumps(out), flush=True)

@@ -21,7 +21,7 @@ import torch
 from romap_tpu.ops import mxgrid as jmx
 from romap_tpu.ops import mxgrid_pallas
 from romap_tpu_torch.ops import mxgrid as tmx
-from romap_tpu_torch.ops import mxgrid_cuda
+from romap_tpu_torch.ops import cuda_lib, mxgrid_cuda
 
 torch.set_num_threads(2)
 
@@ -845,7 +845,7 @@ def test_unsnapped_variant_follows_spec_and_dtype(preset, dtype, planes, backwar
         tiles = mxgrid_cuda.padded_tiles(spec)
         assert spec.features % 8 == 0
         assert any(tiles <= room and spec.features == k
-                   for room, k, *_ in mxgrid_cuda.UNSNAPPED_TC_SHAPES[dtype][with_planes])
+                   for room, k, *_ in mxgrid_cuda.UNSNAPPED_TC_SHAPES[with_planes])
         assert len(spec.resolutions) <= mxgrid_cuda.MAX_LEVELS
 
 
@@ -1062,10 +1062,10 @@ def test_tensor_core_tables_are_the_c_instantiations(entry):
     (folded), padded tiles = warps x MT and K = 8 NT (unsnapped), the plane
     channels its KP, the line rows kTcRw = 128. Every entry is held per
     dtype: the dtype code each launch is guarded by (1 bf16, 0 fp32) is the
-    type its kernel is instantiated for, and the launches of each dtype are
-    that dtype's table."""
+    type its kernel is instantiated for, and the launches of each dtype of
+    TC_VARIANT are the one table."""
     source, launch = TC_ENTRIES[entry]
-    csrc = mxgrid_cuda.CSRC_DIR
+    csrc = cuda_lib.CSRC_DIR
     assert re.search(r"constexpr int kTcRw = 128;", (csrc / "mxgrid_tc.cuh").read_text())
     text = (csrc / source).read_text()
     start = text.index(f"int {entry}(")
@@ -1077,29 +1077,29 @@ def test_tensor_core_tables_are_the_c_instantiations(entry):
         if entry == "romap_mx_folded_bwd":
             code, rfp, k, kp, typ, mt, nt, tkp = m
             rfp, k, kp, mt, nt, tkp = map(int, (rfp, k, kp, mt, nt, tkp))
-            assert int(code) == mxgrid_cuda._DTYPE_CODE[DTYPE_OF[typ]], m
+            assert int(code) == cuda_lib.DTYPE_CODE[DTYPE_OF[typ]], m
             assert (rfp, k, kp) == (64 * mt, 8 * nt, tkp)
             shapes[DTYPE_OF[typ]].add((rfp, k, (128, kp)))
         elif entry == "romap_mx_folded_cp_bwd":
             code, rfp, k, typ, mt, nt = m
             rfp, k, mt, nt = map(int, (rfp, k, mt, nt))
-            assert int(code) == mxgrid_cuda._DTYPE_CODE[DTYPE_OF[typ]], m
+            assert int(code) == cuda_lib.DTYPE_CODE[DTYPE_OF[typ]], m
             assert (rfp, k) == (64 * mt, 8 * nt)
             shapes[DTYPE_OF[typ]].add((rfp, k))
         elif entry == "romap_mx_unsnapped_bwd":
             code, k, kp, typ, warps, mt, nt, tkp = m
             k, kp, warps, mt, nt, tkp = map(int, (k, kp, warps, mt, nt, tkp))
-            assert int(code) == mxgrid_cuda._DTYPE_CODE[DTYPE_OF[typ]], m
+            assert int(code) == cuda_lib.DTYPE_CODE[DTYPE_OF[typ]], m
             assert (k, kp) == (8 * nt, tkp)
             shapes[DTYPE_OF[typ]].add((warps * mt, k, (128, kp)))
         else:
             code, k, typ, warps, mt, nt = m
             k, warps, mt, nt = map(int, (k, warps, mt, nt))
-            assert int(code) == mxgrid_cuda._DTYPE_CODE[DTYPE_OF[typ]], m
+            assert int(code) == cuda_lib.DTYPE_CODE[DTYPE_OF[typ]], m
             assert k == 8 * nt
             shapes[DTYPE_OF[typ]].add((warps * mt, k))
-    tables = mxgrid_cuda.TC_SHAPES if "folded" in entry else mxgrid_cuda.UNSNAPPED_TC_SHAPES
-    assert dict(shapes) == {dt: set(table[planes]) for dt, table in tables.items()}
+    table = mxgrid_cuda.TC_SHAPES if "folded" in entry else mxgrid_cuda.UNSNAPPED_TC_SHAPES
+    assert dict(shapes) == {dt: set(table[planes]) for dt in mxgrid_cuda.TC_VARIANT}
 
 
 # --------------------------------------------------------------------------
@@ -1453,10 +1453,10 @@ def test_k10_takes_the_cotangent_rows_in_place():
     o, p, k, kpl = 2, 5, 48, 12
     g = torch.zeros((o, p, k + kpl), dtype=torch.bfloat16)
     dev = g.device
-    mxgrid_cuda._check("g", g[..., k:], (o, p, kpl), torch.bfloat16, dev, rows=True)
-    mxgrid_cuda._check("g", g[..., k:].contiguous(), (o, p, kpl), torch.bfloat16, dev, rows=True)
+    cuda_lib.check("g", g[..., k:], (o, p, kpl), torch.bfloat16, dev, rows=True)
+    cuda_lib.check("g", g[..., k:].contiguous(), (o, p, kpl), torch.bfloat16, dev, rows=True)
     with pytest.raises(ValueError, match="strides"):
-        mxgrid_cuda._check("g", g[..., k:].transpose(0, 1).contiguous().transpose(0, 1),
-                           (o, p, kpl), torch.bfloat16, dev, rows=True)
+        cuda_lib.check("g", g[..., k:].transpose(0, 1).contiguous().transpose(0, 1),
+                       (o, p, kpl), torch.bfloat16, dev, rows=True)
     with pytest.raises(ValueError, match="contiguous"):
-        mxgrid_cuda._check("g", g[..., k:], (o, p, kpl), torch.bfloat16, dev)
+        cuda_lib.check("g", g[..., k:], (o, p, kpl), torch.bfloat16, dev)

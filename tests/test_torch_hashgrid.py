@@ -21,7 +21,7 @@ from romap_tpu_torch import config as tcfg
 from romap_tpu_torch.data.world import build_synthetic_world as tworld
 from romap_tpu_torch.models import nerf as tnerf
 from romap_tpu_torch.ops import hashgrid as thash
-from romap_tpu_torch.ops import hashgrid_cuda, mxgrid_cuda
+from romap_tpu_torch.ops import cuda_lib, hashgrid_cuda, mxgrid_cuda
 from romap_tpu_torch.utils import checkpoint, jax_bridge
 from tests.oracles import hashgrid_encode_ref
 from tests.test_torch_train import close_share, replay
@@ -175,8 +175,8 @@ def test_cpu_encode_takes_the_twins_and_never_loads_the_library(monkeypatch):
     def refuse(*args, **kwargs):
         raise AssertionError("a CPU tensor reached the kernel library")
 
-    monkeypatch.setattr(mxgrid_cuda, "build_library", refuse)
-    monkeypatch.setattr(mxgrid_cuda, "_library", refuse)
+    monkeypatch.setattr(cuda_lib, "build_library", refuse)
+    monkeypatch.setattr(cuda_lib, "library", refuse)
     _, spec = specs(**SMALL)
     rng = np.random.default_rng(7)
     table = torch.tensor(rng.normal(size=(2, spec.total_params, spec.n_features)),
@@ -221,14 +221,14 @@ def test_level_constants_equal_the_specs(enc):
 
 
 def test_launch_counts_list_the_hash_grid_kernels():
-    """`mxgrid_cuda.launch_counts()` (what the CLIs write into `--trace`)
+    """`cuda_lib.launch_counts()` (what the CLIs write into `--trace`)
     lists H0-H2 after K0-K10, then the optimizer's A1, and
     `reset_launch_counts()` zeroes them."""
     hashgrid_cuda.forward.launches = 3
-    assert list(mxgrid_cuda.launch_counts()) == [*mxgrid_cuda.KERNELS, "H0", "H1", "H2", "A1"]
-    assert mxgrid_cuda.launch_counts()["H1"] == 3
-    mxgrid_cuda.reset_launch_counts()
-    assert not any(mxgrid_cuda.launch_counts().values())
+    assert list(cuda_lib.launch_counts()) == [*mxgrid_cuda.KERNELS, "H0", "H1", "H2", "A1"]
+    assert cuda_lib.launch_counts()["H1"] == 3
+    cuda_lib.reset_launch_counts()
+    assert not any(cuda_lib.launch_counts().values())
 
 
 @pytest.mark.parametrize("enc", [SMALL, {}], ids=["small", "reference"])

@@ -18,7 +18,7 @@ import pytest
 import torch
 
 from romap_tpu_torch.config import EncodingConfig
-from romap_tpu_torch.ops import hashgrid, hashgrid_cuda, mxgrid, mxgrid_cuda
+from romap_tpu_torch.ops import cuda_lib, hashgrid, hashgrid_cuda, mxgrid, mxgrid_cuda
 
 
 @pytest.fixture
@@ -122,7 +122,7 @@ def test_cuda_encode_refuses_point_gradients(cuda):
     grads = []
     for enc in (mxgrid_cuda.encode, mxgrid.encode):
         p = pts.clone().requires_grad_(True)
-        mxgrid_cuda.reset_launch_counts()
+        cuda_lib.reset_launch_counts()
         grads.append(torch.autograd.grad(torch.sum(enc(f, p, spec) * gout), p)[0])
         if enc is mxgrid_cuda.encode:
             launched = {k: fn.launches for k, fn in mxgrid_cuda.KERNELS.items() if fn.launches}
@@ -1043,7 +1043,7 @@ def test_unsnapped_forward_at_preset_widths(cuda, path, n_obj, n_pts, kind):
     want_variant = "three_axis_direct" if preset == "fast" else "three_axis_staged"
     assert mxgrid_cuda.unsnapped_forward_variant(spec, torch.bfloat16) == want_variant
     pts, args, _, _ = unsnapped_case(spec, n_obj, n_pts, kind, cuda, seed=23)
-    mxgrid_cuda.reset_launch_counts()
+    cuda_lib.reset_launch_counts()
     got = mxgrid_cuda.KERNELS[kf](pts, *args, spec)
     torch.cuda.synchronize()
     plain = (mxgrid_cuda.unsnapped_fused_forward_plain if kf == "K3"
@@ -1167,14 +1167,14 @@ def test_split_encode_takes_k9_features_and_k10_in_place(cuda, monkeypatch, pres
 
     monkeypatch.setattr(mxgrid_cuda, "plane_product", no_product)
     seen = []  # the cotangent rows K10's wrapper is handed
-    check, k10 = mxgrid_cuda._check, mxgrid_cuda.planes_backward
+    check, k10 = cuda_lib.check, mxgrid_cuda.planes_backward
 
-    def watch(name, t, *args, rows=False):
+    def watch(name, t, *args, rows=False, **kw):
         if rows:
             seen.append((t.is_contiguous(), t.stride(1)))
-        return check(name, t, *args, rows=rows)
+        return check(name, t, *args, rows=rows, **kw)
 
-    monkeypatch.setattr(mxgrid_cuda, "_check", watch)
+    monkeypatch.setattr(cuda_lib, "check", watch)
     g = torch.Generator().manual_seed(15)
     f = mxgrid.init_mxgrid(g, spec, 2)
     pts = preset_points("uniform", 2, 4096, g).to(cuda)
@@ -1246,7 +1246,7 @@ def test_k0_variants_match_plain(cuda, monkeypatch, dtype, tol, path, n_obj, n_p
                                   plane_axes="balanced", snap_levels=False)
         assert spec.resolutions == base.resolutions
     args = k0_case(spec, n_obj, n_pts, dtype, cuda, seed=41)
-    mxgrid_cuda.reset_launch_counts()
+    cuda_lib.reset_launch_counts()
     got = mxgrid_cuda.points_gradient(*args, spec)
     torch.cuda.synchronize()
     launched = {k: fn.launches for k, fn in mxgrid_cuda.KERNELS.items() if fn.launches}
@@ -1290,7 +1290,7 @@ def test_channel_split_slices_match_plain(cuda, monkeypatch, dtype, tol, kernel,
     monkeypatch.setattr(mxgrid_cuda, "channel_split_width", lambda *a, **k: kc)
     pts, lines, pl, pli, _ = ladder_inputs(spec, n_obj, n_pts, dtype, cuda, seed=7)
     args = [lines, pl, pli] if planes else [lines]
-    mxgrid_cuda.reset_launch_counts()
+    cuda_lib.reset_launch_counts()
     got = mxgrid_cuda.KERNELS[kernel](pts, *args, spec)
     torch.cuda.synchronize()
     assert mxgrid_cuda.KERNELS[kernel].launches == 1
@@ -1317,7 +1317,7 @@ def test_fp32_unsnapped_forward_at_preset_widths(cuda, path, n_obj, n_pts):
     assert mxgrid_cuda.unsnapped_forward_variant(spec, torch.float32) == "channel_split"
     pts, lines, pl, pli, _ = ladder_inputs(spec, n_obj, n_pts, torch.float32, cuda, seed=29)
     args = [lines, pl, pli] if kf == "K3" else [lines]
-    mxgrid_cuda.reset_launch_counts()
+    cuda_lib.reset_launch_counts()
     got = mxgrid_cuda.KERNELS[kf](pts, *args, spec)
     torch.cuda.synchronize()
     assert mxgrid_cuda.KERNELS[kf].launches == 1
@@ -1404,12 +1404,12 @@ def test_hash_kernels_match_plain(cuda, dtype, name, n_obj, n_pts, kind):
     it."""
     spec = hash_spec(name)
     pts, table, gout = hash_case(spec, n_obj, n_pts, kind, dtype, cuda, seed=53)
-    mxgrid_cuda.reset_launch_counts()
+    cuda_lib.reset_launch_counts()
     got = {"H1": hashgrid_cuda.forward(pts, table, spec),
            "H2": hashgrid_cuda.table_gradient(pts, gout, spec),
            "H0": hashgrid_cuda.points_gradient(pts, table, gout, spec)}
     torch.cuda.synchronize()
-    assert {k: n for k, n in mxgrid_cuda.launch_counts().items() if n} == {
+    assert {k: n for k, n in cuda_lib.launch_counts().items() if n} == {
         "H0": 1, "H1": 1, "H2": 1}
     want = {"H1": hashgrid_cuda.forward_plain(pts, table, spec),
             "H2": hashgrid_cuda.table_gradient_plain(pts, gout, spec),
@@ -1438,10 +1438,10 @@ def test_hash_encode_autograd_matches_plain(cuda, name):
         out = enc(t, p)
         return [out, *torch.autograd.grad(torch.sum(out * gout), (t, p))]
 
-    mxgrid_cuda.reset_launch_counts()
+    cuda_lib.reset_launch_counts()
     got = run(lambda t, p: hashgrid.encode(t, p, spec))
     torch.cuda.synchronize()
-    assert {k: n for k, n in mxgrid_cuda.launch_counts().items() if n} == {
+    assert {k: n for k, n in cuda_lib.launch_counts().items() if n} == {
         "H0": 1, "H1": 1, "H2": 1}
     want = run(lambda t, p: hashgrid_cuda.forward_plain(p, t, spec))
     for a, b, tol in zip(got, want, (1e-5, 1e-4, 1e-4)):
@@ -1461,10 +1461,10 @@ def test_hash_encode_backward_runs_the_gradients_asked_for(cuda):
     for leaf in ("table", "points"):
         t = table.clone().requires_grad_(leaf == "table")
         p = pts.clone().requires_grad_(leaf == "points")
-        mxgrid_cuda.reset_launch_counts()
+        cuda_lib.reset_launch_counts()
         out = hashgrid.encode(t, p, spec)
         torch.autograd.grad(torch.sum(out * gout), t if leaf == "table" else p)
-        launched = {k: n for k, n in mxgrid_cuda.launch_counts().items() if n}
+        launched = {k: n for k, n in cuda_lib.launch_counts().items() if n}
         assert launched == {"H1": 1, "H2" if leaf == "table" else "H0": 1}, leaf
 
 
@@ -1475,7 +1475,7 @@ def test_hash_wrappers_refuse_bad_inputs(cuda):
     spec = hash_spec("small")
     pts, table, gout = hash_case(spec, 2, 100, "uniform", torch.float32, cuda, seed=71)
     o, t, f = table.shape
-    mxgrid_cuda.reset_launch_counts()
+    cuda_lib.reset_launch_counts()
     with pytest.raises(ValueError, match="on cpu"):
         hashgrid_cuda.forward(pts, table.cpu(), spec)
     with pytest.raises(ValueError, match="not supported"):
@@ -1496,4 +1496,4 @@ def test_hash_wrappers_refuse_bad_inputs(cuda):
     spec3 = hashgrid.make_spec(EncodingConfig(**dict(HASH_SMALL, n_features_per_level=3)))
     with pytest.raises(NotImplementedError, match="features"):
         hashgrid_cuda.forward(pts, torch.zeros((o, spec3.total_params, 3), device=cuda), spec3)
-    assert not any(mxgrid_cuda.launch_counts().values())
+    assert not any(cuda_lib.launch_counts().values())

@@ -296,7 +296,8 @@ def test_offline_cli_runs_with_jax_blocked(dataset_dir, tmp_path):
         "sys.modules['jax'] = None\n"
         "torch.set_num_threads(2)\n"
         "import romap_tpu_torch.runtime.offline as off\n"
-        "import romap_tpu_torch.ops.mxgrid_cuda, romap_tpu_torch.utils.jax_bridge\n"
+        "import romap_tpu_torch.ops.cuda_lib, romap_tpu_torch.ops.mxgrid_cuda\n"
+        "import romap_tpu_torch.utils.jax_bridge\n"
         f"off.main(['-', {dataset_dir!r}, '1', '--device', 'cpu', '--waves', '1',"
         f" '--steps-per-wave', '2', '--rays', '64', '--samples', '4', '--mc-res', '9',"
         f" '--mx-features', '8', '--mx-max-res', '32', '--no-video', '--out', {str(out)!r}])\n"

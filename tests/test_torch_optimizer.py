@@ -21,7 +21,7 @@ from torch.utils import _pytree as pytree
 from romap_tpu_torch.config import EncodingConfig, NerfConfig, NetworkConfig, TrainConfig
 from romap_tpu_torch.data.world import build_synthetic_world
 from romap_tpu_torch.models import nerf
-from romap_tpu_torch.ops import mxgrid_cuda, optimizer_cuda
+from romap_tpu_torch.ops import cuda_lib, optimizer_cuda
 from romap_tpu_torch.utils import tracing
 
 N_OBJ = 3
@@ -238,10 +238,10 @@ def test_a1_equals_the_twin(cuda, name):
     table.view(N_OBJ, -1)[1, 3] = float("nan")
     ok = torch.tensor([True, False, True], device=cuda)
     for i in range(3):
-        mxgrid_cuda.reset_launch_counts()
+        cuda_lib.reset_launch_counts()
         got = optimizer_cuda.update(grads, state, ok, cfg)
         torch.cuda.synchronize()
-        assert {k: n for k, n in mxgrid_cuda.launch_counts().items() if n} == {"A1": 1}
+        assert {k: n for k, n in cuda_lib.launch_counts().items() if n} == {"A1": 1}
         assert_same(got, optimizer_cuda.update_plain(grads, state, ok, cfg))
         assert pytree.tree_leaves(got[2].found_nan)[0].tolist()[0] is (i == 0)
         state = state._replace(params=got[0], ema=got[1], opt=got[2], step=state.step + ok)
@@ -264,7 +264,7 @@ def test_a1_launches_once_for_each_sixteen_leaves(cuda):
     grads = tree(lambda a: torch.randn(a.shape, generator=g))
     state, grads = (pytree.tree_map(lambda a: a.to(cuda), t) for t in (state, grads))
     ok = torch.tensor([True, True, False], device=cuda)
-    mxgrid_cuda.reset_launch_counts()
+    cuda_lib.reset_launch_counts()
     got = optimizer_cuda.update(grads, state, ok, cfg)
     torch.cuda.synchronize()
     assert optimizer_cuda.update.launches == 2
@@ -279,7 +279,7 @@ def test_a1_refuses_a_leaf_it_does_not_take(cuda):
     ok = torch.ones(N_OBJ, dtype=torch.bool, device=cuda)
     w0 = state.opt.mu["mlp"]["w0"]
     shifted = torch.zeros(w0.numel() + 1, device=cuda)[1:].view(w0.shape)
-    mxgrid_cuda.reset_launch_counts()
+    cuda_lib.reset_launch_counts()
     with pytest.raises(ValueError, match="dtype"):
         optimizer_cuda.update({**grads, "table": grads["table"].bfloat16()}, state, ok, cfg)
     mu = {**state.opt.mu, "mlp": {**state.opt.mu["mlp"],
@@ -317,7 +317,7 @@ def test_a1_runs_once_a_train_step(cuda, field, dtype):
         assert_same(got, optimizer_cuda.update_plain(grads, st, ok, c))
         return got
 
-    mxgrid_cuda.reset_launch_counts()
+    cuda_lib.reset_launch_counts()
     optimizer_cuda.update = both
     try:
         state = nerf.train_objects(state, objs, store.arrays(), cfg, spec, 3, generator=gen)

@@ -241,7 +241,8 @@ def test_port_runs_without_jax():
         "from romap_tpu_torch.data.world import build_synthetic_world\n"
         "from romap_tpu_torch.models import nerf\n"
         "from romap_tpu_torch.runtime.manager import NerfManagerOnline\n"
-        "import romap_tpu_torch.ops.mxgrid_cuda, romap_tpu_torch.utils.jax_bridge\n"
+        "import romap_tpu_torch.ops.cuda_lib, romap_tpu_torch.ops.mxgrid_cuda\n"
+        "import romap_tpu_torch.utils.jax_bridge\n"
         "import romap_tpu_torch.runtime.server, romap_tpu_torch.runtime.offline\n"
         "cfg = NerfConfig(encoding=EncodingConfig(mx_levels=2, mx_max_resolution=32,"
         " mx_features=8, mx_plane_res=16, mx_plane_features=4),"

@@ -62,7 +62,11 @@ Phases, one or more lines each, each closed by its seconds:
                update A1 on the `tcnn` and `ngp` trees at O=10 against the
                eager chain (its plain twin) on the card, bit for bit, with
                the times of both and A1's bound (36 B an element over the
-               card's memory rate)
+               card's memory rate); then each network's last product, M1
+               and M2 (`check_last_product`), at O=10 x 131,072 for out 3,
+               4 and 16, bf16 and fp32, against the plain twin and twice
+               (M2's bits repeat), timed in turns with the twin, beside
+               their bound and fp32 torch.bmm (`library_ms`)
   4 parity     one tiny train step, fp32, kernels on the card vs the plain
                path on the CPU, from the same state and uniforms
   5 train      build_synthetic_world(10, 16, 128) + NerfConfig(): init, 1
@@ -162,7 +166,7 @@ from romap_tpu_torch.data.formats import write_dataset  # noqa: E402
 from romap_tpu_torch.data.world import build_synthetic_world  # noqa: E402
 from romap_tpu_torch.models import nerf  # noqa: E402
 from romap_tpu_torch.ops import (  # noqa: E402
-    cuda_lib, hashgrid_cuda, mxgrid, mxgrid_cuda, optimizer_cuda)
+    cuda_lib, hashgrid_cuda, mlp_cuda, mxgrid, mxgrid_cuda, optimizer_cuda)
 from romap_tpu_torch.ops.geometry import camera_rays, ray_aabb_intersect  # noqa: E402
 from romap_tpu_torch.runtime import offline, pose_refine, server  # noqa: E402
 from romap_tpu_torch.runtime.offline import OfflineRunner  # noqa: E402
@@ -913,6 +917,76 @@ def check_optimizer(dev) -> dict:
     return records
 
 
+LAST_PRODUCTS = (("tcnn head", 4), ("ngp rgb", 3), ("ngp density", 16))  # out widths, K = 64
+
+
+def check_last_product(dev) -> dict:
+    """M1 and M2 (`mlp_cuda.forward`, `backward`: each network's last
+    product and both its gradients) at O=10 x 131,072 points, K = 64, for
+    the cells' output widths, bf16 and fp32: their outputs against the
+    plain twin's (max error over the largest value: fp32 sums in another
+    order, bf16 outputs rounded once after them), M2 twice (the same bits),
+    and the median device time of each, in turns with the twin (kernel,
+    twin, twin, kernel), beside its bound (h, dy and the outputs once over
+    the card's memory rate, or 2 K N (M1) and 4 K N (M2) operations a point
+    over its fp32 rate, the larger) and fp32 `torch.bmm` on fp32 operands
+    (`library_ms`: the product, and the backward's two, the port no longer
+    calls). Returns {"<net> <dtype>": record}."""
+    records = {}
+    o, p, k = N_OBJECTS, KERNEL_P, 64
+    for net, n in LAST_PRODUCTS:
+        for dtype in BOTH:
+            g = torch.Generator(device=dev).manual_seed(11 + n)
+            h = torch.relu(torch.randn((o, p, k), generator=g, device=dev)).to(dtype)
+            w = (torch.randn((o, k, n), generator=g, device=dev) / 8).to(dtype)
+            dy = 1e-3 * torch.randn((o, p, n), generator=g, device=dev)
+            cuda_lib.reset_launch_counts()
+            got = (mlp_cuda.forward(h, w), *mlp_cuda.backward(h, w, dy))
+            torch.cuda.synchronize()
+            launches = {kn: c for kn, c in cuda_lib.launch_counts().items() if c}
+            again = (mlp_cuda.forward(h, w), *mlp_cuda.backward(h, w, dy))
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            want = (mlp_cuda.forward_plain(h, w), *mlp_cuda.backward_plain(h, w, dy))
+            err = {name: errors([a], [b])[1] for name, a, b in zip(("out", "dh", "dw"), got, want)}
+            h32, w32 = h.float(), w.float()
+            fwd = lambda: mlp_cuda.forward(h, w)
+            bwd = lambda: mlp_cuda.backward(h, w, dy)
+            turns = (("M1", fwd), ("plain M1", lambda: mlp_cuda.forward_plain(h, w)),
+                     ("plain M2", lambda: mlp_cuda.backward_plain(h, w, dy)), ("M2", bwd))
+            times = {}
+            for name, fn in turns + turns[::-1]:
+                times.setdefault(name, []).append(median_ms(fn))
+            ms = {key: statistics.mean(v) for key, v in times.items()}
+            library = {"M1": median_ms(lambda: torch.bmm(h32, w32)),
+                       "M2": median_ms(lambda: (torch.bmm(dy, w32.transpose(1, 2)),
+                                                torch.bmm(h32.transpose(1, 2), dy)))}
+            sz = h.element_size()
+            nbytes = {"M1": o * p * (k * sz + n * 4), "M2": o * p * (2 * k * sz + n * 4)}
+            ops = {"M1": 2 * o * p * k * n, "M2": 4 * o * p * k * n}
+            bound = {key: 1e3 * max(nbytes[key] / PEAK_BYTES_PER_S, ops[key] / PEAK_FP32_PER_S)
+                     for key in nbytes}
+            rec = dict(objects=o, points=p, k=k, n=n, launches=launches, same_bits=same,
+                       rel_err=err, **{f"{key}_ms": ms[key] for key in ("M1", "M2")},
+                       **{f"{key}_plain_ms": ms["plain " + key] for key in ("M1", "M2")},
+                       **{f"{key}_library_ms": library[key] for key in library},
+                       **{f"{key}_bound_ms": bound[key] for key in bound},
+                       bound_by={key: "bytes" if nbytes[key] / PEAK_BYTES_PER_S
+                                 >= ops[key] / PEAK_FP32_PER_S else "fp32" for key in nbytes})
+            label = f"{net} {str(dtype).split('.')[1]}"
+            records[label] = rec
+            say("3 kernels", kernel="M1/M2", spec=json.dumps(label),
+                **{key: f"{v:.4f}" if isinstance(v, float) else json.dumps(v)
+                   for key, v in rec.items()})
+            tol = REL_TOL[dtype]
+            if (not same or launches != {"M1": 1, "M2": 2}
+                    or any(e > tol for e in err.values())):
+                raise AssertionError(f"M1/M2 {label}: same bits {same}, launches {launches}, "
+                                     f"errors {err} (tolerance {tol})")
+            del h, w, dy, got, again, want, h32, w32
+            torch.cuda.empty_cache()
+    return records
+
+
 def phase_parity(dev) -> None:
     """One fp32 step of a tiny config: kernels on the card vs the plain
     encode on the CPU, same initial state and uniforms."""
@@ -1523,11 +1597,12 @@ def hash_twins():
 def phase_hash_field(dev, field: str, cfg: NerfConfig) -> float:
     """A hash-grid field (H1 forward, H2 the table's gradient) through
     train_objects on the card: the scene of phase 5, 10 objects x 4096 x 32,
-    1 + 20 steps, H1/H2 and the optimizer's A1 once a step and no other
-    kernel; then the same seed's 1 + 20 steps through the encode's plain
-    twins on the card (A1 still updates), whose losses must agree within
-    LOSS_RTOL. `field` names the phase: `tcnn`
-    (RO-MAP's) or `ngp` (instant-ngp's two networks over a 2^19 table)."""
+    1 + 20 steps, H1/H2 and the optimizer's A1 once a step, each network's
+    M1 once and M2 twice (with its sum), and no other kernel; then the same
+    seed's 1 + 20 steps through the encode's plain twins on the card (A1,
+    M1 and M2 still run), whose losses must agree within LOSS_RTOL. `field`
+    names the phase: `tcnn` (RO-MAP's) or `ngp` (instant-ngp's two networks
+    over a 2^19 table)."""
     phase = f"10 {field}"
     spec = nerf.make_field_spec(cfg)
     _, _, _, store, objs = build_synthetic_world(N_OBJECTS, 16, 128, device=dev)
@@ -1570,9 +1645,12 @@ def phase_hash_field(dev, field: str, cfg: NerfConfig) -> float:
         max_rel_loss_gap=f"{gap:.3e}", rel_tol=LOSS_RTOL[field])
     if not (torch.isfinite(loss2[active]).all() and (loss2[active] < loss1[active]).all()):
         raise AssertionError(f"{field}: a loss is not finite or did not fall")
-    if launches != {"H1": 21, "H2": 21, "A1": 21} or plain_launches != {"A1": 21}:
+    nets = 2 if cfg.network.sh_degree > 0 else 1
+    mlp = {"M1": 21 * nets, "M2": 2 * 21 * nets}
+    if launches != {"H1": 21, "H2": 21, "A1": 21, **mlp} or plain_launches != {"A1": 21, **mlp}:
         raise AssertionError(f"{field}: launches {launches}, with the twins {plain_launches} "
-                             "(want H1, H2 and A1 once a step, and A1 alone with the twins)")
+                             "(want H1, H2, A1 once a step and M1, M2 as the networks need, "
+                             "and no H1/H2 with the twins)")
     if not gap <= LOSS_RTOL[field]:
         raise AssertionError(f"{field}: the kernels' losses part from the twins' by {gap}")
     return rate
@@ -1768,6 +1846,7 @@ def main() -> None:
     records["K0"] = timed("3 kernels", check_points_gradient, specs, dev)
     hash_records = timed("3 kernels", check_hash_grid, dev)
     optimizer_records = timed("3 kernels", check_optimizer, dev)
+    last_product_records = timed("3 kernels", check_last_product, dev)
     timed("4 parity", phase_parity, dev)
     launches, _ = timed("5-6 train+render", phase_train_and_render, dev)
     root = tempfile.mkdtemp(prefix="romap_chip_smoke_")
@@ -1811,6 +1890,9 @@ def main() -> None:
     kernels.append(dict(name="A1 update", route="cuda", source=CSRC + "optimizer.cu",
                         replaces="none: the optax chain of romap_tpu/models/nerf.py",
                         by_field=optimizer_records))
+    kernels.append(dict(name="M1 forward, M2 backward", route="cuda", source=CSRC + "mlp.cu",
+                        replaces="none: the einsum of romap_tpu/ops/mlp.py:45 (XLA)",
+                        by_shape=last_product_records))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                               "count": torch.cuda.device_count()}}))

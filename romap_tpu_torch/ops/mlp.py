@@ -1,6 +1,8 @@
 """Bias-free MLP head (counterpart of romap_tpu/ops/mlp.py, points-major
-`apply_mlp` only). Weights carry a leading object axis; the products are
-plain batched matmuls, as JAX leaves them to XLA.
+`apply_mlp` only). Weights carry a leading object axis; the hidden products
+are plain batched matmuls, as JAX leaves them to XLA; each network's last
+product, summed in fp32, is `mlp_cuda.last_product` (kernels M1/M2 on the
+card, the plain `torch.bmm(h.float(), w.float())` on the CPU).
 
 RO-MAP's field has one head, {"w0", ..., "wL"}. instant-ngp's NeRF
 (`view_dependent`) has two networks, {"density": {...}, "rgb": {...}},
@@ -12,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from romap_tpu_torch.config import NetworkConfig
+from romap_tpu_torch.ops.mlp_cuda import last_product
 from romap_tpu_torch.ops.sh import SH_DIMS
 
 
@@ -53,7 +56,7 @@ def _chain(params: dict, x: torch.Tensor, n_mats: int) -> torch.Tensor:
     h = x
     for i in range(n_mats - 1):
         h = torch.relu(torch.bmm(h, params[f"w{i}"]))
-    return torch.bmm(h.float(), params[f"w{n_mats - 1}"].float())
+    return last_product(h, params[f"w{n_mats - 1}"])
 
 
 def apply_mlp(params: dict, x: torch.Tensor, cfg: NetworkConfig) -> torch.Tensor:

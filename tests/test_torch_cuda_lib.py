@@ -17,13 +17,14 @@ import torch
 
 from romap_tpu_torch.config import EncodingConfig, NerfConfig
 from romap_tpu_torch.models import nerf
-from romap_tpu_torch.ops import cuda_lib, hashgrid, hashgrid_cuda, mxgrid_cuda, optimizer_cuda
+from romap_tpu_torch.ops import (
+    cuda_lib, hashgrid, hashgrid_cuda, mlp_cuda, mxgrid_cuda, optimizer_cuda)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FAMILIES = {"mxgrid_cuda": mxgrid_cuda, "hashgrid_cuda": hashgrid_cuda,
-            "optimizer_cuda": optimizer_cuda}
-# K0-K10, H0-H2, A1: the `--trace` files' launches
-LAUNCH_KEYS = [*(f"K{i}" for i in range(11)), "H0", "H1", "H2", "A1"]
+            "optimizer_cuda": optimizer_cuda, "mlp_cuda": mlp_cuda}
+# K0-K10, H0-H2, A1, M1-M2: the `--trace` files' launches
+LAUNCH_KEYS = [*(f"K{i}" for i in range(11)), "H0", "H1", "H2", "A1", "M1", "M2"]
 
 
 def c_entries() -> dict[str, tuple[str, int]]:
@@ -43,7 +44,8 @@ ENTRIES = c_entries()
 
 def owner(source: str) -> str:
     """The family module of a source: its name up to the first `_`, then
-    `_cuda` (mxgrid_folded.cu -> mxgrid_cuda, hashgrid.cu -> hashgrid_cuda)."""
+    `_cuda` (mxgrid_folded.cu -> mxgrid_cuda, hashgrid.cu -> hashgrid_cuda,
+    mlp.cu -> mlp_cuda)."""
     return source.removesuffix(".cu").split("_")[0] + "_cuda"
 
 
@@ -86,17 +88,17 @@ def test_hash_grid_and_optimizer_import_without_the_mxgrid_module():
 
 
 @pytest.mark.parametrize("modules", [
-    ["romap_tpu_torch.ops.optimizer_cuda", "romap_tpu_torch.ops.hashgrid_cuda",
-     "romap_tpu_torch.ops.mxgrid_cuda"],
+    ["romap_tpu_torch.ops.optimizer_cuda", "romap_tpu_torch.ops.mlp_cuda",
+     "romap_tpu_torch.ops.hashgrid_cuda", "romap_tpu_torch.ops.mxgrid_cuda"],
     ["romap_tpu_torch.ops.hashgrid_cuda", "romap_tpu_torch.ops.mxgrid_cuda",
-     "romap_tpu_torch.ops.optimizer_cuda"],
+     "romap_tpu_torch.ops.mlp_cuda", "romap_tpu_torch.ops.optimizer_cuda"],
     ["romap_tpu_torch.runtime.offline"],
     ["romap_tpu_torch.runtime.server"],
 ], ids=["optimizer_first", "hash_grid_first", "offline_cli", "server"])
 def test_launch_counts_list_every_family_in_one_order(modules):
-    """K0-K10, then H0-H2, then A1, whichever family was imported first;
-    the offline CLI and the server, which write them into `--trace`, import
-    every family."""
+    """K0-K10, then H0-H2, then A1, then M1-M2, whichever family was
+    imported first; the offline CLI and the server, which write them into
+    `--trace`, import every family."""
     out = run_python(
         "".join(f"import {m}\n" for m in modules)
         + "from romap_tpu_torch.ops import cuda_lib\n"

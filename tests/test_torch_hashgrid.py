@@ -21,7 +21,7 @@ from romap_tpu_torch import config as tcfg
 from romap_tpu_torch.data.world import build_synthetic_world as tworld
 from romap_tpu_torch.models import nerf as tnerf
 from romap_tpu_torch.ops import hashgrid as thash
-from romap_tpu_torch.ops import cuda_lib, hashgrid_cuda, mxgrid_cuda
+from romap_tpu_torch.ops import cuda_lib, hashgrid_cuda, mlp_cuda, mxgrid_cuda
 from romap_tpu_torch.utils import checkpoint, jax_bridge
 from tests.oracles import hashgrid_encode_ref
 from tests.test_torch_train import close_share, replay
@@ -222,10 +222,11 @@ def test_level_constants_equal_the_specs(enc):
 
 def test_launch_counts_list_the_hash_grid_kernels():
     """`cuda_lib.launch_counts()` (what the CLIs write into `--trace`)
-    lists H0-H2 after K0-K10, then the optimizer's A1, and
-    `reset_launch_counts()` zeroes them."""
+    lists H0-H2 after K0-K10, then the optimizer's A1 and the last
+    product's M1-M2, and `reset_launch_counts()` zeroes them."""
     hashgrid_cuda.forward.launches = 3
-    assert list(cuda_lib.launch_counts()) == [*mxgrid_cuda.KERNELS, "H0", "H1", "H2", "A1"]
+    assert list(cuda_lib.launch_counts()) == [*mxgrid_cuda.KERNELS, "H0", "H1", "H2", "A1",
+                                              *mlp_cuda.KERNELS]
     assert cuda_lib.launch_counts()["H1"] == 3
     cuda_lib.reset_launch_counts()
     assert not any(cuda_lib.launch_counts().values())

@@ -33,7 +33,7 @@ from romap_tpu.runtime.offline import OfflineRunner as JRunner
 from romap_tpu.utils import mesh_io as jmesh_io
 from romap_tpu_torch.models import nerf as tnerf
 from romap_tpu_torch.ops import geometry as tgeo
-from romap_tpu_torch.ops import hashgrid_cuda, mxgrid_cuda, optimizer_cuda
+from romap_tpu_torch.ops import hashgrid_cuda, mlp_cuda, mxgrid_cuda, optimizer_cuda
 from romap_tpu_torch.ops import marching_cubes as tmc
 from romap_tpu_torch.runtime import artifacts as tartifacts
 from romap_tpu_torch.runtime import offline as toffline
@@ -316,8 +316,8 @@ def test_offline_cli_runs_with_jax_blocked(dataset_dir, tmp_path):
 
 def test_offline_cli_writes_its_trace(dataset_dir, tmp_path):
     """`--trace PATH`: the run's spans, counters, the kernels' launches
-    (K0-K10, H0-H2, A1) and the summary as Chrome trace JSON; tracing is off
-    again after the run."""
+    (K0-K10, H0-H2, A1, M1-M2) and the summary as Chrome trace JSON; tracing
+    is off again after the run."""
     trace = tmp_path / "trace.json"
     toffline.main(["-", dataset_dir, "1", "--device", "cpu", "--waves", "1",
                    "--steps-per-wave", "2", "--rays", "64", "--samples", "4", "--mc-res", "9",
@@ -341,4 +341,4 @@ def test_offline_cli_writes_its_trace(dataset_dir, tmp_path):
                                                    "mesh.verts"}
     # the CPU launches none
     assert t["launches"] == {k: 0 for k in (*mxgrid_cuda.KERNELS, *hashgrid_cuda.KERNELS,
-                                            *optimizer_cuda.KERNELS)}
+                                            *optimizer_cuda.KERNELS, *mlp_cuda.KERNELS)}

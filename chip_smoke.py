@@ -171,6 +171,7 @@ from romap_tpu_torch.ops.geometry import camera_rays, ray_aabb_intersect  # noqa
 from romap_tpu_torch.runtime import offline, pose_refine, server  # noqa: E402
 from romap_tpu_torch.runtime.offline import OfflineRunner  # noqa: E402
 from romap_tpu_torch.tools import quality_gate  # noqa: E402
+from portbench.frozen import sdf as sdf_counts  # noqa: E402
 from portbench.frozen.work import hash_work  # noqa: E402
 
 N_OBJECTS, WAVE = 10, 50
@@ -790,9 +791,12 @@ def check_points_gradient(specs: dict, dev) -> dict:
 # in bf16 both round the same fp32 blend once, one bf16 step (2^-8); H2's
 # atomics add in a run-dependent order (hundreds of terms a coarse row),
 # then one cast; H0 sums the same fp32 products in another order.
+# H3's dg sums 8 corner products in fp32 and rounds once (one bf16 step),
+# its table gradient adds with H2's atomics.
 HASH_TOL = {"H1": {torch.float32: 1e-5, torch.bfloat16: 1e-2},
             "H2": {torch.float32: 1e-4, torch.bfloat16: 1e-2},
-            "H0": {torch.float32: 1e-4, torch.bfloat16: 1e-4}}
+            "H0": {torch.float32: 1e-4, torch.bfloat16: 1e-4},
+            "H3": {torch.float32: 1e-4, torch.bfloat16: 1e-2}}
 HASH_O = 4  # room4's slots (portbench's tcnn.offline.room4), 4096 x 32 points each
 # instant-ngp's NeRF, portbench/configs/ngp.json: 2^19 rows a level, five
 # dense levels, the table's fp32 gradient 488 MB at O = 10 (far past L2)
@@ -814,18 +818,21 @@ def check_hash_grid(dev) -> dict:
     then H0 at one view's refinement points (1 x 196,608, fp32 and bf16),
     also along rays; then H1 and H2 with the `ngp` spec (instant-ngp's
     2^19 rows a level) at ngp.offline.room10's shape, O=10 x 131,072, bf16
-    and fp32: the largest
+    and fp32, and H0 and H3 (an SDF field's normal and its backward) at
+    neus2.offline.room10's, the same: the largest
     error against the plain twin beside its tolerance, the median device
-    time of the wrapper (H2's: the buffer's zeroing, the kernel and the
-    cast), of the twin, and the bound (`hash_work`, the benchmark's frozen
-    count of bytes and operations for `encode_fwd_roofline` /
-    `encode_bwd_roofline`). Returns {field: {kernel: {dtype: record}}}."""
+    time of the wrapper (H2's and H3's: the buffer's zeroing, the kernel and
+    the cast), of the twin, and the bound (`hash_work`, `frozen/sdf.py`'s
+    counts: the benchmark's frozen bytes and operations for its encode
+    rooflines). Returns {field: {kernel: {dtype: record}}}."""
     tcnn = nerf.make_field_spec(NerfConfig(encoding=EncodingConfig.preset("tcnn")))
     ngp = nerf.make_field_spec(NGP_CONFIG)
-    records = {"tcnn": {"H0": {}, "H1": {}, "H2": {}}, "ngp": {"H1": {}, "H2": {}}}
+    records = {"tcnn": {"H0": {}, "H1": {}, "H2": {}}, "ngp": {"H1": {}, "H2": {}},
+               "neus2": {"H0": {}, "H3": {}}}
     shapes = (("tcnn", tcnn, HASH_O, KERNEL_P, ("H1", "H2")),
               ("tcnn", tcnn, 1, REFINE_P, ("H0",)),
-              ("ngp", ngp, NGP_O, KERNEL_P, ("H1", "H2")))
+              ("ngp", ngp, NGP_O, KERNEL_P, ("H1", "H2")),
+              ("neus2", ngp, NGP_O, KERNEL_P, ("H0", "H3")))
     for field, spec, o, p, names in shapes:
         for dtype in (torch.bfloat16, torch.float32):
             dname = str(dtype).split(".")[1]
@@ -834,23 +841,28 @@ def check_hash_grid(dev) -> dict:
             table = torch.randn((o, spec.total_params, spec.n_features), generator=g)
             table = table.to(dev, dtype)
             gout = torch.randn((o, p, spec.n_output_dims), generator=g).to(dev, dtype)
+            v = torch.randn((o, p, 3), generator=g).to(dev)
             calls = {"H1": ("forward", (pts, table)), "H2": ("backward", (pts, gout)),
-                     "H0": (None, (pts, table, gout))}
+                     "H0": (None, (pts, table, gout)), "H3": (None, (pts, table, gout, v))}
+            sdf_work = {"H0": sdf_counts.points_work, "H3": sdf_counts.normal_backward_work}
             for name in names:
                 direction, args = calls[name]
                 fn = hashgrid_cuda.KERNELS[name]
                 plain = getattr(hashgrid_cuda, fn.__name__ + "_plain")
                 got, want = fn(*args, spec), plain(*args, spec)
                 torch.cuda.synchronize()
-                abs_err, rel_err = errors([got], [want])
+                got, want = (list(x) if isinstance(x, tuple) else [x] for x in (got, want))
+                abs_err, rel_err = errors(got, want)
                 tol = HASH_TOL[name][dtype]
                 ms = median_ms(lambda: fn(*args, spec))
                 plain_ms = median_ms(lambda: plain(*args, spec), 3)
                 rec = dict(shape=f"{o}x{p}", max_abs_err=abs_err, max_rel_err=rel_err,
                            rel_tol=tol, ms=ms, plain_ms=plain_ms)
-                if direction:
-                    nbytes, ops = hash_work(direction, spec.n_levels, spec.n_features,
-                                            spec.total_params, dname, o, p)
+                sizes = (spec.n_levels, spec.n_features, spec.total_params, dname, o, p)
+                counted = (hash_work(direction, *sizes) if direction
+                           else sdf_work[name](*sizes) if field == "neus2" else None)
+                if counted:
+                    nbytes, ops = counted
                     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_FP32_PER_S
                     rec.update(bound_ms=1e3 * max(t_bytes, t_ops),
                                bound_by="bytes" if t_bytes >= t_ops else "operations")
@@ -858,10 +870,10 @@ def check_hash_grid(dev) -> dict:
                 say("3 kernels", kernel=name, spec=field, dtype=dname,
                     **{k: (f"{v:.3e}" if "err" in k or k == "rel_tol" else f"{v:.4f}")
                        if isinstance(v, float) else v for k, v in rec.items()})
-                if not rel_err <= tol or not torch.isfinite(got).all():
+                if not rel_err <= tol or not all(torch.isfinite(t).all() for t in got):
                     raise AssertionError(f"{name} {dname}: relative error {rel_err} above {tol}")
                 del got, want
-            del pts, table, gout, args
+            del pts, table, gout, v, args
             torch.cuda.empty_cache()
     return records
 
@@ -1884,8 +1896,10 @@ def main() -> None:
         for k, fn in mxgrid_cuda.KERNELS.items()
     ]
     kernels += [dict(name=f"{k} {fn.__name__}", route="cuda", source=CSRC + "hashgrid.cu",
-                     replaces="romap_tpu/ops/hashgrid.py:108", by_dtype=hash_records["tcnn"][k],
-                     **({"ngp": hash_records["ngp"][k]} if k in hash_records["ngp"] else {}))
+                     replaces=("none: the JAX package has no SDF field" if k == "H3"
+                               else "romap_tpu/ops/hashgrid.py:108"),
+                     by_dtype=hash_records["tcnn"].get(k, {}),
+                     **{f: hash_records[f][k] for f in ("ngp", "neus2") if k in hash_records[f]})
                 for k, fn in hashgrid_cuda.KERNELS.items()]
     kernels.append(dict(name="A1 update", route="cuda", source=CSRC + "optimizer.cu",
                         replaces="none: the optax chain of romap_tpu/models/nerf.py",

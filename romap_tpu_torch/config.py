@@ -161,6 +161,15 @@ class NetworkConfig:
     those outputs beside the 16 spherical harmonics of the ray's direction
     (`ops/sh.py`; `ops/mlp.view_dependent`). The `rgb_*` fields are unused
     at degree 0.
+
+    `field` "sdf" is NeuS2's neural surface (Wang et al., ICCV 2023): the
+    first network becomes a signed-distance network (output 0 the distance
+    f, negative inside; the rest geometry features), its normal n = grad f
+    enters the colour network beside the warped point, the SH of the view
+    direction and the features (NeuS's `idr` inputs), and a learned
+    variance per object (`init_variance`, NeuS's 0.3) sharpens the
+    SDF-to-alpha render (`ops/render.sdf_render`). It needs `sh_degree` 4.
+    "density" (the default) is the NeRF of both other fields.
     """
 
     n_neurons: int = 64
@@ -174,10 +183,16 @@ class NetworkConfig:
     sh_degree: int = 0  # 0: no direction input; 4: 16 SH functions
     rgb_n_neurons: int = 64
     rgb_n_hidden_layers: int = 2
+    field: str = "density"  # "density" (NeRF) or "sdf" (NeuS2)
+    init_variance: float = 0.3  # the SDF field's variance v at step 0: inv_s = exp(10 v)
 
     def __post_init__(self):
         if self.sh_degree not in (0, 4):
             raise ValueError(f"sh_degree {self.sh_degree}: 0 (no direction) or 4")
+        if self.field not in ("density", "sdf"):
+            raise ValueError(f"field {self.field!r}: 'density' or 'sdf'")
+        if self.field == "sdf" and self.sh_degree != 4:
+            raise ValueError("an SDF field takes the view direction's SH: sh_degree 4")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -209,6 +224,11 @@ class TrainConfig:
     # Marching cubes (ref marching_cubes.h:30-31)
     mc_resolution: int = 64
     mc_threshold: float = 2.0
+    # NeuS's SDF field (NetworkConfig.field "sdf") alone: the eikonal term's
+    # weight (NeuS's igr_weight) and the step at which the render's cosine
+    # is fully annealed (its anneal_end)
+    eikonal_lambda: float = 0.1
+    cos_anneal_end: int = 50000
     # dtype of the compute path; params stay fp32 and the render/mesh paths
     # force fp32 regardless (ref renders fp32, nerf_model.cu:1795).
     # "auto" = bfloat16 on TPU (matches the reference's fp16 training),

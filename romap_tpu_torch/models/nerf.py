@@ -7,9 +7,11 @@ leading object axis O. One `train_objects` step trains every slot at once:
   generate_batch   R rays x S samples per object from per-frame bboxes,
                    occlusion and AABB gates, stable compaction + rollover
   field_apply      MX-grid encode (kernels K0-K10 on the card) or hash grid, + MLP
-                   (RO-MAP's head, or instant-ngp's density and colour networks
-                   over the rays' directions)
+                   (RO-MAP's head, instant-ngp's density and colour networks
+                   over the rays' directions, or NeuS2's SDF and colour
+                   networks with the SDF's normal, H0 forward and H3 backward)
   composite_loss   volume render + RGB, depth, mask and background-sigma terms
+                   (an SDF field: NeuS's render, and the eikonal term)
   optimizer        zero_nans -> L2 1e-6 -> Adam(.9, .99, 1e-15) -> exp-decay
                    rate -> EMA .95, masked per slot (kernel A1 on the card,
                    `ops/optimizer_cuda.py`)
@@ -37,8 +39,20 @@ from romap_tpu_torch.ops.geometry import (
     warp_point,
 )
 from romap_tpu_torch.ops.losses import RayBatch, composite_loss
-from romap_tpu_torch.ops.mlp import apply_mlp, apply_rgb, init_mlp, view_dependent
-from romap_tpu_torch.ops.render import density_activation, render_composite, volume_render
+from romap_tpu_torch.ops.mlp import (
+    apply_mlp,
+    apply_rgb,
+    apply_sdf,
+    init_mlp,
+    signed_distance,
+    view_dependent,
+)
+from romap_tpu_torch.ops.render import (
+    density_activation,
+    render_composite,
+    sdf_render,
+    volume_render,
+)
 from romap_tpu_torch.ops.sh import sh_encode
 from romap_tpu_torch.utils import tracing
 
@@ -54,6 +68,9 @@ def make_field_spec(cfg: NerfConfig):
     MX_SNAP=1/0 in the environment overrides `mx_snap_levels`, as in the
     reference (romap_tpu/models/nerf.py:58-67)."""
     e = cfg.encoding
+    if signed_distance(cfg.network) and e.kind != "hashgrid":
+        raise NotImplementedError("an SDF field's normal is ported over the hash grid (H0, "
+                                  "H3) only")
     if e.kind != "mxgrid":
         if e.hash_impl != "gather":
             raise NotImplementedError(
@@ -84,9 +101,11 @@ def params_device(params) -> torch.device:
 
 def _features(params, points: torch.Tensor, spec, dtype):
     """The encode of `field_apply`: features [O, N, C] of points [O, ..., 3]
-    in `dtype`, and the network's weights cast to it."""
+    in `dtype`, the network's weights cast to it (an SDF field's variance
+    stays fp32 in `params`) and the table as the encode read it."""
     table = pytree.tree_map(lambda a: a.to(dtype), params["table"])
-    mlp = pytree.tree_map(lambda a: a.to(dtype), params["mlp"])
+    mlp = {k: pytree.tree_map(lambda a: a.to(dtype), v) for k, v in params["mlp"].items()
+           if k != "variance"}
     with tracing.span("encode.fwd"):
         if isinstance(spec, hashgrid.HashGridSpec):
             feats = hashgrid_cuda.encode(table, points, spec)
@@ -95,7 +114,15 @@ def _features(params, points: torch.Tensor, spec, dtype):
         else:
             feats = mxgrid.encode(table, points, spec)
     tracing.backward_span(feats, "encode.bwd")
-    return feats.reshape(points.shape[0], -1, spec.n_output_dims), mlp
+    return feats.reshape(points.shape[0], -1, spec.n_output_dims), mlp, table
+
+
+def _ray_sh(dirs: torch.Tensor, o: int, n: int, dtype) -> torch.Tensor:
+    """The 16 SH values [O, N, 16] in `dtype` of each ray's direction (dirs
+    [O, ..., 3]), once a ray, broadcast over its samples."""
+    with tracing.span("dir.encode"):
+        sh = sh_encode(dirs.reshape(o, -1, 3).float()).to(dtype)
+        return sh[:, :, None, :].expand(-1, -1, n // sh.shape[1], -1).reshape(o, n, -1)
 
 
 def _view_head(mlp, feats: torch.Tensor, dirs: torch.Tensor, cfg: NerfConfig):
@@ -108,22 +135,84 @@ def _view_head(mlp, feats: torch.Tensor, dirs: torch.Tensor, cfg: NerfConfig):
     tracing.count("field.view_points", o * n)
     with tracing.span("mlp.density"):
         geo = apply_mlp(mlp["density"], feats, net)
-    with tracing.span("dir.encode"):
-        sh = sh_encode(dirs.reshape(o, -1, 3).float()).to(feats.dtype)
-        sh = sh[:, :, None, :].expand(-1, -1, n // sh.shape[1], -1).reshape(o, n, -1)
+    sh = _ray_sh(dirs, o, n, feats.dtype)
     with tracing.span("mlp.rgb"):
         rgb = apply_rgb(mlp["rgb"], torch.cat([geo.to(feats.dtype), sh], dim=-1), net)
     return torch.cat([rgb, geo[..., :1]], dim=-1)
 
 
+def _sdf_geometry(mlp, table, feats: torch.Tensor, pts: torch.Tensor, extent, cfg: NerfConfig,
+                  spec):
+    """NeuS2's SDF network on the features [O, N, C] of the warped points
+    pts [O, N, 3]: (outputs [O, N, output_dims] fp32, output 0 the distance
+    f; the normal n = grad f [O, N, 3] fp32 in the object frame, the
+    gradient in the warped point divided per axis by the box's extent [O,
+    3]). The normal is H0 over df/dfeatures (`hashgrid_cuda.
+    encode_points_gradient`): its backward, H3, runs under `encode.bwd`,
+    the product that formed df/dfeatures under `mlp.bwd`."""
+    o, n = feats.shape[:2]
+    with tracing.span("mlp.sdf"):
+        geo, dfdh = apply_sdf(mlp["sdf"], feats, cfg.network)
+    with tracing.span("sdf.normal"):
+        tracing.count("field.sdf_points", o * n)
+        with tracing.span("encode.fwd"):
+            grad = hashgrid_cuda.encode_points_gradient(table, pts, dfdh, spec)
+        tracing.backward_span(grad, "encode.bwd")
+        tracing.backward_span(dfdh, "mlp.bwd")
+        normal = grad / extent[:, None, :]
+    return geo, normal
+
+
+def _sdf_colour(mlp, pts, normal, sh, geo, cfg: NerfConfig) -> torch.Tensor:
+    """NeuS's colour network on its `idr` inputs, in the SH's dtype: the
+    warped point, the normal, the SH of the view direction and the geometry
+    features (outputs 1 on). Returns rgb logits [O, N, 3] fp32.
+
+    The inputs (37 at NeuS2's widths) are padded with zero columns to a
+    multiple of 8, and the first matrix with as many zero rows: the same
+    product, whose operands cuBLAS then takes 16-byte aligned (unaligned,
+    its weight gradient took a 32 x 32-tile kernel that ran 3.2 ms a step
+    at O=10 x 131,072; NVIDIA H100). The padding rows' gradient is dropped."""
+    dt = sh.dtype
+    with tracing.span("mlp.rgb"):
+        parts = [pts.to(dt), normal.to(dt), sh, geo[..., 1:].to(dt)]
+        rgb = mlp["rgb"]
+        pad = -sum(p.shape[-1] for p in parts) % 8
+        if pad:
+            parts.append(sh.new_zeros(1, 1, 1).expand(*sh.shape[:2], pad))
+            w0 = rgb["w0"]
+            rgb = dict(rgb, w0=torch.cat([w0, w0.new_zeros(w0.shape[0], pad, w0.shape[2])], 1))
+        return apply_rgb(rgb, torch.cat(parts, dim=-1), cfg.network)
+
+
+def _sdf_head(params, mlp, table, feats, points, dirs, extent, anneal, cfg: NerfConfig,
+              spec) -> torch.Tensor:
+    """NeuS2's field at points [O, ..., 3] on rays of directions dirs: raw
+    [O, N, SDF_CHANNELS] fp32 (`ops/render.py`): rgb logits, f, the normal,
+    inv_s = clamp(exp(10 v), 1e-6, 1e6) of the slot's variance v and the
+    cosine's anneal ratio (`anneal`, [O] or a number)."""
+    o, n = feats.shape[:2]
+    pts = points.reshape(o, -1, 3).float()
+    geo, normal = _sdf_geometry(mlp, table, feats, pts, extent, cfg, spec)
+    rgb = _sdf_colour(mlp, pts, normal, _ray_sh(dirs, o, n, feats.dtype), geo, cfg)
+    inv_s = torch.clamp(torch.exp(10.0 * params["mlp"]["variance"]), 1e-6, 1e6)  # [O, 1]
+    ratio = torch.as_tensor(anneal, dtype=torch.float32, device=feats.device)
+    slot = torch.cat([inv_s, ratio.reshape(-1, 1).expand(o, 1)], dim=-1)
+    return torch.cat([rgb, geo[..., :1], normal, slot[:, None, :].expand(o, n, 2)], dim=-1)
+
+
 def field_apply(params, points: torch.Tensor, dirs: torch.Tensor | None, cfg: NerfConfig,
-                spec, dtype=None):
+                spec, dtype=None, extent: torch.Tensor | None = None, anneal=1.0):
     """points [O, ..., S, 3] in [0,1]^3 on rays of unit directions dirs
     [O, ..., 3] (object frame, before the box warp; one a ray, the samples
     axis S left out) -> raw (rgb logits, log-sigma) [O, ..., S, 4].
 
     RO-MAP's head takes no direction (`dirs` unused, may be None);
-    instant-ngp's (`ops/mlp.view_dependent`) needs it.
+    instant-ngp's (`ops/mlp.view_dependent`) needs it. NeuS2's SDF field
+    (`ops/mlp.signed_distance`, a hash grid) needs it and the boxes' extent
+    [O, 3] (aabb_max - aabb_min), and returns raw [O, ..., S, SDF_CHANNELS]
+    (`_sdf_head`), `anneal` the cosine's anneal ratio ([O] or a number; 1,
+    fully annealed, where no step is at hand).
 
     A hash-grid spec takes `hashgrid_cuda.encode` (`hashgrid.encode`) on any
     device, which picks by the points' device: the kernels H1 (forward), H2
@@ -139,9 +228,14 @@ def field_apply(params, points: torch.Tensor, dirs: torch.Tensor | None, cfg: Ne
     """
     if dtype is None:
         dtype = compute_dtype(cfg, points.device)
-    feats, mlp = _features(params, points, spec, dtype)
+    sdf = signed_distance(cfg.network)
+    if sdf and (dirs is None or extent is None):
+        raise ValueError("an SDF field needs the rays' directions and the boxes' extent")
+    feats, mlp, table = _features(params, points, spec, dtype)
     with tracing.span("mlp.fwd"):
-        if view_dependent(cfg.network):
+        if sdf:
+            raw = _sdf_head(params, mlp, table, feats, points, dirs, extent, anneal, cfg, spec)
+        elif view_dependent(cfg.network):
             if dirs is None:
                 raise ValueError("a view-dependent field needs the rays' directions")
             raw = _view_head(mlp, feats, dirs, cfg)
@@ -151,15 +245,17 @@ def field_apply(params, points: torch.Tensor, dirs: torch.Tensor | None, cfg: Ne
     return raw.reshape(*points.shape[:-1], raw.shape[-1])
 
 
-def _log_density(params, points: torch.Tensor, cfg: NerfConfig, spec):
-    """The log-density [O, ...] (fp32) of points [O, ..., 3], with no
-    direction: RO-MAP's head's output 3 (`field_apply`), or instant-ngp's
-    density network alone."""
+def _geometry_output(params, points: torch.Tensor, cfg: NerfConfig, spec):
+    """Output 0 [O, ...] (fp32) of the first network at points [O, ..., 3],
+    with no direction: the log-density (RO-MAP's head's output 3,
+    `field_apply`; instant-ngp's density network alone) or an SDF field's
+    distance f (its SDF network alone)."""
     if not view_dependent(cfg.network):
         return field_apply(params, points, None, cfg, spec, dtype=torch.float32)[..., 3]
-    feats, mlp = _features(params, points, spec, torch.float32)
+    feats, mlp, _ = _features(params, points, spec, torch.float32)
+    key = "sdf" if signed_distance(cfg.network) else "density"
     with tracing.span("mlp.fwd"):
-        raw = apply_mlp(mlp["density"], feats, cfg.network)[..., 0]
+        raw = apply_mlp(mlp[key], feats, cfg.network)[..., 0]
     return raw.reshape(points.shape[:-1])
 
 
@@ -220,7 +316,8 @@ def init_train_state(generator: torch.Generator, capacity: int, cfg: NerfConfig,
                      spec, device="cpu") -> TrainState:
     """Fresh state for `capacity` slots: params {"table": MX-grid factors or
     the hash table, "mlp": {"w0", "w1"}, or {"density": {"w0", "w1"}, "rgb":
-    {"w0", "w1", "w2"}} for instant-ngp's field (`init_mlp`)} drawn from
+    {"w0", "w1", "w2"}} for instant-ngp's field, or {"sdf": {"w0", "w1"},
+    "rgb": {...}, "variance"} for NeuS2's (`init_mlp`)} drawn from
     `generator`, EMA = params, zero Adam moments, step 0."""
     if isinstance(spec, hashgrid.HashGridSpec):
         table = hashgrid.init_table(generator, spec, capacity, device=device)
@@ -295,7 +392,7 @@ def generate_batch(frames: FrameArrays, aabb_min, aabb_max, tow, instance_id, bb
       uniforms: (u_xy [O,R,2], u_color [O,R,3], u_jitter [O,R,S]) in [0,1).
     Returns:
       RayBatch with leading [O, R]; `valid` [O]; `dirs` the rays' unit
-      directions in the object frame.
+      directions in the object frame; `tmin`, `tmax` the sections sampled.
     """
     u_xy, colors, jitter = uniforms
     o_n = aabb_min.shape[0]
@@ -351,7 +448,7 @@ def generate_batch(frames: FrameArrays, aabb_min, aabb_max, tow, instance_id, bb
     return RayBatch(
         points=pts, t=t, rgb_target=payload[..., 9:12],
         depth_target=payload[..., 12], is_object=payload[..., 13] > 0.5,
-        bg_color=payload[..., 14:17], valid=n_valid > 0, dirs=d,
+        bg_color=payload[..., 14:17], valid=n_valid > 0, dirs=d, tmin=tmin, tmax=tmax,
     )
 
 
@@ -375,8 +472,12 @@ def _object_train_step(state: TrainState, frames: FrameArrays, objects: ObjectsS
         batch = generate_batch(frames, *objects[:6], cfg, uniforms, use_depth=use_depth)
     params = pytree.tree_map(lambda a: a.detach().requires_grad_(True), state.params)
     leaves, treedef = pytree.tree_flatten(params)
+    sdf = {}
+    if signed_distance(cfg.network):  # NeuS's cosine anneals with the slot's own steps
+        sdf = dict(extent=objects.aabb_max - objects.aabb_min,
+                   anneal=torch.clamp(state.step.float() / cfg.train.cos_anneal_end, max=1.0))
     with torch.enable_grad(), tracing.backward_spans():
-        raw = field_apply(params, batch.points, batch.dirs, cfg, spec)
+        raw = field_apply(params, batch.points, batch.dirs, cfg, spec, **sdf)
         with tracing.span("loss.fwd"):
             loss, aux = composite_loss(raw, batch, cfg.train)
             # per-object losses touch disjoint parameter rows: the gradient
@@ -445,13 +546,20 @@ def render_rays(params, o, d, d_norm, tmin, tmax, in_bbox, jitter, aabb_min,
                 background: float = 1.0):
     """Render a bundle of rays for ONE object (params without the object
     axis), fp32, n_samples per ray: gray background, mask threshold 0.5,
-    depth divided by d_norm. Returns (rgb [N, 3], depth [N], mask [N])."""
+    depth divided by d_norm. Returns (rgb [N, 3], depth [N], mask [N]). An
+    SDF field renders by NeuS's rule with the cosine fully annealed."""
     t = stratified_distances(tmin, tmax, jitter, n_samples)
     pts = warp_point(o[:, None, :] + t[..., None] * d[:, None, :], aabb_min, aabb_max)
     one = pytree.tree_map(lambda a: a[None], params)
-    raw = field_apply(one, pts[None], d[None], cfg, spec, dtype=torch.float32)[0]
+    sdf = signed_distance(cfg.network)
+    extent = (aabb_max - aabb_min).reshape(1, 3) if sdf else None
+    raw = field_apply(one, pts[None], d[None], cfg, spec, dtype=torch.float32,
+                      extent=extent)[0]
     bg = torch.full((3,), background, dtype=torch.float32, device=raw.device)
-    out = volume_render(raw, t, bg)
+    if sdf:
+        out = sdf_render(raw, d, t, (tmax - tmin) / n_samples, bg)
+    else:
+        out = volume_render(raw, t, bg)
     return render_composite(out, d_norm, in_bbox, background)
 
 
@@ -460,26 +568,40 @@ def density_on_grid(params, cfg: NerfConfig, spec, res: int) -> torch.Tensor:
     """Densities [res^3] (fp32) of ONE object (params without the object
     axis) on a uniform res^3 grid over the unit cube, flat index
     x + y res + z res^2, through the clipped activation of the render path
-    (romap_tpu/models/nerf.py:589-603)."""
+    (romap_tpu/models/nerf.py:589-603). An SDF field gives -f, larger
+    inside, whose zero level is the surface (`mc_threshold` 0)."""
     dev = params_device(params)
     lin = torch.arange(res, dtype=torch.float32, device=dev) / (res - 1)
     z, y, x = torch.meshgrid(lin, lin, lin, indexing="ij")
     pts = torch.stack([x, y, z], dim=-1).reshape(1, -1, 3)
     one = pytree.tree_map(lambda a: a[None], params)
-    log_sigma = _log_density(one, pts, cfg, spec)[0]
-    return density_activation(log_sigma.float())
+    out = _geometry_output(one, pts, cfg, spec)[0].float()
+    if signed_distance(cfg.network):
+        return -out
+    return density_activation(out)
 
 
 @torch.no_grad()
 def colors_at_points(params, pts: torch.Tensor, cfg: NerfConfig, spec,
-                     normals=None) -> torch.Tensor:
+                     normals=None, extent=None) -> torch.Tensor:
     """Logistic RGB [N, 3] (fp32) of ONE object at warped points [N, 3]:
     the mesh vertex colours (romap_tpu/models/nerf.py:606-611). A
     view-dependent field is looked at head-on: each point's direction is
     its outward unit normal negated, `normals` [N, 3] (array or tensor) in
     the object frame (a zero normal leaves only the direction-free SH
-    term); RO-MAP's head does not read them."""
+    term); RO-MAP's head does not read them. An SDF field takes its own
+    normal n = grad f (the box's `extent` [3] in the object frame) and the
+    direction -n / |n|, and reads no `normals`."""
     one = pytree.tree_map(lambda a: a[None], params)
+    if signed_distance(cfg.network):
+        if extent is None:
+            raise ValueError("an SDF field's colours need the box's extent")
+        p = pts.float()[None]
+        ext = torch.as_tensor(extent, dtype=torch.float32, device=pts.device).reshape(1, 3)
+        feats, mlp, table = _features(one, p, spec, torch.float32)
+        geo, normal = _sdf_geometry(mlp, table, feats, p, ext, cfg, spec)
+        sh = sh_encode(-torch.nn.functional.normalize(normal, dim=-1))
+        return torch.sigmoid(_sdf_colour(mlp, p, normal, sh, geo, cfg)[0])
     if not view_dependent(cfg.network):
         raw = field_apply(one, pts.float()[None], None, cfg, spec, dtype=torch.float32)[0]
     else:

@@ -8,6 +8,12 @@ Per ray, summed then divided by the ray count:
   mask   0.5 |opacity - is_object|
   reg    background rays add 0.01 * sum_i sigma_i
 The logged loss is the reference's console loss.
+
+An SDF field's raw outputs (`render.SDF_CHANNELS`) render by NeuS's rule
+(`render.sdf_render`, span `render.sdf`) under the same RGB, depth and
+mask terms, the ray's 1 - opacity in place of its final transmittance; it
+has no sigma, so no background term, and adds NeuS's eikonal term,
+`eikonal_lambda` times the mean over the slot's samples of (|n| - 1)^2.
 """
 
 from __future__ import annotations
@@ -17,7 +23,8 @@ from typing import NamedTuple
 import torch
 
 from romap_tpu_torch.config import TrainConfig
-from romap_tpu_torch.ops.render import volume_render
+from romap_tpu_torch.ops.render import SDF_CHANNELS, sdf_render, volume_render
+from romap_tpu_torch.utils import tracing
 
 
 class RayBatch(NamedTuple):
@@ -31,12 +38,21 @@ class RayBatch(NamedTuple):
     bg_color: torch.Tensor  # [..., R, 3]
     valid: torch.Tensor  # [...] bool: any ray survived the gates
     dirs: torch.Tensor | None = None  # [..., R, 3] unit, object frame, before the warp
+    tmin: torch.Tensor | None = None  # [..., R] the section the samples stratify
+    tmax: torch.Tensor | None = None  # [..., R]
 
 
 def composite_loss(raw: torch.Tensor, batch: RayBatch, cfg: TrainConfig):
-    """raw [..., R, S, 4] -> (loss [...], aux) with aux["logged_loss"] [...]
-    and the forward render ("rgb", "depth", "mask")."""
-    out = volume_render(raw, batch.t, batch.bg_color)
+    """raw [..., R, S, 4] (or an SDF field's [..., R, S, SDF_CHANNELS]) ->
+    (loss [...], aux) with aux["logged_loss"] [...] and the forward render
+    ("rgb", "depth", "mask")."""
+    sdf = raw.shape[-1] == SDF_CHANNELS
+    if sdf:
+        with tracing.span("render.sdf"):
+            stratum = (batch.tmax - batch.tmin) / raw.shape[-2]
+            out = sdf_render(raw, batch.dirs, batch.t, stratum, batch.bg_color)
+    else:
+        out = volume_render(raw, batch.t, batch.bg_color)
     is_obj = batch.is_object
     obj = is_obj[..., None]
 
@@ -55,11 +71,16 @@ def composite_loss(raw: torch.Tensor, batch: RayBatch, cfg: TrainConfig):
     depth_term = torch.where(has_depth, depth_err, zero)
     depth_loss = cfg.depth_lambda * depth_term
     mask_loss = cfg.mask_lambda * torch.abs(out.mask - is_obj.float())
-    reg_loss = cfg.bg_sigma_reg * torch.where(is_obj, zero, torch.sum(out.sigma, dim=-1))
 
-    per_ray = rgb_loss + depth_loss + mask_loss + reg_loss
+    per_ray = rgb_loss + depth_loss + mask_loss
+    if not sdf:
+        per_ray = per_ray + cfg.bg_sigma_reg * torch.where(is_obj, zero,
+                                                           torch.sum(out.sigma, dim=-1))
     n_rays = per_ray.shape[-1]
     loss = torch.sum(per_ray, dim=-1) / n_rays
+    if sdf:
+        norm = torch.linalg.vector_norm(raw[..., 4:7], dim=-1)
+        loss = loss + cfg.eikonal_lambda * torch.mean((norm - 1.0) ** 2, dim=(-2, -1))
     loss = torch.where(batch.valid, loss, torch.zeros_like(loss))
 
     rgb_mean = torch.mean((out.rgb - batch.rgb_target) ** 2, dim=-1)

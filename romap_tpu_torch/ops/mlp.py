@@ -6,7 +6,9 @@ card, the plain `torch.bmm(h.float(), w.float())` on the CPU).
 
 RO-MAP's field has one head, {"w0", ..., "wL"}. instant-ngp's NeRF
 (`view_dependent`) has two networks, {"density": {...}, "rgb": {...}},
-each a chain of the same kind.
+each a chain of the same kind. NeuS2's SDF field (`signed_distance`) has
+{"sdf": {...}, "rgb": {...}, "variance": [O, 1]}: its first network also
+gives the distance's gradient in its input (`apply_sdf`).
 """
 
 from __future__ import annotations
@@ -19,9 +21,25 @@ from romap_tpu_torch.ops.sh import SH_DIMS
 
 
 def view_dependent(cfg: NetworkConfig) -> bool:
-    """instant-ngp's two networks over the rays' directions, or RO-MAP's
-    head."""
+    """instant-ngp's two networks over the rays' directions (or NeuS2's), or
+    RO-MAP's head."""
     return cfg.sh_degree > 0
+
+
+def signed_distance(cfg: NetworkConfig) -> bool:
+    """NeuS2's SDF field: a distance network, a colour network over NeuS's
+    `idr` inputs and a variance."""
+    return cfg.field == "sdf"
+
+
+def rgb_inputs(cfg: NetworkConfig) -> int:
+    """The colour network's input width: the first network's outputs beside
+    the 16 SH (instant-ngp's); for an SDF field the warped point (3), the
+    normal (3), the SH and the geometry features, the distance left out
+    (NeuS's `idr`)."""
+    if signed_distance(cfg):
+        return 3 + 3 + SH_DIMS + cfg.output_dims - 1
+    return cfg.output_dims + SH_DIMS
 
 
 def _he_uniform(generator: torch.Generator, dims: list[int], n_objects: int,
@@ -42,14 +60,20 @@ def init_mlp(generator: torch.Generator, in_dim: int, cfg: NetworkConfig,
     """He-uniform fp32 init: {"w0": [O, in, H], ..., f"w{L}": [O, H, out]},
     or for a view-dependent config {"density": {"w0": [O, in, H], ...,
     [O, H, output_dims]}, "rgb": {"w0": [O, output_dims + 16, H'], ...,
-    [O, H', 3]}}; drawn from `generator` on its device."""
+    [O, H', 3]}}, or for an SDF field {"sdf": (as "density"), "rgb": {"w0":
+    [O, `rgb_inputs`, H'], ...}, "variance": [O, 1] at `init_variance`};
+    drawn from `generator` on its device."""
     first = [in_dim] + [cfg.n_neurons] * cfg.n_hidden_layers + [cfg.output_dims]
     if not view_dependent(cfg):
         return _he_uniform(generator, first, n_objects, device)
     rgb_hidden = [cfg.rgb_n_neurons] * cfg.rgb_n_hidden_layers
-    return {"density": _he_uniform(generator, first, n_objects, device),
-            "rgb": _he_uniform(generator, [cfg.output_dims + SH_DIMS] + rgb_hidden + [3],
-                               n_objects, device)}
+    geometry = _he_uniform(generator, first, n_objects, device)
+    rgb = _he_uniform(generator, [rgb_inputs(cfg)] + rgb_hidden + [3], n_objects, device)
+    if not signed_distance(cfg):
+        return {"density": geometry, "rgb": rgb}
+    variance = torch.full((n_objects, 1), cfg.init_variance, dtype=torch.float32,
+                          device=device)
+    return {"sdf": geometry, "rgb": rgb, "variance": variance}
 
 
 def _chain(params: dict, x: torch.Tensor, n_mats: int) -> torch.Tensor:
@@ -66,7 +90,26 @@ def apply_mlp(params: dict, x: torch.Tensor, cfg: NetworkConfig) -> torch.Tensor
     return _chain(params, x, cfg.n_hidden_layers + 1)
 
 
+def apply_sdf(params: dict, x: torch.Tensor, cfg: NetworkConfig):
+    """The SDF network: x [O, N, in] -> (outputs [O, N, out] fp32 by
+    `apply_mlp`'s rule, output 0 the distance f; df/dx [O, N, in] in x's
+    dtype). df/dx = ((W_L[:, 0] * 1[a_L-1 > 0]) W_L-1^T ... * 1[a_0 > 0])
+    W_0^T, a_i hidden layer i's pre-activation: built from differentiable
+    products, so a loss on it reaches every matrix (ReLU's derivative is a
+    step, with none of its own: NeuS2's second-order simplification)."""
+    n_mats = cfg.n_hidden_layers + 1
+    h, hidden = x, []
+    for i in range(n_mats - 1):
+        h = torch.relu(torch.bmm(h, params[f"w{i}"]))
+        hidden.append(h)
+    out = last_product(h, params[f"w{n_mats - 1}"])
+    e = params[f"w{n_mats - 1}"][:, None, :, 0]  # [O, 1, H]: f's row of the last matrix
+    for i in reversed(range(n_mats - 1)):
+        e = torch.bmm(e * (hidden[i] > 0), params[f"w{i}"].transpose(1, 2))
+    return out, e.expand(-1, x.shape[1], -1)
+
+
 def apply_rgb(params: dict, x: torch.Tensor, cfg: NetworkConfig) -> torch.Tensor:
-    """The colour network: x [O, N, output_dims + 16] -> rgb logits
-    [O, N, 3] in fp32, by `apply_mlp`'s rule."""
+    """The colour network: x [O, N, `rgb_inputs`] -> rgb logits [O, N, 3]
+    in fp32, by `apply_mlp`'s rule."""
     return _chain(params, x, cfg.rgb_n_hidden_layers + 1)

@@ -32,6 +32,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from romap_tpu_torch.ops import cuda_lib
 from romap_tpu_torch.utils import tracing
@@ -136,7 +137,9 @@ KERNELS = cuda_lib.register({"M1": forward, "M2": backward}, rank=3)
 
 
 class _LastProduct(torch.autograd.Function):
-    """Forward: M1. Backward: M2 for the gradients asked for."""
+    """Forward: M1. Backward: M2 for the gradients asked for, once
+    differentiable: a graph built through it (`create_graph`) raises where
+    it is differentiated, as no kernel computes M2's own derivative."""
 
     @staticmethod
     def forward(ctx, h, w):
@@ -144,6 +147,7 @@ class _LastProduct(torch.autograd.Function):
         return forward(h, w)
 
     @staticmethod
+    @once_differentiable
     def backward(ctx, dy):
         h, w = ctx.saved_tensors
         return backward(h, w, dy.contiguous(), *ctx.needs_input_grad)

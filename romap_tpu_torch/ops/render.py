@@ -1,10 +1,13 @@
 """Emission-absorption volume rendering in closed form (counterpart of
-romap_tpu/ops/render.py).
+romap_tpu/ops/render.py), and NeuS's render of a signed-distance field.
 
 Transmittance is exp of an exclusive cumulative sum, so a ray renders
 without a loop or an early exit. Two reference quirks are kept: the first
 sample's dt is measured from distance 0, not from tmin, and the log-density
 is clamped to +-15 before the exponential.
+
+`sdf_render` is NeuS's SDF-to-alpha rule (Wang et al., NeurIPS 2021,
+`models/renderer.py::render_core`) on the system's stratified samples.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ class RenderOut(NamedTuple):
     mask: torch.Tensor  # [...] opacity = 1 - T_final
     trans: torch.Tensor  # [..., S] transmittance before each sample
     weights: torch.Tensor  # [..., S] alpha_i * T_i
-    sigma: torch.Tensor  # [..., S] activated densities
+    sigma: torch.Tensor | None  # [..., S] activated densities (an SDF's render: None)
 
 
 def volume_render(raw: torch.Tensor, t: torch.Tensor, bg: torch.Tensor) -> RenderOut:
@@ -44,6 +47,42 @@ def volume_render(raw: torch.Tensor, t: torch.Tensor, bg: torch.Tensor) -> Rende
     rgb_ray = torch.sum(weights[..., None] * rgb, dim=-2) + t_final[..., None] * bg
     depth_ray = torch.sum(weights * t, dim=-1)
     return RenderOut(rgb_ray, depth_ray, 1.0 - t_final, trans, weights, sigma)
+
+
+# an SDF field's raw channels: rgb logits (3), the distance f, the normal n
+# (3, the frame of the rays' directions), inv_s and the cosine's anneal
+# ratio (both the same for every sample of a slot)
+SDF_CHANNELS = 9
+
+
+def sdf_render(raw, dirs, t, stratum, bg) -> RenderOut:
+    """NeuS's render of an SDF field's raw [..., S, SDF_CHANNELS] at the
+    samples t [..., S] of rays of unit directions dirs [..., 3], fp32;
+    `stratum` [...] the last sample's section ((tmax - tmin) / S, NeuS's
+    sample_dist); bg [..., 3]. Per sample, with d_i = t_{i+1} - t_i:
+      c = -(relu(-cos / 2 + 1/2) (1 - anneal) + relu(-cos) anneal), cos = d . n
+      P = sigmoid((f - c d_i / 2) inv_s), N = sigmoid((f + c d_i / 2) inv_s)
+      alpha = clip((P - N + 1e-5) / (P + 1e-5), 0, 1)
+      w_i = alpha_i prod_{j<i} (1 - alpha_j + 1e-7)
+    The ray's opacity is sum w, its colour sum w rgb + bg (1 - opacity),
+    its depth sum w t; `trans` holds the products."""
+    raw, t = raw.float(), t.float()
+    rgb = torch.sigmoid(raw[..., :3])
+    f, normal, inv_s, anneal = raw[..., 3], raw[..., 4:7], raw[..., 7], raw[..., 8]
+    delta = torch.cat([t[..., 1:] - t[..., :-1], stratum[..., None]], dim=-1)
+    cos = torch.sum(dirs[..., None, :] * normal, dim=-1)
+    c = -(torch.relu(-cos * 0.5 + 0.5) * (1.0 - anneal) + torch.relu(-cos) * anneal)
+    half = c * delta * 0.5
+    prev = torch.sigmoid((f - half) * inv_s)
+    nxt = torch.sigmoid((f + half) * inv_s)
+    alpha = torch.clamp((prev - nxt + 1e-5) / (prev + 1e-5), 0.0, 1.0)
+    trans = torch.cumprod(torch.cat([torch.ones_like(alpha[..., :1]),
+                                     1.0 - alpha[..., :-1] + 1e-7], dim=-1), dim=-1)
+    weights = alpha * trans
+    opacity = torch.sum(weights, dim=-1)
+    rgb_ray = torch.sum(weights[..., None] * rgb, dim=-2) + (1.0 - opacity)[..., None] * bg
+    depth = torch.sum(weights * t, dim=-1)
+    return RenderOut(rgb_ray, depth, opacity, trans, weights, None)
 
 
 def render_composite(out: RenderOut, d_norm, in_bbox, background: float = 1.0):

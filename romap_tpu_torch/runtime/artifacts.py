@@ -55,7 +55,9 @@ def _imwrite_mask(path: str, mask: np.ndarray) -> None:
 
 def extract_object_mesh(params_one, aabb_min, aabb_max, cfg, spec) -> mc.Mesh:
     """Density grid (on the params' device) -> marching cubes -> 1-ring
-    normals -> vertex colours at the warped vertices."""
+    normals -> vertex colours at the warped vertices. An SDF field meshes
+    its zero level (`density_on_grid` gives -f) and colours each vertex
+    from its own normal (`colors_at_points`)."""
     res = cfg.train.mc_resolution
     box_min, box_max = _np(aabb_min), _np(aabb_max)
     with tracing.span("mesh.density"):
@@ -69,8 +71,8 @@ def extract_object_mesh(params_one, aabb_min, aabb_max, cfg, spec) -> mc.Mesh:
         with tracing.span("mesh.colors"):
             warped = (mesh.verts - box_min) / (box_max - box_min)
             pts = torch.as_tensor(warped, dtype=torch.float32).to(density.device)
-            colors = nerf.colors_at_points(params_one, pts, cfg, spec,
-                                           mesh.normals).cpu().numpy()
+            colors = nerf.colors_at_points(params_one, pts, cfg, spec, mesh.normals,
+                                           extent=box_max - box_min).cpu().numpy()
         mesh = mesh._replace(colors=colors)
     return mesh
 

@@ -35,6 +35,7 @@ from romap_tpu_torch.ops.geometry import (
     stratified_distances,
     warp_point,
 )
+from romap_tpu_torch.ops.mlp import signed_distance
 from romap_tpu_torch.ops.render import volume_render
 
 N_PIXELS = 1536  # sampled pixels per view (2/3 object, 1/3 background)
@@ -110,7 +111,12 @@ def make_view_loss(params_one, intrinsics, twc0, tow, aabb_min, aabb_max, xy, rg
     returns the per-start losses [V*S] and the leaf they were taken from.
     Every evaluation takes the points' gradient path, so the losses
     compared by `refine_poses` all come from the same encode. Arguments as
-    `refine_poses` takes them; S = n_starts."""
+    `refine_poses` takes them; S = n_starts. An SDF field raises: its
+    normal's gradient in the pose would take the distance's second
+    derivative in the points, which is not ported."""
+    if signed_distance(cfg.network):
+        raise NotImplementedError("pose refinement of an SDF field is not ported (it needs "
+                                  "the distance's Hessian in the points)")
     params_one = pytree.tree_map(lambda a: a.detach(), params_one)
     one = pytree.tree_map(lambda a: a[None], params_one)
     dev = twc0.device

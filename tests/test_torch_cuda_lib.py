@@ -23,8 +23,8 @@ from romap_tpu_torch.ops import (
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FAMILIES = {"mxgrid_cuda": mxgrid_cuda, "hashgrid_cuda": hashgrid_cuda,
             "optimizer_cuda": optimizer_cuda, "mlp_cuda": mlp_cuda}
-# K0-K10, H0-H2, A1, M1-M2: the `--trace` files' launches
-LAUNCH_KEYS = [*(f"K{i}" for i in range(11)), "H0", "H1", "H2", "A1", "M1", "M2"]
+# K0-K10, H0-H3, A1, M1-M2: the `--trace` files' launches
+LAUNCH_KEYS = [*(f"K{i}" for i in range(11)), "H0", "H1", "H2", "H3", "A1", "M1", "M2"]
 
 
 def c_entries() -> dict[str, tuple[str, int]]:
@@ -84,7 +84,7 @@ def test_hash_grid_and_optimizer_import_without_the_mxgrid_module():
         "assert 'romap_tpu_torch.ops.mxgrid_cuda' not in sys.modules\n"
         "assert cuda_lib._lib is None\n"
         "print(list(cuda_lib.launch_counts()))\n")
-    assert out == str(["H0", "H1", "H2", "A1"])
+    assert out == str(["H0", "H1", "H2", "H3", "A1"])
 
 
 @pytest.mark.parametrize("modules", [
@@ -96,7 +96,7 @@ def test_hash_grid_and_optimizer_import_without_the_mxgrid_module():
     ["romap_tpu_torch.runtime.server"],
 ], ids=["optimizer_first", "hash_grid_first", "offline_cli", "server"])
 def test_launch_counts_list_every_family_in_one_order(modules):
-    """K0-K10, then H0-H2, then A1, then M1-M2, whichever family was
+    """K0-K10, then H0-H3, then A1, then M1-M2, whichever family was
     imported first; the offline CLI and the server, which write them into
     `--trace`, import every family."""
     out = run_python(

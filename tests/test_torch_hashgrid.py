@@ -225,8 +225,8 @@ def test_launch_counts_list_the_hash_grid_kernels():
     lists H0-H2 after K0-K10, then the optimizer's A1 and the last
     product's M1-M2, and `reset_launch_counts()` zeroes them."""
     hashgrid_cuda.forward.launches = 3
-    assert list(cuda_lib.launch_counts()) == [*mxgrid_cuda.KERNELS, "H0", "H1", "H2", "A1",
-                                              *mlp_cuda.KERNELS]
+    assert list(cuda_lib.launch_counts()) == [*mxgrid_cuda.KERNELS, "H0", "H1", "H2", "H3",
+                                              "A1", *mlp_cuda.KERNELS]
     assert cuda_lib.launch_counts()["H1"] == 3
     cuda_lib.reset_launch_counts()
     assert not any(cuda_lib.launch_counts().values())
@@ -253,6 +253,59 @@ def test_twin_gradients_equal_autograd_of_the_twin_forward(enc):
     for got, want in ((got_t, want_t), (got_x, want_x)):
         assert got.dtype == torch.float32 and got.shape == want.shape
         assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("enc", [SMALL, {}], ids=["small", "reference"])
+def test_h3_twin_equals_autograd_of_the_h0_twin(enc):
+    """H3's twin (H0's backward: u_c from the weights' slopes, dg and the
+    table's gradient by `index_add_`) against autograd through H0's twin in
+    the table and in g, fp32, points in the cube and up to 0.3 past it:
+    within 1e-5 of the largest entry (the same products, summed in another
+    order)."""
+    _, spec = specs(**enc)
+    rng = np.random.default_rng(17)
+    table = torch.tensor(rng.normal(size=(2, spec.total_params, spec.n_features)),
+                         dtype=torch.float32)
+    x = torch.tensor(rng.uniform(-0.3, 1.3, size=(2, 300, 3)), dtype=torch.float32)
+    g = torch.tensor(rng.normal(size=(2, 300, spec.n_output_dims)), dtype=torch.float32)
+    v = torch.tensor(rng.normal(size=(2, 300, 3)), dtype=torch.float32)
+    t, gg = table.clone().requires_grad_(True), g.clone().requires_grad_(True)
+    want_g, want_t = torch.autograd.grad(
+        torch.sum(hashgrid_cuda.points_gradient_plain(x, t, gg, spec) * v), (gg, t))
+    got_g, got_t = hashgrid_cuda.normal_backward_plain(x, table, g, v, spec)
+    for got, want in ((got_g, want_g), (got_t, want_t)):
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+def test_points_gradient_node_is_autograd_of_the_h0_twin():
+    """`encode_points_gradient` on the CPU (H0's and H3's twins in one
+    node): its value is H0's twin, its gradients in the table and g are
+    autograd's through that twin (1e-5), and the points take none."""
+    _, spec = specs(**SMALL)
+    rng = np.random.default_rng(19)
+    table = torch.tensor(rng.normal(size=(2, spec.total_params, spec.n_features)),
+                         dtype=torch.float32)
+    x = torch.tensor(rng.uniform(0, 1, size=(2, 5, 40, 3)), dtype=torch.float32)
+    g = torch.tensor(rng.normal(size=(2, 5, 40, spec.n_output_dims)), dtype=torch.float32)
+    v = torch.tensor(rng.normal(size=(2, 5, 40, 3)), dtype=torch.float32)
+
+    def run(fn):
+        t, gg = table.clone().requires_grad_(True), g.clone().requires_grad_(True)
+        out = fn(t, gg)
+        return [out, *torch.autograd.grad(torch.sum(out * v), (t, gg))]
+
+    got = run(lambda t, gg: hashgrid_cuda.encode_points_gradient(t, x, gg, spec))
+    want = run(lambda t, gg: hashgrid_cuda.points_gradient_plain(
+        x.reshape(2, -1, 3), t, gg.reshape(2, 200, -1), spec).reshape(2, 5, 40, 3))
+    assert got[0].shape == (2, 5, 40, 3)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+    p = x.clone().requires_grad_(True)
+    out = hashgrid_cuda.encode_points_gradient(table, p, g, spec)
+    with pytest.raises(NotImplementedError, match="points"):
+        torch.autograd.grad(out.sum(), p)
 
 
 def test_bf16_twins_round_once():

@@ -1,4 +1,4 @@
-"""K0-K10 and the hash grid's H0-H2 (romap_tpu_torch/csrc) against their
+"""K0-K10 and the hash grid's H0-H3 (romap_tpu_torch/csrc) against their
 plain PyTorch twins on the card. Every test needs a CUDA device and skips without one (decided
 inside the fixture, at run time). Run them on a GPU machine with
 `python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q`
@@ -1330,7 +1330,7 @@ def test_fp32_unsnapped_forward_at_preset_widths(cuda, path, n_obj, n_pts):
 
 
 # --------------------------------------------------------------------------
-# H0-H2: the hash grid (csrc/hashgrid.cu)
+# H0-H3: the hash grid (csrc/hashgrid.cu)
 # --------------------------------------------------------------------------
 # Tolerances, relative to each tensor's largest entry: H1 in fp32 differs
 # from its twin only in the order of its 8-term fp32 sum (and an FMA), 1e-5;
@@ -1466,6 +1466,55 @@ def test_hash_encode_backward_runs_the_gradients_asked_for(cuda):
         torch.autograd.grad(torch.sum(out * gout), t if leaf == "table" else p)
         launched = {k: n for k, n in cuda_lib.launch_counts().items() if n}
         assert launched == {"H1": 1, "H2" if leaf == "table" else "H0": 1}, leaf
+
+
+# H3, H0's backward: dg sums 8 corner products in fp32 (the twin in another
+# order) and rounds once, 1e-4 in fp32 and one bf16 step, 1e-2, in bf16; the
+# table's gradient sums with H2's atomics, H2's tolerances.
+H3_TOL = {"dg": {torch.float32: 1e-4, torch.bfloat16: 1e-2},
+          "dtable": {torch.float32: 1e-4, torch.bfloat16: 1e-2}}
+
+
+@pytest.mark.parametrize("kind", ["uniform", "faces", "outside", "rays"])
+@pytest.mark.parametrize("name,n_obj,n_pts", HASH_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_h3_matches_plain(cuda, dtype, name, n_obj, n_pts, kind):
+    """H3 against its twin from the same points, table, g and v (fp32), one
+    launch: dg and the table's gradient, on the cases of H0-H2."""
+    spec = hash_spec(name)
+    pts, table, gout = hash_case(spec, n_obj, n_pts, kind, dtype, cuda, seed=73)
+    v = torch.randn((n_obj, n_pts, 3), generator=torch.Generator().manual_seed(79)).to(cuda)
+    cuda_lib.reset_launch_counts()
+    got = hashgrid_cuda.normal_backward(pts, table, gout, v, spec)
+    torch.cuda.synchronize()
+    assert {k: n for k, n in cuda_lib.launch_counts().items() if n} == {"H3": 1}
+    want = hashgrid_cuda.normal_backward_plain(pts, table, gout, v, spec)
+    for k, a, b in zip(("dg", "dtable"), got, want):
+        assert a.dtype == b.dtype == dtype and a.shape == b.shape and torch.isfinite(a).all(), k
+        assert rel_err(a, b) < H3_TOL[k][dtype], k
+
+
+@pytest.mark.parametrize("name", ["small", "tcnn"])
+def test_points_gradient_node_matches_autograd_of_the_h0_twin(cuda, name):
+    """`encode_points_gradient` on the card (H0, then H3 in its backward)
+    against autograd through H0's twin in the table and in g, fp32: the
+    value within 1e-4, both gradients within 1e-4."""
+    spec = hash_spec(name)
+    pts, table, gout = hash_case(spec, 2, 3000, "uniform", torch.float32, cuda, seed=83)
+    v = torch.randn((2, 3000, 3), generator=torch.Generator().manual_seed(89)).to(cuda)
+
+    def run(fn):
+        t, g = table.clone().requires_grad_(True), gout.clone().requires_grad_(True)
+        out = fn(t, g)
+        return [out, *torch.autograd.grad(torch.sum(out * v), (t, g))]
+
+    cuda_lib.reset_launch_counts()
+    got = run(lambda t, g: hashgrid_cuda.encode_points_gradient(t, pts, g, spec))
+    torch.cuda.synchronize()
+    assert {k: n for k, n in cuda_lib.launch_counts().items() if n} == {"H0": 1, "H3": 1}
+    want = run(lambda t, g: hashgrid_cuda.points_gradient_plain(pts, t, g, spec))
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and rel_err(a, b) < 1e-4
 
 
 def test_hash_wrappers_refuse_bad_inputs(cuda):

@@ -44,19 +44,26 @@ REFERENCE_JSON = {  # the schema of the reference's Core/configs/base.json
 }
 
 
-# the port's own NetworkConfig fields, instant-ngp's view branch, that the
-# JAX config does not have; at these values the head is RO-MAP's (one
-# 64 x 1 head, 4 outputs, no direction)
-VIEW_BRANCH_DEFAULTS = dict(sh_degree=0, rgb_n_neurons=64, rgb_n_hidden_layers=2)
+# the port's own config fields that the JAX config does not have, by
+# section: instant-ngp's view branch and NeuS2's SDF field and its loss
+# terms; at these values the field is RO-MAP's head (one 64 x 1 head, 4
+# outputs, no direction), a density field, and the SDF's terms are unread
+PORT_OWN_DEFAULTS = {
+    "network": dict(sh_degree=0, rgb_n_neurons=64, rgb_n_hidden_layers=2, field="density",
+                    init_variance=0.3),
+    "train": dict(eikonal_lambda=0.1, cos_anneal_end=50000),
+}
 
 
 def _jax_fields(got, want) -> dict:
     """The port's config as a dict of the fields the JAX config has; the
     port's own fields must sit at the defaults that mean RO-MAP's head."""
     d = dataclasses.asdict(got)
-    theirs = dataclasses.asdict(want)["network"]
-    own = {k: d["network"].pop(k) for k in set(d["network"]) - set(theirs)}
-    assert own == VIEW_BRANCH_DEFAULTS and not tmlp.view_dependent(got.network)
+    for part, defaults in PORT_OWN_DEFAULTS.items():
+        theirs = dataclasses.asdict(want)[part]
+        own = {k: d[part].pop(k) for k in set(d[part]) - set(theirs)}
+        assert own == defaults, part
+    assert not tmlp.view_dependent(got.network)
     return d
 
 

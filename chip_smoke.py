@@ -107,6 +107,11 @@ Phases, one or more lines each, each closed by its seconds:
                losses beside the kernels', within LOSS_RTOL
  10 ngp       the same for instant-ngp's NeRF (NGP_CONFIG: density and colour
                networks over the rays' directions, 2^19 rows a level)
+ 10b graph    the train step as a CUDA graph (`train_objects`) against eager
+               steps, `tcnn` and `ngp`, 500-step waves at room10's sizes in
+               turns (eager, graph, graph, eager): obj-iters/s, wave and host
+               seconds, the graph's counters (every step of a graphed wave
+               replayed), max_memory_allocated, losses
  11 quality   romap_tpu_torch.tools.quality_gate (scripts/quality_gate.py's
                gate): the bf16 flagship trained 5000 steps (K1/K2) on
                build_synthetic_world(1, 24, 192, seed) for seeds 0-2, the
@@ -1612,7 +1617,9 @@ def phase_hash_field(dev, field: str, cfg: NerfConfig) -> float:
     1 + 20 steps, H1/H2 and the optimizer's A1 once a step, each network's
     M1 once and M2 twice (with its sum), and no other kernel; then the same
     seed's 1 + 20 steps through the encode's plain twins on the card (A1,
-    M1 and M2 still run), whose losses must agree within LOSS_RTOL. `field`
+    M1 and M2 still run; eager steps, drawn through a replay source: the
+    twins put constants on the card at each call, which a CUDA graph's
+    capture cannot take), whose losses must agree within LOSS_RTOL. `field`
     names the phase: `tcnn` (RO-MAP's) or `ngp` (instant-ngp's two networks
     over a 2^19 table)."""
     phase = f"10 {field}"
@@ -1621,14 +1628,16 @@ def phase_hash_field(dev, field: str, cfg: NerfConfig) -> float:
     frames = store.arrays()
     active = objs.active.cpu()
 
-    def run():
+    def run(eager=False):
         gen = torch.Generator(device=dev).manual_seed(cfg.seed)
         state = nerf.init_train_state(gen, N_OBJECTS, cfg, spec, device=dev)
-        state = nerf.train_objects(state, objs, frames, cfg, spec, 1, generator=gen)
+        draw = (dict(uniforms=lambda: nerf.draw_uniforms(gen, N_OBJECTS, cfg)) if eager
+                else dict(generator=gen))
+        state = nerf.train_objects(state, objs, frames, cfg, spec, 1, **draw)
         loss1 = state.loss.cpu()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        state = nerf.train_objects(state, objs, frames, cfg, spec, 20, generator=gen)
+        state = nerf.train_objects(state, objs, frames, cfg, spec, 20, **draw)
         torch.cuda.synchronize()
         return loss1, state.loss.cpu(), time.perf_counter() - t0
 
@@ -1641,7 +1650,7 @@ def phase_hash_field(dev, field: str, cfg: NerfConfig) -> float:
                 for k in launches if k in hashgrid_cuda.KERNELS}
     cuda_lib.reset_launch_counts()
     with hash_twins():
-        plain1, plain2, plain_s = run()
+        plain1, plain2, plain_s = run(eager=True)
     plain_launches = {k: n for k, n in cuda_lib.launch_counts().items() if n}
     gap = max(float(((a - b).abs() / b.abs())[active].max())
               for a, b in ((loss1, plain1), (loss2, plain2)))
@@ -1839,6 +1848,75 @@ def phase_fp32(dev) -> list:
     return launches
 
 
+GRAPH_WAVE = 500  # room10's steps a wave
+
+
+def phase_train_graph(dev) -> dict:
+    """The train step as a CUDA graph against eager steps, for `tcnn` and
+    `ngp` at room10's sizes (O = 10 x 4096 rays x 32 samples, the scene of
+    phase 5): 500-step waves from one state, in turns eager, graph, graph,
+    eager, after a warm-up of each (the graph's: a first call of 2 steps, 1
+    eager, the capture, 1 replay). Eager is `_object_train_step` step by
+    step, as `train_objects` ran before the graph. Each wave: obj-iters/s,
+    its seconds and the host's (until the call returned), the counters
+    (a graphed wave must replay all 500 steps), max_memory_allocated and
+    the last losses. Returns {field: {path: [obj-iters/s, ...]}}."""
+    _, _, _, store, objs = build_synthetic_world(N_OBJECTS, 16, 128, device=dev)
+    frames = store.arrays()
+    n_active = int(objs.active.sum())
+    rates = {}
+    for field, cfg in (("tcnn", NerfConfig(encoding=EncodingConfig.preset("tcnn"))),
+                       ("ngp", NGP_CONFIG)):
+        spec = nerf.make_field_spec(cfg)
+        state0 = nerf.init_train_state(torch.Generator(device=dev).manual_seed(cfg.seed),
+                                       N_OBJECTS, cfg, spec, device=dev)
+        gens = {p: torch.Generator(device=dev).manual_seed(cfg.seed + 1)
+                for p in ("eager", "graph")}
+
+        def eager(state, n):
+            for _ in range(n):
+                u = nerf.draw_uniforms(gens["eager"], N_OBJECTS, cfg)
+                state = nerf._object_train_step(state, frames, objs, cfg, spec, u, False)
+            return state
+
+        def graph(state, n):
+            return nerf.train_objects(state, objs, frames, cfg, spec, n, generator=gens["graph"])
+
+        run = {"eager": eager, "graph": graph}
+        for path in run:
+            nerf.reset_train_graph_counts()
+            run[path](state0, 2).loss.cpu()
+            say("10b graph", field=field, warm_up=path, counts=nerf.train_graph_counts())
+        rates[field] = {"eager": [], "graph": []}
+        for path in ("eager", "graph", "graph", "eager"):
+            nerf.reset_train_graph_counts()
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = run[path](state0, GRAPH_WAVE)
+            host_s = time.perf_counter() - t0
+            loss = out.loss.cpu()
+            wave_s = time.perf_counter() - t0
+            counts = nerf.train_graph_counts()
+            rate = n_active * GRAPH_WAVE / wave_s
+            rates[field][path].append(rate)
+            say("10b graph", field=field, path=path, obj_iters_per_s=f"{rate:.2f}",
+                wave_s=f"{wave_s:.4f}", host_s=f"{host_s:.4f}", counts=counts,
+                max_memory_allocated=torch.cuda.max_memory_allocated(),
+                loss=[round(x, 5) for x in loss.tolist()])
+            if not torch.isfinite(loss).all():
+                raise AssertionError(f"{field} {path}: a loss is not finite")
+            if path == "graph" and counts["train_graph_replays"] != GRAPH_WAVE:
+                raise AssertionError(f"{field}: a graphed wave replayed {counts}")
+        med = {p: statistics.median(v) for p, v in rates[field].items()}
+        say("10b graph", field=field, median_eager=f"{med['eager']:.2f}",
+            median_graph=f"{med['graph']:.2f}", ratio=f"{med['graph'] / med['eager']:.3f}")
+        nerf._graph = None
+        del state0
+        torch.cuda.empty_cache()
+    return rates
+
+
 def timed(label: str, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -1876,6 +1954,8 @@ def main() -> None:
               NerfConfig(encoding=EncodingConfig.preset("tcnn")))
         torch.cuda.empty_cache()
         timed("10 ngp", phase_hash_field, dev, "ngp", NGP_CONFIG)
+        torch.cuda.empty_cache()
+        timed("10b graph", phase_train_graph, dev)
         torch.cuda.empty_cache()
         timed("11 quality", phase_quality)
         torch.cuda.empty_cache()

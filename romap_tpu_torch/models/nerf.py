@@ -18,12 +18,15 @@ leading object axis O. One `train_objects` step trains every slot at once:
 
 Where JAX vmaps over objects this module writes the object axis out, and
 where JAX draws from per-object keys it takes uniforms from a
-`torch.Generator` (or from a replay source in the parity tests).
+`torch.Generator` (or from a replay source in the parity tests). On the
+card, with tracing off, `train_objects` replays the step as a CUDA graph
+(`_StepGraph`): the same kernels, without the host's launches a step.
 """
 
 from __future__ import annotations
 
 import os
+import threading
 from typing import Any, Callable, NamedTuple
 
 import torch
@@ -31,7 +34,8 @@ from torch.utils import _pytree as pytree
 
 from romap_tpu_torch.config import NerfConfig
 from romap_tpu_torch.data.frame_store import FrameArrays
-from romap_tpu_torch.ops import hashgrid, hashgrid_cuda, mxgrid, mxgrid_cuda, optimizer_cuda
+from romap_tpu_torch.ops import (
+    cuda_lib, hashgrid, hashgrid_cuda, mxgrid, mxgrid_cuda, optimizer_cuda)
 from romap_tpu_torch.ops.geometry import (
     camera_rays,
     ray_aabb_intersect,
@@ -464,10 +468,13 @@ STEP_SPANS = ("batch", "encode.fwd", "mlp.fwd", "loss.fwd", "loss.bwd", "mlp.bwd
 
 
 def _object_train_step(state: TrainState, frames: FrameArrays, objects: ObjectsState,
-                       cfg: NerfConfig, spec, uniforms, use_depth: bool) -> TrainState:
+                       cfg: NerfConfig, spec, uniforms, use_depth: bool,
+                       out: TrainState | None = None) -> TrainState:
     """One step for every object slot. Inactive slots and empty batches keep
     their params, EMA and optimizer state bit for bit. Its spans are
-    `STEP_SPANS`; the backward's open in hooks (`tracing.backward_spans`)."""
+    `STEP_SPANS`; the backward's open in hooks (`tracing.backward_spans`).
+    With `out` (a state like `state` that shares no memory with it) the new
+    state is written into `out`'s tensors and `out` returned."""
     with tracing.span("batch"):
         batch = generate_batch(frames, *objects[:6], cfg, uniforms, use_depth=use_depth)
     params = pytree.tree_map(lambda a: a.detach().requires_grad_(True), state.params)
@@ -490,13 +497,25 @@ def _object_train_step(state: TrainState, frames: FrameArrays, objects: ObjectsS
         ok = objects.active & batch.valid
         # A1 takes rows; an MX-grid's lines come back from the unfold's einsum transposed
         grads = pytree.tree_map(torch.Tensor.contiguous, grads)
-        params, ema, opt = optimizer_cuda.update(grads, state, ok, cfg)
+        params, ema, opt = optimizer_cuda.update(grads, state, ok, cfg, out=out)
+        into = lambda name: None if out is None else getattr(out, name)
         return TrainState(
             params=params, ema=ema, opt=opt,
-            step=torch.where(ok, state.step + 1, state.step),
+            step=torch.where(ok, state.step + 1, state.step, out=into("step")),
             loss=torch.where(ok, aux["logged_loss"].detach(),
-                             torch.zeros_like(state.loss)),
+                             torch.zeros_like(state.loss), out=into("loss")),
         )
+
+
+def _eager_step(state: TrainState, objects: ObjectsState, frames: FrameArrays,
+                cfg: NerfConfig, spec, use_depth: bool, draw: Callable[[], tuple],
+                i: int) -> TrainState:
+    with tracing.span("train.step", step=i):
+        with tracing.span("batch"):
+            u = draw()
+        state = _object_train_step(state, frames, objects, cfg, spec, u, use_depth)
+    _graph_counts["train_eager_steps"] += 1
+    return state
 
 
 def train_objects(state: TrainState, objects: ObjectsState, frames: FrameArrays,
@@ -507,16 +526,173 @@ def train_objects(state: TrainState, objects: ObjectsState, frames: FrameArrays,
 
     Each step's uniforms come from `generator` or, when given, from the
     replay source `uniforms()` (the parity tests feed JAX's draws).
+
+    Where the state is on a CUDA device, the draws come from `generator`
+    and tracing is off, the steps replay a CUDA graph of the step
+    (`_StepGraph`, one cached for the last key `_graph_key` gave); the first
+    call with a new key runs its first step eagerly. Otherwise every step
+    runs eagerly, its spans traced. Either path runs the same kernels in
+    the same order and draws the same uniforms. The tensors given are never
+    written, and a state returned is never written by a later call. A
+    graph replays what it captured: code patched after a capture acts once
+    the key changes.
     """
     if (generator is None) == (uniforms is None):
         raise ValueError("pass exactly one of generator= or uniforms=")
-    for i in range(n_iters):
-        with tracing.span("train.step", step=i):
-            with tracing.span("batch"):
-                u = uniforms() if uniforms is not None else draw_uniforms(
-                    generator, objects.capacity, cfg)
-            state = _object_train_step(state, frames, objects, cfg, spec, u, use_depth)
+    draw = uniforms if uniforms is not None else (
+        lambda: draw_uniforms(generator, objects.capacity, cfg))
+    replays = captures = 0
+    if (generator is not None and state.step.device.type == "cuda" and not tracing.enabled()
+            and n_iters > 0):
+        state, captures, replays = _graphed_steps(state, objects, frames, cfg, spec, n_iters,
+                                                  use_depth, generator, draw)
+    else:
+        for i in range(n_iters):
+            state = _eager_step(state, objects, frames, cfg, spec, use_depth, draw, i)
+    tracing.count("train.graph_captures", captures)
+    tracing.count("train.graph_replays", replays)
     return state
+
+
+# --------------------------------------------------------------------------
+# The train step as a CUDA graph
+# --------------------------------------------------------------------------
+
+# always on, read and zeroed like `cuda_lib.launch_counts()`
+_graph_counts = {"train_graph_captures": 0, "train_graph_replays": 0, "train_eager_steps": 0}
+_graph: _StepGraph | None = None  # the one cached graph
+_graph_lock = threading.Lock()
+
+
+def train_graph_counts() -> dict[str, int]:
+    """{train_graph_captures: keys whose step was captured (into its two
+    graphs), train_graph_replays: steps replayed, train_eager_steps: steps
+    run eagerly} since the last reset."""
+    return dict(_graph_counts)
+
+
+def reset_train_graph_counts() -> None:
+    for k in _graph_counts:
+        _graph_counts[k] = 0
+
+
+def _graph_key(leaves: list, tree, objects: ObjectsState, frames: FrameArrays,
+               cfg: NerfConfig, spec, use_depth: bool, generator: torch.Generator) -> tuple:
+    """What a graph of the step bakes in: the device, the config and spec,
+    the state's tree, the shape and dtype of each of its leaves and of the
+    object table's tensors (whose values are copied in at each call),
+    `use_depth`, the generator, the frame arrays' addresses and layouts,
+    and the MX-grid's kernel path (`mxgrid_cuda.kernel_path` reads MX_FUSED
+    at each call). `leaves, tree` are the state's, flattened."""
+    shapes = lambda ts: tuple((t.shape, t.dtype) for t in ts)
+    return (leaves[0].device, cfg, spec, tree, shapes(leaves), shapes(objects), use_depth,
+            id(generator), tuple((t.shape, t.dtype, t.stride(), t.data_ptr()) for t in frames),
+            os.environ.get("MX_FUSED"))
+
+
+_ALIGN = 256  # bytes: where each leaf of a flat state set starts
+
+
+def _flat_layout(ts: list) -> tuple[list, dict]:
+    """([(dtype, shape, strides, start)] of `ts` laid out contiguous in one
+    buffer a dtype, each starting on an `_ALIGN`-byte boundary; {dtype:
+    elements})."""
+    ends, layout = {}, []
+    for t in ts:
+        step = _ALIGN // t.element_size()
+        start = -(-ends.get(t.dtype, 0) // step) * step
+        layout.append((t.dtype, t.shape, torch.empty(t.shape, device="meta").stride(), start))
+        ends[t.dtype] = start + t.numel()
+    return layout, ends
+
+
+def _flat_views(bufs: dict, layout: list) -> list:
+    return [bufs[dt].as_strided(shape, strides, start) for dt, shape, strides, start in layout]
+
+
+class _StepGraph:
+    """`_object_train_step`, draws included, captured into two CUDA graphs
+    over two static state sets: graph i reads set i and writes set 1 - i,
+    so that the steps of a call alternate between them and copy nothing.
+    They share one memory pool (one replays at a time) and register the
+    generator, so that replay k draws what eager step k would. A set is one
+    buffer a dtype (`_flat_layout`), so that a call copies the state out in
+    three copies; the state and the object table are copied in, grouped by
+    dtype. The frame arrays and the generator are held, and read where they
+    are."""
+
+    def __init__(self, key: tuple, frames: FrameArrays, generator: torch.Generator):
+        self.key, self.frames, self.generator = key, frames, generator
+        self.graphs: list = []  # (graph, its `cuda_lib.LaunchRecord`)
+
+    def capture(self, leaves: list, tree, objects: ObjectsState, cfg: NerfConfig, spec,
+                use_depth: bool, draw: Callable[[], tuple]) -> None:
+        self.tree = tree
+        self.layout, sizes = _flat_layout(leaves)
+        dev = leaves[0].device
+        self.bufs = [{dt: torch.empty(n, dtype=dt, device=dev) for dt, n in sizes.items()}
+                     for _ in range(2)]
+        views = [_flat_views(b, self.layout) for b in self.bufs]
+        sets = [pytree.tree_unflatten(v, tree) for v in views]
+        self.objects = ObjectsState(*map(torch.empty_like, objects))
+        dst = views[0] + list(self.objects)  # what a call copies in, by dtype
+        self.copy_in = [([i for i, t in enumerate(dst) if t.dtype == dt],
+                         [t for t in dst if t.dtype == dt]) for dt in {t.dtype for t in dst}]
+        graphs, pool = [], None
+        for i in range(2):
+            graph = torch.cuda.CUDAGraph()
+            graph.register_generator_state(self.generator)
+            with (cuda_lib.recorded_launches() as rec,
+                  torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local")):
+                new = _object_train_step(sets[i], self.frames, self.objects, cfg, spec, draw(),
+                                         use_depth, out=sets[1 - i])
+                # a step that did not write `out` (a fault planted in a test)
+                for a, b in zip(views[1 - i], pytree.tree_leaves(new)):
+                    if a.data_ptr() != b.data_ptr():
+                        a.copy_(b)
+            pool = graph.pool()
+            graphs.append((graph, rec))
+        self.graphs = graphs
+
+    def run(self, leaves: list, objects: ObjectsState, n_iters: int) -> TrainState:
+        """n_iters steps from the state of `leaves` with `objects`: a copy
+        in, the replays, a copy out into new tensors."""
+        src = leaves + list(objects)
+        for idx, dst in self.copy_in:
+            torch._foreach_copy_(dst, [src[i] for i in idx])
+        for i in range(n_iters):
+            graph, rec = self.graphs[i % 2]
+            graph.replay()
+            rec.add()
+        bufs = {dt: b.clone() for dt, b in self.bufs[n_iters % 2].items()}
+        return pytree.tree_unflatten(_flat_views(bufs, self.layout), self.tree)
+
+
+def _graphed_steps(state, objects, frames, cfg, spec, n_iters, use_depth, generator, draw):
+    """(state after n_iters steps, captures, replays) through the cached
+    graph, or a new one for a new key: its first call's first step runs
+    eagerly (kernels loaded, workspaces made), then the step is captured
+    (no kernel runs) and replayed."""
+    global _graph
+    leaves, tree = pytree.tree_flatten(state)
+    key = _graph_key(leaves, tree, objects, frames, cfg, spec, use_depth, generator)
+    captures = 0
+    with _graph_lock:
+        if _graph is None or _graph.key != key:
+            _graph = None  # the old graphs, their pool and state sets go first
+            state = _eager_step(state, objects, frames, cfg, spec, use_depth, draw, 0)
+            leaves = pytree.tree_leaves(state)
+            n_iters -= 1
+            _graph = _StepGraph(key, frames, generator)
+        if n_iters == 0:
+            return state, 0, 0
+        if not _graph.graphs:
+            _graph.capture(leaves, tree, objects, cfg, spec, use_depth, draw)
+            captures = 1
+        state = _graph.run(leaves, objects, n_iters)
+    _graph_counts["train_graph_captures"] += captures
+    _graph_counts["train_graph_replays"] += n_iters
+    return state, captures, n_iters
 
 
 def count_wave(step_before: torch.Tensor, step_after, n_active: int, n_iters: int,

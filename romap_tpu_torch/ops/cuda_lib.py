@@ -6,12 +6,15 @@ counts its wrappers and registers its kernels here, so a new family takes
 its `.cu` under `csrc/` and its own module. csrc/*.cu build with nvcc into
 one library with a plain C interface at the first launch (never at import),
 under `build/romap_tpu_torch/`, keyed on a hash of the sources and flags.
-No failure of the build or of a launch is caught.
+No failure of the build or of a launch is caught. The launch counts say
+what ran: a CUDA graph's capture takes its launches off
+(`recorded_launches`) and each replay counts them again.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -181,6 +184,48 @@ def register(kernels: dict, rank: int) -> dict:
     family was imported first. Returns `kernels`."""
     _FAMILIES[rank] = kernels
     return kernels
+
+
+class LaunchRecord:
+    """The launches one stretch of code counted (`recorded_launches`),
+    taken off the counters; `add(times)` counts them again that many times.
+    A CUDA graph's capture enqueues no kernel and each replay runs every
+    kernel it captured, so the counters keep saying what ran."""
+
+    def __init__(self):
+        self._before = {fn: (fn.launches, collections.Counter(fn.launches_by_dtype),
+                             collections.Counter(fn.launches_by_variant)) for fn in _COUNTED}
+        self._delta: list = []  # (wrapper, launches, by dtype, by variant)
+
+    def _close(self) -> None:
+        none = (0, collections.Counter(), collections.Counter())
+        for fn in _COUNTED:
+            n, by_dtype, by_variant = self._before.get(fn, none)
+            delta = (fn.launches - n, fn.launches_by_dtype - by_dtype,
+                     fn.launches_by_variant - by_variant)
+            if delta[0]:
+                self._delta.append((fn, *delta))
+        self.add(-1)
+
+    def add(self, times: int = 1) -> None:
+        for fn, n, by_dtype, by_variant in self._delta:
+            fn.launches += n * times
+            for counter, delta in ((fn.launches_by_dtype, by_dtype),
+                                   (fn.launches_by_variant, by_variant)):
+                for k, v in delta.items():
+                    counter[k] += v * times
+                    if not counter[k]:
+                        del counter[k]
+
+
+@contextlib.contextmanager
+def recorded_launches():
+    """A `LaunchRecord` of the launches counted inside the block."""
+    rec = LaunchRecord()
+    try:
+        yield rec
+    finally:
+        rec._close()
 
 
 def reset_launch_counts() -> None:

@@ -16,10 +16,11 @@ launch is caught. The [O] vectors (the bias corrections from `count + 1`,
 reads them from the device. A1's arithmetic rounds where the twin's does,
 so the two agree bit for bit.
 
-The update returns fresh tensors: the old state is not changed. A1's
-launches are counted on `update.launches` (`cuda_lib.launch_counts()`
-reports them as A1), and every call counts the elements it updated under
-`optimizer.fused_params` (tracing on).
+The update returns fresh tensors, or writes into the tensors of `out=` (a
+CUDA graph of the train step keeps its state there): the old state is not
+changed. A1's launches are counted on `update.launches`
+(`cuda_lib.launch_counts()` reports them as A1), and every call counts the
+elements it updated under `optimizer.fused_params` (tracing on).
 """
 
 from __future__ import annotations
@@ -123,16 +124,28 @@ def _consts(cfg: NerfConfig):
     return (ctypes.c_float * 8)(*(float(np.float32(v)) for v in vals))
 
 
+def _written(out, new):
+    """`out`'s (params, ema, opt), `new`'s (params, ema, opt) copied in."""
+    for o, n in zip(pytree.tree_leaves((out.params, out.ema, out.opt)),
+                    pytree.tree_leaves(new)):
+        o.copy_(n)
+    return out.params, out.ema, out.opt
+
+
 @cuda_lib.counted
-def update(grads, state, ok: torch.Tensor, cfg: NerfConfig):
+def update(grads, state, ok: torch.Tensor, cfg: NerfConfig, out=None):
     """(params, ema, opt) after one optimizer step, as `update_plain`: A1 for
     CUDA tensors, the twin for CPU ones. `state` is a TrainState; `grads` a
-    tree like its params; `ok` [O] bool, the slots that take the step."""
+    tree like its params; `ok` [O] bool, the slots that take the step. With
+    `out` (a TrainState like `state` that shares no memory with it) the
+    result is written into its params, EMA and optimizer state, which are
+    returned, and no new tensor is made for it."""
     flat_p, treedef = pytree.tree_flatten(state.params)
     tracing.count("optimizer.fused_params", sum(p.numel() for p in flat_p))
     dev = state.step.device
     if not cuda_lib.on_card(state.step, torch.float32):
-        return update_plain(grads, state, ok, cfg)
+        new = update_plain(grads, state, ok, cfg)
+        return new if out is None else _written(out, new)
     o = cfg.optimizer
     count = state.opt.count + 1
     c1 = 1 - torch.pow(o.beta1, count.float())
@@ -150,8 +163,19 @@ def update(grads, state, ok: torch.Tensor, cfg: NerfConfig):
             cuda_lib.check(f"{name}[{i}]", t, p.shape, torch.float32, p.device, align=16)
     for i, f in enumerate(found_old):
         cuda_lib.check(f"found_nan[{i}]", f, (n_obj,), torch.bool, dev)
-    outs = [[torch.empty_like(p) for p in flat_p] for _ in range(4)]  # p, mu, nu, ema
-    found = [torch.empty_like(f) for f in found_old]
+    if out is None:
+        outs = [[torch.empty_like(p) for p in flat_p] for _ in range(4)]  # p, mu, nu, ema
+        found = [torch.empty_like(f) for f in found_old]
+    else:
+        outs = [pytree.tree_leaves(t) for t in (out.params, out.opt.mu, out.opt.nu, out.ema)]
+        found = pytree.tree_leaves(out.opt.found_nan)
+        if {len(v) for v in outs} | {len(found)} != {len(flat_p)}:
+            raise ValueError("out differs from the state in its leaves")
+        for name, leaves in zip(("p", "mu", "nu", "ema"), outs):
+            for i, (t, p) in enumerate(zip(leaves, flat_p)):
+                cuda_lib.check(f"out {name}[{i}]", t, p.shape, torch.float32, dev, align=16)
+        for i, f in enumerate(found):
+            cuda_lib.check(f"out found_nan[{i}]", f, (n_obj,), torch.bool, dev)
     starts = range(0, len(flat_p), MAX_LEAVES)
     # a launch's NaN flags and finished-tile counters, zeroed
     scratch = torch.zeros((len(starts), 2 * MAX_LEAVES * n_obj), dtype=torch.int32, device=dev)
@@ -168,8 +192,8 @@ def update(grads, state, ok: torch.Tensor, cfg: NerfConfig):
             c1.data_ptr(), c2.data_ptr(), lr.data_ptr(), ok.data_ptr(), part.data_ptr(), n_obj)
     unflat = lambda xs: pytree.tree_unflatten(xs, treedef)
     params, mu, nu, ema = map(unflat, outs)
-    opt = state.opt._replace(found_nan=unflat(found), count=torch.where(ok, count, state.opt.count),
-                             mu=mu, nu=nu)
+    count = torch.where(ok, count, state.opt.count, out=None if out is None else out.opt.count)
+    opt = state.opt._replace(found_nan=unflat(found), count=count, mu=mu, nu=nu)
     return params, ema, opt
 
 

@@ -15,6 +15,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
 
 def density_activation(raw_sigma: torch.Tensor) -> torch.Tensor:
@@ -55,6 +56,26 @@ def volume_render(raw: torch.Tensor, t: torch.Tensor, bg: torch.Tensor) -> Rende
 SDF_CHANNELS = 9
 
 
+class _Cumprod(torch.autograd.Function):
+    """`torch.cumprod` over the last axis with the backward PyTorch's takes
+    for an input without zeros, (out g) summed from the right over the
+    input, bit for bit, and without PyTorch's look for a zero (`.item()`,
+    which a CUDA graph's capture cannot take). NeuS's factors 1 - alpha +
+    1e-7 are never zero."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = torch.cumprod(x, dim=-1)
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, out = ctx.saved_tensors
+        return (out * g).flip(-1).cumsum(-1).flip(-1).div(x)
+
+
 def sdf_render(raw, dirs, t, stratum, bg) -> RenderOut:
     """NeuS's render of an SDF field's raw [..., S, SDF_CHANNELS] at the
     samples t [..., S] of rays of unit directions dirs [..., 3], fp32;
@@ -76,8 +97,8 @@ def sdf_render(raw, dirs, t, stratum, bg) -> RenderOut:
     prev = torch.sigmoid((f - half) * inv_s)
     nxt = torch.sigmoid((f + half) * inv_s)
     alpha = torch.clamp((prev - nxt + 1e-5) / (prev + 1e-5), 0.0, 1.0)
-    trans = torch.cumprod(torch.cat([torch.ones_like(alpha[..., :1]),
-                                     1.0 - alpha[..., :-1] + 1e-7], dim=-1), dim=-1)
+    trans = _Cumprod.apply(torch.cat([torch.ones_like(alpha[..., :1]),
+                                      1.0 - alpha[..., :-1] + 1e-7], dim=-1))
     weights = alpha * trans
     opacity = torch.sum(weights, dim=-1)
     rgb_ray = torch.sum(weights[..., None] * rgb, dim=-2) + (1.0 - opacity)[..., None] * bg

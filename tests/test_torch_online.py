@@ -440,8 +440,9 @@ def test_server_trace_records_waves_and_meshes(tmp_path):
             per_wave.setdefault(c["ids"]["wave"], {})[c["name"]] = c["n"]
     fused = {per_wave[w].pop("optimizer.fused_params") for w in waves}
     assert len(fused) == 1 and fused.pop() > 0  # every step's update counts its tree
-    assert per_wave == {w: dict(slot_steps_issued=2 * 3, slot_steps_trained=3, slots_active=1)
-                        for w in waves}
+    assert per_wave == {w: {"slot_steps_issued": 2 * 3, "slot_steps_trained": 3,
+                            "slots_active": 1, "train.graph_captures": 0,
+                            "train.graph_replays": 0} for w in waves}
     meshes = [e for e in spans if e["name"] == "mesh.object"]
     assert meshes and all(e["args"]["object"] == 0 for e in meshes)
     verts = [c for c in t["counters"] if c["name"] == "mesh.verts"]

@@ -302,7 +302,9 @@ def test_a1_runs_once_a_train_step(cuda, field, dtype):
     """`train_objects` on the card launches A1 once a step, and each step's
     update equals the twin's from the same gradients and state: a hash
     grid, and an MX-grid (K1/K2), whose lines' gradient autograd hands back
-    transposed, in bf16 and fp32."""
+    transposed, in bf16 and fp32. The steps compared run eagerly (drawn
+    through a replay source: a CUDA graph's capture cannot compare); then
+    3 steps through the graph count A1 once a step too."""
     train = TrainConfig(rays_per_batch=256, samples_per_ray=8, compute_dtype=dtype)
     cfg = (dataclasses.replace(tree_config("tcnn", log2_rows=12), train=train)
            if field == "tcnn" else NerfConfig(encoding=TINY_MXGRID, train=train))
@@ -312,17 +314,22 @@ def test_a1_runs_once_a_train_step(cuda, field, dtype):
     state = nerf.init_train_state(gen, N_OBJ, cfg, spec, device=cuda)
     real = optimizer_cuda.update
 
-    def both(grads, st, ok, c):
-        got = real(grads, st, ok, c)
+    def both(grads, st, ok, c, out=None):
+        got = real(grads, st, ok, c, out=out)
         assert_same(got, optimizer_cuda.update_plain(grads, st, ok, c))
         return got
 
     cuda_lib.reset_launch_counts()
     optimizer_cuda.update = both
     try:
-        state = nerf.train_objects(state, objs, store.arrays(), cfg, spec, 3, generator=gen)
+        state = nerf.train_objects(state, objs, store.arrays(), cfg, spec, 3,
+                                   uniforms=lambda: nerf.draw_uniforms(gen, N_OBJ, cfg))
     finally:
         optimizer_cuda.update = real
     torch.cuda.synchronize()
     assert real.launches == 3
     assert state.step.tolist() == [3, 3, 0]
+    state = nerf.train_objects(state, objs, store.arrays(), cfg, spec, 3, generator=gen)
+    torch.cuda.synchronize()
+    assert real.launches == 6
+    assert state.step.tolist() == [6, 6, 0]

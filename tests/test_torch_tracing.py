@@ -209,8 +209,10 @@ def test_offline_runner_counts_waves_meshes_and_frames(dataset_dir, tmp_path):
         if "wave" in c["ids"]:
             per_wave.setdefault(c["ids"]["wave"], {})[c["name"]] = c["n"]
     n_params = sum(a.numel() for a in pytree.tree_leaves(r.state.params))
+    # traced steps run eagerly: no graph captured or replayed
     assert per_wave == {w: {"slot_steps_issued": 3 * 2, "slot_steps_trained": 2 * 2,
-                            "slots_active": 2, "optimizer.fused_params": n_params}
+                            "slots_active": 2, "optimizer.fused_params": n_params,
+                            "train.graph_captures": 0, "train.graph_replays": 0}
                         for w in (1, 2)}
 
     spans = d["spans"]

@@ -58,15 +58,20 @@ Phases, one or more lines each, each closed by its seconds:
                and fp32) and H0 (1 x 196,608) against their twins, with
                their times, the twins' and the bound (`hash_work`); H1 and
                H2 again with the `ngp` spec (2^19 rows a level) at
-               ngp.offline.room10's O=10 x 131,072; then the optimizer's
+               ngp.offline.room10's O=10 x 131,072, and with nerfacto's two
+               proposal specs (5 x 2 levels at 2^17 rows) at its O=10 x
+               1,048,576 and 393,216 (256 and 96 points a ray); H0 and H3
+               at neus2.offline.room10's O=10 x 131,072; then the optimizer's
                update A1 on the `tcnn` and `ngp` trees at O=10 against the
                eager chain (its plain twin) on the card, bit for bit, with
                the times of both and A1's bound (36 B an element over the
                card's memory rate); then each network's last product, M1
                and M2 (`check_last_product`), at O=10 x 131,072 for out 3,
-               4 and 16, bf16 and fp32, against the plain twin and twice
-               (M2's bits repeat), timed in turns with the twin, beside
-               their bound and fp32 torch.bmm (`library_ms`)
+               4 and 16 (K = 64) and at nerfacto's proposal net (K = 16,
+               out 1) at O=10 x 1,048,576, bf16 and fp32, against the
+               plain twin and twice (M2's bits repeat), timed in turns
+               with the twin, beside their bound and fp32 torch.bmm
+               (`library_ms`)
   4 parity     one tiny train step, fp32, kernels on the card vs the plain
                path on the CPU, from the same state and uniforms
   5 train      build_synthetic_world(10, 16, 128) + NerfConfig(): init, 1
@@ -107,6 +112,9 @@ Phases, one or more lines each, each closed by its seconds:
                losses beside the kernels', within LOSS_RTOL
  10 ngp       the same for instant-ngp's NeRF (NGP_CONFIG: density and colour
                networks over the rays' directions, 2^19 rows a level)
+ 10 nerfacto  the same for nerfstudio's nerfacto (NERFACTO_CONFIG: ngp's
+               field at 4096 x 48 points behind two proposal fields at 4096
+               x 256 and 96; H1/H2 three times a step, four networks)
  10b graph    the train step as a CUDA graph (`train_objects`) against eager
                steps, `tcnn` and `ngp`, 500-step waves at room10's sizes in
                turns (eager, graph, graph, eager): obj-iters/s, wave and host
@@ -165,13 +173,13 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 from romap_tpu_torch.config import (  # noqa: E402
-    EncodingConfig, NerfConfig, NetworkConfig, TrainConfig)
+    EncodingConfig, NerfConfig, NetworkConfig, OptimizerConfig, TrainConfig)
 from romap_tpu_torch.data import synthetic  # noqa: E402
 from romap_tpu_torch.data.formats import write_dataset  # noqa: E402
 from romap_tpu_torch.data.world import build_synthetic_world  # noqa: E402
 from romap_tpu_torch.models import nerf  # noqa: E402
 from romap_tpu_torch.ops import (  # noqa: E402
-    cuda_lib, hashgrid_cuda, mlp_cuda, mxgrid, mxgrid_cuda, optimizer_cuda)
+    cuda_lib, hashgrid_cuda, mlp, mlp_cuda, mxgrid, mxgrid_cuda, optimizer_cuda)
 from romap_tpu_torch.ops.geometry import camera_rays, ray_aabb_intersect  # noqa: E402
 from romap_tpu_torch.runtime import offline, pose_refine, server  # noqa: E402
 from romap_tpu_torch.runtime.offline import OfflineRunner  # noqa: E402
@@ -808,13 +816,27 @@ HASH_O = 4  # room4's slots (portbench's tcnn.offline.room4), 4096 x 32 points e
 NGP_CONFIG = NerfConfig(encoding=EncodingConfig(kind="hashgrid", log2_hashmap_size=19),
                         network=NetworkConfig(output_dims=16, sh_degree=4))
 NGP_O = 10  # ngp.offline.room10's slots, 4096 x 32 points each
+# nerfstudio's nerfacto, portbench/configs/nerfacto.json: ngp's grid and
+# density network, two proposal fields (5 x 2 levels at 2^17 rows, to 128
+# and 256, 10 -> 16 -> 1 nets) at 4096 x 256 and 4096 x 96 points an object
+# a step, the field at 4096 x 48; the published optimizer (Adam's betas 0.9
+# and 0.999, no weight decay, the rate to 1e-4 over 200k steps)
+NERFACTO_CONFIG = NerfConfig(
+    encoding=EncodingConfig(kind="hashgrid", log2_hashmap_size=19),
+    network=NetworkConfig(output_dims=16, sh_degree=4, field="nerfacto", appearance_frames=80),
+    optimizer=OptimizerConfig(beta2=0.999, l2_reg=0.0, decay_start=1, decay_interval=1,
+                              decay_base=0.01 ** (1 / 200000)),
+    train=TrainConfig(samples_per_ray=48))
+PROPOSAL_P = tuple(4096 * n for n in NERFACTO_CONFIG.train.proposal_samples)
 
 
-def ray_points(o: int, p: int, g: torch.Generator) -> torch.Tensor:
-    """[O, P, 3]: 32 ordered samples on each of P / 32 chords of the unit
-    cube, the order of a train step's points (rays x samples)."""
-    a, b = (torch.rand((o, p // 32, 1, 3), generator=g) for _ in range(2))
-    return (a + torch.linspace(0, 1, 32)[None, None, :, None] * (b - a)).reshape(o, p, 3)
+def ray_points(o: int, p: int, g: torch.Generator, per_ray: int = 32) -> torch.Tensor:
+    """[O, P, 3]: `per_ray` ordered samples on each of P / per_ray chords
+    of the unit cube, the order of a train step's points (rays x
+    samples)."""
+    a, b = (torch.rand((o, p // per_ray, 1, 3), generator=g) for _ in range(2))
+    s = torch.linspace(0, 1, per_ray)[None, None, :, None]
+    return (a + s * (b - a)).reshape(o, p, 3)
 
 
 def check_hash_grid(dev) -> dict:
@@ -824,7 +846,10 @@ def check_hash_grid(dev) -> dict:
     also along rays; then H1 and H2 with the `ngp` spec (instant-ngp's
     2^19 rows a level) at ngp.offline.room10's shape, O=10 x 131,072, bf16
     and fp32, and H0 and H3 (an SDF field's normal and its backward) at
-    neus2.offline.room10's, the same: the largest
+    neus2.offline.room10's, the same; then H1 and H2 with each proposal
+    spec of nerfacto's (5 levels x 2 features, 2^17 rows a level, dense
+    coarse levels hit by 256 or 96 points a ray) at nerfacto.offline.room10's
+    shape, O=10 x 1,048,576 and 393,216: the largest
     error against the plain twin beside its tolerance, the median device
     time of the wrapper (H2's and H3's: the buffer's zeroing, the kernel and
     the cast), of the twin, and the bound (`hash_work`, `frozen/sdf.py`'s
@@ -832,17 +857,22 @@ def check_hash_grid(dev) -> dict:
     rooflines). Returns {field: {kernel: {dtype: record}}}."""
     tcnn = nerf.make_field_spec(NerfConfig(encoding=EncodingConfig.preset("tcnn")))
     ngp = nerf.make_field_spec(NGP_CONFIG)
+    props = mlp.proposal_specs(NERFACTO_CONFIG.network)
     records = {"tcnn": {"H0": {}, "H1": {}, "H2": {}}, "ngp": {"H1": {}, "H2": {}},
-               "neus2": {"H0": {}, "H3": {}}}
+               "neus2": {"H0": {}, "H3": {}},
+               **{f"nerfacto prop{k}": {"H1": {}, "H2": {}} for k in range(len(props))}}
     shapes = (("tcnn", tcnn, HASH_O, KERNEL_P, ("H1", "H2")),
               ("tcnn", tcnn, 1, REFINE_P, ("H0",)),
               ("ngp", ngp, NGP_O, KERNEL_P, ("H1", "H2")),
-              ("neus2", ngp, NGP_O, KERNEL_P, ("H0", "H3")))
+              ("neus2", ngp, NGP_O, KERNEL_P, ("H0", "H3")),
+              *((f"nerfacto prop{k}", spec, NGP_O, p, ("H1", "H2"))
+                for k, (spec, p) in enumerate(zip(props, PROPOSAL_P))))
     for field, spec, o, p, names in shapes:
+        per_ray = p // 4096 if field.startswith("nerfacto") else 32
         for dtype in (torch.bfloat16, torch.float32):
             dname = str(dtype).split(".")[1]
             g = torch.Generator(device="cpu").manual_seed(5)
-            pts = ray_points(o, p, g).to(dev)
+            pts = ray_points(o, p, g, per_ray).to(dev)
             table = torch.randn((o, spec.total_params, spec.n_features), generator=g)
             table = table.to(dev, dtype)
             gout = torch.randn((o, p, spec.n_output_dims), generator=g).to(dev, dtype)
@@ -934,13 +964,18 @@ def check_optimizer(dev) -> dict:
     return records
 
 
-LAST_PRODUCTS = (("tcnn head", 4), ("ngp rgb", 3), ("ngp density", 16))  # out widths, K = 64
+# (network, out width, K, points an object): the cells' last products at
+# 4096 x 32 points, and nerfacto's first proposal net (16 -> 1) at its
+# 4096 x 256
+LAST_PRODUCTS = (("tcnn head", 4, 64, KERNEL_P), ("ngp rgb", 3, 64, KERNEL_P),
+                 ("ngp density", 16, 64, KERNEL_P), ("nerfacto proposal", 1, 16, PROPOSAL_P[0]))
 
 
 def check_last_product(dev) -> dict:
     """M1 and M2 (`mlp_cuda.forward`, `backward`: each network's last
     product and both its gradients) at O=10 x 131,072 points, K = 64, for
-    the cells' output widths, bf16 and fp32: their outputs against the
+    the cells' output widths, and at nerfacto's proposal net (K = 16, out
+    1) at O=10 x 1,048,576, bf16 and fp32: their outputs against the
     plain twin's (max error over the largest value: fp32 sums in another
     order, bf16 outputs rounded once after them), M2 twice (the same bits),
     and the median device time of each, in turns with the twin (kernel,
@@ -950,8 +985,8 @@ def check_last_product(dev) -> dict:
     (`library_ms`: the product, and the backward's two, the port no longer
     calls). Returns {"<net> <dtype>": record}."""
     records = {}
-    o, p, k = N_OBJECTS, KERNEL_P, 64
-    for net, n in LAST_PRODUCTS:
+    o = N_OBJECTS
+    for net, n, k, p in LAST_PRODUCTS:
         for dtype in BOTH:
             g = torch.Generator(device=dev).manual_seed(11 + n)
             h = torch.relu(torch.randn((o, p, k), generator=g, device=dev)).to(dtype)
@@ -1592,8 +1627,10 @@ def phase_refine(dev) -> dict:
 # step 21 on an H100). instant-ngp's field parts faster (1.9e-3 at step 21
 # on an H100): its 2^19 rows take more such entries a step, and their
 # changes pass through two networks; a wrong H2 reads 0.04 or more in three
-# steps (portbench's half-batch fault).
-LOSS_RTOL = {"tcnn": 2e-3, "ngp": 5e-3}
+# steps (portbench's half-batch fault). nerfacto's parts by 1.4e-3 and
+# 3.6e-3 at step 21 in two runs on an H100: its samples follow the proposal
+# fields' weights, which the same entries move.
+LOSS_RTOL = {"tcnn": 2e-3, "ngp": 5e-3, "nerfacto": 1e-2}
 
 
 @contextlib.contextmanager
@@ -1620,8 +1657,10 @@ def phase_hash_field(dev, field: str, cfg: NerfConfig) -> float:
     M1 and M2 still run; eager steps, drawn through a replay source: the
     twins put constants on the card at each call, which a CUDA graph's
     capture cannot take), whose losses must agree within LOSS_RTOL. `field`
-    names the phase: `tcnn` (RO-MAP's) or `ngp` (instant-ngp's two networks
-    over a 2^19 table)."""
+    names the phase: `tcnn` (RO-MAP's), `ngp` (instant-ngp's two networks
+    over a 2^19 table) or `nerfacto` (the same field at 48 points a ray
+    behind two proposal fields: H1, H2 three times a step, M1 once and M2
+    twice for each of four networks)."""
     phase = f"10 {field}"
     spec = nerf.make_field_spec(cfg)
     _, _, _, store, objs = build_synthetic_world(N_OBJECTS, 16, 128, device=dev)
@@ -1666,12 +1705,15 @@ def phase_hash_field(dev, field: str, cfg: NerfConfig) -> float:
         max_rel_loss_gap=f"{gap:.3e}", rel_tol=LOSS_RTOL[field])
     if not (torch.isfinite(loss2[active]).all() and (loss2[active] < loss1[active]).all()):
         raise AssertionError(f"{field}: a loss is not finite or did not fall")
-    nets = 2 if cfg.network.sh_degree > 0 else 1
+    props = len(cfg.network.proposal_max_resolutions) if field == "nerfacto" else 0
+    nets = (2 if cfg.network.sh_degree > 0 else 1) + props
     mlp = {"M1": 21 * nets, "M2": 2 * 21 * nets}
-    if launches != {"H1": 21, "H2": 21, "A1": 21, **mlp} or plain_launches != {"A1": 21, **mlp}:
+    grids = 21 * (1 + props)
+    if (launches != {"H1": grids, "H2": grids, "A1": 21, **mlp}
+            or plain_launches != {"A1": 21, **mlp}):
         raise AssertionError(f"{field}: launches {launches}, with the twins {plain_launches} "
-                             "(want H1, H2, A1 once a step and M1, M2 as the networks need, "
-                             "and no H1/H2 with the twins)")
+                             "(want H1, H2 once a grid and step, A1 once a step and M1, M2 as "
+                             "the networks need, and no H1/H2 with the twins)")
     if not gap <= LOSS_RTOL[field]:
         raise AssertionError(f"{field}: the kernels' losses part from the twins' by {gap}")
     return rate
@@ -1955,6 +1997,8 @@ def main() -> None:
         torch.cuda.empty_cache()
         timed("10 ngp", phase_hash_field, dev, "ngp", NGP_CONFIG)
         torch.cuda.empty_cache()
+        timed("10 nerfacto", phase_hash_field, dev, "nerfacto", NERFACTO_CONFIG)
+        torch.cuda.empty_cache()
         timed("10b graph", phase_train_graph, dev)
         torch.cuda.empty_cache()
         timed("11 quality", phase_quality)
@@ -1979,7 +2023,7 @@ def main() -> None:
                      replaces=("none: the JAX package has no SDF field" if k == "H3"
                                else "romap_tpu/ops/hashgrid.py:108"),
                      by_dtype=hash_records["tcnn"].get(k, {}),
-                     **{f: hash_records[f][k] for f in ("ngp", "neus2") if k in hash_records[f]})
+                     **{f: r[k] for f, r in hash_records.items() if f != "tcnn" and k in r})
                 for k, fn in hashgrid_cuda.KERNELS.items()]
     kernels.append(dict(name="A1 update", route="cuda", source=CSRC + "optimizer.cu",
                         replaces="none: the optax chain of romap_tpu/models/nerf.py",

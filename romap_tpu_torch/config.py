@@ -170,6 +170,22 @@ class NetworkConfig:
     variance per object (`init_variance`, NeuS's 0.3) sharpens the
     SDF-to-alpha render (`ops/render.sdf_render`). It needs `sh_degree` 4.
     "density" (the default) is the NeRF of both other fields.
+
+    `field` "nerfacto" is nerfstudio's default field (Tancik et al.,
+    SIGGRAPH 2023, `nerfstudio/models/nerfacto.py`): instant-ngp's density
+    network (output 0 the log-density, outputs 1 on the geometry
+    features), a colour network over [geometry features, SH of the view
+    direction, the ray's frame's appearance code of `appearance_dims`, one
+    of `appearance_frames` rows an object; frame f takes row f mod
+    `appearance_frames`], and two proposal density fields, each a hash
+    grid of `proposal_levels` x `proposal_features` at
+    2^`proposal_log2_hashmap_size` rows a level from
+    `proposal_base_resolution` to its entry of `proposal_max_resolutions`,
+    and a bias-free net of `proposal_n_hidden_layers` x
+    `proposal_n_neurons` to 1 log-density, which choose its samples
+    (`TrainConfig.proposal_samples`). It needs `sh_degree` 4 and the hash
+    grid (`NerfConfig` checks it). The `proposal_*` and `appearance_*`
+    fields are unused by the other fields.
     """
 
     n_neurons: int = 64
@@ -183,16 +199,47 @@ class NetworkConfig:
     sh_degree: int = 0  # 0: no direction input; 4: 16 SH functions
     rgb_n_neurons: int = 64
     rgb_n_hidden_layers: int = 2
-    field: str = "density"  # "density" (NeRF) or "sdf" (NeuS2)
+    field: str = "density"  # "density" (NeRF), "sdf" (NeuS2) or "nerfacto"
     init_variance: float = 0.3  # the SDF field's variance v at step 0: inv_s = exp(10 v)
+    # nerfacto's appearance codes and proposal fields (NerfactoModelConfig's
+    # appearance_embed_dim and proposal_net_args_list)
+    appearance_dims: int = 32
+    appearance_frames: int = 0  # rows of the appearance table: set for a nerfacto field
+    proposal_levels: int = 5
+    proposal_features: int = 2
+    proposal_log2_hashmap_size: int = 17
+    proposal_base_resolution: int = 16
+    proposal_max_resolutions: tuple[int, ...] = (128, 256)
+    proposal_n_neurons: int = 16
+    proposal_n_hidden_layers: int = 1
 
     def __post_init__(self):
         if self.sh_degree not in (0, 4):
             raise ValueError(f"sh_degree {self.sh_degree}: 0 (no direction) or 4")
-        if self.field not in ("density", "sdf"):
-            raise ValueError(f"field {self.field!r}: 'density' or 'sdf'")
+        if self.field not in ("density", "sdf", "nerfacto"):
+            raise ValueError(f"field {self.field!r}: 'density', 'sdf' or 'nerfacto'")
         if self.field == "sdf" and self.sh_degree != 4:
             raise ValueError("an SDF field takes the view direction's SH: sh_degree 4")
+        if self.field == "nerfacto":
+            if self.sh_degree != 4:
+                raise ValueError("nerfacto's field takes the view direction's SH: sh_degree 4")
+            if self.appearance_dims < 1 or self.appearance_frames < 1:
+                raise ValueError("nerfacto's field needs appearance_dims and appearance_frames "
+                                 ">= 1 (one appearance code a training frame)")
+            if len(self.proposal_max_resolutions) != 2:
+                raise ValueError("nerfacto samples through two proposal fields: "
+                                 "proposal_max_resolutions holds two resolutions")
+
+    def proposal_encoding(self, level: int) -> EncodingConfig:
+        """The hash grid of nerfacto's proposal field `level` (its
+        proposal_net_args_list entry): levels x features at 2^log2 rows a
+        level, from the base resolution to the level's max resolution."""
+        return EncodingConfig(
+            kind="hashgrid", n_levels=self.proposal_levels,
+            n_features_per_level=self.proposal_features,
+            log2_hashmap_size=self.proposal_log2_hashmap_size,
+            base_resolution=self.proposal_base_resolution,
+            desired_resolution=float(self.proposal_max_resolutions[level]))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -229,6 +276,16 @@ class TrainConfig:
     # is fully annealed (its anneal_end)
     eikonal_lambda: float = 0.1
     cos_anneal_end: int = 50000
+    # NetworkConfig.field "nerfacto" alone: its proposal sampler takes
+    # proposal_samples bins a ray through the two proposal fields, uniform
+    # then drawn from the first field's weights, then samples_per_ray bins
+    # drawn from the second's for the field (the stratified sampler's
+    # samples_per_ray otherwise); each draw from the weights raised to the
+    # anneal exponent of the slot's step (`ops/sampler.anneal`);
+    # nerfstudio's interlevel and distortion losses at their weights
+    proposal_samples: tuple[int, ...] = (256, 96)
+    interlevel_lambda: float = 1.0
+    distortion_lambda: float = 0.002
     # dtype of the compute path; params stay fp32 and the render/mesh paths
     # force fp32 regardless (ref renders fp32, nerf_model.cu:1795).
     # "auto" = bfloat16 on TPU (matches the reference's fp16 training),
@@ -243,6 +300,17 @@ class NerfConfig:
     optimizer: OptimizerConfig = OptimizerConfig()
     train: TrainConfig = TrainConfig()
     seed: int = 1337  # ref nerf_model.h m_seed = 1337
+
+    def __post_init__(self):
+        if self.network.field != "nerfacto":
+            return
+        if self.encoding.kind != "hashgrid":
+            raise ValueError("nerfacto's field is ported over the hash grid only")
+        if len(self.train.proposal_samples) != 2 or min(self.train.proposal_samples) < 1:
+            raise ValueError("nerfacto's sampler takes two proposal sample counts")
+        if self.train.samples_per_ray < 3:
+            raise ValueError("nerfacto's sampler reads three jitter columns a ray: "
+                             "samples_per_ray >= 3")
 
 
 def _sh_degree(dir_encoding: dict) -> int:

@@ -6,12 +6,18 @@ leading object axis O. One `train_objects` step trains every slot at once:
 
   generate_batch   R rays x S samples per object from per-frame bboxes,
                    occlusion and AABB gates, stable compaction + rollover
+                   (`draw_rays`); nerfacto's field samples its rays through
+                   its two proposal fields instead (`_proposal_batch`,
+                   `ops/sampler.py`)
   field_apply      MX-grid encode (kernels K0-K10 on the card) or hash grid, + MLP
                    (RO-MAP's head, instant-ngp's density and colour networks
                    over the rays' directions, or NeuS2's SDF and colour
-                   networks with the SDF's normal, H0 forward and H3 backward)
+                   networks with the SDF's normal, H0 forward and H3 backward,
+                   or nerfacto's: instant-ngp's networks with a code a frame)
   composite_loss   volume render + RGB, depth, mask and background-sigma terms
-                   (an SDF field: NeuS's render, and the eikonal term)
+                   (an SDF field: NeuS's render, and the eikonal term;
+                   nerfacto's: the render over bins, and nerfstudio's
+                   interlevel and distortion terms)
   optimizer        zero_nans -> L2 1e-6 -> Adam(.9, .99, 1e-15) -> exp-decay
                    rate -> EMA .95, masked per slot (kernel A1 on the card,
                    `ops/optimizer_cuda.py`)
@@ -35,19 +41,22 @@ from torch.utils import _pytree as pytree
 from romap_tpu_torch.config import NerfConfig
 from romap_tpu_torch.data.frame_store import FrameArrays
 from romap_tpu_torch.ops import (
-    cuda_lib, hashgrid, hashgrid_cuda, mxgrid, mxgrid_cuda, optimizer_cuda)
+    cuda_lib, hashgrid, hashgrid_cuda, mxgrid, mxgrid_cuda, optimizer_cuda, sampler)
 from romap_tpu_torch.ops.geometry import (
     camera_rays,
     ray_aabb_intersect,
     stratified_distances,
     warp_point,
 )
-from romap_tpu_torch.ops.losses import RayBatch, composite_loss
+from romap_tpu_torch.ops.losses import ProposalBatch, RayBatch, composite_loss
 from romap_tpu_torch.ops.mlp import (
     apply_mlp,
+    apply_proposal,
     apply_rgb,
     apply_sdf,
     init_mlp,
+    nerfacto,
+    proposal_specs,
     signed_distance,
     view_dependent,
 )
@@ -103,13 +112,18 @@ def params_device(params) -> torch.device:
     return pytree.tree_leaves(params)[0].device
 
 
+# leaves under params["mlp"] that `_features` does not cast: an SDF field's
+# variance (fp32) and nerfacto's proposal fields (cast where they run)
+_CAST_ELSEWHERE = ("variance", "prop0", "prop1")
+
+
 def _features(params, points: torch.Tensor, spec, dtype):
     """The encode of `field_apply`: features [O, N, C] of points [O, ..., 3]
     in `dtype`, the network's weights cast to it (an SDF field's variance
     stays fp32 in `params`) and the table as the encode read it."""
     table = pytree.tree_map(lambda a: a.to(dtype), params["table"])
     mlp = {k: pytree.tree_map(lambda a: a.to(dtype), v) for k, v in params["mlp"].items()
-           if k != "variance"}
+           if k not in _CAST_ELSEWHERE}
     with tracing.span("encode.fwd"):
         if isinstance(spec, hashgrid.HashGridSpec):
             feats = hashgrid_cuda.encode(table, points, spec)
@@ -145,6 +159,38 @@ def _view_head(mlp, feats: torch.Tensor, dirs: torch.Tensor, cfg: NerfConfig):
     return torch.cat([rgb, geo[..., :1]], dim=-1)
 
 
+def _appearance(codes: torch.Tensor, frame, o: int, n: int) -> torch.Tensor:
+    """[O, N, A]: each sample's code, row (frame mod rows) of its slot's
+    table codes [O, rows, A] for its ray's frame (frame [O, R], the N
+    samples ray-major), or where frame is None the mean of the slot's rows
+    (nerfstudio's `use_average_appearance_embedding`)."""
+    if frame is None:
+        return codes.mean(dim=1, keepdim=True).expand(o, n, -1)
+    idx = torch.remainder(frame, codes.shape[1])
+    rows = torch.gather(codes, 1, idx[..., None].expand(*idx.shape, codes.shape[2]))
+    per_ray = n // idx.shape[1]
+    return rows[:, :, None, :].expand(-1, -1, per_ray, -1).reshape(o, n, -1)
+
+
+def _nerfacto_head(mlp, feats: torch.Tensor, dirs: torch.Tensor, frame, cfg: NerfConfig):
+    """nerfacto's field on the features: the density network (output 0 the
+    log-density), then the colour network on [geometry features (outputs 1
+    on), the SH of each ray's direction, the appearance code of its frame
+    (`_appearance`)], padded to a multiple of 8 (63 -> 64 at nerfacto's
+    widths). Returns raw [O, N, 4] in fp32, as `_view_head`."""
+    o, n = feats.shape[:2]
+    net, dt = cfg.network, feats.dtype
+    tracing.count("field.view_points", o * n)
+    with tracing.span("mlp.density"):
+        geo = apply_mlp(mlp["density"], feats, net)
+    sh = _ray_sh(dirs, o, n, dt)
+    with tracing.span("mlp.rgb"):
+        parts = [geo[..., 1:].to(dt), sh, _appearance(mlp["appearance"], frame, o, n)]
+        rgb, x = _aligned_input(mlp["rgb"], parts)
+        rgb = apply_rgb(rgb, x, net)
+    return torch.cat([rgb, geo[..., :1]], dim=-1)
+
+
 def _sdf_geometry(mlp, table, feats: torch.Tensor, pts: torch.Tensor, extent, cfg: NerfConfig,
                   spec):
     """NeuS2's SDF network on the features [O, N, C] of the warped points
@@ -167,6 +213,19 @@ def _sdf_geometry(mlp, table, feats: torch.Tensor, pts: torch.Tensor, extent, cf
     return geo, normal
 
 
+def _aligned_input(net: dict, parts: list):
+    """(net, x): the parts [O, N, .] concatenated, with zero columns to a
+    multiple of 8, and net's first matrix with as many zero rows: the same
+    product, whose operands cuBLAS then takes 16-byte aligned."""
+    pad = -sum(p.shape[-1] for p in parts) % 8
+    if pad:
+        first = parts[0]
+        parts = parts + [first.new_zeros(1, 1, 1).expand(*first.shape[:2], pad)]
+        w0 = net["w0"]
+        net = dict(net, w0=torch.cat([w0, w0.new_zeros(w0.shape[0], pad, w0.shape[2])], 1))
+    return net, torch.cat(parts, dim=-1)
+
+
 def _sdf_colour(mlp, pts, normal, sh, geo, cfg: NerfConfig) -> torch.Tensor:
     """NeuS's colour network on its `idr` inputs, in the SH's dtype: the
     warped point, the normal, the SH of the view direction and the geometry
@@ -179,14 +238,8 @@ def _sdf_colour(mlp, pts, normal, sh, geo, cfg: NerfConfig) -> torch.Tensor:
     at O=10 x 131,072; NVIDIA H100). The padding rows' gradient is dropped."""
     dt = sh.dtype
     with tracing.span("mlp.rgb"):
-        parts = [pts.to(dt), normal.to(dt), sh, geo[..., 1:].to(dt)]
-        rgb = mlp["rgb"]
-        pad = -sum(p.shape[-1] for p in parts) % 8
-        if pad:
-            parts.append(sh.new_zeros(1, 1, 1).expand(*sh.shape[:2], pad))
-            w0 = rgb["w0"]
-            rgb = dict(rgb, w0=torch.cat([w0, w0.new_zeros(w0.shape[0], pad, w0.shape[2])], 1))
-        return apply_rgb(rgb, torch.cat(parts, dim=-1), cfg.network)
+        rgb, x = _aligned_input(mlp["rgb"], [pts.to(dt), normal.to(dt), sh, geo[..., 1:].to(dt)])
+        return apply_rgb(rgb, x, cfg.network)
 
 
 def _sdf_head(params, mlp, table, feats, points, dirs, extent, anneal, cfg: NerfConfig,
@@ -206,7 +259,7 @@ def _sdf_head(params, mlp, table, feats, points, dirs, extent, anneal, cfg: Nerf
 
 
 def field_apply(params, points: torch.Tensor, dirs: torch.Tensor | None, cfg: NerfConfig,
-                spec, dtype=None, extent: torch.Tensor | None = None, anneal=1.0):
+                spec, dtype=None, extent: torch.Tensor | None = None, anneal=1.0, frame=None):
     """points [O, ..., S, 3] in [0,1]^3 on rays of unit directions dirs
     [O, ..., 3] (object frame, before the box warp; one a ray, the samples
     axis S left out) -> raw (rgb logits, log-sigma) [O, ..., S, 4].
@@ -216,7 +269,10 @@ def field_apply(params, points: torch.Tensor, dirs: torch.Tensor | None, cfg: Ne
     (`ops/mlp.signed_distance`, a hash grid) needs it and the boxes' extent
     [O, 3] (aabb_max - aabb_min), and returns raw [O, ..., S, SDF_CHANNELS]
     (`_sdf_head`), `anneal` the cosine's anneal ratio ([O] or a number; 1,
-    fully annealed, where no step is at hand).
+    fully annealed, where no step is at hand). nerfacto's field needs the
+    directions and takes each ray's frame `frame` [O, ...] (int64) for its
+    appearance code, or None for the mean code of the slot (renders and
+    meshes); its proposal fields run apart (`_proposal_stages`).
 
     A hash-grid spec takes `hashgrid_cuda.encode` (`hashgrid.encode`) on any
     device, which picks by the points' device: the kernels H1 (forward), H2
@@ -239,6 +295,10 @@ def field_apply(params, points: torch.Tensor, dirs: torch.Tensor | None, cfg: Ne
     with tracing.span("mlp.fwd"):
         if sdf:
             raw = _sdf_head(params, mlp, table, feats, points, dirs, extent, anneal, cfg, spec)
+        elif nerfacto(cfg.network):
+            if dirs is None:
+                raise ValueError("nerfacto's field needs the rays' directions")
+            raw = _nerfacto_head(mlp, feats, dirs, frame, cfg)
         elif view_dependent(cfg.network):
             if dirs is None:
                 raise ValueError("a view-dependent field needs the rays' directions")
@@ -380,27 +440,34 @@ def draw_uniforms(generator: torch.Generator, n_objects: int, cfg: NerfConfig):
     return rand(r, 2), rand(r, 3), rand(r, s)
 
 
-def generate_batch(frames: FrameArrays, aabb_min, aabb_max, tow, instance_id, bboxes,
-                   n_bbox, cfg: NerfConfig, uniforms, *, use_depth: bool) -> RayBatch:
-    """One batch of R rays x S samples for every object slot.
+class Rays(NamedTuple):
+    """One step's compacted rays, leading [O, R] (`draw_rays`)."""
+
+    o: torch.Tensor  # [O, R, 3] origins in the object frame
+    d: torch.Tensor  # [O, R, 3] unit directions in the object frame
+    tmin: torch.Tensor  # [O, R] the section inside the box
+    tmax: torch.Tensor
+    rgb_target: torch.Tensor  # [O, R, 3]
+    depth_target: torch.Tensor  # [O, R]
+    is_object: torch.Tensor  # [O, R] bool
+    bg_color: torch.Tensor  # [O, R, 3]
+    valid: torch.Tensor  # [O] bool: any ray survived the gates
+    frame: torch.Tensor | None  # [O, R] int64 the ray's frame (nerfacto's only)
+
+
+def draw_rays(frames: FrameArrays, aabb_min, aabb_max, tow, instance_id, bboxes, n_bbox,
+              cfg: NerfConfig, uniforms, *, use_depth: bool) -> Rays:
+    """R rays for every object slot, as `generate_batch` draws them, before
+    they are sampled.
 
     Rays are drawn uniformly inside the per-frame 2D bboxes, round-robin
     over the bboxes. Pixels of other objects occlude and their rays are
     dropped, as are rays missing the object's AABB. Survivors are compacted
     in a stable order and rolled over modulo their count to fill the batch.
-
-    Args:
-      frames: the frame store's device view.
-      aabb_min, aabb_max [O, 3]; tow [O, 4, 4]; instance_id [O];
-      bboxes [O, B, 5]; n_bbox [O]: the object table's columns.
-      uniforms: (u_xy [O,R,2], u_color [O,R,3], u_jitter [O,R,S]) in [0,1).
-    Returns:
-      RayBatch with leading [O, R]; `valid` [O]; `dirs` the rays' unit
-      directions in the object frame; `tmin`, `tmax` the sections sampled.
-    """
-    u_xy, colors, jitter = uniforms
+    nerfacto's rays also carry their frame (its appearance codes)."""
+    u_xy, colors, _ = uniforms
     o_n = aabb_min.shape[0]
-    r, s = cfg.train.rays_per_batch, cfg.train.samples_per_ray
+    r = cfg.train.rays_per_batch
     dev = aabb_min.device
     i = torch.arange(r, device=dev)
     idx_box = i[None, :] % torch.clamp(n_bbox.long(), min=1)[:, None]  # [O, R]
@@ -439,21 +506,131 @@ def generate_batch(frames: FrameArrays, aabb_min, aabb_max, tow, instance_id, bb
     order = torch.zeros_like(rank).scatter_(1, rank, i[None, :].expand(o_n, r))
     take = torch.gather(order, 1, i[None, :] % torch.clamp(n_valid, min=1)[:, None])
 
-    payload = torch.cat(
-        [o, d, d_norm[..., None], tmin[..., None], tmax[..., None], rgb_target,
-         depth_target[..., None], is_obj[..., None].float(), colors], dim=-1)
+    parts = [o, d, d_norm[..., None], tmin[..., None], tmax[..., None], rgb_target,
+             depth_target[..., None], is_obj[..., None].float(), colors]
+    proposal = nerfacto(cfg.network)
+    if proposal:
+        parts.append(fid[..., None].float())  # frame ids are exact in fp32
+    payload = torch.cat(parts, dim=-1)
     payload = torch.gather(payload, 1, take[..., None].expand_as(payload))
-    o, d = payload[..., 0:3], payload[..., 3:6]
-    tmin, tmax = payload[..., 7], payload[..., 8]
+    return Rays(o=payload[..., 0:3], d=payload[..., 3:6], tmin=payload[..., 7],
+                tmax=payload[..., 8], rgb_target=payload[..., 9:12],
+                depth_target=payload[..., 12], is_object=payload[..., 13] > 0.5,
+                bg_color=payload[..., 14:17], valid=n_valid > 0,
+                frame=payload[..., 17].long() if proposal else None)
 
-    t = stratified_distances(tmin, tmax, jitter, s)  # [O, R, S]
-    pts = o[..., None, :] + t[..., None] * d[..., None, :]
+
+def generate_batch(frames: FrameArrays, aabb_min, aabb_max, tow, instance_id, bboxes,
+                   n_bbox, cfg: NerfConfig, uniforms, *, use_depth: bool) -> RayBatch:
+    """One batch of R rays x S samples for every object slot: `draw_rays`,
+    then S stratified samples a ray inside its box.
+
+    Args:
+      frames: the frame store's device view.
+      aabb_min, aabb_max [O, 3]; tow [O, 4, 4]; instance_id [O];
+      bboxes [O, B, 5]; n_bbox [O]: the object table's columns.
+      uniforms: (u_xy [O,R,2], u_color [O,R,3], u_jitter [O,R,S]) in [0,1).
+    Returns:
+      RayBatch with leading [O, R]; `valid` [O]; `dirs` the rays' unit
+      directions in the object frame; `tmin`, `tmax` the sections sampled.
+    """
+    rays = draw_rays(frames, aabb_min, aabb_max, tow, instance_id, bboxes, n_bbox, cfg,
+                     uniforms, use_depth=use_depth)
+    t = stratified_distances(rays.tmin, rays.tmax, uniforms[2], cfg.train.samples_per_ray)
+    pts = rays.o[..., None, :] + t[..., None] * rays.d[..., None, :]
     pts = warp_point(pts, aabb_min[:, None, None], aabb_max[:, None, None])
     return RayBatch(
-        points=pts, t=t, rgb_target=payload[..., 9:12],
-        depth_target=payload[..., 12], is_object=payload[..., 13] > 0.5,
-        bg_color=payload[..., 14:17], valid=n_valid > 0, dirs=d, tmin=tmin, tmax=tmax,
+        points=pts, t=t, rgb_target=rays.rgb_target, depth_target=rays.depth_target,
+        is_object=rays.is_object, bg_color=rays.bg_color, valid=rays.valid, dirs=rays.d,
+        tmin=rays.tmin, tmax=rays.tmax,
     )
+
+
+# --------------------------------------------------------------------------
+# nerfacto's proposal sampler (ops/sampler.py)
+# --------------------------------------------------------------------------
+
+
+def _proposal_log_density(prop: dict, points: torch.Tensor, spec, dtype,
+                          cfg: NerfConfig) -> torch.Tensor:
+    """A proposal field at warped points [O, ..., 3]: its hash grid (H1 on
+    the card) and its density net, the input padded to a multiple of 8 (10
+    -> 16 at nerfacto's widths), in `dtype`; the log-density [O, ...] in
+    fp32. Its spans nest the step's: `proposal.fwd` holds its `encode.fwd`
+    and `mlp.fwd`, and its backward opens `mlp.bwd` and `encode.bwd`."""
+    o = points.shape[0]
+    with tracing.span("proposal.fwd"):
+        table = prop["table"].to(dtype)
+        net = {k: v.to(dtype) for k, v in prop.items() if k != "table"}
+        with tracing.span("encode.fwd"):
+            feats = hashgrid_cuda.encode(table, points, spec)
+        tracing.backward_span(feats, "encode.bwd")
+        with tracing.span("mlp.fwd"):
+            net, x = _aligned_input(net, [feats.reshape(o, -1, spec.n_output_dims)])
+            raw = apply_proposal(net, x, cfg.network)[..., 0]
+        tracing.backward_span(raw, "mlp.bwd")
+    return raw.reshape(points.shape[:-1])
+
+
+def _bin_points(o, d, tmin, tmax, s, box_min, box_max):
+    """(warped midpoints [..., B, 3], their distances [..., B], the bins'
+    lengths [..., B]) of the bins between edges s [..., B + 1] of rays o, d
+    [..., 3] over their sections [tmin, tmax]; the box [..., 1, 3]."""
+    t, lengths = sampler.midpoints_and_lengths(sampler.to_distance(s, tmin, tmax))
+    pts = warp_point(o[..., None, :] + t[..., None] * d[..., None, :], box_min, box_max)
+    return pts, t, lengths
+
+
+def _proposal_stages(mlp: dict, o, d, tmin, tmax, box_min, box_max, jitter, a,
+                     cfg: NerfConfig, dtype):
+    """nerfacto's sampling of rays [O, R] (`ProposalNetworkSampler`): the
+    first `proposal_samples` bins uniform, the first proposal field at
+    their midpoints, the second count drawn from its weights raised to `a`
+    ([O, 1, 1] or a number), the second field, then `samples_per_ray` bins
+    drawn alike for the field. jitter [O, R, >= 3] in training (columns 0,
+    1, 2: each stage's one jitter a ray), None at render time. Returns
+    (points, t, lengths, edges of the field's bins, [(edges, weights) of
+    each proposal level]); the weights keep their gradient, the edges have
+    none. The bins, points and weights run under `batch` (the draws under
+    its `sample.pdf`), the fields under `proposal.fwd`."""
+    tr = cfg.train
+    counts = (*tr.proposal_samples, tr.samples_per_ray)
+    col = (lambda k: None) if jitter is None else (lambda k: jitter[..., k])
+    with tracing.span("batch"):
+        s = sampler.uniform_edges(col(0), counts[0], tmin)
+        pts, t, lengths = _bin_points(o, d, tmin, tmax, s, box_min, box_max)
+    levels = []
+    for k, spec in enumerate(proposal_specs(cfg.network)):
+        log_sigma = _proposal_log_density(mlp[f"prop{k}"], pts, spec, dtype, cfg)
+        with tracing.span("batch"), tracing.span("sample.pdf"):
+            w = sampler.bin_weights(log_sigma, lengths)
+            levels.append((s, w))
+            s = sampler.pdf_edges(s, torch.pow(w.detach(), a), col(k + 1), counts[k + 1])
+            pts, t, lengths = _bin_points(o, d, tmin, tmax, s, box_min, box_max)
+    return pts, t, lengths, s, levels
+
+
+def _proposal_batch(params, rays: Rays, objects: ObjectsState, jitter, step,
+                    cfg: NerfConfig, dtype) -> ProposalBatch:
+    """The train step's batch of nerfacto's field: `_proposal_stages` over
+    the step's rays, the anneal exponent of each slot's own step (on the
+    card), the three jitters a ray columns 0-2 of the step's jitter. Counts
+    `sampler.proposal_points` and `sampler.field_points`."""
+    tr = cfg.train
+    o_n, r = rays.tmin.shape
+    tracing.count("sampler.proposal_points", o_n * r * sum(tr.proposal_samples))
+    tracing.count("sampler.field_points", o_n * r * tr.samples_per_ray)
+    a = sampler.anneal(step)[:, None, None]
+    box_min, box_max = objects.aabb_min[:, None, None], objects.aabb_max[:, None, None]
+    pts, t, lengths, edges, levels = _proposal_stages(
+        params["mlp"], rays.o, rays.d, rays.tmin, rays.tmax, box_min, box_max, jitter, a, cfg,
+        dtype)
+    (e0, w0), (e1, w1) = levels
+    return ProposalBatch(
+        points=pts, t=t, rgb_target=rays.rgb_target, depth_target=rays.depth_target,
+        is_object=rays.is_object, bg_color=rays.bg_color, valid=rays.valid, dirs=rays.d,
+        tmin=rays.tmin, tmax=rays.tmax, frame=rays.frame, lengths=lengths, edges=edges,
+        edges0=e0, weights0=w0, edges1=e1, weights1=w1)
 
 
 # --------------------------------------------------------------------------
@@ -472,19 +649,27 @@ def _object_train_step(state: TrainState, frames: FrameArrays, objects: ObjectsS
                        out: TrainState | None = None) -> TrainState:
     """One step for every object slot. Inactive slots and empty batches keep
     their params, EMA and optimizer state bit for bit. Its spans are
-    `STEP_SPANS`; the backward's open in hooks (`tracing.backward_spans`).
+    `STEP_SPANS` (nerfacto's proposal fields and draws nest them:
+    `proposal.fwd`, `sample.pdf`); the backward's open in hooks
+    (`tracing.backward_spans`).
     With `out` (a state like `state` that shares no memory with it) the new
     state is written into `out`'s tensors and `out` returned."""
+    proposal = nerfacto(cfg.network)
     with tracing.span("batch"):
-        batch = generate_batch(frames, *objects[:6], cfg, uniforms, use_depth=use_depth)
+        draw = draw_rays if proposal else generate_batch
+        batch = draw(frames, *objects[:6], cfg, uniforms, use_depth=use_depth)
     params = pytree.tree_map(lambda a: a.detach().requires_grad_(True), state.params)
     leaves, treedef = pytree.tree_flatten(params)
-    sdf = {}
+    extra = {}
     if signed_distance(cfg.network):  # NeuS's cosine anneals with the slot's own steps
-        sdf = dict(extent=objects.aabb_max - objects.aabb_min,
-                   anneal=torch.clamp(state.step.float() / cfg.train.cos_anneal_end, max=1.0))
+        extra = dict(extent=objects.aabb_max - objects.aabb_min,
+                     anneal=torch.clamp(state.step.float() / cfg.train.cos_anneal_end, max=1.0))
     with torch.enable_grad(), tracing.backward_spans():
-        raw = field_apply(params, batch.points, batch.dirs, cfg, spec, **sdf)
+        if proposal:  # nerfacto's anneal follows the slot's own steps too
+            batch = _proposal_batch(params, batch, objects, uniforms[2], state.step, cfg,
+                                    compute_dtype(cfg, batch.o.device))
+            extra = dict(frame=batch.frame)
+        raw = field_apply(params, batch.points, batch.dirs, cfg, spec, **extra)
         with tracing.span("loss.fwd"):
             loss, aux = composite_loss(raw, batch, cfg.train)
             # per-object losses touch disjoint parameter rows: the gradient
@@ -723,7 +908,20 @@ def render_rays(params, o, d, d_norm, tmin, tmax, in_bbox, jitter, aabb_min,
     """Render a bundle of rays for ONE object (params without the object
     axis), fp32, n_samples per ray: gray background, mask threshold 0.5,
     depth divided by d_norm. Returns (rgb [N, 3], depth [N], mask [N]). An
-    SDF field renders by NeuS's rule with the cosine fully annealed."""
+    SDF field renders by NeuS's rule with the cosine fully annealed.
+    nerfacto's field samples through its proposal fields without jitter
+    (the bins' midpoints, the weights fully annealed; `proposal_samples`,
+    then `samples_per_ray` bins; `jitter` and `n_samples` unused) and
+    renders with the mean of the slot's appearance codes."""
+    if nerfacto(cfg.network):
+        one = pytree.tree_map(lambda a: a[None], params)
+        pts, t, lengths, _, _ = _proposal_stages(one["mlp"], o[None], d[None], tmin[None],
+                                                 tmax[None], aabb_min, aabb_max, None, 1.0,
+                                                 cfg, torch.float32)
+        raw = field_apply(one, pts, d[None], cfg, spec, dtype=torch.float32)[0]
+        bg = torch.full((3,), background, dtype=torch.float32, device=raw.device)
+        out = volume_render(raw, t[0], bg, lengths=lengths[0])
+        return render_composite(out, d_norm, in_bbox, background)
     t = stratified_distances(tmin, tmax, jitter, n_samples)
     pts = warp_point(o[:, None, :] + t[..., None] * d[:, None, :], aabb_min, aabb_max)
     one = pytree.tree_map(lambda a: a[None], params)

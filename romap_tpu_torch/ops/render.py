@@ -8,6 +8,9 @@ is clamped to +-15 before the exponential.
 
 `sdf_render` is NeuS's SDF-to-alpha rule (Wang et al., NeurIPS 2021,
 `models/renderer.py::render_core`) on the system's stratified samples.
+
+Over bins (nerfacto's proposal sampler) `volume_render` takes each
+sample's bin length in place of the distance from the sample before.
 """
 
 from __future__ import annotations
@@ -32,15 +35,20 @@ class RenderOut(NamedTuple):
     sigma: torch.Tensor | None  # [..., S] activated densities (an SDF's render: None)
 
 
-def volume_render(raw: torch.Tensor, t: torch.Tensor, bg: torch.Tensor) -> RenderOut:
+def volume_render(raw: torch.Tensor, t: torch.Tensor, bg: torch.Tensor,
+                  lengths: torch.Tensor | None = None) -> RenderOut:
     """raw [..., S, 4] (rgb logits, log-density), t [..., S], bg [..., 3]
-    -> RenderOut, all fp32."""
+    -> RenderOut, all fp32. `lengths` [..., S]: the samples' bin lengths
+    (t then the bins' midpoints); without them each sample's section is
+    its distance from the one before (from 0 for the first)."""
     raw = raw.float()
     t = t.float()
     rgb = torch.sigmoid(raw[..., :3])
     sigma = density_activation(raw[..., 3])
-    prev = torch.cat([torch.zeros_like(t[..., :1]), t[..., :-1]], dim=-1)
-    sd = sigma * (t - prev)
+    if lengths is None:
+        prev = torch.cat([torch.zeros_like(t[..., :1]), t[..., :-1]], dim=-1)
+        lengths = t - prev
+    sd = sigma * lengths
     accum = torch.cumsum(sd, dim=-1)
     trans = torch.exp(-(accum - sd))
     weights = (1.0 - torch.exp(-sd)) * trans

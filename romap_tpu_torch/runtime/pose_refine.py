@@ -35,7 +35,7 @@ from romap_tpu_torch.ops.geometry import (
     stratified_distances,
     warp_point,
 )
-from romap_tpu_torch.ops.mlp import signed_distance
+from romap_tpu_torch.ops.mlp import nerfacto, signed_distance
 from romap_tpu_torch.ops.render import volume_render
 
 N_PIXELS = 1536  # sampled pixels per view (2/3 object, 1/3 background)
@@ -113,10 +113,15 @@ def make_view_loss(params_one, intrinsics, twc0, tow, aabb_min, aabb_max, xy, rg
     compared by `refine_poses` all come from the same encode. Arguments as
     `refine_poses` takes them; S = n_starts. An SDF field raises: its
     normal's gradient in the pose would take the distance's second
-    derivative in the points, which is not ported."""
+    derivative in the points, which is not ported. nerfacto's field raises
+    too: its samples come from its proposal fields, and this loss samples
+    the stratified way."""
     if signed_distance(cfg.network):
         raise NotImplementedError("pose refinement of an SDF field is not ported (it needs "
                                   "the distance's Hessian in the points)")
+    if nerfacto(cfg.network):
+        raise NotImplementedError("pose refinement of a nerfacto field is not ported (its "
+                                  "samples come from its proposal fields)")
     params_one = pytree.tree_map(lambda a: a.detach(), params_one)
     one = pytree.tree_map(lambda a: a[None], params_one)
     dev = twc0.device

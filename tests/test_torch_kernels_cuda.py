@@ -17,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from romap_tpu_torch.config import EncodingConfig
+from romap_tpu_torch.config import EncodingConfig, NetworkConfig
 from romap_tpu_torch.ops import cuda_lib, hashgrid, hashgrid_cuda, mxgrid, mxgrid_cuda
 
 
@@ -1414,6 +1414,36 @@ def test_hash_kernels_match_plain(cuda, dtype, name, n_obj, n_pts, kind):
     want = {"H1": hashgrid_cuda.forward_plain(pts, table, spec),
             "H2": hashgrid_cuda.table_gradient_plain(pts, gout, spec),
             "H0": hashgrid_cuda.points_gradient_plain(pts, table, gout, spec)}
+    for k in got:
+        a, b = got[k], want[k]
+        assert a.dtype == b.dtype and a.shape == b.shape and torch.isfinite(a).all(), k
+        assert rel_err(a, b) < HASH_TOL[k][dtype], k
+
+
+# nerfacto's proposal grids (5 levels x 2 features, 2^17 rows a level, base
+# 16, max 128 and 256): small dense coarse levels (16^3 rows at level 0)
+# that a step's 256 samples a ray hit in runs, H2's heaviest contention
+NERFACTO_NET = NetworkConfig(field="nerfacto", sh_degree=4, output_dims=16,
+                             appearance_frames=80)
+
+
+@pytest.mark.parametrize("kind", ["uniform", "rays"])
+@pytest.mark.parametrize("level", [0, 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_hash_kernels_match_plain_at_the_proposal_specs(cuda, dtype, level, kind):
+    """H1 and H2 at each proposal field's spec, O=2 x 262,144 points,
+    against their plain twins, one launch each, with `test_hash_kernels_
+    match_plain`'s tolerances."""
+    spec = hashgrid.make_spec(NERFACTO_NET.proposal_encoding(level))
+    assert spec.n_levels == 5 and max(spec.sizes) == 2**17
+    pts, table, gout = hash_case(spec, 2, 262144, kind, dtype, cuda, seed=61)
+    cuda_lib.reset_launch_counts()
+    got = {"H1": hashgrid_cuda.forward(pts, table, spec),
+           "H2": hashgrid_cuda.table_gradient(pts, gout, spec)}
+    torch.cuda.synchronize()
+    assert {k: n for k, n in cuda_lib.launch_counts().items() if n} == {"H1": 1, "H2": 1}
+    want = {"H1": hashgrid_cuda.forward_plain(pts, table, spec),
+            "H2": hashgrid_cuda.table_gradient_plain(pts, gout, spec)}
     for k in got:
         a, b = got[k], want[k]
         assert a.dtype == b.dtype and a.shape == b.shape and torch.isfinite(a).all(), k

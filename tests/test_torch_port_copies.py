@@ -50,8 +50,12 @@ REFERENCE_JSON = {  # the schema of the reference's Core/configs/base.json
 # outputs, no direction), a density field, and the SDF's terms are unread
 PORT_OWN_DEFAULTS = {
     "network": dict(sh_degree=0, rgb_n_neurons=64, rgb_n_hidden_layers=2, field="density",
-                    init_variance=0.3),
-    "train": dict(eikonal_lambda=0.1, cos_anneal_end=50000),
+                    init_variance=0.3, appearance_dims=32, appearance_frames=0,
+                    proposal_levels=5, proposal_features=2, proposal_log2_hashmap_size=17,
+                    proposal_base_resolution=16, proposal_max_resolutions=(128, 256),
+                    proposal_n_neurons=16, proposal_n_hidden_layers=1),
+    "train": dict(eikonal_lambda=0.1, cos_anneal_end=50000, proposal_samples=(256, 96),
+                  interlevel_lambda=1.0, distortion_lambda=0.002),
 }
 
 

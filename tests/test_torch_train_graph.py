@@ -5,8 +5,9 @@ On the CPU: which path a call takes (CPU tensors, a `uniforms=` replay
 source and tracing on each run every step eagerly and capture nothing), the
 three counters, the graph's key, the step's `out=` and
 `cuda_lib.recorded_launches`. On a CUDA device, at the cells'
-configurations (`portbench/configs/{tcnn,ngp,neus2}.json`: O = 10, 4096
-rays x 32 samples an object) and the flagship's (`flagship.json`, the
+configurations (`portbench/configs/{tcnn,ngp,neus2,nerfacto}.json`: O = 10,
+4096 rays x 32 samples an object, or nerfacto's 256 + 96 proposal and 48
+field samples through its sampler) and the flagship's (`flagship.json`, the
 MX-grid's K1/K2): 20 graphed steps against 20 eager ones from one state and
 seed (the draws bit for bit; losses and parameters as near the eager runs
 as those are to one another, H2's and H3's atomics making none bitwise),
@@ -37,7 +38,7 @@ from romap_tpu_torch.utils import tracing
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the cells' configurations, and the flagship's (MX-grid K1/K2, no cell)
-CELLS = ("tcnn", "ngp", "neus2", "flagship")
+CELLS = ("tcnn", "ngp", "neus2", "nerfacto", "flagship")
 N_OBJ = 10  # room10's slots
 N_STEPS = 20
 ZERO = {"train_graph_captures": 0, "train_graph_replays": 0, "train_eager_steps": 0}
